@@ -5,17 +5,35 @@
 Phases, each of which must pass (any failure exits non-zero):
 
 1. card: a CUDA device is required; prints its name and power limit;
-2. build: compiles the hand-written kernels (maria_torch/csrc) with nvcc;
+2. build: compiles the hand-written kernels (maria_torch/csrc) with nvcc,
+   one process per source, and prints ptxas's register and spill lines;
 3. K1 pink_noise against its plain torch version (irfft) at the slice's
    shapes and a small single-DFT case, |diff| <= 2e-4 x std;
-4. K2 bin_map against its plain torch version (index_add_) on the
-   slice's pixel ids and a random case with -1 ids: hit counts exact,
-   sums within 1e-5 of the map's maximum;
-5. the main path, Simulation(...).run() -> TOD in K_RJ ->
-   BinMapper(..., frame="az/el").run(), for the MUSTANG-2 daisy at 60 s
-   and at 600 s: finite fields of the expected shapes, a hit map centre,
-   both kernels launched by the main path, and the noise PSD above twice
-   the knee within 10% of the process's expected PSD.
+4. K3 shared_v against its plain torch version (the same Philox and
+   Box-Muller in torch ops) at the AtLAST shape (50,004 rows, m+1 =
+   1537), at a small odd one, and as slice (c) launches it, with its
+   spectrum into the matrix product's wider left operand: every element
+   within one bf16 ulp, the operand's other columns untouched, and at
+   the large shapes every column of V / c with mean and variance within
+   5 sigma of N(0, 1);
+5. slices (a) and (b), the MUSTANG-2 main path, Simulation(...).run() ->
+   TOD in K_RJ -> BinMapper(..., frame="az/el").run(), for the daisy at
+   60 s and at 600 s: finite fields of the expected shapes, a hit map
+   centre, K1 and K2 launched by the main path, and the noise PSD above
+   twice the knee within 10% of the process's expected PSD;
+6. slice (c), the AtLAST-50k total-power path: build_tod_program ->
+   TODProgram.total_power_fn() (3-D Fourier atmosphere, the noise as one
+   matrix product with V from K3) -> total pW (50,004 x 3000) -> binned
+   into a 128 x 128 map over the field by K2: finite total of that shape,
+   K3 launched once and K1 never by the total, K2 by the binning, a hit
+   map centre, the map's hit counts equal to the plain binning's of the
+   same total and its sums within 1e-4 of the map's maximum of the plain
+   sums taken in float64, and per band the noise PSD above twice the
+   knee within 10% of the process's expected PSD;
+7. K2 bin_map against its plain torch version (index_add_) on N(0, 1)
+   data at the pixel ids of slices (a), (b) and (c) and a random case
+   with -1 ids: hit counts exact, sums within 1e-5 of the map's maximum
+   of the plain sums taken in float64.
 
 The line before the last is the card as nvidia-smi reports it, the one
 before that the kernels' JSON record; the last line is the JSON result.
@@ -33,6 +51,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SLICES = {"a": 60.0, "b": 600.0}
+ATLAST_BANDS = 9
 N_MAP = 128
 MAP_WIDTH_DEG = 0.25
 
@@ -93,7 +112,21 @@ def check_pink_noise(device, gen, n_det, n, n_fft):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [n_det, n, n_fft]}
 
 
+def plain_sums64(data, ids, n_pix):
+    """The plain binning (index_add_) of one channel, summed in float64:
+    the reference for the float32 sums, whose atomic order varies."""
+    import torch
+
+    ids, data = ids.reshape(-1), data.reshape(-1)
+    keep = (ids >= 0) & (ids < n_pix)
+    out = torch.zeros(n_pix, dtype=torch.float64, device=data.device)
+    return out.index_add_(0, ids[keep].long(), data[keep].double())
+
+
 def check_bin_map(device, gen, ids, name):
+    """K2 against its plain version: hit counts equal to bin_map_plain's,
+    sums within 1e-5 of the map's maximum of the plain sums taken in
+    float64 (the float32 plain sums' own distance from them is printed)."""
     import torch
 
     from maria_torch.ops.bin_map import bin_map, bin_map_plain
@@ -103,18 +136,69 @@ def check_bin_map(device, gen, ids, name):
     channels = torch.stack([data, torch.ones_like(data)]).contiguous()
     out = bin_map(channels, ids, n_pix)
     ref = bin_map_plain(channels, ids, n_pix)
+    exact = plain_sums64(data, ids, n_pix)
     torch.cuda.synchronize()
     counts_exact = bool(torch.equal(out[1], ref[1]))
-    err = float((out[0] - ref[0]).abs().max())
-    scale = max(float(ref[0].abs().max()), 1e-30)
+    err = float((out[0] - exact).abs().max())
+    plain_err = float((ref[0] - exact).abs().max())
+    scale = max(float(exact.abs().max()), 1e-30)
     ok = counts_exact and err <= 1e-5 * scale and float(ref[1].sum()) > 0
-    print(f"K2 bin_map ({name}, {tuple(ids.shape)}): counts exact {counts_exact}, "
-          f"max|diff| {err:.3e} = {err / scale:.2e} of max (limit 1e-5) {'ok' if ok else 'FAIL'}", flush=True)
+    print(f"K2 bin_map ({name}, {tuple(ids.shape)}): counts exact {counts_exact}, sums max|diff| from the "
+          f"float64 plain sums {err:.3e} = {err / scale:.2e} of max (limit 1e-5; float32 plain "
+          f"{plain_err / scale:.2e}) {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         fail(f"K2 disagrees with its plain version ({name})")
     ms, plain_ms = paired_ms(lambda: bin_map_plain(channels, ids, n_pix), lambda: bin_map(channels, ids, n_pix))
     print(f"K2 bin_map ({name}, {tuple(ids.shape)}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [2, *ids.shape, n_pix]}
+
+
+def bf16_ulp(x):
+    """One bfloat16 ulp at |x| (8 significant bits)."""
+    import torch
+
+    _, e = torch.frexp(x.abs().clamp_min(1e-30))
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def check_shared_v(device, gen, n_det, m1, c=None, n_extra=0):
+    """K3 against its plain version. With ``n_extra``, it writes V into a
+    (1, n_det, 2 m1 + n_extra) buffer, as the noise matrix product's left
+    operand, whose last ``n_extra`` columns must keep their sentinel."""
+    import torch
+
+    from maria_torch.noise import band_half_spectrum
+    from maria_torch.ops.shared_v import draw_key, shared_v, shared_v_plain
+
+    if c is None:
+        c = band_half_spectrum(50.0, 0.5, 1.0, 2 * (m1 - 1), corr_prop=0.5)
+    name = f"K3 shared_v ({n_det}, m+1 {m1}{f', row stride {2 * m1 + n_extra}' if n_extra else ''})"
+    key = draw_key(gen, device)
+    sentinel = -12288.0
+    buf = torch.full((1, n_det, 2 * m1 + n_extra), sentinel, dtype=torch.bfloat16, device=device)
+    V = shared_v(key, c, n_det, out=buf)[0].float()
+    ref = shared_v_plain(key, c, n_det)[0].float()
+    torch.cuda.synchronize()
+    diff = (V - ref).abs()
+    err = float(diff.max())
+    within = bool((diff <= bf16_ulp(torch.maximum(V.abs(), ref.abs()))).all())
+    exact = float((V == ref).float().mean())
+    untouched = bool((buf[0, :, 2 * m1:] == sentinel).all())
+    ok = V.shape == (n_det, 2 * m1) and bool(torch.isfinite(V).all()) and within and untouched
+    line = (f"{name}: max|diff| {err:.3e}, all within one bf16 ulp {within}, "
+            f"exact-equal share {exact:.6f}, other columns untouched {untouched}")
+    if n_det >= 1000:
+        x = V.double() / torch.as_tensor(np.concatenate([c, c]), device=device)
+        mean_z = float((x.mean(dim=0).abs() * np.sqrt(n_det)).max())
+        var_z = float(((x.var(dim=0) - 1).abs() / np.sqrt(2 / n_det)).max())
+        ok &= mean_z <= 5 and var_z <= 5
+        line += f"; V/c columns: max |mean| {mean_z:.2f} sigma, max |var - 1| {var_z:.2f} sigma (limit 5)"
+    print(f"{line} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+    ms, plain_ms = paired_ms(lambda: shared_v_plain(key, c, n_det, out=buf), lambda: shared_v(key, c, n_det, out=buf))
+    print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [n_det, 2 * m1]}
 
 
 def make_sim(duration, device):
@@ -239,6 +323,142 @@ def run_slice(label, duration, device):
     return tod, out_map, launches
 
 
+def check_total_noise_psd(program, device, gen):
+    """Per band, the mean periodogram of the matrix-product noise (A = 0)
+    in bins above twice the knee against the process's expected PSD."""
+    import torch
+
+    from maria_torch.atmosphere.fourier import good_fft_size
+    from maria_torch.noise import _pink_weights_np
+    from maria_torch.noise.dft import noise_total_matmul
+
+    specs, corr_cols, n_fft, shared_c, row_scale = program._noise_matmul_specs()
+    noise = noise_total_matmul(0.0, specs, n=program.n_t, n_fft=n_fft, corr_cols=corr_cols, shared_c=shared_c,
+                               row_scale=row_scale, generator=gen, device=device)
+    fs, n = program.sample_rate, program.n_t
+    f = np.fft.rfftfreq(n, d=1 / fs)
+    worst = 0.0
+    for i in program.band_order:
+        band = program.bands[i]
+        x = noise[int(band.det_index[0]):int(band.det_index[-1]) + 1].double()
+        X = torch.fft.rfft(x - x.mean(dim=-1, keepdim=True), dim=-1)
+        measured = (X.abs() ** 2).mean(dim=0).cpu().numpy() / n
+        w2 = np.interp(f, np.fft.rfftfreq(good_fft_size(n), d=1 / fs),
+                       _pink_weights_np(good_fft_size(n), fs, band.knee, 1.0) ** 2)
+        cp = band.corr_prop
+        b2 = float(np.mean(np.sum(np.asarray(band.noise_basis) ** 2, axis=-1))) if cp else 0.0
+        expected = (1e12 * band.NEP) ** 2 * (fs + (1 - cp) * w2 + cp * b2 * w2)
+        edges = np.geomspace(2 * band.knee, 0.98 * fs / 2, 7)
+        ratios = [float(measured[(f >= lo) & (f < hi)].mean() / expected[(f >= lo) & (f < hi)].mean())
+                  for lo, hi in zip(edges[:-1], edges[1:])]
+        worst = max(worst, max(abs(r - 1) for r in ratios))
+        print(f"slice (c) noise PSD / expected, {band.name}, bins {np.round(edges, 2).tolist()} Hz: "
+              f"{[round(r, 4) for r in ratios]}", flush=True)
+    ok = worst <= 0.10
+    print(f"slice (c) noise PSD: worst |ratio - 1| {worst:.4f} (limit 10%) {'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
+def run_atlast(device, instrument="AtLAST-50k", duration=60.0, n_det=5556 * ATLAST_BANDS):
+    """Slice (c): the AtLAST-50k total-power path (bench.py's config_b)."""
+    import torch
+
+    import maria_torch
+    from maria_torch.mappers.bin_mapper import bin_total, field_pixel_ids
+    from maria_torch.noise.dft import gemm_form
+    from maria_torch.ops.bin_map import bin_map, bin_map_plain
+    from maria_torch.ops.pink_noise import pink_noise
+    from maria_torch.ops.shared_v import shared_v
+
+    s = time.perf_counter()
+    plan = maria_torch.get_plan(
+        "daisy_5arcmin_60s", start_time=1.75e9, scan_center=(150.0, 41.0), frame="az/el",
+        duration=duration, sample_rate=50.0, scan_options={"radius": 0.5, "speed": 0.25},
+    )
+    sim = maria_torch.Simulation(
+        instrument=instrument, plans=plan, site="ALMA", atmosphere="3d", noise=True, seed=0, device=device,
+    )
+    program = sim.program()
+    fn = program.total_power_fn()
+    obs = sim.obs_list[0]
+    ids, n_pix = field_pixel_ids(obs.boresight, obs.offsets, N_MAP, N_MAP, device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - s
+    g = program.groups[0]
+    print(f"slice (c) AtLAST-50k {duration:.0f} s: host setup {setup_s:.2f} s ({program.n_det} detectors x {program.n_t} "
+          f"samples, {len(program.t_coarse)} coarse steps, {len(g.heights)} layers on a {g.ny} x {g.nx} grid, "
+          f"{g.W.shape[0]} kz nodes; noise matmul {program.use_noise_matmul()}, shared shape "
+          f"{program._noise_matmul_specs()[3] is not None}, GEMM form {gemm_form(device)})", flush=True)
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    pink_noise.launches = shared_v.launches = bin_map.launches = 0
+    s = time.perf_counter()
+    total = fn(generator=sim.generator, device=device)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - s
+    launches_total = {"shared_v": shared_v.launches, "pink_noise": pink_noise.launches}
+    s = time.perf_counter()
+    sums, hits = bin_total(total, ids, n_pix)
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - s
+    launches = {"pink_noise": pink_noise.launches, "shared_v": shared_v.launches, "bin_map": bin_map.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if torch.device(device).type == "cuda" else float("nan")
+    centre = (N_MAP // 2) * N_MAP + N_MAP // 2
+    ok = tuple(total.shape) == (program.n_det, program.n_t) == (n_det, int(round(duration * 50.0)))
+    ok &= total.dtype == torch.float32 and total.device.type == torch.device(device).type
+    ok &= bool(torch.isfinite(total).all()) and launches_total == {"shared_v": 1, "pink_noise": 0}
+    ok &= launches["bin_map"] == 1 and float(hits[centre]) > 0
+    ok &= float(hits.double().sum()) == program.n_det * program.n_t
+    print(f"slice (c): first total_power_fn() {cold_s:.3f} s, first binning {map_s:.3f} s, main-path launches "
+          f"{launches}; total {tuple(total.shape)} {total.dtype} on {total.device.type}, mean "
+          f"{float(total.mean()):.4f} pW, std {float(total.std()):.4f} pW; centre pixel hits {float(hits[centre]):.0f}; "
+          f"peak device memory {peak_gb:.2f} GB (pixel ids and program tables included) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (c) output check")
+
+    # the main path's map against the plain binning of the same total.
+    # Sums of ~3e4 positive samples a pixel, added in float32 in atomic
+    # order, round at ~1e-5 of the sum, so the limit here is 1e-4 of the
+    # map's maximum; K2's 1e-5 limit on zero-mean data at these ids is
+    # held in check_bin_map.
+    ref_hits = bin_map_plain(torch.stack([total, torch.ones_like(total)]), ids, n_pix)[1]
+    exact = plain_sums64(total, ids, n_pix)
+    hits_exact = bool(torch.equal(hits, ref_hits))
+    scale = float(exact.abs().max())
+    map_err = float((sums - exact).abs().max())
+    ok = hits_exact and map_err <= 1e-4 * scale
+    print(f"slice (c) map against the plain binning of the same total: hits exact {hits_exact}, sums max|diff| "
+          f"from the float64 plain sums {map_err:.3e} = {map_err / scale:.2e} of max (limit 1e-4) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (c) map disagrees with the plain version")
+
+    del total, sums, hits, ref_hits, exact
+    reps = 3
+    total_ms, map_ms = [], []
+    for _ in range(reps):
+        s = time.perf_counter()
+        total = fn(generator=sim.generator, device=device)
+        torch.cuda.synchronize()
+        total_ms.append((time.perf_counter() - s) * 1e3)
+        s = time.perf_counter()
+        bin_total(total, ids, n_pix)
+        torch.cuda.synchronize()
+        map_ms.append((time.perf_counter() - s) * 1e3)
+        del total
+    t_ms, m_ms = float(np.mean(total_ms)), float(np.mean(map_ms))
+    n_samples = program.n_det * program.n_t
+    print(f"slice (c): warm total_power_fn() {t_ms:.2f} ms, warm binning {m_ms:.2f} ms (means of {reps}; "
+          f"{[round(x, 2) for x in total_ms]}, {[round(x, 2) for x in map_ms]}), "
+          f"{n_samples / ((t_ms + m_ms) * 1e-3):.4e} samples/s, GEMM form {gemm_form(device)}", flush=True)
+
+    if not check_total_noise_psd(program, device, sim.generator):
+        fail("slice (c) noise PSD")
+    return launches, program, ids
+
+
 def main() -> int:
     try:
         import torch
@@ -261,7 +481,7 @@ def main() -> int:
     built = kernels.build()
     print(f"build: {built['seconds']:.2f} s -> {os.path.relpath(built['path'], HERE)}", flush=True)
     for line in built["log"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if any(word in line for word in ("entry function", "registers", "spill", "smem")):
             print(f"  ptxas: {line.strip()}", flush=True)
     kernels.load()
 
@@ -270,14 +490,22 @@ def main() -> int:
     k1 = {}
     for n_det, n, n_fft in ((217, 3000, 3072), (217, 30000, 32768), (5, 500, 512)):
         k1[(n, n_fft)] = check_pink_noise(device, gen, n_det, n, n_fft)
+    k3 = {}
+    for n_det, m1 in ((5556 * ATLAST_BANDS, 1537), (5, 257)):
+        k3[n_det] = check_shared_v(device, gen, n_det, m1)
 
     results = {}
     for label, duration in SLICES.items():
         results[label] = run_slice(label, duration, device)
+    launches_c, program_c, ids_c = run_atlast(device)
+    _, corr_cols, _, shared_c, _ = program_c._noise_matmul_specs()
+    check_shared_v(device, gen, program_c.n_det, len(shared_c), c=shared_c, n_extra=corr_cols.shape[1])
 
     k2 = {}
     for label, (tod, out_map, _) in results.items():
         k2[label] = check_bin_map(device, gen, slice_pixel_ids(tod, out_map), f"slice {label} ids")
+    k2["c"] = check_bin_map(device, gen, ids_c, "slice c ids")
+    del ids_c
     ids = torch.randint(-1, N_MAP * N_MAP, (217, 3000), generator=gen, device=device, dtype=torch.int32)
     k2["random"] = check_bin_map(device, gen, ids, "random ids with -1")
 
@@ -289,6 +517,9 @@ def main() -> int:
         {"name": "bin_map", "route": "cuda", "source": "maria_torch/csrc/bin_map.cu",
          "replaces": "maria_tpu/ops/pallas_binning.py:119", "launches": launches_b["bin_map"],
          **k2["b"]},
+        {"name": "shared_v", "route": "cuda", "source": "maria_torch/csrc/shared_v.cu",
+         "replaces": "maria_tpu/ops/pallas_noise.py:427", "launches": launches_c["shared_v"],
+         **k3[5556 * ATLAST_BANDS]},
     ]}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)

@@ -1,11 +1,15 @@
 """maria_torch — the PyTorch/CUDA port of maria_tpu.
 
-The first slice runs the MUSTANG-2 simulate-and-bin path end to end:
-``Simulation(...).run()`` -> ``TOD`` -> ``BinMapper(...).run()`` -> map,
-with the same scene API and names as ``maria_tpu``. Per-sample work runs
-in torch on the selected device; detector noise and map binning run as
-hand-written CUDA kernels (``maria_torch/csrc``) when the tensors live
-on a card, and as their plain torch versions on the CPU.
+Two slices run end to end, with the same scene API and names as
+``maria_tpu``: the MUSTANG-2 simulate-and-bin path,
+``Simulation(...).run()`` -> ``TOD`` -> ``BinMapper(...).run()`` -> map;
+and the AtLAST-50k total-power path, ``build_tod_program(obs)`` ->
+``TODProgram.total_power_fn()`` (3-D Fourier atmosphere, the noise as
+one matrix product) -> total pW -> a map binned over the field.
+Per-sample work runs in torch on the selected device; detector noise,
+the shared-shape noise draw and map binning run as hand-written CUDA
+kernels (``maria_torch/csrc``) when the tensors live on a card, and as
+their plain torch versions on the CPU.
 
 The package imports neither jax nor maria_tpu: it carries its own numpy
 scene layer for the configurations it supports.

@@ -1,3 +1,3 @@
-"""Correlated atmospheric emission: the 2-D Fourier model."""
+"""Correlated atmospheric emission: the 2-D and 3-D Fourier models."""
 
-from .atmosphere import Atmosphere, LayerScreen  # noqa: F401
+from .atmosphere import Atmosphere, LayerScreen, ScreenGroup  # noqa: F401

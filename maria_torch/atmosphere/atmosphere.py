@@ -1,11 +1,13 @@
-"""Correlated atmospheric emission, host setup for the 2-D Fourier model
+"""Correlated atmospheric emission, host setup for the Fourier models
 (maria_tpu/atmosphere/atmosphere.py, ``Atmosphere.initialize`` with
-model="2d", method="fourier").
+method="fourier").
 
-``initialize`` builds the layer table, the per-layer wind, the aligning
-rotation and one Fourier screen (or a fine/coarse band pair) per layer;
-the per-realization synthesis and line-of-sight sampling run on device
-in ``TODProgram`` (``sampling.accumulate_pwv``).
+``initialize`` builds the layer table, the per-process wind and the
+aligning rotation; then, for model="2d", one Fourier screen (or a
+fine/coarse band pair) per layer, and for model="3d" one ``ScreenGroup``:
+L layer slices of a single 3-D Matérn field on a common grid. The
+per-realization synthesis and line-of-sight sampling run on device in
+``TODProgram`` (``sampling.accumulate_pwv``).
 """
 
 from __future__ import annotations
@@ -19,7 +21,12 @@ from ..coords import offsets_to_phi_theta
 from ..spectrum import AtmosphericSpectrum
 from ..utils import principal_angle_2d
 from ..weather import Weather
-from .fourier import band_split_spectral_weights_2d, field_spectral_weights_2d, good_fft_size
+from .fourier import (
+    band_split_spectral_weights_2d,
+    field_spectral_weights_2d,
+    good_fft_size,
+    layered_field_spectral_weights,
+)
 from .layers import generate_layers
 
 _MIN_EXTENT_R0_FACTOR = 4.0
@@ -52,16 +59,42 @@ class LayerScreen:
     band: str = "full"
 
 
+@dataclass
+class ScreenGroup:
+    """A vertically correlated stack of L layer screens on one grid (the
+    Fourier 3-D model): slices of one 3-D Matérn field, synthesized
+    jointly by ``fourier.synthesize_layered_matern_2d``."""
+
+    heights: np.ndarray  # (L,) layer heights above the site
+    zs: np.ndarray  # (L,) line-of-sight distances
+    pwv_rms: np.ndarray  # (L,)
+    angle: float
+    vx: float
+    vy: float
+    res: float
+    tx_min: float
+    ty_min: float
+    nx: int
+    ny: int
+    W: np.ndarray  # (J, ny, nx//2+1) per-node spectral amplitudes
+    M_cos: np.ndarray  # (L, J)
+    M_sin: np.ndarray  # (L, J)
+    beam: np.ndarray = None  # (L, ny, nx//2+1)
+
+
 class Atmosphere:
     def __init__(self, model: str = "2d", timestamp: float = None, region: str = "princeton",
                  altitude: float = None, weather: dict = {}, weather_quantiles: dict = {},
                  weather_source: str = "synthetic", spectrum_source: str = "synthetic/v1",
                  pwv_rms_frac: float = 0.03, max_height: float = 5e3, timestep: float = None,
-                 method: str = "fourier", min_height: float = None, outer_scale: float = None):
-        if model != "2d" or method != "fourier":
+                 method: str = "fourier", n_layers: int = None, min_height: float = None,
+                 outer_scale: float = None):
+        if model not in ("2d", "3d"):
+            raise ValueError(f"Invalid model '{model}'. Supported models are ['2d', '3d'].")
+        if method != "fourier":
             raise NotImplementedError(
-                f"atmosphere model '{model}', method '{method}': only the 2-D Fourier model is "
-                "ported (ROADMAP queue 1, item 7: 3-D layered screens and AR extrusion)"
+                f"atmosphere method '{method}': only the Fourier models are ported "
+                "(ROADMAP queue 1, item 7: AR extrusion)"
             )
         self.model = model
         self.method = method
@@ -79,11 +112,14 @@ class Atmosphere:
         self.min_height = min_height
         self.outer_scale = outer_scale
         self.timestep = timestep
+        # the 3-D model defaults to 12 log-spaced slabs, as in maria_tpu
+        self.n_layers = n_layers if n_layers is not None else (12 if model == "3d" else None)
 
     def initialize(self, obs):
         self.layers = generate_layers(
             instrument=obs.instrument, boresight=obs.boresight, weather=self.weather,
-            site=obs.site, min_height=self.min_height, pwv_rms_frac=self.pwv_rms_frac,
+            site=obs.site, mode=self.model, max_height=self.max_height,
+            pwv_rms_frac=self.pwv_rms_frac, n_layers=self.n_layers, min_height=self.min_height,
         )
         layers = self.layers
         if self.timestep is None:
@@ -111,6 +147,7 @@ class Atmosphere:
         bs_py = np.cos(bs_az) * bs_cot
 
         self.screens: list[LayerScreen] = []
+        self.groups: list[ScreenGroup] = []
         w = layers["total_water"] * layers["temperature"]
         t_rel = dt * np.arange(n_t)
 
@@ -133,7 +170,7 @@ class Atmosphere:
             tx = ca * pts[:, 0] + sa * pts[:, 1]
             ty = -sa * pts[:, 0] + ca * pts[:, 1]
             outer_scale = self.outer_scale or max(1e3, 300 + float(hs_all.mean()) / 10)
-            nu = 5 / 6
+            nu = 5 / 6 if self.model == "2d" else 1 / 3
 
             def window_bounds(h, res, nx, ny):
                 rel_x = h * (hull_px - bs_px[None])
@@ -143,6 +180,30 @@ class Atmosphere:
                 win_x = min(nx, int(-(-(2 * span_x / res + 6) // 8) * 8))
                 win_y = min(ny, int(-(-(2 * span_y / res + 6) // 8) * 8))
                 return win_x, win_y
+
+            if self.model == "3d":
+                # one vertically correlated stack per process on the
+                # finest layer resolution (the TPU's windowed, decimated
+                # and static-hat sampler settings are not carried: the
+                # port samples every layer with the exact bilinear gather)
+                res = float(layers["res"][in_process].min())
+                margin = 2 * res
+                tx_min, tx_max = tx.min() - margin, tx.max() + margin
+                ty_min, ty_max = ty.min() - margin, ty.max() + margin
+                min_cells = _min_spectral_extent_cells(res, outer_scale)
+                nx = good_fft_size(max(int(1.3 * ((tx_max - tx_min) / res + 2)) + 8, min_cells))
+                ny = good_fft_size(max(int(1.3 * ((ty_max - ty_min) / res + 2)) + 8, min_cells))
+                zs = layers["z"][in_process].astype(float)
+                beam_sigmas = np.array([float(obs.instrument.dets.physical_fwhm(z).mean()) / 2.355 for z in zs])
+                W, M_cos, M_sin, beam = layered_field_spectral_weights(
+                    ny, nx, res, res, hs_all.astype(float), nu=nu, r0=outer_scale, beam_sigmas=beam_sigmas,
+                )
+                self.groups.append(ScreenGroup(
+                    heights=hs_all.astype(float), zs=zs, pwv_rms=layers["pwv_rms"][in_process].astype(float),
+                    angle=angle, vx=vx, vy=vy, res=res, tx_min=tx_min, ty_min=ty_min, nx=nx, ny=ny,
+                    W=W, M_cos=M_cos, M_sin=M_sin, beam=beam,
+                ))
+                continue
 
             for i in np.where(in_process)[0]:
                 h, z = float(layers["h"][i]), float(layers["z"][i])

@@ -15,7 +15,9 @@ __all__ = ["Band", "get_band", "BAND_CONFIGS"]
 def _band_configs() -> dict:
     # configs/band_<tag>.json holds maria_tpu/band/configs/<tag>.yml,
     # flattened to "<tag>/<name>" keys as maria_tpu does
-    return {f"m2/{name}": cfg for name, cfg in read_config("band_m2").items()}
+    return {
+        f"{tag}/{name}": cfg for tag in ("atlast", "m2") for name, cfg in read_config(f"band_{tag}").items()
+    }
 
 
 BAND_CONFIGS = _band_configs()
@@ -28,6 +30,15 @@ def get_band(band_name: str) -> "Band":
             f"supported: {sorted(BAND_CONFIGS)}"
         )
     return Band(name=band_name, **BAND_CONFIGS[band_name])
+
+
+def generate_passband(center: float, width: float, shape: str, samples: int = 256):
+    """(nu, tau) of a parametric passband (maria_tpu/band/__init__.py
+    ``generate_passband``); only the gaussian shape is ported."""
+    if shape != "gaussian":
+        raise NotImplementedError(f"passband shape '{shape}' (ROADMAP queue 1, item 13: other instruments)")
+    nu = np.linspace(center - 1.5 * width, center + 1.5 * width, samples)
+    return nu, np.exp(np.log(0.5) * (2 * (nu - center) / width) ** 2)
 
 
 def axis_transform(side):
@@ -81,7 +92,8 @@ def interp_grid_np(points, values, xi):
 
 
 class Band:
-    def __init__(self, nu, tau, name: str, efficiency: float = 0.5, NEP: float = None,
+    def __init__(self, nu=None, tau=None, name: str = None, center: float = None, width: float = None,
+                 shape: str = "gaussian", efficiency: float = 0.5, NEP: float = None,
                  NEP_per_loading: float = 0.0, gain_error: float = 0.0, knee: float = 1.0,
                  time_constant: float = 0.0, **unsupported):
         if unsupported:
@@ -90,11 +102,18 @@ class Band:
             )
         if NEP is None:
             raise NotImplementedError("bands specified by NET (ROADMAP queue 1, item 13)")
-        tau = np.asarray(tau, dtype=float)
-        tau_max = tau.max()
-        self.efficiency = efficiency * tau_max
-        self.nu = np.asarray(nu, dtype=float)
-        self.tau = tau / tau_max
+        if (center is not None and width is not None) == (nu is not None and tau is not None):
+            raise ValueError("Pass either both 'center' and 'width' or both 'nu' and 'tau'.")
+        if center is not None:
+            # a parametric passband keeps its efficiency as given
+            self.nu, self.tau = generate_passband(center, width, shape, samples=1024)
+            self.efficiency = efficiency
+        else:
+            tau = np.asarray(tau, dtype=float)
+            tau_max = tau.max()
+            self.efficiency = efficiency * tau_max
+            self.nu = np.asarray(nu, dtype=float)
+            self.tau = tau / tau_max
         if (self.nu < MIN_NU_HZ).any() or (self.nu > MAX_NU_HZ).any():
             raise ValueError("passband frequencies out of bounds")
         self.name = name

@@ -10,8 +10,14 @@ the arrays (the tests do).
 t_coarse, t_fine, mueller_I, gain_error (or None), mean_pwv,
 sample_rate, with_noise, screens (list of dicts with h, z, res, pwv_rms,
 angle, vx, vy, tx_min, ty_min, nx, ny, W and optionally ty_res, win_x,
-win_y, band) and bands (list of dicts with name, det_index, pwv_side,
-el_side, power_table, NEP, knee, noise_basis, corr_prop).
+win_y, band), bands (list of dicts with name, det_index, pwv_side,
+el_side, power_table, NEP, knee, noise_basis, corr_prop), and optionally
+groups (list of dicts with the ``ScreenGroup`` fields: heights, zs,
+pwv_rms, angle, vx, vy, res, tx_min, ty_min, nx, ny, W, M_cos, M_sin,
+beam) and noise_matmul (a dict of the matrix-product noise stage: specs,
+a list of dicts with start, stop, c, k_modes, mode_c, key_index; and
+corr_cols, n_fft, shared_c, row_scale), which the program then uses as
+its own.
 """
 
 from __future__ import annotations
@@ -19,13 +25,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .atmosphere.atmosphere import LayerScreen
+from .atmosphere.atmosphere import LayerScreen, ScreenGroup
+from .noise.dft import NoiseBandSpec
 from .ops.program import BandBlock, TODProgram
 
 __all__ = ["program_from_tables", "pixel_ids_from_tables"]
 
 _SCREEN_FIELDS = ("h", "z", "res", "pwv_rms", "angle", "vx", "vy", "tx_min", "ty_min",
                   "nx", "ny", "W", "ty_res", "win_x", "win_y", "band")
+_GROUP_FIELDS = ("heights", "zs", "pwv_rms", "angle", "vx", "vy", "res", "tx_min", "ty_min", "nx", "ny",
+                 "W", "M_cos", "M_sin", "beam")
+_SPEC_FIELDS = ("start", "stop", "c", "k_modes", "mode_c", "key_index")
 _BAND_FIELDS = ("name", "det_index", "pwv_side", "el_side", "power_table", "NEP", "knee",
                 "noise_basis", "corr_prop")
 
@@ -46,9 +56,19 @@ def program_from_tables(tables: dict) -> TODProgram:
             kw["noise_basis"] = np.asarray(kw["noise_basis"], dtype=np.float64)
         kw["corr_prop"] = float(kw["corr_prop"] or 0.0)
         bands.append(BandBlock(**kw))
+    groups = []
+    for g in tables.get("groups", []):
+        kw = {k: g.get(k) for k in _GROUP_FIELDS}
+        for k in ("W", "M_cos", "M_sin", "beam"):
+            kw[k] = None if kw[k] is None else np.asarray(kw[k], dtype=np.float32)
+        for k in ("heights", "zs", "pwv_rms"):
+            kw[k] = np.asarray(kw[k], dtype=np.float64)
+        kw["nx"], kw["ny"] = int(kw["nx"]), int(kw["ny"])
+        groups.append(ScreenGroup(**kw))
     gain_error = tables.get("gain_error")
-    return TODProgram(
+    program = TODProgram(
         screens=screens,
+        groups=groups,
         mean_pwv=float(tables["mean_pwv"]),
         t_coarse=np.asarray(tables["t_coarse"], dtype=np.float64),
         t_fine=np.asarray(tables["t_fine"], dtype=np.float64),
@@ -61,6 +81,17 @@ def program_from_tables(tables: dict) -> TODProgram:
         with_noise=bool(tables.get("with_noise", True)),
         gain_error=None if gain_error is None else np.asarray(gain_error, dtype=np.float32),
     )
+    nm = tables.get("noise_matmul")
+    if nm is not None:
+        specs = [NoiseBandSpec(**{k: sp.get(k) for k in _SPEC_FIELDS}) for sp in nm["specs"]]
+
+        def arr(x):
+            return None if x is None else np.asarray(x, dtype=np.float32)
+
+        program._noise_specs_cache = (
+            specs, arr(nm["corr_cols"]), int(nm["n_fft"]), arr(nm["shared_c"]), arr(nm["row_scale"]),
+        )
+    return program
 
 
 def pixel_ids_from_tables(iy, ix, n_y: int, n_x: int, device=None):

@@ -33,13 +33,32 @@ class Instrument:
         return f"Instrument({self.name}: {self.n_dets} dets, bands={[b.name for b in self.bands]})"
 
 
-def get_instrument(name: str) -> Instrument:
-    for key, config in read_config("instrument_m2").items():
-        if name.lower() == key.lower() or name.lower() in [a.lower() for a in config.get("aliases", [])]:
-            cfg = dict(config)
-            cfg.pop("aliases", None)
-            array = Array.from_config({"name": key, **cfg.pop("array")})
-            return Instrument(dets=array, name=key, **cfg)
+def _from_config(config: dict, name: str = None) -> Instrument:
+    cfg = dict(config)
+    cfg.pop("aliases", None)
+    if "arrays" in cfg or "array" not in cfg:
+        raise NotImplementedError(
+            "instruments of several arrays (ROADMAP queue 1, item 13: other instruments and sites)"
+        )
+    array_name = name or "array"
+    array = Array.from_config({"name": array_name, **cfg.pop("array")})
+    return Instrument(dets=array, name=array_name, **cfg)
+
+
+def get_instrument(name: str = None, **kwargs) -> Instrument:
+    """A registered instrument by name or alias, or, with no name, one
+    assembled from keyword arguments: ``get_instrument(array={...})``."""
+    if name is None:
+        return _from_config(kwargs)
+    configs = {**read_config("instrument_m2"), **read_config("instrument_atlast")}
+    low = name.lower()
+    # a key match takes precedence over an alias match, as in maria_tpu
+    for key, config in configs.items():
+        if low == key.lower():
+            return _from_config({**config, **kwargs}, name=key)
+    for key, config in configs.items():
+        if low in [a.lower() for a in config.get("aliases", [])]:
+            return _from_config({**config, **kwargs}, name=key)
     raise NotImplementedError(
         f"instrument '{name}' (ROADMAP queue 1, item 13: other instruments and sites)"
     )

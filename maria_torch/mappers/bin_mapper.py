@@ -5,6 +5,11 @@ sums of weight * stokes_weight * data and of weight * |stokes_weight|
 per pixel are one call of kernel K2 (``ops.bin_map``) per (TOD, band,
 time bin). The TPU's Hilbert-ordered one-hot plans are not needed: the
 card scatters with atomics.
+
+``field_pixel_ids`` and ``bin_total`` bin a program's total power into a
+square map over the whole field, the benchmark's recipe (bench.py's
+``_pixel_ids``): the pointing -> offsets -> ids chain runs on the
+tensors' device, since at 50k detectors the host path takes minutes.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ from ..coords import phi_theta_to_offsets
 from ..ops.bin_map import bin_map
 from .base import BaseProjectionMapper
 
-__all__ = ["BinMapper", "pixel_ids"]
+__all__ = ["BinMapper", "bin_total", "field_pixel_ids", "pixel_ids"]
 
 
 def pixel_ids(dx, dy, x0: float, y0: float, res: float, n_x: int, n_y: int):
@@ -26,6 +31,33 @@ def pixel_ids(dx, dy, x0: float, y0: float, res: float, n_x: int, n_y: int):
     iy = torch.round((dy - y0) / res).to(torch.int32)
     inside = (ix >= 0) & (ix < n_x) & (iy >= 0) & (iy < n_y)
     return torch.where(inside, iy * n_x + ix, torch.full_like(ix, -1))
+
+
+def field_pixel_ids(boresight, offsets, n_x: int = 128, n_y: int = 128, device=None):
+    """(ids, n_pix): flat int32 ids (n_det, n_t) of an n_x x n_y map
+    centred on the mean boresight az/el whose half-width is 1.02 x the
+    largest tangent-plane offset of any sample, so every sample lands
+    on the map (indices clipped to its edge)."""
+    from ..tod import Pointing
+
+    az, el = Pointing(boresight, offsets).det_azel(device=device)
+    c_az = float(np.mean(np.asarray(boresight.az)))
+    c_el = float(np.mean(np.asarray(boresight.el)))
+    offs = phi_theta_to_offsets(torch.stack([az, el], dim=-1), c_az, c_el)
+    del az, el
+    half = float(offs.abs().max()) * 1.02 + 1e-8
+    res = 2 * half / n_x
+    ix = torch.clamp(((offs[..., 0] + half) / res).to(torch.int32), 0, n_x - 1)
+    iy = torch.clamp(((offs[..., 1] + half) / res).to(torch.int32), 0, n_y - 1)
+    return (iy * n_x + ix).contiguous(), n_x * n_y
+
+
+def bin_total(total, ids, n_pix: int):
+    """(sums, hits), each (n_pix,) float32: kernel K2 over the channels
+    (total, 1) at the flat pixel ids."""
+    channels = torch.stack([total, torch.ones_like(total)]).contiguous()
+    sums, hits = bin_map(channels, ids, n_pix)
+    return sums, hits
 
 
 class BinMapper(BaseProjectionMapper):

@@ -5,7 +5,9 @@ low-rank focal-plane basis.
 The spectrum is drawn directly in the frequency domain (the rfft of
 white noise is complex white noise) on the fast length
 ``good_fft_size(n)`` and truncated to n; the inverse transform of every
-row is kernel K1 (``ops.pink_noise``).
+row is kernel K1 (``ops.pink_noise``). ``noise.dft`` holds the
+total-power route's form: the whole banded noise stage as one matrix
+product, its draw from kernel K3 (``ops.shared_v``).
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (``maria_torch/csrc``).
 
 The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ctypes, at first use. The library
-lands in ``<repo>/build/maria_torch/`` under a name keyed by a hash of
-the sources and flags, so a changed source never loads a stale build;
-the build writes a private temporary file and renames it into place.
+with a plain C interface, loaded with ctypes, at first use: one nvcc per
+source, all started together, then one link. The library lands in
+``<repo>/build/maria_torch/`` under a name keyed by a hash of the sources
+and flags, so a changed source never loads a stale build; the build
+writes a private temporary directory and renames the library into place.
 """
 
 from __future__ import annotations
@@ -22,10 +23,9 @@ __all__ = ["load", "build", "library_path"]
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PACKAGE_DIR, "csrc")
-SOURCES = ("pink_noise.cu", "bin_map.cu")
+SOURCES = ("pink_noise.cu", "bin_map.cu", "shared_v.cu")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 
@@ -58,19 +58,31 @@ def build() -> dict:
     if os.path.exists(path):
         return {"path": path, "seconds": 0.0, "log": "(cached)"}
     os.makedirs(_build_dir(), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_build_dir())
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC, s) for s in SOURCES)]
+    nvcc = _nvcc()
     start = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return {"path": path, "seconds": time.perf_counter() - start, "log": proc.stderr}
+    with tempfile.TemporaryDirectory(dir=_build_dir()) as tmp:
+        objects = [os.path.join(tmp, f"{os.path.splitext(name)[0]}.o") for name in SOURCES]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, name), "-o", obj],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for name, obj in zip(SOURCES, objects)
+        ]
+        logs = []
+        for name, proc in zip(SOURCES, procs):
+            _, err = proc.communicate()
+            logs.append(err)
+            if proc.returncode != 0:
+                for other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed on {name} ({proc.returncode}):\n{err}")
+        lib = os.path.join(tmp, "lib.so")
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib, *objects],
+                              capture_output=True, text=True, check=False)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        os.replace(lib, path)
+    return {"path": path, "seconds": time.perf_counter() - start, "log": "".join(logs)}
 
 
 @cache
@@ -84,6 +96,8 @@ def load() -> ctypes.CDLL:
     lib.maria_pink_noise_smem_bytes.restype = ctypes.c_size_t
     lib.maria_bin_map.argtypes = [p, p, p, ll, i, i, i, p]
     lib.maria_bin_map.restype = i
+    lib.maria_shared_v.argtypes = [p, p, p, i, i, i, ll, i, p]
+    lib.maria_shared_v.restype = i
     lib.maria_max_dynamic_smem.argtypes = [i]
     lib.maria_max_dynamic_smem.restype = i
     lib.maria_cuda_error_string.argtypes = [i]

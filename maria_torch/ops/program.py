@@ -1,10 +1,14 @@
 """The TOD-synthesis program (maria_tpu/ops/program.py): a static scene
-(pointing, screens, band tables, noise spec) and a function that turns
-one realization's draws into per-field detector loadings.
+(pointing, screens and screen groups, band tables, noise spec) and
+functions that turn one realization's draws into detector loadings.
 
-The port keeps the contract of ``TODProgram._loadings`` up to the noise
-stage and drops the TPU devices around it (jit-argument tables, the
-no-gather band slicing, detector padding, the noise-matmul branch).
+``fields`` is the per-field route ``Simulation.run`` takes (per-band
+noise through kernel K1). ``total_power_fn`` is the total-power route:
+the signal times the gains plus the noise, with the whole banded noise
+stage as one matrix product (``noise/dft.py``, kernel K3) whenever the
+bands partition the detector axis. The port keeps these contracts and
+drops the TPU devices around them (jit-argument tables, the no-gather
+band slicing, detector padding and permutation).
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..atmosphere.sampling import accumulate_pwv
+from ..atmosphere.sampling import accumulate_pwv, group_tensors
 from ..coords import offsets_to_phi_theta
 from ..device import resolve_device
 from ..noise import generate_noise_with_knee
@@ -57,6 +61,7 @@ class TODProgram:
     bs_az_coarse: np.ndarray
     bs_el_coarse: np.ndarray
     mueller_I: np.ndarray  # (n_det,)
+    groups: list = field(default_factory=list)  # ScreenGroup list (Fourier 3-D)
     bands: list = field(default_factory=list)
     sample_rate: float = 50.0
     with_noise: bool = True
@@ -75,6 +80,24 @@ class TODProgram:
         else:
             self.upsample_ratio = None
         self._device_cache = {}
+        self._noise_specs_cache = None
+
+        # band_order: the bands sorted by first row when they partition
+        # the detector axis into contiguous slices, else None
+        order = sorted(range(len(self.bands)),
+                       key=lambda i: self.bands[i].det_index[0] if len(self.bands[i].det_index) else 0)
+        covered = []
+        for i in order:
+            idx = self.bands[i].det_index
+            if len(idx) == 0 or not np.array_equal(idx, np.arange(idx[0], idx[-1] + 1)):
+                self.band_order = None
+                return
+            covered.append((int(idx[0]), int(idx[-1] + 1)))
+        is_partition = (
+            covered and covered[0][0] == 0 and covered[-1][1] == len(self.offsets)
+            and all(a[1] == b[0] for a, b in zip(covered[:-1], covered[1:]))
+        )
+        self.band_order = order if is_partition else None
 
     @property
     def n_det(self) -> int:
@@ -83,6 +106,13 @@ class TODProgram:
     @property
     def n_t(self) -> int:
         return len(self.t_fine)
+
+    def band_bounds(self):
+        """Contiguous (start, stop) detector slices in band_order, or None
+        when the bands do not partition the detector axis."""
+        if self.band_order is None:
+            return None
+        return [(int(self.bands[i].det_index[0]), int(self.bands[i].det_index[-1] + 1)) for i in self.band_order]
 
     def _tensors(self, device):
         """The static tables as tensors on ``device`` (built once per device)."""
@@ -96,6 +126,7 @@ class TODProgram:
                 "t_c": torch.tensor(np.asarray(self.t_coarse, dtype=np.float32), **f32),
                 "mueller_I": torch.tensor(np.asarray(self.mueller_I, dtype=np.float32), **f32),
                 "W": [torch.tensor(s.W, **f32) for s in self.screens],
+                "groups": [group_tensors(g, device) for g in self.groups],
                 "power": [TableEval(b.pwv_side, b.el_side, b.power_table, device=device) for b in self.bands],
                 "det_index": [torch.tensor(b.det_index, dtype=torch.int64, device=device) for b in self.bands],
                 "basis": [
@@ -116,10 +147,11 @@ class TODProgram:
         Gains are not applied here (see ``draw_gains`` and
         ``Simulation.run_obs``). ``draws`` optionally supplies the
         realization's unit normals: "screens" (one (ny, nx//2+1, 2) per
-        screen), "noise" and "modes" (one per band, see
-        ``generate_noise_with_knee``). ``upto`` stops early for stage
-        tests: "pwv" -> {"pwv": coarse pwv}, "atmosphere" -> the
-        upsampled atmospheric loading only.
+        screen), "groups" (one (2J, ny, nx//2+1, 2) per screen group),
+        "noise" and "modes" (one per band, see
+        ``generate_noise_with_knee``). ``upto`` stops early: "pwv" ->
+        {"pwv": coarse pwv}, "atmosphere" or "signal" -> the fields
+        without noise (the upsampled atmospheric loading).
         """
         device = resolve_device(device)
         draws = draws or {}
@@ -137,6 +169,7 @@ class TODProgram:
         pwv = accumulate_pwv(
             self.mean_pwv, self.screens, px, py, tabs["t_c"], W=tabs["W"],
             generator=generator, draws=draws.get("screens"),
+            groups=self.groups, group_tables=tabs["groups"], group_draws=draws.get("groups"),
         )
         if upto == "pwv":
             return {"pwv": pwv}
@@ -147,7 +180,7 @@ class TODProgram:
             p = tabs["power"][i](pwv[idx], el_clip[idx])
             loading_c[idx] = tabs["mueller_I"][idx, None] * p
         fields = {"atmosphere": self._upsample(loading_c, "cubic")}
-        if upto == "atmosphere":
+        if upto in ("atmosphere", "signal"):
             return fields
 
         if self.with_noise:
@@ -178,6 +211,111 @@ class TODProgram:
         g = torch.as_tensor(np.asarray(self.gain_error, dtype=np.float32), device=device)
         return torch.exp(g * draw.to(device=device, dtype=torch.float32))[:, None]
 
+    def use_noise_matmul(self) -> bool:
+        """Whether ``total_power_fn`` runs the noise stage as one matrix
+        product (``noise/dft.py``): the structural condition of
+        maria_tpu's ``use_noise_matmul`` (noise on, the bands partition
+        the detector axis, more than one sample), on every device."""
+        return (
+            self.with_noise and self.band_order is not None and len(self.bands) > 0
+            and all(not b.NEP_per_loading for b in self.bands) and len(self.t_fine) > 1
+        )
+
+    def _noise_matmul_specs(self):
+        """(specs, corr_cols, n_fft, shared_c, row_scale) of
+        ``noise_total_matmul``, host numpy, built once, in band_order.
+        When every band shares one normalized spectral shape, shared_c is
+        that shape, row_scale the per-row 1e12 NEP, and corr_cols carry
+        sqrt(cp) * basis without the NEP; otherwise both are None and the
+        NEP rides each band's c and columns."""
+        if self._noise_specs_cache is not None:
+            return self._noise_specs_cache
+        from ..atmosphere.fourier import good_fft_size
+        from ..noise.dft import NoiseBandSpec, band_half_spectrum
+
+        n_fft = good_fft_size(self.n_t)
+        specs, shapes, col_blocks = [], [], []
+        k_total = 0
+        for i in self.band_order:
+            b = self.bands[i]
+            start, stop = int(b.det_index[0]), int(b.det_index[-1] + 1)
+            cp = b.corr_prop if b.noise_basis is not None else 0.0
+            shape = band_half_spectrum(self.sample_rate, b.knee, 1.0, n_fft, corr_prop=cp)
+            shapes.append(shape)
+            k_modes, mode_c = 0, None
+            if cp > 0:
+                k_modes = int(np.asarray(b.noise_basis).shape[-1])
+                mode_c = band_half_spectrum(self.sample_rate, b.knee, 1.0, n_fft, pink_only=True)
+                col_blocks.append((start, stop, k_total, b.NEP, np.sqrt(cp) * np.asarray(b.noise_basis)))
+                k_total += k_modes
+            specs.append(NoiseBandSpec(start=start, stop=stop, c=1e12 * b.NEP * shape, k_modes=k_modes,
+                                       mode_c=mode_c, key_index=i))
+        shared = all(np.allclose(s, shapes[0], rtol=1e-6) for s in shapes[1:])
+        shared_c = shapes[0] if shared else None
+        row_scale = None
+        if shared:
+            row_scale = np.zeros((self.n_det, 1), np.float32)
+            for i, sp in zip(self.band_order, specs):
+                row_scale[sp.start:sp.stop] = 1e12 * self.bands[i].NEP
+        corr_cols = None
+        if k_total:
+            corr_cols = np.zeros((self.n_det, k_total), np.float32)
+            for start, stop, col0, nep, block in col_blocks:
+                scale = 1.0 if shared else 1e12 * nep
+                corr_cols[start:stop, col0:col0 + block.shape[-1]] = scale * block
+        self._noise_specs_cache = (specs, corr_cols, n_fft, shared_c, row_scale)
+        return self._noise_specs_cache
+
+    def total_power_fn(self):
+        """fn(generator=None, draws=None, device=None) -> (n_det, n_t)
+        float32 total pW, gain errors included.
+
+        With ``use_noise_matmul()`` the noise stage is one matrix product
+        whose epilogue adds the gained signal (``noise_total_matmul``); V
+        is kernel K3's draw when the bands share a spectral shape. Else
+        it is the ``fields`` route: the per-band noise (kernel K1) plus
+        the gained signal. ``draws`` optionally supplies the normals:
+        "screens", "groups" and "gains" as ``fields`` and ``draw_gains``
+        take them, and for the matrix product "v" ((n_det, 2, m+1), the
+        white draw) and "modes" (per band, (k, 2, m+1)); on the fields
+        route "noise" and "modes" as ``fields`` takes them.
+        """
+        if not self.use_noise_matmul():
+            def fields_total(generator=None, draws=None, device=None):
+                draws = draws or {}
+                fields, _ = self.fields(generator=generator, draws=draws, device=device)
+                gains = self.draw_gains(generator=generator, draw=draws.get("gains"), device=device)
+                total = 0.0
+                for name, v in fields.items():
+                    total = total + (v if name == "noise" or gains is None else v * gains)
+                return total
+
+            return fields_total
+
+        from ..noise.dft import noise_total_matmul
+
+        specs, corr_cols, n_fft, shared_c, row_scale = self._noise_matmul_specs()
+
+        def matmul_total(generator=None, draws=None, device=None):
+            device = resolve_device(device)
+            draws = draws or {}
+            tabs = self._tensors(device)
+            if "noise_cols" not in tabs:
+                f32 = dict(dtype=torch.float32, device=device)
+                tabs["noise_cols"] = None if corr_cols is None else torch.as_tensor(corr_cols, **f32)
+                tabs["row_scale"] = None if row_scale is None else torch.as_tensor(row_scale, **f32)
+            A = self.fields(generator=generator, draws=draws, device=device, upto="signal")["atmosphere"]
+            gains = self.draw_gains(generator=generator, draw=draws.get("gains"), device=device)
+            if gains is not None:
+                A = gains * A
+            return noise_total_matmul(
+                A, specs, n=self.n_t, n_fft=n_fft, corr_cols=tabs["noise_cols"], shared_c=shared_c,
+                row_scale=tabs["row_scale"], generator=generator, z=draws.get("v"), mode_z=draws.get("modes"),
+                device=device,
+            )
+
+        return matmul_total
+
 
 def _crop_table(x_side, y_side, table, x_lo, x_hi, y_lo, y_hi):
     """Restrict a (x, y) -> value table to the reachable window plus one
@@ -204,9 +342,12 @@ def build_tod_program(obs, with_noise: bool = True, noise_kwargs: dict = {}) -> 
     t0 = float(obs.t[0])
 
     # reachable (pwv, el) window of the band tables: weather mean +- 8
-    # sigma of the summed screen rms; the boresight elevations +- the
-    # array extent
-    sigma_pwv = float(np.sqrt(sum(float(s.pwv_rms) ** 2 for s in atm.screens)))
+    # sigma of the summed rms of the screens and of every group layer;
+    # the boresight elevations +- the array extent
+    sigma_pwv = float(np.sqrt(
+        sum(float(s.pwv_rms) ** 2 for s in atm.screens)
+        + sum(float(np.sum(np.asarray(g.pwv_rms) ** 2)) for g in atm.groups)
+    ))
     mean_pwv = float(atm.weather.pwv)
     pwv_lo = max(0.0, mean_pwv - 8 * sigma_pwv)
     pwv_hi = mean_pwv + 8 * sigma_pwv
@@ -242,6 +383,7 @@ def build_tod_program(obs, with_noise: bool = True, noise_kwargs: dict = {}) -> 
 
     return TODProgram(
         screens=list(atm.screens),
+        groups=list(atm.groups),
         mean_pwv=mean_pwv,
         t_coarse=np.asarray(atm.boresight.t, dtype=np.float64) - t0,
         t_fine=np.asarray(obs.t, dtype=np.float64) - t0,

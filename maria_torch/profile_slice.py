@@ -1,13 +1,17 @@
-"""Where the time of the MUSTANG-2 slice goes, on a CUDA card.
+"""Where the time of a slice goes, on a CUDA card.
 
-    python -m maria_torch.profile_slice [--duration 60] [--reps 10] [--trace PATH]
+    python -m maria_torch.profile_slice [--scene mustang2|atlast] [--duration 60] [--reps 10] [--trace PATH]
 
-Prints, for the daisy scene of the given length: warm wall times of
+Scene "mustang2" (the default): the MUSTANG-2 daisy through
 ``Simulation.run()`` and ``BinMapper.run()``; cumulative stage times of
 the program (``fields(upto="pwv")``, ``upto="atmosphere"``, all fields)
-and of the K_RJ conversion, each host-timed around a synchronize; and a
-``torch.profiler`` table of device time by kernel over one run + map,
-with the device's busy share of that window. ``--trace`` also writes the
+and of the K_RJ conversion. Scene "atlast": AtLAST-50k with the 3-D
+atmosphere through ``TODProgram.total_power_fn()`` and the field map
+(``field_pixel_ids``, ``bin_total``); cumulative stage times
+``fields(upto="pwv")``, ``upto="signal"``, the total, total + binning.
+Each is host-timed around a synchronize; then a ``torch.profiler``
+table of device time by kernel over one realization and its map, with
+the device's busy share of that window. ``--trace`` also writes the
 Chrome trace. Needs a card: it fails without one.
 """
 
@@ -33,6 +37,7 @@ def _wall_ms(fn, reps: int) -> float:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--scene", choices=("mustang2", "atlast"), default="mustang2")
     parser.add_argument("--duration", type=float, default=60.0)
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--trace", default=None)
@@ -42,52 +47,79 @@ def main(argv=None) -> int:
 
     import maria_torch
     from maria_torch.mappers import BinMapper
+    from maria_torch.mappers.bin_mapper import bin_total, field_pixel_ids
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     device = torch.device("cuda")
+    atlast = args.scene == "atlast"
     plan = maria_torch.get_plan(
         "daisy_5arcmin_60s", start_time=1.75e9, scan_center=(150.0, 41.0), frame="az/el",
-        duration=args.duration, sample_rate=50.0, scan_options={"radius": 0.083, "speed": 0.017},
+        duration=args.duration, sample_rate=50.0,
+        scan_options={"radius": 0.5, "speed": 0.25} if atlast else {"radius": 0.083, "speed": 0.017},
     )
-    sim = maria_torch.Simulation(instrument="MUSTANG-2", plans=plan, site="GBT", atmosphere="2d",
-                                 noise=True, seed=0, device=device)
+    scene = dict(instrument="AtLAST-50k", site="ALMA", atmosphere="3d") if atlast else \
+        dict(instrument="MUSTANG-2", site="GBT", atmosphere="2d")
+    sim = maria_torch.Simulation(plans=plan, noise=True, seed=0, device=device, **scene)
     program = sim.program()
     gen = sim.generator
-    tod = sim.run()[0]
-    center = tuple(np.degrees(tod.boresight.center()))
-
-    def run_map():
-        return BinMapper(tod, center=center, width=0.25, resolution=0.25 / 128, frame="az/el").run()
-
     n = program.n_det * program.n_t
-    print(f"card: {card}; scene {program.n_det} x {program.n_t} = {n} samples, {len(program.screens)} screens")
-    stages = {
-        "fields upto pwv": lambda: program.fields(generator=gen, device=device, upto="pwv"),
-        "fields upto atmosphere": lambda: program.fields(generator=gen, device=device, upto="atmosphere"),
-        "fields (all)": lambda: program.fields(generator=gen, device=device),
-        "run_obs (fields + gains, pW)": lambda: sim.run_obs(0),
-        "run() (+ K_RJ)": lambda: sim.run(),
-        "BinMapper(...).run()": run_map,
-    }
-    for name, fn in stages.items():
-        print(f"{name:32s} {_wall_ms(fn, args.reps):9.3f} ms (cumulative, warm, {args.reps} reps)")
+    print(f"card: {card}; scene {scene['instrument']} {program.n_det} x {program.n_t} = {n} samples, "
+          f"{len(program.screens)} screens, {sum(len(g.heights) for g in program.groups)} group layers")
+
+    if atlast:
+        fn = program.total_power_fn()
+        obs = sim.obs_list[0]
+        ids, n_pix = field_pixel_ids(obs.boresight, obs.offsets, 128, 128, device=device)
+
+        def run_map():
+            return bin_total(fn(generator=gen, device=device), ids, n_pix)
+
+        def realization():
+            run_map()
+
+        stages = {
+            "fields upto pwv": lambda: program.fields(generator=gen, device=device, upto="pwv"),
+            "fields upto signal": lambda: program.fields(generator=gen, device=device, upto="signal"),
+            "total_power_fn()": lambda: fn(generator=gen, device=device),
+            "total + bin_total": run_map,
+        }
+    else:
+        tod = sim.run()[0]
+        center = tuple(np.degrees(tod.boresight.center()))
+
+        def run_map():
+            return BinMapper(tod, center=center, width=0.25, resolution=0.25 / 128, frame="az/el").run()
+
+        def realization():
+            run_map()
+            sim.run()
+
+        stages = {
+            "fields upto pwv": lambda: program.fields(generator=gen, device=device, upto="pwv"),
+            "fields upto atmosphere": lambda: program.fields(generator=gen, device=device, upto="atmosphere"),
+            "fields (all)": lambda: program.fields(generator=gen, device=device),
+            "run_obs (fields + gains, pW)": lambda: sim.run_obs(0),
+            "run() (+ K_RJ)": lambda: sim.run(),
+            "BinMapper(...).run()": run_map,
+        }
+    for name, stage in stages.items():
+        print(f"{name:32s} {_wall_ms(stage, args.reps):9.3f} ms (cumulative, warm, {args.reps} reps)")
 
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        run_map()
-        sim.run()
+        realization()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - start) * 1e3
     events = prof.key_averages()
     device_us = sum(e.self_device_time_total for e in events if e.device_type is not None
                     and str(e.device_type).endswith("CUDA"))
-    print(f"profiled window (run + map): {window_ms:.3f} ms wall, {device_us / 1e3:.3f} ms device "
+    print(f"profiled window (one realization and its map): {window_ms:.3f} ms wall, {device_us / 1e3:.3f} ms device "
           f"kernel time, device busy {device_us / 1e3 / window_ms:.1%} of the window")
     print(events.table(sort_by="self_cuda_time_total", row_limit=25))
     if args.trace:

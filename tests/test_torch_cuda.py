@@ -14,6 +14,7 @@ torch.set_num_threads(1)
 from maria_torch.noise import band_half_spectrum  # noqa: E402
 from maria_torch.ops.bin_map import bin_map, bin_map_plain  # noqa: E402
 from maria_torch.ops.pink_noise import pink_noise, pink_noise_plain  # noqa: E402
+from maria_torch.ops.shared_v import draw_key, shared_v, shared_v_plain  # noqa: E402
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -100,3 +101,72 @@ def test_slice_on_card_matches_cpu(cuda_device):
     map_g = maria_torch.BinMapper(tod_g, **kw).run()
     assert bin_map.launches == before[1] + 1
     assert float((map_g.weight - map_c.weight).abs().sum()) <= 5e-3 * float(map_c.weight.sum())
+
+
+def _bf16_ulp(x):
+    """One bfloat16 ulp at |x| (8 significant bits)."""
+    _, e = torch.frexp(x.abs().clamp_min(1e-30))
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_det,m1", [(50004, 1537), (5, 257)])
+def test_shared_v_kernel_matches_plain(cuda_device, n_det, m1):
+    """K3 against its plain version on the same key: every element within
+    one bf16 ulp (the two evaluate log, sqrt and sincos in float32 with
+    different last-bit rounding, which can move a bf16 rounding)."""
+    c = band_half_spectrum(50.0, 0.5, 1.0, 2 * (m1 - 1), corr_prop=0.5)
+    key = draw_key(torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    before = shared_v.launches
+    V = shared_v(key, c, n_det)[0].float()
+    ref = shared_v_plain(key, c, n_det)[0].float()
+    torch.cuda.synchronize()
+    assert shared_v.launches == before + 1
+    assert V.shape == (n_det, 2 * m1)
+    assert bool(((V - ref).abs() <= _bf16_ulp(torch.maximum(V.abs(), ref.abs()))).all())
+    assert float((V == ref).float().mean()) >= 0.99
+
+
+def _atlast_scene(device):
+    import maria_torch
+
+    plan = maria_torch.get_plan(
+        "daisy_5arcmin_60s", start_time=1.75e9, scan_center=(150.0, 41.0), frame="az/el",
+        duration=10.0, sample_rate=50.0, scan_options={"radius": 0.5, "speed": 0.25},
+    )
+    array = {"primary_size": 50, "n": 19, "field_of_view": 2.0, "shape": "circle",
+             "bands": [f"atlast/f{b}" for b in ("042", "093", "150", "220", "280", "350", "400", "650", "850")]}
+    return maria_torch.Simulation(instrument=maria_torch.get_instrument(array=array), plans=plan, site="ALMA",
+                                  atmosphere="3d", noise=True, seed=0, device=device)
+
+
+@pytest.mark.cuda
+def test_atlast_total_on_card_matches_cpu(cuda_device):
+    """The small AtLAST-shaped scene's total_power_fn on the card and on
+    the CPU given the same draws: within 1e-4 of the total's std (float32
+    FFTs, gathers and products in another order; a bf16 rounding of a mode
+    time series value may flip). Without injected draws the card's total
+    launches K3 once and K1 never."""
+    sim_cpu, sim_gpu = _atlast_scene("cpu"), _atlast_scene(cuda_device)
+    p = sim_cpu.program()
+    specs, _, n_fft, shared_c, _ = p._noise_matmul_specs()
+    assert shared_c is not None
+    m1 = n_fft // 2 + 1
+    gen = torch.Generator().manual_seed(0)
+    g = p.groups[0]
+    draws = {
+        "groups": [torch.randn((2 * g.W.shape[0], g.ny, g.nx // 2 + 1, 2), generator=gen)],
+        "gains": torch.randn((p.n_det,), generator=gen),
+        "v": torch.randn((p.n_det, 2, m1), generator=gen),
+        "modes": [torch.randn((sp.k_modes, 2, m1), generator=gen) for sp in specs],
+    }
+    total_c = p.total_power_fn()(draws=draws, device="cpu")
+    total_g = sim_gpu.program().total_power_fn()(draws=draws, device=cuda_device)
+    torch.cuda.synchronize()
+    assert float((total_g.cpu() - total_c).abs().max()) <= 1e-4 * float(total_c.std())
+
+    before = (shared_v.launches, pink_noise.launches)
+    total = sim_gpu.program().total_power_fn()(generator=sim_gpu.generator, device=cuda_device)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(total).all()) and total.shape == (p.n_det, p.n_t)
+    assert (shared_v.launches, pink_noise.launches) == (before[0] + 1, before[1])

@@ -143,6 +143,8 @@ def program_tables(p):
         ("instrument_m2", "maria_tpu/instrument/configs/m2.yml"),
         ("array_m2", "maria_tpu/array/configs/m2.yml"),
         ("band_m2", "maria_tpu/band/configs/m2.yml"),
+        ("instrument_atlast", "maria_tpu/instrument/configs/atlast.yml"),
+        ("band_atlast", "maria_tpu/band/configs/atlast.yml"),
     ],
 )
 def test_json_configs_equal_yaml_sources(json_name, yaml_path):
