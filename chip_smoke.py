@@ -7,8 +7,10 @@ Phases, each of which must pass (any failure exits non-zero):
 1. card: a CUDA device is required; prints its name and power limit;
 2. build: compiles the hand-written kernels (maria_torch/csrc) with nvcc,
    one process per source, and prints ptxas's register and spill lines;
-3. K1 pink_noise against its plain torch version (irfft) at the slice's
-   shapes and a small single-DFT case, |diff| <= 2e-4 x std;
+3. K1 pink_noise against its plain torch version (irfft) at the slices'
+   shapes (one pass at n_fft 3072; two passes at 32768 and 65536), a
+   1-hour scan at 50 Hz (n_fft 196608, odd part 3, two passes) and a
+   small one-pass case, |diff| <= 2e-4 x std;
 4. K3 shared_v against its plain torch version (the same Philox and
    Box-Muller in torch ops) at the AtLAST shape (50,004 rows, m+1 =
    1537), at a small odd one, and as slice (c) launches it, with its
@@ -16,9 +18,10 @@ Phases, each of which must pass (any failure exits non-zero):
    within one bf16 ulp, the operand's other columns untouched, and at
    the large shapes every column of V / c with mean and variance within
    5 sigma of N(0, 1);
-5. slices (a) and (b), the MUSTANG-2 main path, Simulation(...).run() ->
-   TOD in K_RJ -> BinMapper(..., frame="az/el").run(), for the daisy at
-   60 s and at 600 s: finite fields of the expected shapes, a hit map
+5. slices (a), (b) and (d), the MUSTANG-2 main path, Simulation(...).run()
+   -> TOD in K_RJ -> BinMapper(..., frame="az/el").run(), for the daisy
+   at 60 s, 600 s and 1,200 s (217 x 60,000 samples, K1 at n_fft 65536
+   in two passes): finite fields of the expected shapes, a hit map
    centre, K1 and K2 launched by the main path, and the noise PSD above
    twice the knee within 10% of the process's expected PSD;
 6. slice (c), the AtLAST-50k total-power path: build_tod_program ->
@@ -31,7 +34,7 @@ Phases, each of which must pass (any failure exits non-zero):
    sums taken in float64, and per band the noise PSD above twice the
    knee within 10% of the process's expected PSD;
 7. K2 bin_map against its plain torch version (index_add_) on N(0, 1)
-   data at the pixel ids of slices (a), (b) and (c) and a random case
+   data at the pixel ids of slices (a), (b), (d) and (c) and a random case
    with -1 ids: hit counts exact, sums within 1e-5 of the map's maximum
    of the plain sums taken in float64.
 
@@ -50,7 +53,7 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SLICES = {"a": 60.0, "b": 600.0}
+SLICES = {"a": 60.0, "b": 600.0, "d": 1200.0}
 ATLAST_BANDS = 9
 N_MAP = 128
 MAP_WIDTH_DEG = 0.25
@@ -93,7 +96,7 @@ def check_pink_noise(device, gen, n_det, n, n_fft):
     import torch
 
     from maria_torch.noise import band_half_spectrum
-    from maria_torch.ops.pink_noise import pink_noise, pink_noise_plain
+    from maria_torch.ops.pink_noise import pink_noise, pink_noise_plain, pink_plan
 
     c = band_half_spectrum(50.0, 5.0, 1.0, n_fft, corr_prop=0.5)
     S = torch.randn((n_det, n_fft // 2 + 1, 2), generator=gen, device=device)
@@ -108,7 +111,9 @@ def check_pink_noise(device, gen, n_det, n, n_fft):
     if not ok:
         fail(f"K1 disagrees with its plain version at ({n_det}, {n}, {n_fft})")
     ms, plain_ms = paired_ms(lambda: pink_noise_plain(c, S, n, n_fft), lambda: pink_noise(c, S, n, n_fft))
-    print(f"K1 pink_noise ({n_det}, {n}, n_fft {n_fft}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    plan = pink_plan(n_fft)
+    print(f"K1 pink_noise ({n_det}, {n}, n_fft {n_fft}; {plan['passes']} pass(es), {plan['n1']} x {plan['n2']}, "
+          f"batch {plan['batch']}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [n_det, n, n_fft]}
 
 
@@ -488,7 +493,8 @@ def main() -> int:
     gen = torch.Generator(device=device)
     gen.manual_seed(1234)
     k1 = {}
-    for n_det, n, n_fft in ((217, 3000, 3072), (217, 30000, 32768), (5, 500, 512)):
+    for n_det, n, n_fft in ((217, 3000, 3072), (217, 30000, 32768), (5, 500, 512), (217, 60000, 65536),
+                            (217, 180000, 196608)):
         k1[(n, n_fft)] = check_pink_noise(device, gen, n_det, n, n_fft)
     k3 = {}
     for n_det, m1 in ((5556 * ATLAST_BANDS, 1537), (5, 257)):

@@ -90,10 +90,8 @@ def load() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     lib = ctypes.CDLL(build()["path"])
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.maria_pink_noise.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.maria_pink_noise.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.maria_pink_noise.restype = i
-    lib.maria_pink_noise_smem_bytes.argtypes = [i, i, i, i]
-    lib.maria_pink_noise_smem_bytes.restype = ctypes.c_size_t
     lib.maria_bin_map.argtypes = [p, p, p, ll, i, i, i, p]
     lib.maria_bin_map.restype = i
     lib.maria_shared_v.argtypes = [p, p, p, i, i, i, ll, i, p]

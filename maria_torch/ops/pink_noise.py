@@ -5,8 +5,8 @@ per detector row, for a real half-spectrum amplitude ``c`` ((m+1,),
 m = n_fft/2) and a draw ``S`` of unit complex normals, float32
 (n_det, m+1, 2) [re, im], whose DC and Nyquist imaginary parts are
 ignored. On a CUDA tensor it launches ``csrc/pink_noise.cu`` (which
-replaces maria_tpu's ``pink_noise_pallas``); on a CPU tensor it runs the
-plain version, ``torch.fft.irfft``.
+replaces maria_tpu's ``pink_noise_pallas``) as ``pink_plan`` lays it
+out; on a CPU tensor it runs the plain version, ``torch.fft.irfft``.
 """
 
 from __future__ import annotations
@@ -18,18 +18,83 @@ import torch
 
 from . import kernels
 
-__all__ = ["pink_noise", "pink_noise_plain", "pink_consts"]
+__all__ = ["pink_noise", "pink_noise_plain", "pink_consts", "pink_plan", "one_pass_plan", "two_pass_plan", "launch"]
 
-_SINGLE_MAX = 512  # m at or below this takes one dense m-point DFT
-_STAGE_BYTES = 16384  # shared memory for the staged stage-1 columns
+# m at or below this runs as one pass, a whole row's FFT in one block:
+# the largest m whose one-pass block (24 m bytes) fits the H100's
+# 232,448 bytes of shared memory; one pass measured faster than two at
+# every such length (PERF.md; python -m maria_torch.profile_pink)
+ONE_PASS_MAX = 9216
+TWO_PASS_SMEM = 48 * 1024  # a two-pass block's shared memory, so several blocks share an SM
+MAX_BATCH = 16  # short FFTs a two-pass block does, one per column of its tile
+THREADS = 256
+ODD_PARTS = (1, 3, 5, 9)  # the odd parts good_fft_size yields; the kernel has these radices
 
 
-def _best_split(m: int):
-    best = None
-    for f1 in range(2, int(np.sqrt(m)) + 1):
-        if m % f1 == 0:
-            best = (m // f1, f1)
-    return best
+def odd_part(length: int) -> int:
+    while length % 2 == 0:
+        length //= 2
+    return length
+
+
+def fft_smem_bytes(length: int, batch: int) -> int:
+    """Shared memory of a block that does ``batch`` ``length``-point FFTs:
+    two ping-pong buffers of ``length`` rows of ``batch`` complex values
+    (rows padded by one value when batch > 1, which keeps the transposed
+    reads free of bank conflicts) and the ``length``-entry twiddle table.
+    The kernel lays its shared memory out the same way
+    (``fft_smem_bytes`` in csrc/pink_noise.cu)."""
+    ld = batch + (batch > 1)
+    return 8 * (2 * length * ld + length)
+
+
+def _batch(length: int, other: int) -> int:
+    """Columns of a two-pass tile: the largest power of two <= MAX_BATCH
+    that divides the other factor and keeps the block within
+    TWO_PASS_SMEM (at least 1)."""
+    b = MAX_BATCH
+    while b > 1 and (other % b or fft_smem_bytes(length, b) > TWO_PASS_SMEM):
+        b //= 2
+    return b
+
+
+@lru_cache(maxsize=64)
+def pink_plan(n_fft: int) -> dict:
+    """How K1 computes one row's m-point FFT, m = n_fft/2 = r 2^q with
+    r in {1, 3, 5, 9}: ``one_pass_plan`` for m <= ONE_PASS_MAX, else
+    ``two_pass_plan``. Returns passes, m, n1, n2, batch (short FFTs a
+    block does, per pass), threads and smem (bytes a block, per pass)."""
+    if n_fft % 2:
+        raise ValueError("pink noise requires an even n_fft")
+    m = n_fft // 2
+    if odd_part(m) not in ODD_PARTS:
+        raise ValueError(f"n_fft={n_fft}: m's odd part {odd_part(m)} is not one of {ODD_PARTS} (see good_fft_size)")
+    return one_pass_plan(m) if m <= ONE_PASS_MAX else two_pass_plan(m)
+
+
+def one_pass_plan(m: int) -> dict:
+    """The row in one block: one m-point FFT, n1 = m, n2 = 1."""
+    return {"passes": 1, "m": m, "n1": m, "n2": 1, "batch": (1,), "threads": THREADS, "smem": (fft_smem_bytes(m, 1),)}
+
+
+def two_pass_plan(m: int) -> dict:
+    """Two passes through device memory, with the split m = n1 * n2
+    nearest sqrt(m) (n1 >= n2) whose factors' odd parts are in
+    {1, 3, 5, 9}."""
+    splits = []
+    for r1 in ODD_PARTS:
+        n1 = r1
+        while n1 < m:
+            if m % n1 == 0 and n1 > 1 and odd_part(m // n1) in ODD_PARTS:
+                splits.append((max(n1, m // n1), -n1, n1))
+            n1 *= 2
+    n1 = min(splits)[2]
+    n2 = m // n1
+    batch = (_batch(n1, n2), _batch(n2, n1))
+    smem = (fft_smem_bytes(n1, batch[0]), fft_smem_bytes(n2, batch[1]))
+    if max(smem) > TWO_PASS_SMEM:
+        raise ValueError(f"m={m}: split {n1} x {n2} needs {max(smem)} bytes a block, beyond two passes' reach")
+    return {"passes": 2, "m": m, "n1": n1, "n2": n2, "batch": batch, "threads": THREADS, "smem": smem}
 
 
 @lru_cache(maxsize=16)
@@ -47,15 +112,13 @@ def _consts(n_fft: int, c_bytes: bytes):
     # constant-in-time contribution folds into both branches' k=0 weights
     alpha[0] = 0.5 * (a0 - 1j * b0)
     gamma[0] = np.conj(0.5 * (a0 + 1j * b0))
-    split = _best_split(m) if m > _SINGLE_MAX else None
-    n1, n2 = split if split is not None else (m, 1)
-    return {"m": m, "n1": n1, "n2": n2, "alpha": alpha, "gamma": gamma}
+    return {"m": m, "alpha": alpha, "gamma": gamma}
 
 
 def pink_consts(n_fft: int, c) -> dict:
     """Host constants of the folded transform (numpy port of
-    maria_tpu's ``pink_consts``): m, the split m = n1 * n2 (n2 = 1 for
-    m <= 512) and the complex weights alpha, gamma (m,)."""
+    maria_tpu's ``pink_consts``): m and the complex weights alpha,
+    gamma (m,)."""
     if n_fft % 2:
         raise ValueError("pink noise requires an even n_fft")
     c = np.ascontiguousarray(np.asarray(c, dtype=np.float32))
@@ -96,34 +159,41 @@ def pink_noise(c, spectrum, n: int, n_fft: int = None):
         raise ValueError(f"spectrum must be float32 (n_det, m+1, 2), got {spectrum.dtype} {tuple(spectrum.shape)}")
     if not spectrum.is_contiguous():
         raise ValueError("spectrum must be contiguous")
-    n_det, m1 = spectrum.shape[0], spectrum.shape[1]
+    m1 = spectrum.shape[1]
     n_fft = 2 * (m1 - 1) if n_fft is None else int(n_fft)
     if n_fft != 2 * (m1 - 1):
         raise ValueError(f"spectrum has {m1} bins; n_fft={n_fft} needs {n_fft // 2 + 1}")
     if not 0 < n <= n_fft:
         raise ValueError(f"n={n} must lie in (0, n_fft={n_fft}]")
-    c_host = np.ascontiguousarray(np.asarray(c, dtype=np.float32))
-    k = pink_consts(n_fft, c_host)
-    m, n1, n2 = k["m"], k["n1"], k["n2"]
-    tc = max(1, min(n2, _STAGE_BYTES // (8 * n1)))
+    return launch(pink_plan(n_fft), c, spectrum, n)
 
+
+def launch(plan: dict, c, spectrum, n: int):
+    """Launch K1 as ``plan`` (from ``pink_plan``) lays it out, on a checked
+    CUDA spectrum; the two-pass form's scratch B (n_det, n2, n1) complex
+    comes from torch's allocator."""
+    c_host = np.ascontiguousarray(np.asarray(c, dtype=np.float32))
+    if len(c_host) != plan["m"] + 1:
+        raise ValueError(f"c must have m + 1 = {plan['m'] + 1} entries, got {len(c_host)}")
     lib = kernels.load()
     device_index = spectrum.device.index if spectrum.device.index is not None else torch.cuda.current_device()
-    smem = lib.maria_pink_noise_smem_bytes(m, n1, n2, tc)
     limit = lib.maria_max_dynamic_smem(device_index)
-    if smem > limit:
-        raise ValueError(
-            f"pink_noise: n_fft={n_fft} needs {smem} bytes of shared memory per row "
-            f"(split {n1} x {n2}), more than the card's {limit}"
-        )
-    alpha, gamma = _device_tables(n_fft, c_host.tobytes(), str(spectrum.device))
+    if max(plan["smem"]) > limit:
+        raise ValueError(f"pink_noise: plan {plan} needs more shared memory a block than the card's {limit} bytes")
+    alpha, gamma = _device_tables(2 * plan["m"], c_host.tobytes(), str(spectrum.device))
+    n_det = spectrum.shape[0]
     out = torch.empty((n_det, n), dtype=torch.float32, device=spectrum.device)
     if n_det == 0:
         return out
+    scratch = None
+    if plan["passes"] == 2:
+        scratch = torch.empty((n_det, plan["m"], 2), dtype=torch.float32, device=spectrum.device)
+    batch = (*plan["batch"], 1)[:2]
     stream = torch.cuda.current_stream(spectrum.device).cuda_stream
     code = lib.maria_pink_noise(
-        spectrum.data_ptr(), alpha.data_ptr(), gamma.data_ptr(), out.data_ptr(),
-        n_det, m, n1, n2, tc, n, stream,
+        spectrum.data_ptr(), alpha.data_ptr(), gamma.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+        n_det, plan["m"], plan["n1"], plan["n2"], batch[0], batch[1], plan["threads"], n, stream,
     )
     kernels.check(lib, code, "pink_noise kernel launch")
     pink_noise.launches += 1

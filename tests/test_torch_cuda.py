@@ -3,6 +3,8 @@ a card (marker ``cuda``; they skip without one). This file imports no
 jax, so it runs where only torch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
+
+(``-k pink`` for K1 alone.)
 """
 
 import numpy as np
@@ -35,7 +37,12 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_det,n,n_fft", [(217, 3000, 3072), (217, 30000, 32768), (5, 500, 512)])
+@pytest.mark.parametrize(
+    "n_det,n,n_fft",
+    [(217, 3000, 3072), (217, 30000, 32768), (5, 500, 512), (217, 60000, 65536), (217, 180000, 196608),
+     (3, 1100, 1152), (3, 2400, 2560), (3, 4700, 5120), (3, 9000, 9216), (217, 18000, 18432),
+     (3, 20000, 20480), (3, 36000, 36864)],
+)
 def test_pink_noise_kernel_matches_plain(cuda_device, n_det, n, n_fft):
     c = band_half_spectrum(50.0, 5.0, 1.0, n_fft, corr_prop=0.5)
     gen = torch.Generator(device=cuda_device).manual_seed(0)

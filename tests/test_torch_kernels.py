@@ -17,7 +17,14 @@ torch.set_num_threads(1)
 from maria_torch.noise import band_half_spectrum  # noqa: E402
 from maria_torch.ops import kernels  # noqa: E402
 from maria_torch.ops.bin_map import bin_map, bin_map_plain  # noqa: E402
-from maria_torch.ops.pink_noise import pink_consts, pink_noise, pink_noise_plain  # noqa: E402
+from maria_torch.ops.pink_noise import (  # noqa: E402
+    fft_smem_bytes,
+    odd_part,
+    pink_consts,
+    pink_noise,
+    pink_noise_plain,
+    pink_plan,
+)
 from maria_tpu.noise import _pink_weights_np, _spectral_white_scale_np  # noqa: E402
 from maria_tpu.ops import pallas_noise  # noqa: E402
 
@@ -91,19 +98,18 @@ def test_pink_noise_plain_matches_pallas_interpret(n, n_fft):
 
 @pytest.mark.parametrize("n_fft", [512, 3072, 32768])
 def test_pink_consts_match_pallas(n_fft):
-    """The port's host constants (alpha, gamma and the split) are the
-    Pallas kernel's."""
+    """The port's host constants (m, alpha, gamma) are the Pallas
+    kernel's."""
     c = _weights(n_fft).astype(np.float32)
     ours = pink_consts(n_fft, c)
     ref = pallas_noise.pink_consts(n_fft, tuple(c.tolist()))
     m = n_fft // 2
+    assert ours["m"] == m
     if ref["mode"] == "split":
-        assert (ours["n1"], ours["n2"]) == (ref["n1"], ref["n2"])
 
         def unperm(planes):  # (re/im, n2, n1) -> linear k = k2 + n2*k1
             return (planes[0] + 1j * planes[1]).T.reshape(m)
     else:
-        assert (ours["n1"], ours["n2"]) == (m, 1)
 
         def unperm(planes):
             return planes[0] + 1j * planes[1]
@@ -111,35 +117,146 @@ def test_pink_consts_match_pallas(n_fft):
     np.testing.assert_allclose(ours["gamma"], unperm(ref["ag"][1]), rtol=1e-6, atol=1e-6 * np.abs(c).max())
 
 
-def _split_emulation(c, S, n, n_fft):
-    """numpy emulation of csrc/pink_noise.cu's algorithm: fold the draw
-    into one m-point DFT input, n1-point DFTs, twiddle, n2-point DFTs."""
+def _stockham(buf, L, T, ld, tw):
+    """csrc/pink_noise.cu's fft_batch on flat shared-memory buffers (rows,
+    L * ld): the direct r-point stage, then radix-4 stages and a last
+    radix-2, each butterfly (p, q) reading x[q + s (p + j L/R)] and writing
+    y[q + s (R p + k)] times w_L^{p k s}, element j of sequence b at
+    [j * ld + b]."""
+    r = odd_part(L)
+    radices = ([r] if r > 1 else []) + [4] * (int(np.log2(L // r)) // 2) + [2] * (int(np.log2(L // r)) % 2)
+    assert np.prod(radices) == L
+    s = 1
+    for R in radices:
+        nR = L // R
+        item = np.arange(nR * T)
+        i, b = item // T, item % T
+        p, q = i // s, i % s
+        a = [buf[:, (i + j * nR) * ld + b] for j in range(R)]
+        out = np.zeros_like(buf)
+        for k in range(R):
+            v = sum(a[j] * tw[((j * k) % R) * nR] for j in range(R))
+            out[:, (q + s * (R * p + k)) * ld + b] = v * tw[p * k * s]
+        buf, s = out, s * R
+    return buf
+
+
+def _twiddles(L):
+    return np.exp(2j * np.pi * np.arange(L) / L).astype(np.complex64)
+
+
+def _kernel_emulation(c, S, n, n_fft):
+    """numpy emulation of csrc/pink_noise.cu as pink_plan lays it out, in
+    complex64: pass 1 (or the only pass) loads tiles of T columns k2 with
+    the fold u_k = alpha_k z_k + conj(gamma_{m-k} z_{m-k}), runs n1-point
+    FFTs, and writes x (one pass) or B[k2, a] twiddled by exp(2 pi i k2 a
+    / m) / m; pass 2 loads tiles of T values a, runs n2-point FFTs and
+    writes x[2t], x[2t+1] for t = a + n1 s."""
+    plan = pink_plan(n_fft)
     k = pink_consts(n_fft, c)
-    m, n1, n2 = k["m"], k["n1"], k["n2"]
-    out = np.zeros((S.shape[0], n))
-    kk = np.arange(m)
+    m, n1, n2, rows = plan["m"], plan["n1"], plan["n2"], S.shape[0]
+    assert fft_smem_bytes(n1, plan["batch"][0]) == plan["smem"][0]
+    alpha, gamma = k["alpha"].astype(np.complex64), k["gamma"].astype(np.complex64)
+    z = (S[:, :m, 0] + 1j * S[:, :m, 1]).astype(np.complex64)
+    z[:, 0] = S[:, 0, 0] + 1j * S[:, m, 0]
+
+    T = plan["batch"][0]
+    ld = T + (T > 1)
+    tile = np.arange(n2 // T)  # tiles of columns k2 = c0 + c, as extra rows of the batch
+    k1, cc = np.divmod(np.arange(n1 * T), T)
+    kk = (tile[:, None] * T + cc[None]) + n2 * k1[None]  # (tiles, n1 T)
     kr = (m - kk) % m
-    a, k2 = np.arange(n1), np.arange(n2)
-    for r in range(S.shape[0]):
-        z = S[r, :m, 0] + 1j * S[r, :m, 1]
-        z[0] = S[r, 0, 0] + 1j * S[r, m, 0]
-        u = k["alpha"] * z + np.conj(k["gamma"][kr] * z[kr])
-        A = np.exp(2j * np.pi * np.outer(a, a) / n1).T @ u.reshape(n1, n2)
-        B = A * np.exp(2j * np.pi * np.outer(a, k2) / m) / m
-        y = (B @ np.exp(2j * np.pi * np.outer(k2, k2) / n2)).T.reshape(-1)
-        out[r] = np.stack([y.real, y.imag], -1).reshape(-1)[:n]
-    return out
+    u = alpha[kk] * z[:, kk] + np.conj(gamma[kr] * z[:, kr])  # (rows, tiles, n1 T)
+    buf = np.zeros((rows * len(tile), n1 * ld), np.complex64)
+    buf[:, k1 * ld + cc] = u.reshape(rows * len(tile), n1 * T)
+    res = _stockham(buf, n1, T, ld, _twiddles(n1)).reshape(rows, len(tile), n1 * ld)
+    if plan["passes"] == 1:
+        y = res[:, 0, :m] / np.float32(m)
+    else:
+        cc, a = np.divmod(np.arange(n1 * T), n1)
+        k2 = tile[:, None] * T + cc[None]
+        tw = np.exp(2j * np.pi * ((k2 * a[None]) % m) / m).astype(np.complex64) / np.float32(m)
+        B = np.zeros((rows, n2, n1), np.complex64)
+        B[:, k2, a[None]] = res[:, :, a * ld + cc] * tw
+        T = plan["batch"][1]
+        ld = T + (T > 1)
+        tile = np.arange(n1 // T)
+        k2, cc = np.divmod(np.arange(n2 * T), T)
+        buf = np.zeros((rows * len(tile), n2 * ld), np.complex64)
+        buf[:, k2 * ld + cc] = B[:, k2[None], tile[:, None] * T + cc[None]].reshape(rows * len(tile), n2 * T)
+        res = _stockham(buf, n2, T, ld, _twiddles(n2)).reshape(rows, len(tile), n2 * ld)
+        s, cc = np.divmod(np.arange(n2 * T), T)
+        t = tile[:, None] * T + cc[None] + n1 * s[None]
+        y = np.zeros((rows, m), np.complex64)
+        y[:, t] = res[:, :, s * ld + cc]
+    return np.stack([y.real, y.imag], -1).reshape(rows, -1)[:, :n]
 
 
-@pytest.mark.parametrize("n,n_fft", [(3000, 3072), (500, 512), (30000, 32768)])
+@pytest.mark.parametrize(
+    "n,n_fft",
+    [
+        (3000, 3072),  # one pass, odd part 3
+        (500, 512),  # one pass
+        (30000, 32768),  # two passes, 128 x 128
+        (1100, 1152),  # one pass, odd part 9
+        (2400, 2560),  # one pass, odd part 5
+        (4700, 5120),  # one pass, odd part 5
+        (9000, 9216),  # one pass, odd part 9
+        (20000, 20480),  # two passes, 128 x 80: odd part 5
+        (36000, 36864),  # two passes, 144 x 128: odd part 9
+        (65536, 65536),  # two passes, full length
+        (180000, 196608),  # two passes, 384 x 256: odd part 3
+    ],
+)
 def test_pink_kernel_algorithm_matches_plain(n, n_fft):
-    """The CUDA kernel's split-DFT algorithm, emulated in numpy, equals
-    the plain version at the slice's lengths."""
+    """The CUDA kernel's radix-FFT algorithm, emulated in numpy in
+    complex64 as pink_plan lays it out, equals the plain version at one-
+    and two-pass lengths with each odd part."""
     rng = np.random.default_rng(3)
     c = band_half_spectrum(50.0, 5.0, 1.0, n_fft, corr_prop=0.5).astype(np.float32)
     S = rng.standard_normal((2, n_fft // 2 + 1, 2)).astype(np.float32)
     ref = pink_noise_plain(c, torch.as_tensor(S), n, n_fft).numpy()
-    np.testing.assert_allclose(_split_emulation(c, S, n, n_fft), ref, atol=2e-4 * ref.std())
+    np.testing.assert_allclose(_kernel_emulation(c, S, n, n_fft), ref, atol=2e-4 * ref.std())
+
+
+def test_pink_plan_covers_every_scan_length():
+    """Every n_fft that good_fft_size gives a scan of up to 4 h at 200 Hz
+    (2.88M samples) has a plan: n1 n2 = m, both factors' odd parts in
+    {1, 3, 5, 9}, every pass's shared memory within the card's 232,448
+    bytes (the port's first kernel needed 281,600 at n_fft 65,536), and
+    a two-pass block within 48 KB."""
+    from maria_torch.atmosphere.fourier import good_fft_size
+
+    top = good_fft_size(2_880_000)
+    sizes = sorted({r << k for r in (1, 3, 5, 9) for k in range(30) if 16 <= r << k <= top})
+    sizes = [v for v in sizes if good_fft_size(v) == v]
+    assert len(sizes) > 60 and sizes[-1] == top and 65536 in sizes and 196608 in sizes
+    for n_fft in sizes:
+        plan = pink_plan(n_fft)
+        m, n1, n2 = plan["m"], plan["n1"], plan["n2"]
+        assert n1 * n2 == m and odd_part(n1) in (1, 3, 5, 9) and odd_part(n2) in (1, 3, 5, 9)
+        assert len(plan["smem"]) == len(plan["batch"]) == plan["passes"]
+        assert max(plan["smem"]) <= 232_448
+        if plan["passes"] == 1:
+            assert m <= 9216 and plan["batch"] == (1,)
+        else:
+            assert max(plan["smem"]) <= 48 * 1024 and n1 >= n2 and n1 <= 4 * n2
+            assert n2 % plan["batch"][0] == 0 and n1 % plan["batch"][1] == 0
+            assert plan["smem"] == (fft_smem_bytes(n1, plan["batch"][0]), fft_smem_bytes(n2, plan["batch"][1]))
+
+
+def test_pink_noise_plain_matches_jax_reference_at_65536():
+    """At the length past the port's old limit (a 1,200 s scan at 50 Hz,
+    n_fft 65,536), the plain version equals maria_tpu's
+    pink_time_reference for the same draw."""
+    n_fft, n, D = 65536, 60000, 2
+    m = n_fft // 2
+    c = _weights(n_fft)
+    z = np.random.default_rng(5).standard_normal((D, 2, m)).astype(np.float32)
+    ref = np.asarray(pallas_noise.pink_time_reference(jnp.asarray(z), c, n))
+    ours = pink_noise_plain(c, torch.as_tensor(_kernel_layout_to_spectrum(z, m)), n, n_fft).numpy()
+    assert ours.shape == ref.shape == (D, n)
+    np.testing.assert_allclose(ours, ref, atol=2e-4 * float(np.std(ref)))
 
 
 def _pallas_binning_cases():
