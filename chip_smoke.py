@@ -33,10 +33,21 @@ Phases, each of which must pass (any failure exits non-zero):
    same total and its sums within 1e-4 of the map's maximum of the plain
    sums taken in float64, and per band the noise PSD above twice the
    knee within 10% of the process's expected PSD;
-7. K2 bin_map against its plain torch version (index_add_) on N(0, 1)
-   data at the pixel ids of slices (a), (b), (d) and (c) and a random case
-   with -1 ids: hit counts exact, sums within 1e-5 of the map's maximum
-   of the plain sums taken in float64.
+7. K2 bin_map against its plain torch version (index_add_, bincount) on
+   N(0, 1) data at the pixel ids of slices (a), (b), (d) and (c), a
+   random case with -1 ids, six channels at (d)'s ids (channels split
+   over blocks) and (d)'s ids on a 512 x 512 map (global atomics), each
+   as (data, 1) and as data with the in-kernel count: hit counts exact,
+   sums within 1e-5 of the map's maximum of the plain sums taken in
+   float64.
+
+Every kernel is timed (CUDA events, in turns) beside its plain version,
+the PyTorch library call that computes the same function where there is
+one (K1 torch.fft.irfft; K2 torch.bincount or index_add_ on ids filtered
+beforehand; K3 none), and its bound: the larger of its bytes at 3.35 TB/s
+and its operations at their peak rate (K3: the least loop body that meets
+its contract, K3_LEAST_BODY, for every bin pair at the card's issue and
+pipe rates).
 
 The line before the last is the card as nvidia-smi reports it, the one
 before that the kernels' JSON record; the last line is the JSON result.
@@ -56,7 +67,31 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SLICES = {"a": 60.0, "b": 600.0, "d": 1200.0}
 ATLAST_BANDS = 9
 N_MAP = 128
+WARM_REPS = 5  # warm realizations a slice is timed over
 MAP_WIDTH_DEG = 0.25
+# peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes/s, and
+# float32 operations/s outside the tensor cores (67 TFLOP/s, an FMA as two)
+HBM_BYTES_S = 3.35e12
+F32_OPS = 67e12
+# issue slots a second: 132 SMs x 4 sub-partitions x 32 lanes at the clock
+# that gives 67 TFLOP/s (1.98 GHz), one warp instruction a sub-partition a
+# cycle
+LANE_INSTRUCTIONS_S = 67e12 / 2
+# K3's least loop body: the warp instructions one bin pair (a lane) needs
+# to meet K3's contract (Philox4x32-10 on its counter layout, then every
+# element within one bf16 ulp of the plain version), by the pipe that runs
+# them. PERF.md section 6 counts them; tests/test_torch_kernels.py
+# (test_k3_least_body_*) emulates the body against the plain version.
+K3_LEAST_BODY = {"imad": 18, "fp32": 40, "alu": 43, "xu": 8, "other": 6}
+
+
+def k3_least_cycles() -> int:
+    """Cycles that a warp's 32 bin pairs of K3's least body hold one H100
+    SM sub-partition: the larger of issuing them (one a cycle) and each
+    pipe's share (lanes a cycle: FP32 on two FMA pipes of 16, IMAD on one
+    of them; ALU 16; XU, for I2F and MUFU, 4)."""
+    b = K3_LEAST_BODY
+    return max(sum(b.values()), 2 * b["imad"], b["imad"] + b["fp32"], 2 * b["alu"], 8 * b["xu"])
 
 
 def fail(message: str):
@@ -86,10 +121,26 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def paired_ms(plain, kernel) -> tuple:
-    """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain."""
-    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+def paired_ms(plain, kernel, library=None) -> tuple:
+    """(kernel ms, plain ms, library ms or None), timed in turns plain,
+    kernel, library, library, kernel, plain."""
+    p1, k1 = cuda_ms(plain), cuda_ms(kernel)
+    lib = (cuda_ms(library) + cuda_ms(library)) / 2 if library is not None else None
+    k2, p2 = cuda_ms(kernel), cuda_ms(plain)
+    return (k1 + k2) / 2, (p1 + p2) / 2, lib
+
+
+def bound(n_bytes: float, n_ops: float, op_rate: float = F32_OPS) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over their peak rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, n_ops / op_rate * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def timing_line(name: str, r: dict) -> str:
+    lib = f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "none"
+    return (f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library call {lib}; bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}, kernel at {r['bound_ms'] / r['ms']:.1%} of it")
 
 
 def check_pink_noise(device, gen, n_det, n, n_fft):
@@ -110,11 +161,17 @@ def check_pink_noise(device, gen, n_det, n, n_fft):
           f"(limit 2e-4) {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         fail(f"K1 disagrees with its plain version at ({n_det}, {n}, {n_fft})")
-    ms, plain_ms = paired_ms(lambda: pink_noise_plain(c, S, n, n_fft), lambda: pink_noise(c, S, n, n_fft))
+    spectrum = torch.view_as_complex(S)
+    ms, plain_ms, library_ms = paired_ms(lambda: pink_noise_plain(c, S, n, n_fft), lambda: pink_noise(c, S, n, n_fft),
+                                         lambda: torch.fft.irfft(spectrum, n=n_fft))
     plan = pink_plan(n_fft)
-    print(f"K1 pink_noise ({n_det}, {n}, n_fft {n_fft}; {plan['passes']} pass(es), {plan['n1']} x {plan['n2']}, "
-          f"batch {plan['batch']}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [n_det, n, n_fft]}
+    m = n_fft // 2
+    r = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "shape": [n_det, n, n_fft],
+         # the spectrum and the fold's alpha, gamma read, the rows written; an m-point complex FFT a row
+         **bound(S.numel() * 4 + 16 * m + n_det * n * 4, n_det * 5 * m * np.log2(m))}
+    print(timing_line(f"K1 pink_noise ({n_det}, {n}, n_fft {n_fft}; {plan['passes']} pass(es), {plan['n1']} x "
+                      f"{plan['n2']}, batch {plan['batch']}; library call torch.fft.irfft)", r), flush=True)
+    return r
 
 
 def plain_sums64(data, ids, n_pix):
@@ -128,34 +185,71 @@ def plain_sums64(data, ids, n_pix):
     return out.index_add_(0, ids[keep].long(), data[keep].double())
 
 
-def check_bin_map(device, gen, ids, name):
-    """K2 against its plain version: hit counts equal to bin_map_plain's,
-    sums within 1e-5 of the map's maximum of the plain sums taken in
-    float64 (the float32 plain sums' own distance from them is printed)."""
+def check_bin_map(device, gen, ids, name, n_channels=1, n_pix=N_MAP * N_MAP):
+    """K2 against its plain version, in two forms: the channels (data, 1)
+    ("stacked") and the data with the in-kernel count ("count"). In both the last row is the hit count,
+    which must equal bin_map_plain's, and each data channel's sums must
+    lie within 1e-5 of the map's maximum of the plain sums taken in
+    float64 (the float32 plain sums' own distance from them is printed).
+    Beside the kernel and the plain version it times the faster library
+    call: torch.bincount a row, or one index_add_, on ids (int64) and
+    data filtered to the map beforehand. Returns {form: record}."""
     import torch
 
-    from maria_torch.ops.bin_map import bin_map, bin_map_plain
+    from maria_torch.ops.bin_map import bin_map, bin_map_plain, bin_plan
 
-    n_pix = N_MAP * N_MAP
-    data = torch.randn(ids.shape, generator=gen, device=device)
-    channels = torch.stack([data, torch.ones_like(data)]).contiguous()
-    out = bin_map(channels, ids, n_pix)
-    ref = bin_map_plain(channels, ids, n_pix)
-    exact = plain_sums64(data, ids, n_pix)
-    torch.cuda.synchronize()
-    counts_exact = bool(torch.equal(out[1], ref[1]))
-    err = float((out[0] - exact).abs().max())
-    plain_err = float((ref[0] - exact).abs().max())
-    scale = max(float(exact.abs().max()), 1e-30)
-    ok = counts_exact and err <= 1e-5 * scale and float(ref[1].sum()) > 0
-    print(f"K2 bin_map ({name}, {tuple(ids.shape)}): counts exact {counts_exact}, sums max|diff| from the "
-          f"float64 plain sums {err:.3e} = {err / scale:.2e} of max (limit 1e-5; float32 plain "
-          f"{plain_err / scale:.2e}) {'ok' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        fail(f"K2 disagrees with its plain version ({name})")
-    ms, plain_ms = paired_ms(lambda: bin_map_plain(channels, ids, n_pix), lambda: bin_map(channels, ids, n_pix))
-    print(f"K2 bin_map ({name}, {tuple(ids.shape)}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [2, *ids.shape, n_pix]}
+    data = torch.randn((n_channels, *ids.shape), generator=gen, device=device)
+    keep = ((ids >= 0) & (ids < n_pix)).reshape(-1)
+    ids_kept = ids.reshape(-1)[keep].long()
+    exact = [plain_sums64(data[s], ids, n_pix) for s in range(n_channels)]
+    results = {}
+    for form, channels, count in (("stacked", torch.cat([data, torch.ones_like(data[:1])]).contiguous(), False),
+                                  ("count", data, True)):
+        plan = bin_plan(n_pix, channels.shape[0], ids.numel(), count)
+        layout = f"{plan['blocks']} blocks of {plan['span']} samples"
+        if plan["groups"] > 1:
+            layout = (f"{plan['groups'] - 1} x {plan['full_blocks']} blocks of {plan['full_span']} samples, then "
+                      f"{layout}")
+        label = (f"K2 bin_map ({name}, {form}, {n_channels} channel(s) {tuple(ids.shape)} into {n_pix} pixels; "
+                 f"{plan['form']}, {layout})")
+        out = bin_map(channels, ids, n_pix, count=count)
+        ref = bin_map_plain(channels, ids, n_pix, count=count)
+        torch.cuda.synchronize()
+        counts_exact = bool(torch.equal(out[-1], ref[-1])) and float(ref[-1].sum()) > 0
+        scale = max(max(float(e.abs().max()) for e in exact), 1e-30)
+        err = max(float((out[s] - exact[s]).abs().max()) for s in range(n_channels))
+        plain_err = max(float((ref[s] - exact[s]).abs().max()) for s in range(n_channels))
+        ok = counts_exact and err <= 1e-5 * scale
+        print(f"{label}: counts exact {counts_exact}, sums max|diff| from the float64 plain sums {err:.3e} = "
+              f"{err / scale:.2e} of max (limit 1e-5; float32 plain {plain_err / scale:.2e}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail(f"K2 disagrees with its plain version ({name}, {form})")
+
+        rows_kept = channels.reshape(channels.shape[0], -1)[:, keep].contiguous()
+        if count:
+            rows_kept = torch.cat([rows_kept, torch.ones_like(rows_kept[:1])])
+        n_rows = rows_kept.shape[0]
+
+        def by_bincount():
+            return [torch.bincount(ids_kept, weights=rows_kept[s], minlength=n_pix) for s in range(n_rows - count)] + (
+                [torch.bincount(ids_kept, minlength=n_pix)] if count else [])
+
+        def by_index_add():
+            return torch.zeros((n_rows, n_pix), dtype=torch.float32, device=device).index_add_(1, ids_kept, rows_kept)
+
+        ms, plain_ms, bincount_ms = paired_ms(lambda: bin_map_plain(channels, ids, n_pix, count=count),
+                                              lambda: bin_map(channels, ids, n_pix, count=count), by_bincount)
+        index_add_ms = (cuda_ms(by_index_add) + cuda_ms(by_index_add)) / 2
+        r = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": min(bincount_ms, index_add_ms),
+             "shape": [channels.shape[0], *ids.shape, n_pix],
+             # ids and every channel read once, the map and its count written once; an add a sample and row
+             **bound(4 * ids.numel() * (1 + channels.shape[0]) + 4 * n_pix * plan["slots"],
+                     ids.numel() * plan["slots"])}
+        print(timing_line(f"{label}; library call {'bincount' if bincount_ms <= index_add_ms else 'index_add_'} "
+                          f"(bincount {bincount_ms:.4f} ms, index_add_ {index_add_ms:.4f} ms)", r), flush=True)
+        results[form] = r
+    return results
 
 
 def bf16_ulp(x):
@@ -169,7 +263,10 @@ def bf16_ulp(x):
 def check_shared_v(device, gen, n_det, m1, c=None, n_extra=0):
     """K3 against its plain version. With ``n_extra``, it writes V into a
     (1, n_det, 2 m1 + n_extra) buffer, as the noise matrix product's left
-    operand, whose last ``n_extra`` columns must keep their sentinel."""
+    operand, whose last ``n_extra`` columns must keep their sentinel. Its
+    bound: the bytes of V written, or K3's least loop body for every bin
+    pair at the card's issue and pipe rates. No library call draws these
+    bits."""
     import torch
 
     from maria_torch.noise import band_half_spectrum
@@ -201,21 +298,13 @@ def check_shared_v(device, gen, n_det, m1, c=None, n_extra=0):
     print(f"{line} {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         fail(f"{name} disagrees with its plain version")
-    ms, plain_ms = paired_ms(lambda: shared_v_plain(key, c, n_det, out=buf), lambda: shared_v(key, c, n_det, out=buf))
-    print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": [n_det, 2 * m1]}
-
-
-def make_sim(duration, device):
-    import maria_torch
-
-    plan = maria_torch.get_plan(
-        "daisy_5arcmin_60s", start_time=1.75e9, scan_center=(150.0, 41.0), frame="az/el",
-        duration=duration, sample_rate=50.0, scan_options={"radius": 0.083, "speed": 0.017},
-    )
-    return maria_torch.Simulation(
-        instrument="MUSTANG-2", plans=plan, site="GBT", atmosphere="2d", noise=True, seed=0, device=device,
-    )
+    ms, plain_ms, _ = paired_ms(lambda: shared_v_plain(key, c, n_det, out=buf),
+                                lambda: shared_v(key, c, n_det, out=buf))
+    r = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None, "shape": [n_det, 2 * m1],
+         "exact_share": exact,
+         **bound(2 * n_det * 2 * m1 + 4 * m1, k3_least_cycles() * n_det * ((m1 + 1) // 2), LANE_INSTRUCTIONS_S)}
+    print(timing_line(f"{name} (least body: {k3_least_cycles()} issue cycles a bin pair)", r), flush=True)
+    return r
 
 
 def map_tod(tod):
@@ -227,17 +316,14 @@ def map_tod(tod):
     ).run()
 
 
-def slice_pixel_ids(tod, mapper_map):
-    import torch
+def slice_pixel_ids(tod, mapper_map, n_map=N_MAP):
+    """The ids BinMapper bins the slice at, on an n_map x n_map grid over
+    the mapper's width."""
+    from maria_torch.mappers.bin_mapper import azel_pixel_ids
 
-    from maria_torch.coords import phi_theta_to_offsets
-    from maria_torch.mappers.bin_mapper import pixel_ids
-
-    az, el = tod.pointing.det_azel(device=tod.device)
-    offs = phi_theta_to_offsets(torch.stack([az, el], dim=-1), *np.radians(mapper_map.center))
-    res = np.radians(mapper_map.resolution)
-    x0 = y0 = -(N_MAP - 1) / 2 * res
-    return pixel_ids(offs[..., 0], offs[..., 1], x0, y0, res, N_MAP, N_MAP).contiguous()
+    res = np.radians(mapper_map.resolution) * N_MAP / n_map
+    return azel_pixel_ids(tod.pointing, np.radians(mapper_map.center), res, n_map, n_map,
+                          device=tod.device).contiguous()
 
 
 def check_noise_psd(sim, tod_pw):
@@ -278,9 +364,10 @@ def run_slice(label, duration, device):
 
     from maria_torch.ops.bin_map import bin_map
     from maria_torch.ops.pink_noise import pink_noise
+    from maria_torch.scenes import simulation
 
     s = time.perf_counter()
-    sim = make_sim(duration, device)
+    sim = simulation("mustang2", duration, device)
     sim.program()
     print(f"slice ({label}) {duration:.0f} s: scene setup {time.perf_counter() - s:.2f} s", flush=True)
 
@@ -312,16 +399,19 @@ def run_slice(label, duration, device):
     if not ok:
         fail(f"slice ({label}) output check")
 
-    s = time.perf_counter()
-    tod = sim.run()[0]
-    torch.cuda.synchronize()
-    warm_run = time.perf_counter() - s
-    s = time.perf_counter()
-    map_tod(tod)
-    torch.cuda.synchronize()
-    warm_map = time.perf_counter() - s
-    print(f"slice ({label}): warm run() {warm_run * 1e3:.2f} ms, warm BinMapper.run() {warm_map * 1e3:.2f} ms "
-          f"({n_det * n_t} samples)", flush=True)
+    run_ms, map_ms = [], []
+    for _ in range(WARM_REPS):
+        s = time.perf_counter()
+        tod = sim.run()[0]
+        torch.cuda.synchronize()
+        run_ms.append((time.perf_counter() - s) * 1e3)
+        s = time.perf_counter()
+        map_tod(tod)
+        torch.cuda.synchronize()
+        map_ms.append((time.perf_counter() - s) * 1e3)
+    print(f"slice ({label}): warm run() {np.mean(run_ms):.2f} ms, warm BinMapper.run() {np.mean(map_ms):.2f} ms "
+          f"(means of {WARM_REPS}; {[round(x, 2) for x in run_ms]}, {[round(x, 2) for x in map_ms]}; "
+          f"{n_det * n_t} samples)", flush=True)
 
     if not check_noise_psd(sim, sim.run(units="pW")[0]):
         fail(f"slice ({label}) noise PSD")
@@ -364,25 +454,19 @@ def check_total_noise_psd(program, device, gen):
     return ok
 
 
-def run_atlast(device, instrument="AtLAST-50k", duration=60.0, n_det=5556 * ATLAST_BANDS):
+def run_atlast(device, duration=60.0, n_det=5556 * ATLAST_BANDS):
     """Slice (c): the AtLAST-50k total-power path (bench.py's config_b)."""
     import torch
 
-    import maria_torch
     from maria_torch.mappers.bin_mapper import bin_total, field_pixel_ids
     from maria_torch.noise.dft import gemm_form
     from maria_torch.ops.bin_map import bin_map, bin_map_plain
     from maria_torch.ops.pink_noise import pink_noise
     from maria_torch.ops.shared_v import shared_v
+    from maria_torch.scenes import simulation
 
     s = time.perf_counter()
-    plan = maria_torch.get_plan(
-        "daisy_5arcmin_60s", start_time=1.75e9, scan_center=(150.0, 41.0), frame="az/el",
-        duration=duration, sample_rate=50.0, scan_options={"radius": 0.5, "speed": 0.25},
-    )
-    sim = maria_torch.Simulation(
-        instrument=instrument, plans=plan, site="ALMA", atmosphere="3d", noise=True, seed=0, device=device,
-    )
+    sim = simulation("atlast", duration, device)
     program = sim.program()
     fn = program.total_power_fn()
     obs = sim.obs_list[0]
@@ -441,7 +525,7 @@ def run_atlast(device, instrument="AtLAST-50k", duration=60.0, n_det=5556 * ATLA
         fail("slice (c) map disagrees with the plain version")
 
     del total, sums, hits, ref_hits, exact
-    reps = 3
+    reps = WARM_REPS
     total_ms, map_ms = [], []
     for _ in range(reps):
         s = time.perf_counter()
@@ -514,6 +598,14 @@ def main() -> int:
     del ids_c
     ids = torch.randint(-1, N_MAP * N_MAP, (217, 3000), generator=gen, device=device, dtype=torch.int32)
     k2["random"] = check_bin_map(device, gen, ids, "random ids with -1")
+    tod_d, map_d, _ = results["d"]
+    k2["six"] = check_bin_map(device, gen, slice_pixel_ids(tod_d, map_d), "slice d ids", n_channels=6)
+    k2["512"] = check_bin_map(device, gen, slice_pixel_ids(tod_d, map_d, n_map=512), "slice d ids, 512 x 512",
+                              n_pix=512 * 512)
+    for key, r in k2.items():
+        for form, x in r.items():
+            print(f"K2 summary {key} {form}: {x['ms']:.4f} ms, library {x['library_ms']:.4f} ms, bound "
+                  f"{x['bound_ms']:.4f} ms ({x['bound_ms'] / x['ms']:.1%}), plain {x['plain_ms']:.4f} ms", flush=True)
 
     launches_b = results["b"][2]
     kernels_line = {"kernels": [
@@ -522,7 +614,7 @@ def main() -> int:
          **k1[(30000, 32768)]},
         {"name": "bin_map", "route": "cuda", "source": "maria_torch/csrc/bin_map.cu",
          "replaces": "maria_tpu/ops/pallas_binning.py:119", "launches": launches_b["bin_map"],
-         **k2["b"]},
+         **k2["b"]["stacked"]},
         {"name": "shared_v", "route": "cuda", "source": "maria_torch/csrc/shared_v.cu",
          "replaces": "maria_tpu/ops/pallas_noise.py:427", "launches": launches_c["shared_v"],
          **k3[5556 * ATLAST_BANDS]},

@@ -21,7 +21,7 @@ from ..coords import phi_theta_to_offsets
 from ..ops.bin_map import bin_map
 from .base import BaseProjectionMapper
 
-__all__ = ["BinMapper", "bin_total", "field_pixel_ids", "pixel_ids"]
+__all__ = ["BinMapper", "azel_pixel_ids", "bin_total", "field_pixel_ids", "pixel_ids"]
 
 
 def pixel_ids(dx, dy, x0: float, y0: float, res: float, n_x: int, n_y: int):
@@ -31,6 +31,16 @@ def pixel_ids(dx, dy, x0: float, y0: float, res: float, n_x: int, n_y: int):
     iy = torch.round((dy - y0) / res).to(torch.int32)
     inside = (ix >= 0) & (ix < n_x) & (iy >= 0) & (iy < n_y)
     return torch.where(inside, iy * n_x + ix, torch.full_like(ix, -1))
+
+
+def azel_pixel_ids(pointing, center, res: float, n_x: int, n_y: int, device=None):
+    """Flat int32 ids (n_det, n_t) at which BinMapper(frame="az/el") bins
+    a TOD of this ``pointing``: an n_x x n_y map of pixels ``res``
+    (radians) wide centred on ``center`` (az, el in radians), -1 outside."""
+    az, el = pointing.det_azel(device=device)
+    offsets = phi_theta_to_offsets(torch.stack([az, el], dim=-1), *center)
+    x0, y0 = -(n_x - 1) / 2 * res, -(n_y - 1) / 2 * res
+    return pixel_ids(offsets[..., 0], offsets[..., 1], x0, y0, res, n_x, n_y)
 
 
 def field_pixel_ids(boresight, offsets, n_x: int = 128, n_y: int = 128, device=None):
@@ -53,10 +63,9 @@ def field_pixel_ids(boresight, offsets, n_x: int = 128, n_y: int = 128, device=N
 
 
 def bin_total(total, ids, n_pix: int):
-    """(sums, hits), each (n_pix,) float32: kernel K2 over the channels
-    (total, 1) at the flat pixel ids."""
-    channels = torch.stack([total, torch.ones_like(total)]).contiguous()
-    sums, hits = bin_map(channels, ids, n_pix)
+    """(sums, hits), each (n_pix,) float32: kernel K2 over the total at
+    the flat pixel ids, with its in-kernel hit count."""
+    sums, hits = bin_map(total.contiguous()[None], ids, n_pix, count=True)
     return sums, hits
 
 
@@ -65,16 +74,12 @@ class BinMapper(BaseProjectionMapper):
         n_s, n_nu, n_t = len(self.stokes), len(self.nu), self.t_bins
         n_pix = self.n_x * self.n_y
         stokes_idx = ["IQUV".index(s) for s in self.stokes]
-        x0 = -(self.n_x - 1) / 2 * self.res
-        y0 = -(self.n_y - 1) / 2 * self.res
         sums = np.zeros((n_s, n_nu, n_t, n_pix))
         wgts = np.zeros_like(sums)
 
         for tod in self.tods:
             device = tod.device
-            az, el = tod.pointing.det_azel(device=device)
-            offsets = phi_theta_to_offsets(torch.stack([az, el], dim=-1), *self.center)
-            ids_all = pixel_ids(offsets[..., 0], offsets[..., 1], x0, y0, self.res, self.n_x, self.n_y)
+            ids_all = azel_pixel_ids(tod.pointing, self.center, self.res, self.n_x, self.n_y, device=device)
             t_index = np.digitize(np.asarray(tod.time), self.t_edges) - 1
             data, weight = tod.signal, tod.weight
 

@@ -92,7 +92,7 @@ def load() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.maria_pink_noise.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.maria_pink_noise.restype = i
-    lib.maria_bin_map.argtypes = [p, p, p, ll, i, i, i, p]
+    lib.maria_bin_map.argtypes = [p, p, p, ll, i, i, i, i, i, i, i, i, ll, i, ll, p]
     lib.maria_bin_map.restype = i
     lib.maria_shared_v.argtypes = [p, p, p, i, i, i, ll, i, p]
     lib.maria_shared_v.restype = i

@@ -26,6 +26,9 @@ _M32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 _TWO_PI = float(np.float32(2 * np.pi))
+ROWS_A_BLOCK = 8  # warps of the kernel's 256-thread block, one row each
+BLOCKS_PER_SM = 8
+N_SM = 132  # an H100 SXM's streaming multiprocessors
 
 
 def draw_key(generator=None, device=None):
@@ -145,12 +148,13 @@ def shared_v(key, c, n_det: int, batch: int = 1, out=None):
         raise ValueError(f"key must be a contiguous int64 (2,) tensor, got {key.dtype} {tuple(key.shape)}")
     m1 = len(np.asarray(c))
     buf = _out_buffer(out, batch, n_det, m1, key.device)
-    n_items = batch * n_det * ((m1 + 1) // 2)
-    if n_items == 0:
+    n_rows = batch * n_det
+    if n_rows == 0 or m1 == 0:
         return buf[..., : 2 * m1]
     c_dev = _c_tensor(c, key.device)
     lib = kernels.load()
-    n_blocks = int(min(-(-n_items // 256), 132 * 32))
+    # one warp a row, ROWS_A_BLOCK rows a block, at most BLOCKS_PER_SM blocks an SM
+    n_blocks = int(min(-(-n_rows // ROWS_A_BLOCK), BLOCKS_PER_SM * N_SM))
     stream = torch.cuda.current_stream(key.device).cuda_stream
     code = lib.maria_shared_v(
         key.data_ptr(), c_dev.data_ptr(), buf.data_ptr(), batch, n_det, m1, buf.shape[2], n_blocks, stream,

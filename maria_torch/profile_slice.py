@@ -45,9 +45,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA card")
 
-    import maria_torch
     from maria_torch.mappers import BinMapper
     from maria_torch.mappers.bin_mapper import bin_total, field_pixel_ids
+    from maria_torch.scenes import SCENES, simulation
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -55,14 +55,8 @@ def main(argv=None) -> int:
     ).stdout.strip()
     device = torch.device("cuda")
     atlast = args.scene == "atlast"
-    plan = maria_torch.get_plan(
-        "daisy_5arcmin_60s", start_time=1.75e9, scan_center=(150.0, 41.0), frame="az/el",
-        duration=args.duration, sample_rate=50.0,
-        scan_options={"radius": 0.5, "speed": 0.25} if atlast else {"radius": 0.083, "speed": 0.017},
-    )
-    scene = dict(instrument="AtLAST-50k", site="ALMA", atmosphere="3d") if atlast else \
-        dict(instrument="MUSTANG-2", site="GBT", atmosphere="2d")
-    sim = maria_torch.Simulation(plans=plan, noise=True, seed=0, device=device, **scene)
+    scene = SCENES[args.scene]
+    sim = simulation(args.scene, args.duration, device)
     program = sim.program()
     gen = sim.generator
     n = program.n_det * program.n_t

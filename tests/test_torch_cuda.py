@@ -56,18 +56,40 @@ def test_pink_noise_kernel_matches_plain(cuda_device, n_det, n, n_fft):
 
 
 @pytest.mark.cuda
-def test_bin_map_kernel_matches_plain(cuda_device):
+@pytest.mark.parametrize("count", [False, True])
+@pytest.mark.parametrize(
+    "form,n_channels,n_det,n_t,n_pix",
+    [("private", 1, 217, 3000, 128 * 128), ("private", 2, 217, 3001, 128 * 128), ("split", 6, 64, 2003, 128 * 128),
+     ("split", 6, 217, 10000, 128 * 128), ("global", 2, 64, 2000, 512 * 512)],
+)
+def test_bin_map_kernel_matches_plain(cuda_device, form, n_channels, n_det, n_t, n_pix, count):
+    """K2 against its plain version on every bin_plan form, with and
+    without the in-kernel count (the split form also where its full groups'
+    launch takes fewer blocks than its last group's), on ids in runs of ~5
+    samples (as a scan gives them) with -1 runs and ids >= n_pix: counts
+    exactly, sums within 1e-5 of the map's maximum of the plain sums taken
+    in float64."""
+    from maria_torch.ops.bin_map import bin_plan
+
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    ids = torch.randint(-1, 128 * 128, (217, 3000), generator=gen, device=cuda_device, dtype=torch.int32)
-    data = torch.randn((217, 3000), generator=gen, device=cuda_device)
-    channels = torch.stack([data, torch.ones_like(data)]).contiguous()
+    n = n_det * n_t
+    runs = torch.randint(-1, n_pix + 64, (n // 5 + 1,), generator=gen, device=cuda_device, dtype=torch.int32)
+    ids = runs.repeat_interleave(5)[:n].reshape(n_det, n_t).contiguous()
+    data = torch.randn((n_channels, n_det, n_t), generator=gen, device=cuda_device)
+    channels = data if count else torch.cat([data, torch.ones_like(data[:1])]).contiguous()
+    assert bin_plan(n_pix, channels.shape[0], n, count)["form"] == form
     before = bin_map.launches
-    out = bin_map(channels, ids, 128 * 128)
-    ref = bin_map_plain(channels, ids, 128 * 128)
+    out = bin_map(channels, ids, n_pix, count=count)
+    ref = bin_map_plain(channels, ids, n_pix, count=count)
     torch.cuda.synchronize()
     assert bin_map.launches == before + 1
-    assert torch.equal(out[1], ref[1])
-    assert float((out[0] - ref[0]).abs().max()) <= 1e-5 * float(ref[0].abs().max())
+    assert out.shape == ref.shape == (n_channels + 1, n_pix)
+    assert torch.equal(out[-1], ref[-1]) and float(ref[-1].sum()) > 0
+    keep = (ids >= 0) & (ids < n_pix)
+    for s in range(n_channels):
+        exact = torch.zeros(n_pix, dtype=torch.float64, device=cuda_device)
+        exact.index_add_(0, ids[keep].long(), data[s][keep].double())
+        assert float((out[s] - exact).abs().max()) <= 1e-5 * float(exact.abs().max())
 
 
 @pytest.mark.cuda
@@ -132,6 +154,25 @@ def test_shared_v_kernel_matches_plain(cuda_device, n_det, m1):
     assert V.shape == (n_det, 2 * m1)
     assert bool(((V - ref).abs() <= _bf16_ulp(torch.maximum(V.abs(), ref.abs()))).all())
     assert float((V == ref).float().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m1,gap", [(1537, 0), (1537, 1), (1536, 1), (257, 7)])
+def test_shared_v_kernel_into_strided_operand(cuda_device, m1, gap):
+    """K3 written into a wider operand of row stride 2 m1 + gap (even and
+    odd strides, odd and even m1): every element within one bf16 ulp of
+    the plain version, and the columns from 2 m1 on untouched."""
+    n_det = 4099
+    c = band_half_spectrum(50.0, 0.5, 1.0, 2 * (m1 - 1), corr_prop=0.5)
+    key = draw_key(torch.Generator(device=cuda_device).manual_seed(1), cuda_device)
+    sentinel = -12288.0
+    buf = torch.full((1, n_det, 2 * m1 + gap), sentinel, dtype=torch.bfloat16, device=cuda_device)
+    V = shared_v(key, c, n_det, out=buf)[0].float()
+    ref = shared_v_plain(key, c, n_det)[0].float()
+    torch.cuda.synchronize()
+    assert bool(((V - ref).abs() <= _bf16_ulp(torch.maximum(V.abs(), ref.abs()))).all())
+    assert float((V == ref).float().mean()) >= 0.99
+    assert bool((buf[0, :, 2 * m1:] == sentinel).all())
 
 
 def _atlast_scene(device):
