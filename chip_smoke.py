@@ -33,7 +33,17 @@ Phases, each of which must pass (any failure exits non-zero):
    same total and its sums within 1e-4 of the map's maximum of the plain
    sums taken in float64, and per band the noise PSD above twice the
    knee within 10% of the process's expected PSD;
-7. K2 bin_map against its plain torch version (index_add_, bincount) on
+7. slices (e) and (f), the MUSTANG-2 main path of phase 5 with the 2-D
+   autoregressive atmosphere (atmosphere_kwargs={"method": "ar"}) at 60 s
+   and 600 s, held as there, the AR kernel launched once a run();
+8. slice (g), slice (c)'s path with the 3-D AR atmosphere (12 layers
+   stacked in one process), held as there, the AR kernel launched once a
+   total;
+9. the AR kernel ar_extrude against its plain torch loop on the same
+   draws, for the processes of (e), (f) and (g), each set in one launch
+   (A and B in shared memory at (e) and (f), through L2 at (g)): every
+   screen within 1e-4 of its std;
+10. K2 bin_map against its plain torch version (index_add_, bincount) on
    N(0, 1) data at the pixel ids of slices (a), (b), (d) and (c), a
    random case with -1 ids, six channels at (d)'s ids (channels split
    over blocks) and (d)'s ids on a 512 x 512 map (global atomics), each
@@ -44,10 +54,12 @@ Phases, each of which must pass (any failure exits non-zero):
 Every kernel is timed (CUDA events, in turns) beside its plain version,
 the PyTorch library call that computes the same function where there is
 one (K1 torch.fft.irfft; K2 torch.bincount or index_add_ on ids filtered
-beforehand; K3 none), and its bound: the larger of its bytes at 3.35 TB/s
-and its operations at their peak rate (K3: the least loop body that meets
-its contract, K3_LEAST_BODY, for every bin pair at the card's issue and
-pipe rates).
+beforehand; K3 and the AR kernel none), and its bound: the larger of its
+bytes at 3.35 TB/s and its operations at their peak rate (K3: the least
+loop body that meets its contract, K3_LEAST_BODY, for every bin pair at
+the card's issue and pipe rates; the AR kernel: the latency of its chain
+of dependent steps, ``ar_bound``, from an FMA latency and a one-warp
+block's barrier probed on the card in the same run).
 
 The line before the last is the card as nvidia-smi reports it, the one
 before that the kernels' JSON record; the last line is the JSON result.
@@ -65,6 +77,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SLICES = {"a": 60.0, "b": 600.0, "d": 1200.0}
+AR_SLICES = {"e": 60.0, "f": 600.0}  # MUSTANG-2 with the 2-D AR atmosphere
 ATLAST_BANDS = 9
 N_MAP = 128
 WARM_REPS = 5  # warm realizations a slice is timed over
@@ -307,6 +320,79 @@ def check_shared_v(device, gen, n_det, m1, c=None, n_extra=0):
     return r
 
 
+def ar_bound(processes, lat) -> dict:
+    """The AR kernel's bound: the larger of its bytes (operators, gather
+    offsets and innovations read once, the buffer read and written once)
+    at 3.35 TB/s and its latency: each process's chain of n_steps
+    dependent steps, a step at least one block barrier plus one
+    n_cross x (n_sample + n_cross) dot (B lower triangular), the dot no
+    faster than its dependent depth (one FMA, then a tree of adds: 1 +
+    ceil(log2(n_sample + n_cross)) dependent FMAs) nor than its FMAs at
+    the card's float32 peak. ``lat`` holds a dependent FMA's latency and
+    a barrier's in a block of one warp (PROBE_THREADS, whatever block the
+    kernel launches), probed on the card in this run."""
+    n_bytes, latency_ms = 0, 0.0
+    for p in processes:
+        n_c, n_s = p.n_cross_section, p.n_sample
+        n_fma = n_c * n_s + n_c * (n_c + 1) // 2
+        depth_ns = (1 + int(np.ceil(np.log2(n_s + n_c)))) * lat["fma_ns"]
+        step_ns = lat["barrier_ns"] + max(depth_ns, 2 * n_fma / F32_OPS * 1e9)
+        latency_ms = max(latency_ms, p.n_steps * step_ns * 1e-6)
+        n_bytes += 4 * (n_fma + n_s + p.n_steps * n_c + 2 * p.n_buffer * n_c)
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    return {"bound_ms": max(t_bytes, latency_ms), "bound_by": "bytes" if t_bytes >= latency_ms else "operations",
+            "latency_bound_ms": latency_ms, "bytes_bound_ms": t_bytes}
+
+
+def check_ar_extrude(device, gen, label, processes):
+    """The AR kernel, one launch for ``processes``, against its plain
+    version (a torch loop a process) on the same draws: every screen
+    within 1e-4 of its std. Times both (CUDA events in turns plain,
+    kernel, kernel, plain; 20 kernel launches, 2 plain calls a turn) beside
+    ``ar_bound``. No PyTorch call computes this recurrence."""
+    import torch
+
+    from maria_torch.ops.ar_extrude import PROBE_THREADS, ar_extrude, ar_extrude_reference, ar_plan, probe_latencies
+
+    plan = ar_plan(processes, device)
+    draws = [p.draw(gen, device) for p in processes]
+    buffers, noises = [d[0] for d in draws], [d[1] for d in draws]
+    tabs = [p.tensors(device) for p in processes]
+
+    def plain():
+        return [ar_extrude_reference(t["A"], t["B"], b, t["ext_idx"], t["cross_idx"], e)[: p.n_extrusion]
+                for p, t, b, e in zip(processes, tabs, buffers, noises)]
+
+    def kernel():
+        return ar_extrude(processes, buffers, noises, plan=plan)
+
+    before = ar_extrude.launches
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    launched = ar_extrude.launches - before
+    errs = [float((o - r).abs().max()) for o, r in zip(out, ref)]
+    rel = max(e / float(r.std()) for e, r in zip(errs, ref))
+    ok = launched == 1 and all(bool(torch.isfinite(o).all()) for o in out) and rel <= 1e-4
+    shapes = [(p.n_extrusion, p.n_cross_section, p.n_sample) for p in processes]
+    staged = f"{sum(plan['staged'])} of {len(processes)} with A and B in shared memory"
+    name = (f"AR ar_extrude ({label}: {len(processes)} process(es) in one launch of {plan['threads']} threads a "
+            f"block, {plan['smem']} B shared memory, {staged}; n_extrusion x n_cross x n_sample {shapes})")
+    print(f"{name}: {launched} launch, max|diff| {max(errs):.3e} = {rel:.2e} of the screen's std (limit 1e-4) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"the AR kernel disagrees with its plain version ({label})")
+    p1, k1 = cuda_ms(plain, reps=2), cuda_ms(kernel)
+    k2, p2 = cuda_ms(kernel), cuda_ms(plain, reps=2)
+    lat = probe_latencies(device)
+    r = {"max_abs_err": max(errs), "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": None,
+         "shape": shapes, "steps": max(p.n_steps for p in processes), **lat, **ar_bound(processes, lat)}
+    print(timing_line(f"{name} (longest chain {r['steps']} steps; probed: dependent FMA {lat['fma_ns']:.3f} ns, "
+                      f"barrier of {PROBE_THREADS} threads {lat['barrier_ns']:.3f} ns; latency bound "
+                      f"{r['latency_bound_ms']:.4f} ms, bytes {r['bytes_bound_ms']:.4f} ms; no library call)", r),
+          flush=True)
+    return r
+
+
 def map_tod(tod):
     import maria_torch
 
@@ -359,20 +445,23 @@ def check_noise_psd(sim, tod_pw):
     return ok
 
 
-def run_slice(label, duration, device):
+def run_slice(label, duration, device, method="fourier"):
     import torch
 
+    from maria_torch.ops.ar_extrude import ar_extrude
     from maria_torch.ops.bin_map import bin_map
     from maria_torch.ops.pink_noise import pink_noise
     from maria_torch.scenes import simulation
 
     s = time.perf_counter()
-    sim = simulation("mustang2", duration, device)
-    sim.program()
-    print(f"slice ({label}) {duration:.0f} s: scene setup {time.perf_counter() - s:.2f} s", flush=True)
+    sim = simulation("mustang2", duration, device, method=method)
+    program = sim.program()
+    print(f"slice ({label}) {duration:.0f} s, {method} atmosphere: scene setup {time.perf_counter() - s:.2f} s"
+          + (f" ({len(program.ar_processes)} AR processes, n_extrusion x n_cross x n_sample "
+             f"{[(p.n_extrusion, p.n_cross_section, p.n_sample) for p in program.ar_processes]})"
+             if method == "ar" else ""), flush=True)
 
-    pink_noise.launches = 0
-    bin_map.launches = 0
+    pink_noise.launches = bin_map.launches = ar_extrude.launches = 0
     s = time.perf_counter()
     tod = sim.run()[0]
     torch.cuda.synchronize()
@@ -381,7 +470,7 @@ def run_slice(label, duration, device):
     out_map = map_tod(tod)
     torch.cuda.synchronize()
     map_s = time.perf_counter() - s
-    launches = {"pink_noise": pink_noise.launches, "bin_map": bin_map.launches}
+    launches = {"pink_noise": pink_noise.launches, "bin_map": bin_map.launches, "ar_extrude": ar_extrude.launches}
     print(f"slice ({label}): first run() {run_s:.3f} s, first BinMapper.run() {map_s:.3f} s, "
           f"main-path launches {launches}", flush=True)
 
@@ -392,6 +481,7 @@ def run_slice(label, duration, device):
     ok &= tuple(out_map.data.shape) == (1, 1, 1, N_MAP, N_MAP)
     ok &= bool(torch.isfinite(out_map.data).all()) and float(out_map.weight[..., N_MAP // 2, N_MAP // 2].min()) > 0
     ok &= launches["pink_noise"] > 0 and launches["bin_map"] > 0
+    ok &= launches["ar_extrude"] == (1 if method == "ar" else 0)
     print(f"slice ({label}): TOD {tod.shape} {tod.fields} in {tod.units}, atmosphere mean "
           f"{float(tod.data['atmosphere'].mean()):.3f} K_RJ, noise std {float(tod.data['noise'].std()):.3e} K_RJ, "
           f"map {tuple(out_map.data.shape)} centre weight {float(out_map.weight[..., N_MAP // 2, N_MAP // 2].min()):.0f} "
@@ -415,10 +505,10 @@ def run_slice(label, duration, device):
 
     if not check_noise_psd(sim, sim.run(units="pW")[0]):
         fail(f"slice ({label}) noise PSD")
-    return tod, out_map, launches
+    return tod, out_map, launches, program
 
 
-def check_total_noise_psd(program, device, gen):
+def check_total_noise_psd(program, device, gen, label):
     """Per band, the mean periodogram of the matrix-product noise (A = 0)
     in bins above twice the knee against the process's expected PSD."""
     import torch
@@ -447,65 +537,76 @@ def check_total_noise_psd(program, device, gen):
         ratios = [float(measured[(f >= lo) & (f < hi)].mean() / expected[(f >= lo) & (f < hi)].mean())
                   for lo, hi in zip(edges[:-1], edges[1:])]
         worst = max(worst, max(abs(r - 1) for r in ratios))
-        print(f"slice (c) noise PSD / expected, {band.name}, bins {np.round(edges, 2).tolist()} Hz: "
+        print(f"slice ({label}) noise PSD / expected, {band.name}, bins {np.round(edges, 2).tolist()} Hz: "
               f"{[round(r, 4) for r in ratios]}", flush=True)
     ok = worst <= 0.10
-    print(f"slice (c) noise PSD: worst |ratio - 1| {worst:.4f} (limit 10%) {'ok' if ok else 'FAIL'}", flush=True)
+    print(f"slice ({label}) noise PSD: worst |ratio - 1| {worst:.4f} (limit 10%) {'ok' if ok else 'FAIL'}", flush=True)
     return ok
 
 
-def run_atlast(device, duration=60.0, n_det=5556 * ATLAST_BANDS):
-    """Slice (c): the AtLAST-50k total-power path (bench.py's config_b)."""
+def run_atlast(device, label="c", method="fourier", duration=60.0, n_det=5556 * ATLAST_BANDS):
+    """Slices (c) and (g): the AtLAST-50k total-power path (bench.py's
+    config_b), with the 3-D Fourier or AR atmosphere."""
     import torch
 
     from maria_torch.mappers.bin_mapper import bin_total, field_pixel_ids
     from maria_torch.noise.dft import gemm_form
+    from maria_torch.ops.ar_extrude import ar_extrude
     from maria_torch.ops.bin_map import bin_map, bin_map_plain
     from maria_torch.ops.pink_noise import pink_noise
     from maria_torch.ops.shared_v import shared_v
     from maria_torch.scenes import simulation
 
     s = time.perf_counter()
-    sim = simulation("atlast", duration, device)
+    sim = simulation("atlast", duration, device, method=method)
     program = sim.program()
     fn = program.total_power_fn()
     obs = sim.obs_list[0]
     ids, n_pix = field_pixel_ids(obs.boresight, obs.offsets, N_MAP, N_MAP, device=device)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - s
-    g = program.groups[0]
-    print(f"slice (c) AtLAST-50k {duration:.0f} s: host setup {setup_s:.2f} s ({program.n_det} detectors x {program.n_t} "
-          f"samples, {len(program.t_coarse)} coarse steps, {len(g.heights)} layers on a {g.ny} x {g.nx} grid, "
-          f"{g.W.shape[0]} kz nodes; noise matmul {program.use_noise_matmul()}, shared shape "
-          f"{program._noise_matmul_specs()[3] is not None}, GEMM form {gemm_form(device)})", flush=True)
+    if method == "ar":
+        (p,) = program.ar_processes
+        atmosphere = (f"{len(program.screens)} layers stacked in one AR process of n_extrusion {p.n_extrusion}, "
+                      f"n_cross {p.n_cross_section}, n_sample {p.n_sample}")
+    else:
+        g = program.groups[0]
+        atmosphere = f"{len(g.heights)} layers on a {g.ny} x {g.nx} grid, {g.W.shape[0]} kz nodes"
+    print(f"slice ({label}) AtLAST-50k {duration:.0f} s, {method} atmosphere: host setup {setup_s:.2f} s "
+          f"({program.n_det} detectors x {program.n_t} samples, {len(program.t_coarse)} coarse steps, {atmosphere}; "
+          f"noise matmul {program.use_noise_matmul()}, shared shape {program._noise_matmul_specs()[3] is not None}, "
+          f"GEMM form {gemm_form(device)})", flush=True)
 
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    pink_noise.launches = shared_v.launches = bin_map.launches = 0
+    pink_noise.launches = shared_v.launches = bin_map.launches = ar_extrude.launches = 0
     s = time.perf_counter()
     total = fn(generator=sim.generator, device=device)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - s
-    launches_total = {"shared_v": shared_v.launches, "pink_noise": pink_noise.launches}
+    launches_total = {"shared_v": shared_v.launches, "pink_noise": pink_noise.launches,
+                      "ar_extrude": ar_extrude.launches}
     s = time.perf_counter()
     sums, hits = bin_total(total, ids, n_pix)
     torch.cuda.synchronize()
     map_s = time.perf_counter() - s
-    launches = {"pink_noise": pink_noise.launches, "shared_v": shared_v.launches, "bin_map": bin_map.launches}
+    launches = {"pink_noise": pink_noise.launches, "shared_v": shared_v.launches, "bin_map": bin_map.launches,
+                "ar_extrude": ar_extrude.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if torch.device(device).type == "cuda" else float("nan")
     centre = (N_MAP // 2) * N_MAP + N_MAP // 2
     ok = tuple(total.shape) == (program.n_det, program.n_t) == (n_det, int(round(duration * 50.0)))
     ok &= total.dtype == torch.float32 and total.device.type == torch.device(device).type
-    ok &= bool(torch.isfinite(total).all()) and launches_total == {"shared_v": 1, "pink_noise": 0}
+    ok &= bool(torch.isfinite(total).all())
+    ok &= launches_total == {"shared_v": 1, "pink_noise": 0, "ar_extrude": 1 if method == "ar" else 0}
     ok &= launches["bin_map"] == 1 and float(hits[centre]) > 0
     ok &= float(hits.double().sum()) == program.n_det * program.n_t
-    print(f"slice (c): first total_power_fn() {cold_s:.3f} s, first binning {map_s:.3f} s, main-path launches "
+    print(f"slice ({label}): first total_power_fn() {cold_s:.3f} s, first binning {map_s:.3f} s, main-path launches "
           f"{launches}; total {tuple(total.shape)} {total.dtype} on {total.device.type}, mean "
           f"{float(total.mean()):.4f} pW, std {float(total.std()):.4f} pW; centre pixel hits {float(hits[centre]):.0f}; "
           f"peak device memory {peak_gb:.2f} GB (pixel ids and program tables included) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        fail("slice (c) output check")
+        fail(f"slice ({label}) output check")
 
     # the main path's map against the plain binning of the same total.
     # Sums of ~3e4 positive samples a pixel, added in float32 in atomic
@@ -518,11 +619,11 @@ def run_atlast(device, duration=60.0, n_det=5556 * ATLAST_BANDS):
     scale = float(exact.abs().max())
     map_err = float((sums - exact).abs().max())
     ok = hits_exact and map_err <= 1e-4 * scale
-    print(f"slice (c) map against the plain binning of the same total: hits exact {hits_exact}, sums max|diff| "
+    print(f"slice ({label}) map against the plain binning of the same total: hits exact {hits_exact}, sums max|diff| "
           f"from the float64 plain sums {map_err:.3e} = {map_err / scale:.2e} of max (limit 1e-4) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        fail("slice (c) map disagrees with the plain version")
+        fail(f"slice ({label}) map disagrees with the plain version")
 
     del total, sums, hits, ref_hits, exact
     reps = WARM_REPS
@@ -539,12 +640,12 @@ def run_atlast(device, duration=60.0, n_det=5556 * ATLAST_BANDS):
         del total
     t_ms, m_ms = float(np.mean(total_ms)), float(np.mean(map_ms))
     n_samples = program.n_det * program.n_t
-    print(f"slice (c): warm total_power_fn() {t_ms:.2f} ms, warm binning {m_ms:.2f} ms (means of {reps}; "
+    print(f"slice ({label}): warm total_power_fn() {t_ms:.2f} ms, warm binning {m_ms:.2f} ms (means of {reps}; "
           f"{[round(x, 2) for x in total_ms]}, {[round(x, 2) for x in map_ms]}), "
           f"{n_samples / ((t_ms + m_ms) * 1e-3):.4e} samples/s, GEMM form {gemm_form(device)}", flush=True)
 
-    if not check_total_noise_psd(program, device, sim.generator):
-        fail("slice (c) noise PSD")
+    if not check_total_noise_psd(program, device, sim.generator, label):
+        fail(f"slice ({label}) noise PSD")
     return launches, program, ids
 
 
@@ -587,18 +688,27 @@ def main() -> int:
     results = {}
     for label, duration in SLICES.items():
         results[label] = run_slice(label, duration, device)
+    for label, duration in AR_SLICES.items():
+        results[label] = run_slice(label, duration, device, method="ar")
     launches_c, program_c, ids_c = run_atlast(device)
     _, corr_cols, _, shared_c, _ = program_c._noise_matmul_specs()
     check_shared_v(device, gen, program_c.n_det, len(shared_c), c=shared_c, n_extra=corr_cols.shape[1])
+    launches_g, program_g, ids_g = run_atlast(device, label="g", method="ar")
+    del ids_g
+
+    ar = {label: check_ar_extrude(device, gen, f"slice {label}", results[label][3].ar_processes)
+          for label in AR_SLICES}
+    ar["g"] = check_ar_extrude(device, gen, "slice g", program_g.ar_processes)
 
     k2 = {}
-    for label, (tod, out_map, _) in results.items():
+    for label in SLICES:
+        tod, out_map = results[label][:2]
         k2[label] = check_bin_map(device, gen, slice_pixel_ids(tod, out_map), f"slice {label} ids")
     k2["c"] = check_bin_map(device, gen, ids_c, "slice c ids")
     del ids_c
     ids = torch.randint(-1, N_MAP * N_MAP, (217, 3000), generator=gen, device=device, dtype=torch.int32)
     k2["random"] = check_bin_map(device, gen, ids, "random ids with -1")
-    tod_d, map_d, _ = results["d"]
+    tod_d, map_d = results["d"][:2]
     k2["six"] = check_bin_map(device, gen, slice_pixel_ids(tod_d, map_d), "slice d ids", n_channels=6)
     k2["512"] = check_bin_map(device, gen, slice_pixel_ids(tod_d, map_d, n_map=512), "slice d ids, 512 x 512",
                               n_pix=512 * 512)
@@ -618,7 +728,15 @@ def main() -> int:
         {"name": "shared_v", "route": "cuda", "source": "maria_torch/csrc/shared_v.cu",
          "replaces": "maria_tpu/ops/pallas_noise.py:427", "launches": launches_c["shared_v"],
          **k3[5556 * ATLAST_BANDS]},
+        {"name": "ar_extrude", "route": "cuda", "source": "maria_torch/csrc/ar_extrude.cu",
+         "replaces": "maria_tpu/atmosphere/process.py:34", "launches": results["f"][2]["ar_extrude"],
+         **ar["f"]},
     ]}
+    for key, r in ar.items():
+        launches = launches_g if key == "g" else results[key][2]
+        print(f"AR summary {key}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_ms'] / r['ms']:.1%}), {r['steps']} steps, main-path launches {launches['ar_extrude']}",
+              flush=True)
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,15 @@
-"""Correlated atmospheric emission, host setup for the Fourier models
-(maria_tpu/atmosphere/atmosphere.py, ``Atmosphere.initialize`` with
-method="fourier").
+"""Correlated atmospheric emission, host setup
+(maria_tpu/atmosphere/atmosphere.py, ``Atmosphere.initialize``).
 
 ``initialize`` builds the layer table, the per-process wind and the
-aligning rotation; then, for model="2d", one Fourier screen (or a
-fine/coarse band pair) per layer, and for model="3d" one ``ScreenGroup``:
-L layer slices of a single 3-D Matérn field on a common grid. The
-per-realization synthesis and line-of-sight sampling run on device in
+aligning rotation; then, with method="fourier", for model="2d" one
+Fourier screen (or a fine/coarse band pair) per layer, and for
+model="3d" one ``ScreenGroup``: L layer slices of a single 3-D Matérn
+field on a common grid. With method="ar", for model="2d" one
+autoregressive process per layer (a screen each), and for model="3d"
+one process over the stacked cross-section of all the layers, whose
+columns ``ar_columns`` are each layer's screen. The per-realization
+synthesis or extrusion and the line-of-sight sampling run on device in
 ``TODProgram`` (``sampling.accumulate_pwv``).
 """
 
@@ -28,6 +31,7 @@ from .fourier import (
     layered_field_spectral_weights,
 )
 from .layers import generate_layers
+from .process import AutoregressiveProcess
 
 _MIN_EXTENT_R0_FACTOR = 4.0
 _MAX_EXTENT_CELLS = 4096
@@ -39,7 +43,7 @@ def _min_spectral_extent_cells(res: float, r0: float) -> int:
 
 @dataclass
 class LayerScreen:
-    """Static geometry of one Fourier screen (host-built)."""
+    """Static geometry of one Fourier or AR screen (host-built)."""
 
     h: float
     z: float
@@ -52,7 +56,10 @@ class LayerScreen:
     ty_min: float
     nx: int
     ny: int
-    W: np.ndarray  # (ny, nx//2+1) spectral weights
+    W: np.ndarray = None  # (ny, nx//2+1) spectral weights (Fourier screens)
+    process: AutoregressiveProcess = None  # AR screens
+    ar_columns: slice = None  # this screen's columns of the process's cross-section
+    beam_sigma: float = 0.0  # AR screens: the beam blur, m
     ty_res: float = None
     win_x: int = None
     win_y: int = None
@@ -91,10 +98,10 @@ class Atmosphere:
                  outer_scale: float = None):
         if model not in ("2d", "3d"):
             raise ValueError(f"Invalid model '{model}'. Supported models are ['2d', '3d'].")
-        if method != "fourier":
+        if method not in ("fourier", "ar"):
             raise NotImplementedError(
-                f"atmosphere method '{method}': only the Fourier models are ported "
-                "(ROADMAP queue 1, item 7: AR extrusion)"
+                f"atmosphere method '{method}': the port has the 'fourier' and 'ar' models "
+                "(ROADMAP queue 1, item 13: atmosphere arguments)"
             )
         self.model = model
         self.method = method
@@ -181,6 +188,35 @@ class Atmosphere:
                 win_y = min(ny, int(-(-(2 * span_y / res + 6) // 8) * 8))
                 return win_x, win_y
 
+            if self.model == "3d" and self.method == "ar":
+                # one process over the stacked cross-section of every
+                # layer, extruded at the finest layer resolution
+                res_min = float(layers["res"][in_process].min())
+                extrusion = np.arange(tx.min() - 2 * res_min, tx.max() + 2 * res_min, res_min)
+                cross_list, col_slices = [], []
+                start = 0
+                for i in np.where(in_process)[0]:
+                    res_i = float(layers["res"][i])
+                    n_cross = max(2, int((ty.max() - ty.min() + 2 * res_i) / res_i))
+                    cross_side = np.linspace(ty.min() - res_i, ty.max() + res_i, n_cross)
+                    cross_list.append(np.stack([cross_side, np.full(n_cross, float(layers["h"][i]))], axis=-1))
+                    col_slices.append(slice(start, start + n_cross))
+                    start += n_cross
+                process = AutoregressiveProcess(
+                    cross_section=np.concatenate(cross_list, axis=0), extrusion=extrusion,
+                    callback_kwargs={"nu": nu, "r0": outer_scale},
+                )
+                for i, cols, cross in zip(np.where(in_process)[0], col_slices, cross_list):
+                    z = float(layers["z"][i])
+                    self.screens.append(LayerScreen(
+                        h=float(layers["h"][i]), z=z, res=res_min, pwv_rms=float(layers["pwv_rms"][i]),
+                        angle=angle, vx=vx, vy=vy, tx_min=float(extrusion[0]), ty_min=float(cross[0, 0]),
+                        nx=len(extrusion), ny=cols.stop - cols.start, process=process, ar_columns=cols,
+                        ty_res=float(cross[1, 0] - cross[0, 0]),
+                        beam_sigma=float(obs.instrument.dets.physical_fwhm(z).mean()) / 2.355,
+                    ))
+                continue
+
             if self.model == "3d":
                 # one vertically correlated stack per process on the
                 # finest layer resolution (the TPU's windowed, decimated
@@ -215,11 +251,24 @@ class Atmosphere:
                 nx_needed = int((tx_max - tx_min) / res) + 2
                 ny_needed = int((ty_max - ty_min) / res) + 2
                 beam_sigma = float(obs.instrument.dets.physical_fwhm(z).mean()) / 2.355
+                common = dict(h=h, z=z, pwv_rms=pwv_rms, angle=angle, vx=vx, vy=vy)
+
+                if self.method == "ar":
+                    # one process per slab on the footprint grid
+                    process = AutoregressiveProcess(
+                        cross_section=np.stack([ty_min + res * np.arange(ny_needed), np.full(ny_needed, h)], axis=-1),
+                        extrusion=tx_min + res * np.arange(nx_needed),
+                        callback_kwargs={"nu": nu, "r0": outer_scale},
+                    )
+                    self.screens.append(LayerScreen(
+                        res=res, tx_min=tx_min, ty_min=ty_min, nx=nx_needed, ny=ny_needed, process=process,
+                        ar_columns=slice(0, ny_needed), ty_res=res, beam_sigma=beam_sigma, **common,
+                    ))
+                    continue
 
                 min_cells = _min_spectral_extent_cells(res, outer_scale)
                 nx_fp = good_fft_size(max(int(1.3 * nx_needed) + 8, 32))
                 ny_fp = good_fft_size(max(int(1.3 * ny_needed) + 8, 32))
-                common = dict(h=h, z=z, pwv_rms=pwv_rms, angle=angle, vx=vx, vy=vy)
 
                 if min_cells > 2 * max(nx_fp, ny_fp):
                     # the footprint box is much smaller than the spectral

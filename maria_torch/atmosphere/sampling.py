@@ -1,5 +1,5 @@
-"""Line-of-sight screen sampling (maria_tpu/atmosphere/sampling.py),
-Fourier screens and Fourier 3-D screen groups.
+"""Line-of-sight screen sampling (maria_tpu/atmosphere/sampling.py):
+Fourier screens, Fourier 3-D screen groups and AR screens.
 
 A screen at height h is sampled at x = h*px + vx*t, y = h*py + vy*t,
 rotated into its extrusion frame by ``angle``, with (px, py) the
@@ -16,6 +16,10 @@ two approximate the bilinear value. A card gathers fast, so the port
 keeps the contract, the exact bilinear values, and not that workaround:
 its values equal maria_tpu's exact path (``bs_px=None``) and, inside
 the window, its undecimated windowed path.
+
+An AR screen (``W`` None) takes its values from its process's extrusion
+(``ar_values``), beam-blurred here by an FFT Gaussian on its grid of
+``res`` by ``ty_res``.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 from ..ops.interp import interp_bilinear_uniform
 from .fourier import synthesize_layered_matern_2d, synthesize_matern_field_2d
 
-__all__ = ["accumulate_pwv", "group_tensors"]
+__all__ = ["accumulate_pwv", "gaussian_blur_2d", "gaussian_blur_weights", "group_tensors"]
 
 
 def group_tensors(group, device) -> dict:
@@ -40,6 +44,25 @@ def group_tensors(group, device) -> dict:
     }
 
 
+def gaussian_blur_weights(ny: int, nx: int, sigma_y: float, sigma_x: float, res_y: float, res_x: float):
+    """(ny, nx//2+1) float32 multiplier of the rfft2 spectrum that blurs a
+    periodic (ny, nx) grid of spacings (res_y, res_x) by a Gaussian of
+    widths (sigma_y, sigma_x)."""
+    ky = 2 * np.pi * np.fft.fftfreq(ny, d=res_y)
+    kx = 2 * np.pi * np.fft.rfftfreq(nx, d=res_x)
+    return np.exp(-0.5 * (sigma_y**2 * ky[:, None] ** 2 + sigma_x**2 * kx[None, :] ** 2)).astype(np.float32)
+
+
+def gaussian_blur_2d(values, sigma_y, sigma_x, res_y, res_x, weights=None):
+    """Periodic FFT Gaussian blur of a (ny, nx) field (maria_tpu's
+    AR-path beam smoothing). ``weights`` optionally gives
+    ``gaussian_blur_weights`` as a tensor on the field's device."""
+    ny, nx = values.shape
+    if weights is None:
+        weights = torch.as_tensor(gaussian_blur_weights(ny, nx, sigma_y, sigma_x, res_y, res_x), device=values.device)
+    return torch.fft.irfft2(torch.fft.rfft2(values) * weights, s=(ny, nx))
+
+
 def _sample(values, h, angle, vx, vy, res_x, res_y, tx_min, ty_min, px, py, t_rel):
     x = h * px + vx * t_rel
     y = h * py + vy * t_rel
@@ -50,25 +73,35 @@ def _sample(values, h, angle, vx, vy, res_x, res_y, tx_min, ty_min, px, py, t_re
 
 
 def accumulate_pwv(mean_pwv, screens, px, py, t_rel, W=None, generator=None, draws=None,
-                   groups=(), group_tables=None, group_draws=None):
+                   groups=(), group_tables=None, group_draws=None, ar_values=None, blur=None):
     """Zenith-scaled pwv (n_det, n_t) in mm: the mean plus the sum of the
     per-screen and per-layer turbulence samples.
 
-    ``W`` holds each screen's spectral weights and ``group_tables`` each
-    group's ``group_tensors`` on px's device (default: built from the
-    host arrays). ``draws`` optionally supplies each screen's white
-    normals, (ny, nx//2+1, 2), and ``group_draws`` each group's,
-    (2J, ny, nx//2+1, 2); otherwise they come from ``generator``,
-    screens first, then groups.
+    ``W`` holds each Fourier screen's spectral weights and
+    ``group_tables`` each group's ``group_tensors`` on px's device
+    (default: built from the host arrays). ``draws`` optionally supplies
+    each Fourier screen's white normals, (ny, nx//2+1, 2), and
+    ``group_draws`` each group's, (2J, ny, nx//2+1, 2); otherwise they
+    come from ``generator``, screens first, then groups. An AR screen i
+    reads its (ny, nx) values from ``ar_values[i]``; ``blur[i]``
+    optionally holds its ``gaussian_blur_weights`` on px's device.
     """
     pwv = torch.full(px.shape, float(np.float32(mean_pwv)), dtype=px.dtype, device=px.device)
     for i, screen in enumerate(screens):
-        w = W[i] if W is not None else torch.as_tensor(screen.W, device=px.device)
-        values = synthesize_matern_field_2d(
-            w, screen.ny, screen.nx, generator=generator,
-            draw=None if draws is None else draws[i],
-        )
         ty_res = screen.ty_res if screen.ty_res is not None else screen.res
+        if screen.W is not None:
+            w = W[i] if W is not None else torch.as_tensor(screen.W, device=px.device)
+            values = synthesize_matern_field_2d(
+                w, screen.ny, screen.nx, generator=generator,
+                draw=None if draws is None else draws[i],
+            )
+        else:
+            if ar_values is None or i not in ar_values:
+                raise ValueError("AR screen values missing; run the process first.")
+            values = ar_values[i]
+            if screen.beam_sigma > 0:
+                values = gaussian_blur_2d(values, screen.beam_sigma, screen.beam_sigma, ty_res, screen.res,
+                                          weights=None if blur is None else blur[i])
         sample = _sample(values, screen.h, screen.angle, screen.vx, screen.vy, screen.res, ty_res,
                          screen.tx_min, screen.ty_min, px, py, t_rel)
         pwv = pwv + screen.pwv_rms * sample

@@ -3,7 +3,9 @@
 ``program_from_tables`` takes the tables of a maria_tpu ``TODProgram``
 as plain numpy arrays and scalars and returns the port's ``TODProgram``;
 ``pixel_ids_from_tables`` turns (iy, ix) map indices into the flat int32
-ids kernel K2 takes. Nothing here imports maria_tpu: the caller extracts
+ids kernel K2 takes; ``ar_process_from_arrays`` builds the port's
+``AutoregressiveProcess`` from a maria_tpu process's operators and
+lookback indices. Nothing here imports maria_tpu: the caller extracts
 the arrays (the tests do).
 
 ``tables`` keys: offsets (n_det, 2), bs_az_coarse, bs_el_coarse,
@@ -26,10 +28,11 @@ import numpy as np
 import torch
 
 from .atmosphere.atmosphere import LayerScreen, ScreenGroup
+from .atmosphere.process import AutoregressiveProcess
 from .noise.dft import NoiseBandSpec
 from .ops.program import BandBlock, TODProgram
 
-__all__ = ["program_from_tables", "pixel_ids_from_tables"]
+__all__ = ["ar_process_from_arrays", "program_from_tables", "pixel_ids_from_tables"]
 
 _SCREEN_FIELDS = ("h", "z", "res", "pwv_rms", "angle", "vx", "vy", "tx_min", "ty_min",
                   "nx", "ny", "W", "ty_res", "win_x", "win_y", "band")
@@ -103,3 +106,28 @@ def pixel_ids_from_tables(iy, ix, n_y: int, n_x: int, device=None):
         raise ValueError("pixel index beyond the map")
     flat = np.where((iy >= 0) & (ix >= 0), iy * n_x + ix, -1).astype(np.int32)
     return torch.as_tensor(flat, device=device)
+
+
+def ar_process_from_arrays(A, B, extrusion_sample_index, cross_section_sample_index) -> AutoregressiveProcess:
+    """The port's process with the operators A (n_cross, n_sample) and B
+    (n_cross, n_cross) of a maria_tpu ``AutoregressiveProcess``, held in
+    float64. Its sizes follow from the arrays: n_cross from B and
+    n_extrusion from the lookback's last ring (index n_extrusion - 1); its
+    grids are unit-spaced (they only enter the covariance setup, which
+    the given operators replace). The lookback indices must be the ones
+    the port derives for those sizes, or this raises ValueError."""
+    A = np.asarray(A, dtype=np.float64)
+    B = np.asarray(B, dtype=np.float64)
+    ext_idx = np.asarray(extrusion_sample_index)
+    cross_idx = np.asarray(cross_section_sample_index)
+    n_cross, n_ext = B.shape[0], int(ext_idx.max()) + 1
+    process = AutoregressiveProcess(np.stack([np.arange(n_cross, dtype=float), np.zeros(n_cross)], axis=-1),
+                                    np.arange(n_ext, dtype=float))
+    if not (np.array_equal(process.extrusion_sample_index, ext_idx)
+            and np.array_equal(process.cross_section_sample_index, cross_idx)):
+        raise ValueError(f"the lookback indices are not those of a {n_ext} x {n_cross} process")
+    if A.shape != (n_cross, process.n_sample) or B.shape != (n_cross, n_cross):
+        raise ValueError(f"A must be ({n_cross}, {process.n_sample}) and B ({n_cross}, {n_cross}), "
+                         f"got {A.shape} and {B.shape}")
+    process.A, process.B, process._computed = A, B, True
+    return process

@@ -3,7 +3,9 @@
 functions that turn one realization's draws into detector loadings.
 
 ``fields`` is the per-field route ``Simulation.run`` takes (per-band
-noise through kernel K1). ``total_power_fn`` is the total-power route:
+noise through kernel K1; AR screens extruded by one launch of the AR
+kernel, ``ops/ar_extrude.py``, for all of a realization's processes).
+``total_power_fn`` is the total-power route:
 the signal times the gains plus the noise, with the whole banded noise
 stage as one matrix product (``noise/dft.py``, kernel K3) whenever the
 bands partition the detector axis. The port keeps these contracts and
@@ -18,10 +20,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..atmosphere.sampling import accumulate_pwv, group_tensors
+from ..atmosphere.sampling import accumulate_pwv, gaussian_blur_weights, group_tensors
 from ..coords import offsets_to_phi_theta
 from ..device import resolve_device
 from ..noise import generate_noise_with_knee
+from .ar_extrude import ar_extrude, ar_plan
 from .interp import TableEval, upsample_time, upsample_time_phases
 
 __all__ = ["BandBlock", "TODProgram", "build_tod_program"]
@@ -53,7 +56,7 @@ class BandBlock:
 class TODProgram:
     """Static scene -> per-realization loadings."""
 
-    screens: list  # LayerScreen list (Fourier screens)
+    screens: list  # LayerScreen list (Fourier or AR screens)
     mean_pwv: float
     t_coarse: np.ndarray  # relative seconds (n_tc,)
     t_fine: np.ndarray  # relative seconds (n_t,)
@@ -100,6 +103,15 @@ class TODProgram:
         self.band_order = order if is_partition else None
 
     @property
+    def ar_processes(self) -> list:
+        """The distinct AR processes of the screens, in screen order."""
+        seen = {}
+        for s in self.screens:
+            if s.process is not None:
+                seen.setdefault(id(s.process), s.process)
+        return list(seen.values())
+
+    @property
     def n_det(self) -> int:
         return len(self.offsets)
 
@@ -125,7 +137,14 @@ class TODProgram:
                 "bs_el": torch.tensor(np.asarray(self.bs_el_coarse, dtype=np.float32), **f32),
                 "t_c": torch.tensor(np.asarray(self.t_coarse, dtype=np.float32), **f32),
                 "mueller_I": torch.tensor(np.asarray(self.mueller_I, dtype=np.float32), **f32),
-                "W": [torch.tensor(s.W, **f32) for s in self.screens],
+                "W": [None if s.W is None else torch.tensor(s.W, **f32) for s in self.screens],
+                "blur": [
+                    None if s.W is not None or not s.beam_sigma else torch.as_tensor(gaussian_blur_weights(
+                        s.ny, s.nx, s.beam_sigma, s.beam_sigma, s.ty_res if s.ty_res is not None else s.res, s.res,
+                    ), device=device)
+                    for s in self.screens
+                ],
+                "ar_plan": ar_plan(self.ar_processes, device) if self.ar_processes and device.type == "cuda" else None,
                 "groups": [group_tensors(g, device) for g in self.groups],
                 "power": [TableEval(b.pwv_side, b.el_side, b.power_table, device=device) for b in self.bands],
                 "det_index": [torch.tensor(b.det_index, dtype=torch.int64, device=device) for b in self.bands],
@@ -135,6 +154,22 @@ class TODProgram:
                 ],
             }
         return self._device_cache[key]
+
+    def _ar_values(self, tabs, generator, draws, device):
+        """{screen index: (ny, nx) extruded values} of the AR screens, or
+        None without AR processes. ``draws`` optionally gives each
+        process's (buffer_init, noise) in ``ar_processes`` order."""
+        processes = self.ar_processes
+        if not processes:
+            return None
+        if draws is None:
+            draws = [p.draw(generator, device) for p in processes]
+        elif len(draws) != len(processes):
+            raise ValueError(f"draws['ar'] must hold one (buffer_init, noise) pair per process ({len(processes)})")
+        buffers = [torch.as_tensor(d[0], dtype=torch.float32, device=device) for d in draws]
+        noises = [torch.as_tensor(d[1], dtype=torch.float32, device=device) for d in draws]
+        values = dict(zip(map(id, processes), ar_extrude(processes, buffers, noises, plan=tabs["ar_plan"])))
+        return {i: values[id(s.process)][:, s.ar_columns].T for i, s in enumerate(self.screens) if s.process is not None}
 
     def _upsample(self, values, kind):
         if self.upsample_ratio is not None:
@@ -147,9 +182,15 @@ class TODProgram:
         Gains are not applied here (see ``draw_gains`` and
         ``Simulation.run_obs``). ``draws`` optionally supplies the
         realization's unit normals: "screens" (one (ny, nx//2+1, 2) per
-        screen), "groups" (one (2J, ny, nx//2+1, 2) per screen group),
+        Fourier screen), "groups" (one (2J, ny, nx//2+1, 2) per screen
+        group), "ar" (one (buffer_init, noise) pair per AR process, in
+        ``ar_processes`` order, see ``AutoregressiveProcess.draw``),
         "noise" and "modes" (one per band, see
-        ``generate_noise_with_knee``). ``upto`` stops early: "pwv" ->
+        ``generate_noise_with_knee``). What is not supplied comes from
+        ``generator`` in this order: screens, groups, AR processes, noise
+        (a program holds Fourier screens and groups or AR processes,
+        never both: the atmosphere's method applies to all its layers).
+        ``upto`` stops early: "pwv" ->
         {"pwv": coarse pwv}, "atmosphere" or "signal" -> the fields
         without noise (the upsampled atmospheric loading).
         """
@@ -170,6 +211,7 @@ class TODProgram:
             self.mean_pwv, self.screens, px, py, tabs["t_c"], W=tabs["W"],
             generator=generator, draws=draws.get("screens"),
             groups=self.groups, group_tables=tabs["groups"], group_draws=draws.get("groups"),
+            ar_values=self._ar_values(tabs, generator, draws.get("ar"), device), blur=tabs["blur"],
         )
         if upto == "pwv":
             return {"pwv": pwv}
@@ -275,10 +317,11 @@ class TODProgram:
         is kernel K3's draw when the bands share a spectral shape. Else
         it is the ``fields`` route: the per-band noise (kernel K1) plus
         the gained signal. ``draws`` optionally supplies the normals:
-        "screens", "groups" and "gains" as ``fields`` and ``draw_gains``
-        take them, and for the matrix product "v" ((n_det, 2, m+1), the
-        white draw) and "modes" (per band, (k, 2, m+1)); on the fields
-        route "noise" and "modes" as ``fields`` takes them.
+        "screens", "groups", "ar" and "gains" as ``fields`` and
+        ``draw_gains`` take them, and for the matrix product "v"
+        ((n_det, 2, m+1), the white draw) and "modes" (per band,
+        (k, 2, m+1)); on the fields route "noise" and "modes" as
+        ``fields`` takes them.
         """
         if not self.use_noise_matmul():
             def fields_total(generator=None, draws=None, device=None):
@@ -380,6 +423,12 @@ def build_tod_program(obs, with_noise: bool = True, noise_kwargs: dict = {}) -> 
             NEP=band.NEP, knee=band.knee, noise_basis=basis, corr_prop=corr_prop,
             NEP_per_loading=band.NEP_per_loading,
         ))
+
+    # the AR processes' covariance operators are factorized here, on the
+    # host in float64, before any realization runs their extrusion
+    for s in atm.screens:
+        if s.process is not None:
+            s.process.run_setup()
 
     return TODProgram(
         screens=list(atm.screens),

@@ -5,7 +5,8 @@
 MUSTANG-2 scene at 60 s; the README's flow at 600 s); "atlast":
 AtLAST-50k at ALMA with the 3-D atmosphere (bench.py's ``config_b``).
 Both scan the daisy at (150, 41) deg in az/el at 50 Hz, with noise, seed
-0.
+0, and take the atmosphere's ``method``: "fourier" (the default) or "ar"
+(the autoregressive extrusion, ``atmosphere_kwargs={"method": "ar"}``).
 """
 
 from __future__ import annotations
@@ -16,9 +17,9 @@ SCENES = {
 }
 
 
-def simulation(scene: str, duration: float, device=None):
+def simulation(scene: str, duration: float, device=None, method: str = "fourier"):
     """The ``Simulation`` of ``scene`` (a key of SCENES) for ``duration``
-    seconds on ``device``."""
+    seconds on ``device``, with the atmosphere's ``method``."""
     import maria_torch
 
     s = SCENES[scene]
@@ -27,4 +28,4 @@ def simulation(scene: str, duration: float, device=None):
         sample_rate=50.0, scan_options={"radius": s["radius"], "speed": s["speed"]},
     )
     return maria_torch.Simulation(instrument=s["instrument"], plans=plan, site=s["site"], atmosphere=s["atmosphere"],
-                                  noise=True, seed=0, device=device)
+                                  atmosphere_kwargs={"method": method}, noise=True, seed=0, device=device)

@@ -80,3 +80,50 @@ def generate_spatial_basis(offsets, k: int = 5, n_side: int = 8, scale: float = 
     )(offsets)
     B *= np.sign(B[:, 0].mean() or 1.0)
     return B
+
+
+def normalized_matern(r, nu):
+    """Unit-variance Matérn covariance at distance r (in units of the
+    outer scale), by Bessel K."""
+    arg = np.sqrt(2 * nu) * np.asarray(r, dtype=float) + 1e-16
+    return 2 ** (1 - nu) / sp.special.gamma(nu) * sp.special.kv(nu, arg) * arg**nu
+
+
+def _matern_log_tables(nu: float, n_test_points: int = 1024):
+    """Log-log tables of the structure function 1 - C(r) and of C(r) on
+    r in [1e-6, 1e3], for ``approximate_normalized_matern``."""
+    r_samples = np.geomspace(1e-6, 1e3, n_test_points)
+    cov = normalized_matern(r_samples, nu=nu)
+    log_r = np.log(r_samples)
+    log_sf = np.log(np.clip(1 - cov, 1e-300, None))
+    log_cov = np.log(np.clip(cov, 1e-300, None))
+    return log_r, log_sf, log_cov
+
+
+def approximate_normalized_matern(r, nu=1 / 3, r0=1e0, n_test_points=1024):
+    """Unit-variance Matérn covariance by log-log interpolation, cheap
+    over large distance matrices: the structure function interpolated at
+    small r (where C ~ 1 and C itself loses precision), the covariance
+    at large r, crossfaded at r ~ r0."""
+    log_r_tab, log_sf_tab, log_cov_tab = _matern_log_tables(nu, n_test_points)
+    r = np.asarray(r, dtype=float)
+    r_eff = np.clip(np.atleast_1d(np.abs(r) / r0), 1e-6, None)
+    log_r = np.log(r_eff)
+    sf = np.exp(np.interp(log_r, log_r_tab, log_sf_tab))
+    cov = np.exp(np.interp(log_r, log_r_tab, log_cov_tab))
+    t = 1 / (1 + r_eff**2)
+    res = np.where(r_eff < 1e3, t * (1 - sf) + (1 - t) * cov, 0.0)
+    return res.reshape(np.shape(r)) if np.shape(r) else res[0]
+
+
+def fast_psd_inverse(M: np.ndarray) -> np.ndarray:
+    """Inverse of a symmetric positive definite matrix by Cholesky
+    (LAPACK dpotrf, dpotri), float64; raises LinAlgError when M is not
+    positive definite."""
+    chol, info = sp.linalg.lapack.dpotrf(M)
+    if info != 0:
+        raise np.linalg.LinAlgError(f"dpotrf failed with info={info}")
+    inv, info = sp.linalg.lapack.dpotri(chol)
+    if info != 0:
+        raise np.linalg.LinAlgError(f"dpotri failed with info={info}")
+    return np.where(inv, inv, inv.T)

@@ -4,7 +4,7 @@ jax, so it runs where only torch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-(``-k pink`` for K1 alone.)
+(``-k pink`` for K1 alone, ``-k ar_`` for the AR extrusion kernel.)
 """
 
 import numpy as np
@@ -13,7 +13,9 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from maria_torch.atmosphere.process import AutoregressiveProcess  # noqa: E402
 from maria_torch.noise import band_half_spectrum  # noqa: E402
+from maria_torch.ops.ar_extrude import ar_extrude, ar_extrude_reference, ar_plan  # noqa: E402
 from maria_torch.ops.bin_map import bin_map, bin_map_plain  # noqa: E402
 from maria_torch.ops.pink_noise import pink_noise, pink_noise_plain  # noqa: E402
 from maria_torch.ops.shared_v import draw_key, shared_v, shared_v_plain  # noqa: E402
@@ -218,3 +220,100 @@ def test_atlast_total_on_card_matches_cpu(cuda_device):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(total).all()) and total.shape == (p.n_det, p.n_t)
     assert (shared_v.launches, pink_noise.launches) == (before[0] + 1, before[1])
+
+
+def _stacked_process(n_ext, n_layer, n_layers):
+    """A process over ``n_layers`` stacked cross-sections of ``n_layer``
+    points, extruded ``n_ext`` steps: (209, 21, 12) is the shape of the
+    AtLAST-50k 60 s 3-D process (n_cross 252, n_sample 510)."""
+    heights = np.geomspace(50.0, 5000.0, n_layers)
+    cross = np.concatenate([np.stack([12.5 * np.arange(n_layer), np.full(n_layer, h)], axis=-1) for h in heights])
+    p = AutoregressiveProcess(cross, 12.5 * np.arange(n_ext), callback_kwargs={"nu": 1 / 3, "r0": 1000.0})
+    p.run_setup()
+    return p
+
+
+def _check_ar(processes, device, seed=0):
+    """The kernel (one launch for all ``processes``) against the plain loop
+    on the same draws: every screen within 1e-4 of its std (float32 dots
+    summed in another order, the rounding carried through the lookback)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    draws = [p.draw(gen, device) for p in processes]
+    before = ar_extrude.launches
+    out = ar_extrude(processes, [d[0] for d in draws], [d[1] for d in draws])
+    torch.cuda.synchronize()
+    assert ar_extrude.launches == before + 1
+    for p, o, (b, e) in zip(processes, out, draws):
+        t = p.tensors(device)
+        ref = ar_extrude_reference(t["A"], t["B"], b, t["ext_idx"], t["cross_idx"], e)[: p.n_extrusion]
+        assert o.shape == ref.shape == (p.n_extrusion, p.n_cross_section)
+        assert bool(torch.isfinite(o).all())
+        assert float((o - ref).abs().max()) <= 1e-4 * float(ref.std())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("duration", [60.0, 600.0])
+def test_ar_kernel_matches_plain_at_mustang2_processes(cuda_device, duration):
+    """Every process of the MUSTANG-2 2-D AR scene at 60 s and 600 s (8
+    each, up to 174 and 1,686 extrusion steps), in one launch, each with A
+    and B in shared memory."""
+    from maria_torch.scenes import simulation
+
+    processes = simulation("mustang2", duration, cuda_device, method="ar").program().ar_processes
+    assert len(processes) == 8 and all(ar_plan(processes, cuda_device)["staged"])
+    _check_ar(processes, cuda_device)
+
+
+@pytest.mark.cuda
+def test_ar_kernel_matches_plain_at_the_3d_shape(cuda_device):
+    """The AtLAST-50k 3-D process's shape, whose A and B (0.77 MB) do not
+    fit shared memory and are read through L2."""
+    p = _stacked_process(209, 21, 12)
+    assert (p.n_cross_section, p.n_sample) == (252, 510)
+    assert ar_plan([p], cuda_device)["staged"] == [False]
+    _check_ar([p], cuda_device)
+
+
+@pytest.mark.cuda
+def test_ar_kernel_mixed_batch(cuda_device):
+    """Processes of mixed shapes in one launch: small staged ones, one of
+    203 KB of A and B, just under the 227 KB limit, and one of 507 KB over
+    it."""
+    processes = [_stacked_process(n, k, l) for n, k, l in ((36, 6, 1), (90, 9, 3), (100, 32, 4), (80, 17, 12), (5, 3, 1))]
+    staged = ar_plan(processes, cuda_device)["staged"]
+    assert True in staged and False in staged
+    _check_ar(processes, cuda_device, seed=1)
+
+
+@pytest.mark.cuda
+def test_ar_scene_on_card_matches_cpu(cuda_device):
+    """The MUSTANG-2 2-D AR scene's pwv on the card (kernel) and on the CPU
+    (plain loop) given the same draws: within 1e-4 of the pwv std or 8 ulp
+    of the mean pwv, whichever is larger (a 10 s scene's pwv varies by
+    ~1e-4 of its ~19 mm mean, so the float32 sum of the mean and the
+    layers rounds at the mean's ulp)."""
+    from maria_torch.scenes import simulation
+
+    p_cpu = simulation("mustang2", 10.0, "cpu", method="ar").program()
+    p_gpu = simulation("mustang2", 10.0, cuda_device, method="ar").program()
+    gen = torch.Generator().manual_seed(2)
+    draws = {"ar": [q.draw(gen, "cpu") for q in p_cpu.ar_processes]}
+    before = ar_extrude.launches
+    ref = p_cpu.fields(draws=draws, device="cpu", upto="pwv")["pwv"]
+    got = p_gpu.fields(draws=draws, device=cuda_device, upto="pwv")["pwv"]
+    torch.cuda.synchronize()
+    assert ar_extrude.launches == before + 1
+    atol = max(1e-4 * float(ref.std()), 8 * float(np.spacing(np.float32(p_cpu.mean_pwv))))
+    assert float((got.cpu() - ref).abs().max()) <= atol
+
+
+@pytest.mark.cuda
+def test_process_run_defaults_to_the_card(cuda_device):
+    """AutoregressiveProcess.run() with no generator and no device draws on
+    the card and extrudes with the kernel."""
+    p = _stacked_process(36, 6, 1)
+    before = ar_extrude.launches
+    values = p.run()
+    torch.cuda.synchronize()
+    assert values.device.type == "cuda" and values.shape == (36, 6)
+    assert ar_extrude.launches == before + 1 and bool(torch.isfinite(values).all())

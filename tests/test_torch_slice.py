@@ -179,6 +179,8 @@ def test_import_guard():
     for root, _, files in os.walk(os.path.join(REPO, "maria_torch")):
         paths += [os.path.join(root, name) for name in files if name.endswith(".py")]
     assert len(paths) > 30
+    for module in ("atmosphere/process.py", "ops/ar_extrude.py", "ops/kernels.py", "convert.py"):
+        assert os.path.join(REPO, "maria_torch", *module.split("/")) in paths, module
     for path in paths:
         with open(path) as f:
             tree = ast.parse(f.read(), filename=path)
