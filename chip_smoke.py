@@ -41,8 +41,9 @@ Phases, each of which must pass (any failure exits non-zero):
    total;
 9. the AR kernel ar_extrude against its plain torch loop on the same
    draws, for the processes of (e), (f) and (g), each set in one launch
-   (A and B in shared memory at (e) and (f), through L2 at (g)): every
-   screen within 1e-4 of its std;
+   (A and B in the shared memory of one block a process at (e) and (f),
+   of a cluster of blocks at (g); the plan is printed): every screen
+   within 1e-4 of its std;
 10. K2 bin_map against its plain torch version (index_add_, bincount) on
    N(0, 1) data at the pixel ids of slices (a), (b), (d) and (c), a
    random case with -1 ids, six channels at (d)'s ids (channels split
@@ -59,7 +60,9 @@ bytes at 3.35 TB/s and its operations at their peak rate (K3: the least
 loop body that meets its contract, K3_LEAST_BODY, for every bin pair at
 the card's issue and pipe rates; the AR kernel: the latency of its chain
 of dependent steps, ``ar_bound``, from an FMA latency and a one-warp
-block's barrier probed on the card in the same run).
+block's barrier probed on the card in the same run; the barrier a step of
+the kernel really pays, of its block or its cluster, is probed and printed
+beside them and enters no bound).
 
 The line before the last is the card as nvidia-smi reports it, the one
 before that the kernels' JSON record; the last line is the JSON result.
@@ -372,22 +375,29 @@ def check_ar_extrude(device, gen, label, processes):
     launched = ar_extrude.launches - before
     errs = [float((o - r).abs().max()) for o, r in zip(out, ref)]
     rel = max(e / float(r.std()) for e, r in zip(errs, ref))
-    ok = launched == 1 and all(bool(torch.isfinite(o).all()) for o in out) and rel <= 1e-4
+    ok = launched == len(plan["groups"]) == 1 and all(bool(torch.isfinite(o).all()) for o in out) and rel <= 1e-4
     shapes = [(p.n_extrusion, p.n_cross_section, p.n_sample) for p in processes]
-    staged = f"{sum(plan['staged'])} of {len(processes)} with A and B in shared memory"
-    name = (f"AR ar_extrude ({label}: {len(processes)} process(es) in one launch of {plan['threads']} threads a "
-            f"block, {plan['smem']} B shared memory, {staged}; n_extrusion x n_cross x n_sample {shapes})")
+    (group,) = plan["groups"]
+    layout = (f"clusters of {group['cluster']} block(s) of {group['threads']} threads, {min(group['rows'])}-"
+              f"{max(group['rows'])} rows of A and B and {group['smem']} B of shared memory a block, "
+              f"{sum(c > 0 for c in plan['cluster'])} of {len(processes)} with A and B in shared memory")
+    name = (f"AR ar_extrude ({label}: {len(processes)} process(es) in one launch, {layout}; n_extrusion x n_cross x "
+            f"n_sample {shapes})")
     print(f"{name}: {launched} launch, max|diff| {max(errs):.3e} = {rel:.2e} of the screen's std (limit 1e-4) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         fail(f"the AR kernel disagrees with its plain version ({label})")
     p1, k1 = cuda_ms(plain, reps=2), cuda_ms(kernel)
     k2, p2 = cuda_ms(kernel), cuda_ms(plain, reps=2)
-    lat = probe_latencies(device)
+    lat = probe_latencies(device, cluster=group["cluster"], threads=group["threads"])
     r = {"max_abs_err": max(errs), "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": None,
-         "shape": shapes, "steps": max(p.n_steps for p in processes), **lat, **ar_bound(processes, lat)}
-    print(timing_line(f"{name} (longest chain {r['steps']} steps; probed: dependent FMA {lat['fma_ns']:.3f} ns, "
-                      f"barrier of {PROBE_THREADS} threads {lat['barrier_ns']:.3f} ns; latency bound "
+         "shape": shapes, "steps": max(p.n_steps for p in processes), "cluster": group["cluster"], **lat,
+         **ar_bound(processes, lat)}
+    step_barrier = (f"the step's own barrier (a cluster of {group['cluster']} x {group['threads']} threads) "
+                    if group["cluster"] > 1 else f"the step's own barrier (a block of {group['threads']} threads) ")
+    print(timing_line(f"{name} (longest chain {r['steps']} steps, {r['ms'] * 1e3 / r['steps']:.3f} us a step; probed: "
+                      f"dependent FMA {lat['fma_ns']:.3f} ns, barrier of {PROBE_THREADS} threads "
+                      f"{lat['barrier_ns']:.3f} ns, {step_barrier}{lat['step_barrier_ns']:.3f} ns; latency bound "
                       f"{r['latency_bound_ms']:.4f} ms, bytes {r['bytes_bound_ms']:.4f} ms; no library call)", r),
           flush=True)
     return r

@@ -96,9 +96,9 @@ def load() -> ctypes.CDLL:
     lib.maria_bin_map.restype = i
     lib.maria_shared_v.argtypes = [p, p, p, i, i, i, ll, i, p]
     lib.maria_shared_v.restype = i
-    lib.maria_ar_extrude.argtypes = [p, i, p, p, p, p, p, i, i, p]
+    lib.maria_ar_extrude.argtypes = [p, i, p, p, p, p, p, i, i, i, p]
     lib.maria_ar_extrude.restype = i
-    lib.maria_ar_probe.argtypes = [i, i, i, p, p]
+    lib.maria_ar_probe.argtypes = [i, i, i, i, p, p]
     lib.maria_ar_probe.restype = i
     lib.maria_max_dynamic_smem.argtypes = [i]
     lib.maria_max_dynamic_smem.restype = i

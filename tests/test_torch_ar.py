@@ -41,7 +41,14 @@ from maria_tpu.io import caching as tpu_caching  # noqa: E402
 from maria_torch import utils  # noqa: E402
 from maria_torch.atmosphere.process import AutoregressiveProcess  # noqa: E402
 from maria_torch.convert import ar_process_from_arrays  # noqa: E402
-from maria_torch.ops.ar_extrude import ar_extrude, ar_extrude_reference, ar_smem_bytes  # noqa: E402
+from maria_torch.ops.ar_extrude import (  # noqa: E402
+    ar_cluster_size,
+    ar_extrude,
+    ar_extrude_reference,
+    ar_plan,
+    ar_smem_bytes,
+    ar_tables,
+)
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_atmosphere_fidelity import NU, R0, RES, analytic_d_half  # noqa: E402
@@ -227,15 +234,207 @@ def test_extrusion_loop_matches_jax(shape, sizes):
     np.testing.assert_array_equal(values.numpy(), got[: ref.n_extrusion])
 
 
-def test_kernel_stages_every_2d_process_in_shared_memory():
+SMEM_LIMIT = 232448  # bytes of shared memory a block may take on an H100
+ALL_SIZES = (1, 2, 4, 8)  # the cluster sizes the kernel runs on; the plan's rule picks from 1 and 8
+
+
+def test_kernel_stages_every_2d_process_in_shared_memory(scenes):
     """A and B fit one block's shared memory (227 KB on an H100) for every
     2-D process of the scenes the card runs (at most 103 x 217, AtLAST-50k
-    2-D), not for the 3-D process (252 x 510), which reads them through
-    L2."""
-    limit = 232448
-    assert ar_smem_bytes(103, 217, True) <= limit
-    assert ar_smem_bytes(14, 53, True) <= limit and ar_smem_bytes(15, 66, True) <= limit
-    assert ar_smem_bytes(252, 510, True) > limit and ar_smem_bytes(252, 510, False) <= 48 * 1024
+    2-D): a cluster of one. The 3-D process (252 x 510) does not fit one
+    block and takes a cluster of eight, whose blocks hold 32 rows of A and
+    B each; a process too large for that reads them through L2 from one
+    block."""
+    for n_cross, n_sample in ((103, 217), (14, 53), (15, 66)):
+        assert ar_cluster_size(n_cross, n_sample, SMEM_LIMIT) == 1
+    plan = ar_plan(scenes["2d"]["program"].ar_processes, "cpu", smem_limit=SMEM_LIMIT)
+    assert plan["cluster"] == [1] * 8 and [g["cluster"] for g in plan["groups"]] == [1]
+    assert plan["groups"][0]["smem"] <= SMEM_LIMIT
+    assert ar_smem_bytes(252, 510, 2) > SMEM_LIMIT >= ar_smem_bytes(252, 510, 4) > ar_smem_bytes(252, 510, 8)
+    assert ar_cluster_size(252, 510, SMEM_LIMIT) == 8 and ar_cluster_size(252, 510, SMEM_LIMIT, ALL_SIZES) == 4
+    assert ar_cluster_size(700, 1500, SMEM_LIMIT) == 0 and ar_smem_bytes(700, 1500, 0) <= 48 * 1024
+
+
+def _small_process(shape, indices=None):
+    """A process of ``shape`` (n_extrusion, points a layer, layers) after
+    its setup; with ``indices`` (ext_idx, cross_idx) its lookback replaced
+    by those samples and A by a random stable operator of their width."""
+    cross, ext, nu, r0 = _geometry(shape)
+    proc = AutoregressiveProcess(cross, ext, callback_kwargs={"nu": nu, "r0": r0})
+    proc.run_setup()
+    if indices is not None:
+        proc.extrusion_sample_index, proc.cross_section_sample_index = map(np.asarray, indices)
+        proc.n_sample = len(indices[0])
+        proc.A = np.random.default_rng(2).uniform(-1, 1, (proc.n_cross_section, proc.n_sample)) / proc.n_sample
+        proc._device_cache = {}
+    return proc
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 0])
+def test_plan_picks_the_smallest_cluster_that_fits(cluster):
+    """Under a shared-memory limit between the needs of two cluster sizes,
+    ar_plan, offered every size, gives a 40 x 87 process the larger one (0:
+    none fits, one block reads A and B through L2), rows split evenly,
+    beside a small process that keeps a cluster of one: a launch a cluster
+    size. Its own rule takes eight blocks wherever one is too few."""
+    big, small = _small_process((30, 10, 4)), _small_process((12, 6, 1))
+    n_cross, n_sample = big.n_cross_section, big.n_sample
+    assert (n_cross, n_sample) == (40, 87)
+    need = {c: ar_smem_bytes(n_cross, n_sample, c) for c in (1, 2, 4, 8)}
+    assert need[1] > need[2] > need[4] > need[8] > ar_smem_bytes(n_cross, n_sample, 0)
+    limit = need[cluster] if cluster else need[8] - 4
+    assert ar_cluster_size(n_cross, n_sample, limit, ALL_SIZES) == cluster
+    assert ar_cluster_size(n_cross, n_sample, limit) == (cluster if cluster < 2 else 8)
+    if cluster:  # four bytes less and it takes the next size
+        assert ar_cluster_size(n_cross, n_sample, limit - 4, ALL_SIZES) == {1: 2, 2: 4, 4: 8, 8: 0}[cluster]
+    plan = ar_plan([small, big, small], "cpu", smem_limit=limit, sizes=ALL_SIZES)
+    assert plan["cluster"] == [1, cluster, 1]
+    if cluster > 1:
+        g1, g = plan["groups"]
+        assert (g1["cluster"], g1["index"], g["cluster"], g["index"]) == (1, [0, 2], cluster, [1])
+        assert g["rows"] == [n_cross // cluster] and g["threads"] == 32 * g["rows"][0]
+    else:
+        (g,) = plan["groups"]
+        assert g["cluster"] == 1 and g["index"] == [0, 1, 2] and g["rows"] == [6, 40, 6]
+        assert g["desc"].reshape(3, -1)[:, 8].tolist() == [1, int(cluster == 1), 1]
+    assert all(x["smem"] <= limit for x in plan["groups"])
+
+
+def _kernel_emulation(A, B, ext_idx, cross_idx, buffer, noise, cluster):
+    """numpy emulation of csrc/ar_extrude.cu's schedule with the tables of
+    ``ar_tables``: ``cluster`` blocks, each owning a share of the rows and
+    holding two copies of the sample-and-innovation vector; the samples
+    with ext_idx >= 1 and the innovations of step i + 1 loaded at the top
+    of step i and stored after the dot; a finished row element written to
+    the buffer and into the ext_idx == 0 slots of every block's next
+    vector; a lane-strided dot into one accumulator and a shuffle tree, in
+    float32. It tags every buffer row with the step that wrote it and
+    asserts that what step i loads ahead lies in rows written in step
+    i - 1 or earlier (or the initial lookback), and that a vector is
+    complete when it is read. Returns the filled buffer."""
+    n_cross, n_sample = A.shape
+    n_steps, n_rows = noise.shape[0], buffer.shape[0]
+    tab = ar_tables(ext_idx, cross_idx, n_cross)
+    goff, old, new_start, new_slot = (tab[k].astype(np.int64) for k in ("goff", "old", "new_start", "new_slot"))
+    assert len(old) + len(new_slot) == n_sample and new_start[0] == 0 and new_start[-1] == len(new_slot)
+    flat = buffer.astype(np.float32).reshape(-1).copy()
+    unwritten = n_steps + 1
+    written = np.where(np.arange(n_rows) >= n_steps, -1, unwritten)  # the step that wrote each row
+    eps_at = (n_sample + 31) & ~31
+    vec = np.full((cluster, 2, eps_at + n_cross), np.nan, dtype=np.float32)
+    rpb = -(-n_cross // cluster)
+    shares = [range(min(n_cross, c * rpb), min(n_cross, (c + 1) * rpb)) for c in range(cluster)]
+    assert sorted(r for share in shares for r in share) == list(range(n_cross))
+    lanes = np.arange(32)
+
+    first = (n_steps - 1) * n_cross + goff
+    assert (written[first // n_cross] == -1).all()
+    vec[:, 0, :n_sample] = flat[first]
+    vec[:, 0, eps_at:] = noise[0]
+    for i in range(n_steps):
+        cur, nxt, more = i & 1, (i + 1) & 1, i + 1 < n_steps
+        vec[:, nxt] = np.nan  # the copy step i - 1 read is free to fill
+        if more:  # loaded at the top of the step, before any of its rows is written
+            ahead = (n_steps - 2 - i) * n_cross + goff[old]
+            assert (written[ahead // n_cross] <= i - 1).all()
+            pre_samples, pre_eps = flat[ahead].copy(), noise[i + 1]
+        b = n_steps - 1 - i
+        for c, share in enumerate(shares):
+            if not len(share):
+                continue
+            rows = np.asarray(share)
+            v = vec[c, cur]
+            assert np.isfinite(v[:n_sample]).all() and np.isfinite(v[eps_at:]).all()
+            acc = np.zeros((len(rows), 32), dtype=np.float32)
+            for weights, x in ((A[rows], v[:n_sample]), (B[rows], v[eps_at:])):
+                for k in range(0, weights.shape[1], 32):
+                    part = weights[:, k:k + 32] * x[k:k + 32]
+                    acc[:, :part.shape[1]] += part
+            for o in (16, 8, 4, 2, 1):
+                acc = acc + acc[:, lanes ^ o]
+            flat[b * n_cross + rows] = acc[:, 0]
+            if more:
+                for r, value in zip(rows, acc[:, 0]):
+                    vec[:, nxt, new_slot[new_start[r]:new_start[r + 1]]] = value
+        written[b] = i
+        if more:
+            vec[:, nxt, old] = pre_samples
+            vec[:, nxt, eps_at:] = pre_eps
+    assert (written[:n_steps] == np.arange(n_steps)[::-1]).all()
+    return flat.reshape(n_rows, n_cross)
+
+
+def _lookback(n_extrusion, n_cross):
+    """The lookback indices AutoregressiveProcess derives for these sizes."""
+    proc = AutoregressiveProcess(np.stack([np.arange(n_cross, dtype=float), np.zeros(n_cross)], axis=-1),
+                                 np.arange(max(n_extrusion, 2), dtype=float))
+    return proc.extrusion_sample_index, proc.cross_section_sample_index
+
+
+EMULATED = {
+    # name: (shape or None, (ext_idx, cross_idx) or None, cluster sizes)
+    "e_top": (SHAPES["e_top"][0], None, (1, 2, 8)),
+    "g_3d": (SHAPES["g_3d"][0], None, (4, 8)),
+    # the shortest screens: their rings repeat lookback rows
+    "n_extrusion_2": ((2, 9, 1), None, (1, 4)),
+    "n_extrusion_3": ((3, 9, 1), None, (1, 2)),
+    # one row of lookback, sampled at every column and again at four: a
+    # column's element goes into two slots
+    "n_extrusion_1": ((2, 9, 1), (np.zeros(13, dtype=int), np.r_[np.arange(9), 0, 2, 5, 8]), (1, 2)),
+    # the newest row sampled at a strict subset of the columns, not first in
+    # the sample order
+    "newest_subset": ((8, 6, 1), (np.r_[1, 1, 1, 0, 0, 0, 2, 4, 7, 7], np.r_[0, 2, 5, 4, 0, 2, 1, 3, 0, 5]), (1, 2, 4)),
+}
+
+
+@pytest.mark.parametrize("name,cluster", [(k, c) for k, v in EMULATED.items() for c in v[2]])
+def test_kernel_schedule_matches_plain(name, cluster):
+    """The kernel's schedule, emulated in numpy (see _kernel_emulation,
+    which also asserts what the loads a step ahead may read), against
+    ar_extrude_reference on the same operators, buffer and innovations:
+    within 2e-5 of the buffer's std (float32 dots summed in another
+    order, the rounding carried through the lookback)."""
+    shape, indices, _ = EMULATED[name]
+    proc = _small_process(shape, indices)
+    t = proc.tensors("cpu")
+    n_rows = int(t["ext_idx"].max()) + 1 if name == "n_extrusion_1" else proc.n_extrusion
+    n_steps, n_cross = 2 * n_rows, proc.n_cross_section
+    rng = np.random.default_rng(7)
+    buffer = rng.standard_normal((n_rows + n_steps, n_cross)).astype(np.float32)
+    noise = rng.standard_normal((n_steps, n_cross)).astype(np.float32)
+    ref = ar_extrude_reference(t["A"], t["B"], torch.as_tensor(buffer), t["ext_idx"], t["cross_idx"],
+                               torch.as_tensor(noise)).numpy()
+    got = _kernel_emulation(t["A"].numpy(), t["B"].numpy(), t["ext_idx"].numpy(), t["cross_idx"].numpy(), buffer,
+                            noise, cluster)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-5 * ref.std())
+    np.testing.assert_array_equal(got[n_steps:], buffer[n_steps:])
+
+
+def test_tables_of_a_process_with_its_newest_row_sampled_in_part():
+    """A process whose ext_idx == 0 samples are a strict subset of the
+    columns: ar_tables sends each column to the slots that sample it,
+    ar_plan lays it out and ar_extrude (the plain loop, on CPU tensors)
+    equals ar_extrude_reference."""
+    shape, (ext_idx, cross_idx), _ = EMULATED["newest_subset"]
+    proc = _small_process(shape, (ext_idx, cross_idx))
+    tab = ar_tables(ext_idx, cross_idx, 6)
+    assert tab["goff"].tolist() == ((ext_idx + 1) * 6 + cross_idx).tolist()
+    assert tab["old"].tolist() == [0, 1, 2, 6, 7, 8, 9]
+    assert tab["new_start"].tolist() == [0, 1, 1, 2, 2, 3, 3] and tab["new_slot"].tolist() == [4, 5, 3]
+    with pytest.raises(ValueError, match="outside"):
+        ar_tables(ext_idx, cross_idx, 5)
+    plan = ar_plan([proc], "cpu", smem_limit=SMEM_LIMIT)
+    (g,) = plan["groups"]
+    assert g["tab"].numel() == 2 * 10 + 6 + 1 and g["desc"].tolist()[5:] == [6, 10, 16, 1, 7]
+    rng = np.random.default_rng(1)
+    buffer = torch.as_tensor(rng.standard_normal((proc.n_buffer, 6)).astype(np.float32))
+    noise = torch.as_tensor(rng.standard_normal((proc.n_steps, 6)).astype(np.float32))
+    t = proc.tensors("cpu")
+    ref = ar_extrude_reference(t["A"], t["B"], buffer, t["ext_idx"], t["cross_idx"], noise)
+    np.testing.assert_array_equal(ar_extrude([proc], [buffer], [noise])[0].numpy(), ref[:8].numpy())
+    proc.extrusion_sample_index = proc.extrusion_sample_index + 1  # one row past the buffer's lookback
+    with pytest.raises(ValueError, match="outside"):
+        ar_plan([proc], "cpu", smem_limit=SMEM_LIMIT)
 
 
 def test_ar_process_from_arrays_checks_its_geometry():

@@ -15,7 +15,7 @@ torch.set_num_threads(1)
 
 from maria_torch.atmosphere.process import AutoregressiveProcess  # noqa: E402
 from maria_torch.noise import band_half_spectrum  # noqa: E402
-from maria_torch.ops.ar_extrude import ar_extrude, ar_extrude_reference, ar_plan  # noqa: E402
+from maria_torch.ops.ar_extrude import ar_extrude, ar_extrude_reference, ar_plan, ar_smem_bytes  # noqa: E402
 from maria_torch.ops.bin_map import bin_map, bin_map_plain  # noqa: E402
 from maria_torch.ops.pink_noise import pink_noise, pink_noise_plain  # noqa: E402
 from maria_torch.ops.shared_v import draw_key, shared_v, shared_v_plain  # noqa: E402
@@ -233,16 +233,23 @@ def _stacked_process(n_ext, n_layer, n_layers):
     return p
 
 
-def _check_ar(processes, device, seed=0):
-    """The kernel (one launch for all ``processes``) against the plain loop
-    on the same draws: every screen within 1e-4 of its std (float32 dots
-    summed in another order, the rounding carried through the lookback)."""
+ALL_SIZES = (1, 2, 4, 8)  # the cluster sizes the kernel runs on; the plan's rule picks from 1 and 8
+
+
+def _check_ar(processes, device, seed=0, smem_limit=None, clusters=None):
+    """The kernel (one launch a cluster size of ``processes``' plan, which
+    must give them ``clusters`` when given) against the plain loop on the
+    same draws: every screen within 1e-4 of its std (float32 dots summed
+    in another order, the rounding carried through the lookback)."""
+    plan = ar_plan(processes, device, smem_limit=smem_limit, sizes=ALL_SIZES if smem_limit else (1, 8))
+    if clusters is not None:
+        assert plan["cluster"] == clusters
     gen = torch.Generator(device=device).manual_seed(seed)
     draws = [p.draw(gen, device) for p in processes]
     before = ar_extrude.launches
-    out = ar_extrude(processes, [d[0] for d in draws], [d[1] for d in draws])
+    out = ar_extrude(processes, [d[0] for d in draws], [d[1] for d in draws], plan=plan)
     torch.cuda.synchronize()
-    assert ar_extrude.launches == before + 1
+    assert ar_extrude.launches == before + len({max(c, 1) for c in plan["cluster"]}) == before + len(plan["groups"])
     for p, o, (b, e) in zip(processes, out, draws):
         t = p.tensors(device)
         ref = ar_extrude_reference(t["A"], t["B"], b, t["ext_idx"], t["cross_idx"], e)[: p.n_extrusion]
@@ -255,33 +262,75 @@ def _check_ar(processes, device, seed=0):
 @pytest.mark.parametrize("duration", [60.0, 600.0])
 def test_ar_kernel_matches_plain_at_mustang2_processes(cuda_device, duration):
     """Every process of the MUSTANG-2 2-D AR scene at 60 s and 600 s (8
-    each, up to 174 and 1,686 extrusion steps), in one launch, each with A
-    and B in shared memory."""
+    each, up to 174 and 1,686 extrusion steps), in one launch, each in one
+    block with A and B in its shared memory."""
     from maria_torch.scenes import simulation
 
     processes = simulation("mustang2", duration, cuda_device, method="ar").program().ar_processes
-    assert len(processes) == 8 and all(ar_plan(processes, cuda_device)["staged"])
-    _check_ar(processes, cuda_device)
+    assert len(processes) == 8
+    _check_ar(processes, cuda_device, clusters=[1] * 8)
 
 
 @pytest.mark.cuda
-def test_ar_kernel_matches_plain_at_the_3d_shape(cuda_device):
+@pytest.mark.parametrize("cluster", [8, 4, 0])
+def test_ar_kernel_matches_plain_at_the_3d_shape(cuda_device, cluster):
     """The AtLAST-50k 3-D process's shape, whose A and B (0.77 MB) do not
-    fit shared memory and are read through L2."""
+    fit one block's shared memory: on the cluster of eight the plan gives
+    it on this card, on the smallest cluster that holds it, four, and read
+    through L2 from one block (forced by a limit under its need at
+    eight)."""
     p = _stacked_process(209, 21, 12)
     assert (p.n_cross_section, p.n_sample) == (252, 510)
-    assert ar_plan([p], cuda_device)["staged"] == [False]
-    _check_ar([p], cuda_device)
+    limit = {8: None, 4: ar_smem_bytes(252, 510, 4), 0: ar_smem_bytes(252, 510, 8) - 4}[cluster]
+    _check_ar([p], cuda_device, smem_limit=limit, clusters=[cluster])
+
+
+def _resampled(p, ext_idx, cross_idx):
+    """``p`` with its lookback replaced by the samples (ext_idx, cross_idx)
+    and A by a random stable operator of their width."""
+    p.extrusion_sample_index, p.cross_section_sample_index = np.asarray(ext_idx), np.asarray(cross_idx)
+    p.n_sample = len(ext_idx)
+    p.A = np.random.default_rng(2).uniform(-1, 1, (p.n_cross_section, p.n_sample)) / p.n_sample
+    p._device_cache = {}
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 0])
+def test_ar_kernel_on_each_cluster_size(cuda_device, cluster):
+    """Small processes on every cluster size, forced by the shared-memory
+    limit given to ar_plan: a 40 x 87 process whose limit is its need at
+    that size (0: four bytes under its need at eight, so through L2); a
+    6 x 34 one (on eight blocks two own no row); one whose newest row is
+    sampled at three of six columns, one of them twice; and one with 150
+    older samples, more than the threads of a block of one or two rows
+    load ahead in registers, so that the rest is loaded after the dot."""
+    p = _stacked_process(30, 10, 4)
+    assert (p.n_cross_section, p.n_sample) == (40, 87)
+    limit = ar_smem_bytes(40, 87, cluster) if cluster else ar_smem_bytes(40, 87, 8) - 4
+    _check_ar([p], cuda_device, smem_limit=limit, clusters=[cluster])
+    if cluster:
+        q = _stacked_process(36, 6, 1)
+        _check_ar([q, q], cuda_device, seed=3, smem_limit=ar_smem_bytes(6, q.n_sample, cluster), clusters=[cluster] * 2)
+        s = _resampled(_stacked_process(8, 6, 1), [1, 1, 1, 0, 0, 0, 0, 2, 4, 7, 7], [0, 2, 5, 4, 0, 2, 4, 1, 3, 0, 5])
+        _check_ar([s], cuda_device, seed=4, smem_limit=ar_smem_bytes(6, 11, cluster), clusters=[cluster])
+        rng = np.random.default_rng(5)
+        long = _resampled(_stacked_process(8, 6, 1), np.r_[np.zeros(6, dtype=int), rng.integers(1, 8, 150)],
+                          np.r_[np.arange(6), rng.integers(0, 6, 150)])
+        _check_ar([long], cuda_device, seed=6, smem_limit=ar_smem_bytes(6, 156, cluster), clusters=[cluster])
 
 
 @pytest.mark.cuda
 def test_ar_kernel_mixed_batch(cuda_device):
-    """Processes of mixed shapes in one launch: small staged ones, one of
-    203 KB of A and B, just under the 227 KB limit, and one of 507 KB over
-    it."""
-    processes = [_stacked_process(n, k, l) for n, k, l in ((36, 6, 1), (90, 9, 3), (100, 32, 4), (80, 17, 12), (5, 3, 1))]
-    staged = ar_plan(processes, cuda_device)["staged"]
-    assert True in staged and False in staged
+    """Processes of mixed shapes in one call: small ones and one of 203 KB
+    of A and B, just under the 227 KB limit, in one block each; one of 507
+    KB on a cluster; one of 2 MB, too large for a cluster of eight, read
+    through L2: one launch a cluster size."""
+    processes = [_stacked_process(n, k, l)
+                 for n, k, l in ((36, 6, 1), (90, 9, 3), (100, 32, 4), (80, 17, 12), (5, 3, 1), (60, 40, 10))]
+    plan = ar_plan(processes, cuda_device)
+    assert plan["cluster"] == [1, 1, 1, 8, 1, 0]
+    assert len(plan["groups"]) == 2
     _check_ar(processes, cuda_device, seed=1)
 
 
