@@ -50,7 +50,35 @@ Phases, each of which must pass (any failure exits non-zero):
    over blocks) and (d)'s ids on a 512 x 512 map (global atomics), each
    as (data, 1) and as data with the in-kernel count: hit counts exact,
    sums within 1e-5 of the map's maximum of the plain sums taken in
-   float64.
+   float64; and at slice (h)'s ra/dec ids on its 512 x 512 map;
+11. slice (h), the observer's flow at full width: MUSTANG-2 at the GBT on
+   a Planner-made 600 s ra/dec daisy over the synthetic big_cluster map
+   (512 x 512, 0.5 deg) at (150, 10) deg with the 2-D atmosphere and
+   noise, Simulation(..., map=...).run() -> BinMapper(frame="ra/dec") on
+   the input map's grid: finite fields atmosphere, map and noise of 217 x
+   30,000, K1 launched twice a run() and K2 once a BinMapper.run(), the
+   noise PSD as in phase 5;
+12. slice (i), (h) without an atmosphere: with noise=False the binned map
+   against the beam-smoothed input map sampled on the mapper's grid,
+   correlation above 0.95 over the better-covered half of the hit
+   pixels; with noise=True the noise PSD and K1's launches;
+13. slice (j), slice (c)'s scene observing the dust family, widened to
+   the scan's field and centred on the boresight's mean ra/dec, through
+   build_tod_program(input_map=) and total_power_fn(): held as slice (c),
+   the "map" field finite and on the map; and total_power_fn() of the
+   same scene with the map 1e6 times brighter minus the total of a
+   map-free program on the same draws equal to gains x the "map" field
+   to 1e-5 of its maximum (at the family's own brightness the field,
+   ~1e-5 pW, lies under the float32 rounding of a ~100 pW total, so
+   the difference of two totals cannot show it);
+14. the map stage on the card against the CPU for (h)'s pointing: the
+   beam-smoothed map (rfft2 on the card, float32) within 1e-5 of its
+   maximum of the same smoothing in float64 on the CPU, the detectors'
+   offsets from the map's centre (float32 both) within 2e-6
+   rad, the card's samples within 1e-5 of the map's maximum of a float64
+   gather on the CPU at the card's own offsets, and the calibrated,
+   time-filtered "map" field of the noise-free scene within what one
+   float32 ulp of ra moves a sample by.
 
 Every kernel is timed (CUDA events, in turns) beside its plain version,
 the PyTorch library call that computes the same function where there is
@@ -417,9 +445,8 @@ def slice_pixel_ids(tod, mapper_map, n_map=N_MAP):
     the mapper's width."""
     from maria_torch.mappers.bin_mapper import azel_pixel_ids
 
-    res = np.radians(mapper_map.resolution) * N_MAP / n_map
-    return azel_pixel_ids(tod.pointing, np.radians(mapper_map.center), res, n_map, n_map,
-                          device=tod.device).contiguous()
+    res = mapper_map.resolution * N_MAP / n_map
+    return azel_pixel_ids(tod.pointing, mapper_map.center, res, n_map, n_map, device=tod.device).contiguous()
 
 
 def check_noise_psd(sim, tod_pw):
@@ -429,10 +456,11 @@ def check_noise_psd(sim, tod_pw):
 
     from maria_torch.atmosphere.fourier import good_fft_size
     from maria_torch.noise import _pink_weights_np
+    from maria_torch.ops.program import band_noise_basis
 
-    program = sim.program()
-    band = program.bands[0]
-    fs = program.sample_rate
+    band = sim.instrument.dets.bands[0]
+    fs = sim.obs_list[0].sample_rate
+    basis, cp = band_noise_basis(sim.instrument.dets.offsets, sim.noise_kwargs)
     x = tod_pw.data["noise"].double()
     n = x.shape[-1]
     X = torch.fft.rfft(x - x.mean(dim=-1, keepdim=True), dim=-1)
@@ -441,8 +469,7 @@ def check_noise_psd(sim, tod_pw):
     w2 = _pink_weights_np(good_fft_size(n), fs, band.knee, 1.0) ** 2
     f_fft = np.fft.rfftfreq(good_fft_size(n), d=1 / fs)
     w2 = np.interp(f, f_fft, w2)
-    cp = band.corr_prop
-    b2 = float(np.mean(np.sum(np.asarray(band.noise_basis) ** 2, axis=-1))) if cp else 0.0
+    b2 = float(np.mean(np.sum(np.asarray(basis) ** 2, axis=-1))) if cp else 0.0
     expected = (1e12 * band.NEP) ** 2 * (fs + (1 - cp) * w2 + cp * b2 * w2)
     edges = np.geomspace(2 * band.knee, 0.98 * fs / 2, 7)
     ratios = []
@@ -554,9 +581,10 @@ def check_total_noise_psd(program, device, gen, label):
     return ok
 
 
-def run_atlast(device, label="c", method="fourier", duration=60.0, n_det=5556 * ATLAST_BANDS):
-    """Slices (c) and (g): the AtLAST-50k total-power path (bench.py's
-    config_b), with the 3-D Fourier or AR atmosphere."""
+def run_atlast(device, label="c", method="fourier", duration=60.0, n_det=5556 * ATLAST_BANDS, input_map=None):
+    """Slices (c), (g) and (j): the AtLAST-50k total-power path (bench.py's
+    config_b), with the 3-D Fourier or AR atmosphere and, with
+    ``input_map``, that family of sky over the field."""
     import torch
 
     from maria_torch.mappers.bin_mapper import bin_total, field_pixel_ids
@@ -568,7 +596,7 @@ def run_atlast(device, label="c", method="fourier", duration=60.0, n_det=5556 * 
     from maria_torch.scenes import simulation
 
     s = time.perf_counter()
-    sim = simulation("atlast", duration, device, method=method)
+    sim = simulation("atlast", duration, device, method=method, input_map=input_map)
     program = sim.program()
     fn = program.total_power_fn()
     obs = sim.obs_list[0]
@@ -586,6 +614,18 @@ def run_atlast(device, label="c", method="fourier", duration=60.0, n_det=5556 * 
           f"({program.n_det} detectors x {program.n_t} samples, {len(program.t_coarse)} coarse steps, {atmosphere}; "
           f"noise matmul {program.use_noise_matmul()}, shared shape {program._noise_matmul_specs()[3] is not None}, "
           f"GEMM form {gemm_form(device)})", flush=True)
+    if input_map is not None:
+        state = sim.generator.get_state()
+        field = program.fields(generator=sim.generator, device=device, upto="signal")["map"]
+        sim.generator.set_state(state)
+        on_map = float((torch.cat([samples for b in program.bands for _, samples in b.map_stages]) != 0).float().mean())
+        ok = tuple(field.shape) == (program.n_det, program.n_t) and bool(torch.isfinite(field).all())
+        ok &= float(field.abs().max()) > 0 and on_map > 0.999
+        print(f"slice ({label}): input map {sim.map}; 'map' field max {float(field.abs().max()):.3e} pW, share of the "
+              f"samples on the map {on_map:.5f} {'ok' if ok else 'FAIL'}", flush=True)
+        del field
+        if not ok:
+            fail(f"slice ({label}) map field")
 
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -656,7 +696,138 @@ def run_atlast(device, label="c", method="fourier", duration=60.0, n_det=5556 * 
 
     if not check_total_noise_psd(program, device, sim.generator, label):
         fail(f"slice ({label}) noise PSD")
-    return launches, program, ids
+    return launches, program, ids, sim
+
+
+def run_sky_slice(label, device, atmosphere, noise, card, duration=600.0):
+    """Slices (h) and (i): ``maria_torch.scenes.sky_simulation`` ->
+    run() -> BinMapper in ra/dec on the input map's grid."""
+    import torch
+
+    from maria_torch.ops.ar_extrude import ar_extrude
+    from maria_torch.ops.bin_map import bin_map
+    from maria_torch.ops.pink_noise import pink_noise
+    from maria_torch.scenes import sky_mapper, sky_recovery, sky_simulation
+
+    s = time.perf_counter()
+    sim = sky_simulation(duration, device, atmosphere=atmosphere, noise=noise)
+    if atmosphere is not None:
+        sim.program()
+    torch.cuda.synchronize()
+    plan = sim.plans[0]
+    print(f"slice ({label}) {duration:.0f} s, atmosphere {atmosphere}, noise {noise}: scene setup "
+          f"{time.perf_counter() - s:.2f} s; the Planner's plan starts {plan.start_time - 1.75e9:.0f} s after 1.75e9 in "
+          f"{plan.frame}, boresight el {np.degrees(plan.el.min()):.1f}-{np.degrees(plan.el.max()):.1f} deg; input map "
+          f"{sim.map}", flush=True)
+
+    pink_noise.launches = bin_map.launches = ar_extrude.launches = 0
+    s = time.perf_counter()
+    tod = sim.run()[0]
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - s
+    k1_run = pink_noise.launches
+    s = time.perf_counter()
+    out_map = sky_mapper([tod], sim.map).run()
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - s
+    launches = {"pink_noise": pink_noise.launches, "bin_map": bin_map.launches, "ar_extrude": ar_extrude.launches}
+    print(f"slice ({label}): first run() {run_s:.3f} s, first BinMapper.run() {map_s:.3f} s, main-path launches "
+          f"{launches}", flush=True)
+
+    n_det, n_t = 217, int(round(duration * 50.0))
+    fields = {"map"} | ({"atmosphere"} if atmosphere is not None else set()) | ({"noise"} if noise else set())
+    n = sim.map.n_x
+    ok = tod.shape == (n_det, n_t) and tod.units == "K_RJ" and tod.device.type == "cuda"
+    ok &= set(tod.fields) == fields and all(bool(torch.isfinite(v).all()) for v in tod.data.values())
+    ok &= float(tod.data["map"].abs().max()) > 0
+    ok &= tuple(out_map.data.shape) == (1, 1, 1, n, n) and out_map.frame == "ra/dec"
+    ok &= bool(torch.isfinite(out_map.data).all()) and float(out_map.weight[..., n // 2, n // 2].min()) > 0
+    ok &= float(out_map.weight.sum()) == n_det * n_t  # the whole scan lies on the input map
+    ok &= k1_run == launches["pink_noise"] == (2 if noise else 0) and launches["bin_map"] == 1
+    ok &= launches["ar_extrude"] == 0
+    print(f"slice ({label}): TOD {tod.shape} {tod.fields} in {tod.units}, max |map| "
+          f"{float(tod.data['map'].abs().max()):.3e} K_RJ, map {tuple(out_map.data.shape)} in {out_map.frame}, hit share "
+          f"{float((out_map.weight > 0).float().mean()):.3f}, centre weight "
+          f"{float(out_map.weight[..., n // 2, n // 2].min()):.0f} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"slice ({label}) output check")
+
+    if atmosphere is None and not noise:
+        corr = sky_recovery(sim, out_map)
+        ok = corr > 0.95
+        print(f"slice ({label}): binned map against the beam-smoothed input map on the mapper's grid, correlation over "
+              f"the better-covered half of the hit pixels {corr:.5f} (limit 0.95) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"slice ({label}) does not recover its input map")
+
+    run_ms, map_ms = [], []
+    for _ in range(WARM_REPS):
+        s = time.perf_counter()
+        tod = sim.run()[0]
+        torch.cuda.synchronize()
+        run_ms.append((time.perf_counter() - s) * 1e3)
+        s = time.perf_counter()
+        sky_mapper([tod], sim.map).run()
+        torch.cuda.synchronize()
+        map_ms.append((time.perf_counter() - s) * 1e3)
+    print(f"slice ({label}): warm run() {np.mean(run_ms):.2f} ms, warm BinMapper.run() {np.mean(map_ms):.2f} ms "
+          f"(means of {WARM_REPS}; {[round(x, 2) for x in run_ms]}, {[round(x, 2) for x in map_ms]}; "
+          f"{n_det * n_t} samples into {n} x {n} pixels; {card})", flush=True)
+
+    if noise and not check_noise_psd(sim, sim.run(units="pW")[0]):
+        fail(f"slice ({label}) noise PSD")
+    return sim, tod, out_map, launches
+
+
+def check_map_stage(sim, device):
+    """The map stage on the card against the CPU, for the pointing and
+    the map of ``sim`` (a scene without atmosphere or noise):
+    ``maria_torch.scenes.map_stage_errors`` and its limits."""
+    from maria_torch.scenes import map_stage_errors
+
+    e = map_stage_errors(sim, device)
+    ok = e["smooth"] <= 1e-5 and e["offsets_rad"] <= 2e-6 and e["gather"] <= 1e-5 and e["field"] <= e["field_limit"]
+    print(f"map stage on the card against the CPU at slice (h)'s pointing {sim.obs_list[0].shape}: the beam-smoothed "
+          f"map against a float64 smoothing {e['smooth']:.2e} of its max (limit 1e-5); offsets max|diff| "
+          f"{e['offsets_rad']:.2e} rad (limit 2e-6); samples against a float64 gather at the card's offsets "
+          f"{e['gather']:.2e} of the map's max (limit 1e-5); the 'map' field card against CPU {e['field']:.2e} of its "
+          f"max (limit {e['field_limit']:.2e}: one float32 ulp of ra over the map's steepest pixel) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("the map stage on the card disagrees with the CPU")
+
+
+def check_total_carries_map(sim, device, label):
+    """With slice (j)'s map made 1e6 times brighter: total_power_fn()
+    minus the total of a map-free program on the same draws against
+    gains x the "map" field, to 1e-5 of its maximum."""
+    import torch
+
+    from maria_torch.ops.program import build_tod_program
+
+    obs = sim.obs_list[0]
+    bright = sim.map._replace(data=sim.map.data * 1e6)
+    kw = dict(with_noise=True, noise_kwargs=sim.noise_kwargs, device=device)
+    program, bare = build_tod_program(obs, input_map=bright, **kw), build_tod_program(obs, **kw)
+    state = sim.generator.get_state()
+    with_map = program.total_power_fn()(generator=sim.generator, device=device)
+    sim.generator.set_state(state)
+    diff = with_map.double()
+    largest = float(with_map.abs().max())
+    del with_map
+    diff -= bare.total_power_fn()(generator=sim.generator, device=device)
+    sim.generator.set_state(state)
+    field = program.fields(generator=sim.generator, device=device, upto="signal")["map"]
+    gains = program.draw_gains(generator=sim.generator, device=device)
+    expected = (gains * field).double()
+    scale = float(expected.abs().max())
+    err = float((diff - expected).abs().max())
+    ok = scale > 0 and err <= 1e-5 * scale
+    print(f"slice ({label}) with the map 1e6 times brighter: total minus the map-free total of the same draws against "
+          f"gains x the 'map' field: max|diff| {err:.3e} pW = {err / scale:.2e} of the field's max {scale:.3e} pW "
+          f"(limit 1e-5; largest total {largest:.1f} pW) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"slice ({label}): the total does not carry the map with the gains applied")
 
 
 def main() -> int:
@@ -671,6 +842,7 @@ def main() -> int:
         import maria_torch  # noqa: F401
     except ImportError as e:
         fail(f"maria_torch is not importable from {HERE}: {e}")
+    from maria_torch.mappers.bin_mapper import radec_pixel_ids
     from maria_torch.ops import kernels
 
     card = card_line()
@@ -700,11 +872,20 @@ def main() -> int:
         results[label] = run_slice(label, duration, device)
     for label, duration in AR_SLICES.items():
         results[label] = run_slice(label, duration, device, method="ar")
-    launches_c, program_c, ids_c = run_atlast(device)
+    launches_c, program_c, ids_c, _ = run_atlast(device)
     _, corr_cols, _, shared_c, _ = program_c._noise_matmul_specs()
     check_shared_v(device, gen, program_c.n_det, len(shared_c), c=shared_c, n_extra=corr_cols.shape[1])
-    launches_g, program_g, ids_g = run_atlast(device, label="g", method="ar")
+    launches_g, program_g, ids_g, _ = run_atlast(device, label="g", method="ar")
     del ids_g
+
+    sim_h, tod_h, _, launches_h = run_sky_slice("h", device, "2d", True, card)
+    sim_i, _, _, launches_i = run_sky_slice("i", device, None, False, card)
+    check_map_stage(sim_i, device)
+    launches_i_noise = run_sky_slice("i, noise on", device, None, True, card)[3]
+    launches_j, _, ids_j, sim_j = run_atlast(device, label="j", input_map="dust")
+    del ids_j
+    check_total_carries_map(sim_j, device, "j")
+    del sim_j
 
     ar = {label: check_ar_extrude(device, gen, f"slice {label}", results[label][3].ar_processes)
           for label in AR_SLICES}
@@ -722,12 +903,20 @@ def main() -> int:
     k2["six"] = check_bin_map(device, gen, slice_pixel_ids(tod_d, map_d), "slice d ids", n_channels=6)
     k2["512"] = check_bin_map(device, gen, slice_pixel_ids(tod_d, map_d, n_map=512), "slice d ids, 512 x 512",
                               n_pix=512 * 512)
+    sky = sim_h.map
+    ids_h = radec_pixel_ids(tod_h.pointing, sky.center, sky.resolution, sky.n_x, sky.n_y, device=device).contiguous()
+    k2["h"] = check_bin_map(device, gen, ids_h, "slice h ra/dec ids, 512 x 512", n_pix=sky.n_x * sky.n_y)
     for key, r in k2.items():
         for form, x in r.items():
             print(f"K2 summary {key} {form}: {x['ms']:.4f} ms, library {x['library_ms']:.4f} ms, bound "
                   f"{x['bound_ms']:.4f} ms ({x['bound_ms'] / x['ms']:.1%}), plain {x['plain_ms']:.4f} ms", flush=True)
 
     launches_b = results["b"][2]
+    by_slice = {**{label: r[2] for label, r in results.items()}, "c": launches_c, "g": launches_g, "h": launches_h,
+                "i": launches_i, "i, noise on": launches_i_noise, "j": launches_j}
+    for name in ("pink_noise", "bin_map", "shared_v", "ar_extrude"):
+        print(f"main-path launches of {name} by slice: {({k: v[name] for k, v in by_slice.items() if name in v})}",
+              flush=True)
     kernels_line = {"kernels": [
         {"name": "pink_noise", "route": "cuda", "source": "maria_torch/csrc/pink_noise.cu",
          "replaces": "maria_tpu/ops/pallas_noise.py:269", "launches": launches_b["pink_noise"],

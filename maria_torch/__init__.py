@@ -20,11 +20,12 @@ from __future__ import annotations
 from .device import default_device  # noqa: F401  (sets the f32/TF32 policy)
 from .io import get_cache_dir, set_cache_dir  # noqa: F401
 from .instrument import Instrument, get_instrument  # noqa: F401
-from .plan import Plan, get_plan  # noqa: F401
+from .plan import Plan, PlanList, Planner, get_plan  # noqa: F401
 from .site import Site, get_site  # noqa: F401
 from .sim import Simulation  # noqa: F401
 from .tod import TOD  # noqa: F401
 from .mappers import BinMapper  # noqa: F401
+from . import map  # noqa: F401, A004  (maria_torch.map.get, as maria_tpu.map.get)
 
 __version__ = "0.1.0"
 
@@ -32,6 +33,8 @@ __all__ = [
     "BinMapper",
     "Instrument",
     "Plan",
+    "PlanList",
+    "Planner",
     "Simulation",
     "Site",
     "TOD",

@@ -130,17 +130,31 @@ class Band:
     def passband(self, nu):
         return self.efficiency * np.interp(np.asarray(nu, dtype=float), self.nu, self.tau, left=0, right=0)
 
-    def transmission_integral_grid(self, spectrum):
-        """∫ passband(nu) e^-opacity dnu on the spectrum's
-        (base_temperature, pwv, elevation) grid — the K_RJ <-> W kernel.
-        Kept for the last spectrum asked for: every TOD conversion of a
-        simulation needs the same grid."""
+    def transmission_integral_grid(self, spectrum, nu_min_Hz: float = 0.0, nu_max_Hz: float = np.inf):
+        """∫ passband(nu) e^-opacity dnu over [nu_min_Hz, nu_max_Hz) on
+        the spectrum's (base_temperature, pwv, elevation) grid — the
+        K_RJ <-> W kernel. Kept for the last spectrum and range asked
+        for: every TOD conversion of a simulation needs the same grid."""
+        key = (id(spectrum), nu_min_Hz, nu_max_Hz)
         cached = getattr(self, "_transmission_grid", None)
-        if cached is None or cached[0] is not spectrum:
-            nu = spectrum.side_nu
-            grid = np.trapezoid(self.passband(nu) * np.exp(-spectrum._opacity), x=nu, axis=-1)
-            self._transmission_grid = cached = (spectrum, grid)
+        if cached is None or cached[0] != key:
+            mask = (spectrum.side_nu >= nu_min_Hz) & (spectrum.side_nu < nu_max_Hz)
+            nu = spectrum.side_nu[mask]
+            grid = np.trapezoid(self.passband(nu) * np.exp(-spectrum._opacity[..., mask]), x=nu, axis=-1)
+            self._transmission_grid = cached = (key, grid, spectrum)  # the spectrum kept alive with its id
         return cached[1]
+
+    def compute_transmission_integral(self, spectrum=None, nu_min_Hz: float = 0.0, nu_max_Hz: float = np.inf,
+                                      base_temperature=None, zenith_pwv=None, elevation=None):
+        """∫ passband(nu) e^-opacity dnu [Hz] over [nu_min_Hz, nu_max_Hz).
+        Without a spectrum, the passband's own integral in a vacuum (a
+        float); with one, the grid above interpolated on the host at
+        (base_temperature, zenith_pwv, elevation)."""
+        if spectrum is None:
+            nu = self.nu[(self.nu >= nu_min_Hz) & (self.nu < nu_max_Hz)]
+            return float(np.trapezoid(self.passband(nu), x=nu))
+        grid = self.transmission_integral_grid(spectrum, nu_min_Hz, nu_max_Hz)
+        return np.asarray(interp_grid_np(spectrum.points[:3], grid, (base_temperature, zenith_pwv, elevation)))
 
     def atmosphere_power_table(self, spectrum, base_temperature: float):
         """(pwv_side, el_side, table): the band-integrated atmospheric

@@ -6,7 +6,8 @@ on the detector's elevation, so the factor is per sample: the host
 interpolates the (base_temperature, pwv, elevation) grid at the
 observation's temperature and pwv, and the device interpolates the
 remaining elevation axis, multilinear like maria_tpu's
-RegularGridInterpolator.
+RegularGridInterpolator. Without one (``spectrum=None``) it is the
+passband's integral in a vacuum, one number a band.
 """
 
 from __future__ import annotations
@@ -37,18 +38,21 @@ def transmission_integral(band, spectrum, zenith_pwv: float, base_temperature: f
     return tab[i] * (1 - w) + tab[i + 1] * w
 
 
-def conversion_factor(in_units: str, out_units: str, band, polarized: bool, spectrum,
-                      zenith_pwv: float, base_temperature: float, elevation):
-    """Per-sample factor taking a field in ``in_units`` to ``out_units``."""
+def conversion_factor(in_units: str, out_units: str, band, polarized: bool, spectrum=None,
+                      zenith_pwv: float = None, base_temperature: float = None, elevation=None):
+    """Factor taking a field in ``in_units`` to ``out_units``: per sample
+    (a tensor shaped as ``elevation``) with a spectrum, a float without."""
     for u in (in_units, out_units):
         if u not in UNITS:
             raise NotImplementedError(f"units '{u}' (ROADMAP queue 1, item 13: the calibration graph)")
     (q_in, s_in), (q_out, s_out) = UNITS[in_units], UNITS[out_units]
     if q_in == q_out:
         return s_in / s_out
-    kernel = (0.5 if polarized else 1.0) * k_B * transmission_integral(
-        band, spectrum, zenith_pwv, base_temperature, elevation
-    )
+    if spectrum is None:
+        integral = band.compute_transmission_integral()
+    else:
+        integral = transmission_integral(band, spectrum, zenith_pwv, base_temperature, elevation)
+    kernel = (0.5 if polarized else 1.0) * k_B * integral
     if q_in == "power":  # W -> K_RJ
         return (s_in / s_out) / kernel
     return (s_in / s_out) * kernel  # K_RJ -> W

@@ -1,6 +1,9 @@
-"""Carry a maria_tpu program's static tables into the port.
+"""Carry a maria_tpu scene into the port as plain arrays.
 
-``program_from_tables`` takes the tables of a maria_tpu ``TODProgram``
+``plan_from_arrays`` and ``map_from_arrays`` take the arrays of a
+maria_tpu ``Plan`` (or an ``Observation``'s plan) and ``ProjectionMap``
+and return the port's, so that both packages compute on the same
+inputs. ``program_from_tables`` takes the tables of a maria_tpu ``TODProgram``
 as plain numpy arrays and scalars and returns the port's ``TODProgram``;
 ``pixel_ids_from_tables`` turns (iy, ix) map indices into the flat int32
 ids kernel K2 takes; ``ar_process_from_arrays`` builds the port's
@@ -29,10 +32,31 @@ import torch
 
 from .atmosphere.atmosphere import LayerScreen, ScreenGroup
 from .atmosphere.process import AutoregressiveProcess
+from .map import ProjectionMap
 from .noise.dft import NoiseBandSpec
 from .ops.program import BandBlock, TODProgram
+from .plan import Plan
 
-__all__ = ["ar_process_from_arrays", "program_from_tables", "pixel_ids_from_tables"]
+__all__ = ["ar_process_from_arrays", "map_from_arrays", "plan_from_arrays", "program_from_tables",
+           "pixel_ids_from_tables"]
+
+
+def plan_from_arrays(time, phi, theta, frame: str, site=None, roll: float = 0.0) -> Plan:
+    """The port's Plan of a boresight track: unix ``time`` and
+    (``phi``, ``theta``) in radians in ``frame``, at ``site`` (a name the
+    port knows, or a ``Site``)."""
+    return Plan(time=np.asarray(time, dtype=np.float64), phi=np.asarray(phi, dtype=np.float64),
+                theta=np.asarray(theta, dtype=np.float64), roll=roll, frame=str(frame), site=site)
+
+
+def map_from_arrays(data, center, width: float, height: float, frame: str = "ra/dec", stokes: str = None,
+                    nu=None, t=None, units: str = "K_RJ", weight=None) -> ProjectionMap:
+    """The port's ProjectionMap of a (stokes, nu, t, n_y, n_x) cube:
+    ``center``, ``width`` and ``height`` in radians, as maria_tpu's map
+    holds them (``center``, ``width.rad``, ``height.rad``)."""
+    return ProjectionMap(data=np.asarray(data, dtype=np.float32), center=center, width=float(width),
+                         height=float(height), frame=frame, stokes=stokes, nu=nu, t=t, units=units,
+                         weight=None if weight is None else np.asarray(weight, dtype=np.float32), degrees=False)
 
 _SCREEN_FIELDS = ("h", "z", "res", "pwv_rms", "angle", "vx", "vy", "tx_min", "ty_min",
                   "nx", "ny", "W", "ty_res", "win_x", "win_y", "band")

@@ -9,7 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["offsets_to_phi_theta", "phi_theta_to_offsets", "get_center_phi_theta"]
+__all__ = ["offsets_to_phi_theta", "phi_theta_to_offsets", "get_center_phi_theta", "phi_theta_to_xyz",
+           "xyz_to_phi_theta"]
 
 
 def _stack(xs, xp):
@@ -61,22 +62,36 @@ def offsets_to_phi_theta(dX, cphi, ctheta):
     )
 
 
-def phi_theta_to_offsets(pt, cphi: float, ctheta: float):
+def phi_theta_to_offsets(pt, cphi, ctheta):
     """Map (phi, theta) (..., 2) to tangent-plane offsets around the
-    scalar centre (cphi, ctheta)."""
+    centre (cphi, ctheta): a scalar for torch tensors; for numpy arrays
+    it may also be an array broadcasting against the points."""
     if isinstance(pt, torch.Tensor):
         return _phi_theta_to_offsets(pt, float(cphi), float(ctheta), torch)
-    return _phi_theta_to_offsets(np.asarray(pt, dtype=np.float64), np.float64(cphi), np.float64(ctheta), np)
+    return _phi_theta_to_offsets(
+        np.asarray(pt, dtype=np.float64), np.asarray(cphi, dtype=np.float64), np.asarray(ctheta, dtype=np.float64), np,
+    )
+
+
+def phi_theta_to_xyz(phi, theta):
+    """Angles onto the unit sphere (..., 3), host float64."""
+    phi, theta = np.asarray(phi, dtype=np.float64), np.asarray(theta, dtype=np.float64)
+    cos_t = np.cos(theta)
+    return np.stack([np.cos(phi) * cos_t, np.sin(phi) * cos_t, np.sin(theta)], axis=-1)
+
+
+def xyz_to_phi_theta(xyz):
+    """(phi in [0, 2 pi), theta) of 3-vectors, host float64."""
+    xyz = np.asarray(xyz, dtype=np.float64)
+    norm = np.sqrt(np.sum(xyz**2, axis=-1))
+    phi = np.arctan2(xyz[..., 1], xyz[..., 0]) % (2 * np.pi)
+    theta = np.arcsin(np.clip(xyz[..., 2] / norm, -1.0, 1.0))
+    return phi, theta
 
 
 def get_center_phi_theta(phi, theta):
     """Spherical mean via the unit-sphere embedding (host float64)."""
-    phi = np.atleast_1d(np.asarray(phi, dtype=np.float64))
-    theta = np.atleast_1d(np.asarray(theta, dtype=np.float64))
-    cos_t = np.cos(theta)
-    xyz = np.stack([np.cos(phi) * cos_t, np.sin(phi) * cos_t, np.sin(theta)], axis=-1)
+    xyz = phi_theta_to_xyz(np.atleast_1d(phi), np.atleast_1d(theta))
     center = xyz.reshape(-1, 3).mean(axis=0)
-    center = center / np.sqrt(np.sum(center**2))
-    phi_c = np.arctan2(center[1], center[0]) % (2 * np.pi)
-    theta_c = np.arcsin(np.clip(center[2], -1.0, 1.0))
+    phi_c, theta_c = xyz_to_phi_theta(center / np.sqrt(np.sum(center**2)))
     return float(phi_c), float(theta_c)

@@ -1,1 +1,256 @@
+"""Sky maps (maria_tpu/map): ``ProjectionMap`` and the named input maps.
+
+``get`` synthesizes a named map directly with numpy, seeded by the
+family's name; it fetches nothing and writes no file. The families that
+need Stokes IQUV or a velocity axis are not ported (ROADMAP queue 1,
+item 13).
+"""
+
+from __future__ import annotations
+
+import os
+import zlib
+
+import numpy as np
+
 from .projection import ProjectionMap  # noqa: F401
+
+__all__ = ["EXAMPLE_MAPS", "MAP_ALIASES", "REFERENCE_MAP_CENTERS", "ProjectionMap", "get"]
+
+EXAMPLE_MAPS = {
+    "cluster": {
+        "description": "A beta-model galaxy-cluster decrement at 150 GHz",
+        "aliases": ["cluster1", "cluster2", "cluster3"],
+        "width": 0.25,
+        "n": 256,
+        "units": "K_RJ",
+        "nu": 150e9,
+    },
+    "big_cluster": {
+        "description": "A large, bright beta-model cluster",
+        "width": 0.5,
+        "n": 512,
+        "units": "K_RJ",
+        "nu": 93e9,
+    },
+    "point_sources": {
+        "description": "A field of point sources",
+        "width": 0.5,
+        "n": 512,
+        "units": "K_RJ",
+        "nu": 150e9,
+    },
+    "galaxy": {
+        "description": "An inclined exponential-disk galaxy with spiral arms",
+        "aliases": ["radio_galaxy", "radio_galaxy_3C_288", "M51HA"],
+        "width": 0.2,
+        "n": 256,
+        "units": "K_RJ",
+        "nu": 150e9,
+    },
+    "dust": {
+        "description": "Filamentary galactic dust (power-law random field)",
+        "aliases": ["30dor", "monoceros_R2", "orion_A", "crab_nebula", "M1", "maria"],
+        "width": 1.0,
+        "n": 512,
+        "units": "K_RJ",
+        "nu": 353e9,
+    },
+    "quasar": {
+        "description": "A bright unresolved quasar",
+        "width": 0.1,
+        "n": 128,
+        "units": "K_RJ",
+        "nu": 90e9,
+    },
+    "spectral_line_cube": {
+        "description": "A rotating molecular disk resolved into velocity channels",
+        "aliases": ["12CO(2-1)", "circinus_galaxy"],
+        "width": 0.2,
+        "n": 256,
+        "n_v": 16,
+        "units": "K_RJ",
+        "nu": 230.538e9,
+    },
+    "polarized_source": {
+        "description": "A ~10%-polarized ring/point source with tangential polarization (IQUV)",
+        "aliases": ["einstein", "quasar_3C_286", "polarized_quasar"],
+        "width": 0.1,
+        "n": 256,
+        "units": "K_RJ",
+        "nu": 150e9,
+    },
+    "protoplanetary_disk": {
+        "description": "An inclined ring system around a point source",
+        "width": 0.02,
+        "n": 256,
+        "units": "K_RJ",
+        "nu": 230e9,
+    },
+    "time_evolving_source": {
+        "description": "A flaring point source (3 time frames)",
+        "aliases": ["time_evolving_sun"],
+        "width": 0.2,
+        "n": 128,
+        "units": "K_RJ",
+        "nu": 100e9,
+    },
+}
+
+# families of EXAMPLE_MAPS that the port does not synthesize yet
+UNPORTED_FAMILIES = {"spectral_line_cube": "a velocity axis", "polarized_source": "Stokes IQUV"}
+
+
+def _edge_taper_weight(shape) -> np.ndarray:
+    """Cosine-taper observation weight: highest in the middle, falling
+    toward the edges, as real map products' coverage weights do."""
+    wy = 0.5 - 0.5 * np.cos(2 * np.pi * (np.arange(shape[0]) + 0.5) / shape[0])
+    wx = 0.5 - 0.5 * np.cos(2 * np.pi * (np.arange(shape[1]) + 0.5) / shape[1])
+    return np.clip(np.sqrt(wy[:, None] * wx[None, :]), 1e-3, None)
+
+
+def _synthesize_example(name: str, center=(150.0, 10.0), t=None, **overrides) -> ProjectionMap:
+    """The synthetic family ``name`` around ``center`` (degrees, ra/dec);
+    ``overrides`` replace entries of its EXAMPLE_MAPS configuration (n,
+    width, nu, ...). Seeded by the family's name, so every process makes
+    the same map, bit for bit the one maria_tpu makes."""
+    if name in UNPORTED_FAMILIES:
+        raise NotImplementedError(
+            f"map family '{name}' needs {UNPORTED_FAMILIES[name]} (ROADMAP queue 1, item 13: scene breadth)"
+        )
+    cfg = {**EXAMPLE_MAPS[name], **overrides}
+    n = cfg["n"]
+    width_rad = np.radians(cfg["width"])
+    x = np.linspace(-width_rad / 2, width_rad / 2, n)
+    X, Y = np.meshgrid(x, x)
+    rng = np.random.default_rng(zlib.crc32(name.encode()))  # stable across processes
+
+    if "cluster" in name:
+        # isothermal beta model, theta_c ~ 1/10 of the map
+        theta_c = width_rad / 12
+        amp = 1e-4 if name == "cluster" else 5e-4  # K_RJ decrement scale
+        data = -amp * (1 + (X**2 + Y**2) / theta_c**2) ** (-1.0)
+        # a couple of substructure blobs
+        for _ in range(3):
+            cx, cy = rng.uniform(-width_rad / 4, width_rad / 4, 2)
+            s = width_rad / 40
+            data -= 0.3 * amp * np.exp(-((X - cx) ** 2 + (Y - cy) ** 2) / (2 * s**2))
+    elif name == "point_sources":
+        data = np.zeros((n, n))
+        for _ in range(30):
+            cx, cy = rng.uniform(-width_rad / 2.2, width_rad / 2.2, 2)
+            s = width_rad / n  # ~1 pixel
+            amp = 10 ** rng.uniform(-5, -3.3)
+            data += amp * np.exp(-((X - cx) ** 2 + (Y - cy) ** 2) / (2 * s**2))
+    elif name == "galaxy":
+        # inclined exponential disk + two-arm logarithmic spiral
+        inc, pa = 0.9, 0.6
+        Xr = np.cos(pa) * X + np.sin(pa) * Y
+        Yr = (-np.sin(pa) * X + np.cos(pa) * Y) / np.cos(inc)
+        r = np.sqrt(Xr**2 + Yr**2)
+        phi = np.arctan2(Yr, Xr)
+        scale = width_rad / 8
+        disk = np.exp(-r / scale)
+        arms = 1 + 0.6 * np.cos(2 * (phi - 4.0 * np.log(r / scale + 1e-3)))
+        data = 2e-4 * disk * arms
+    elif name == "dust":
+        # power-law (k^-2.7) Gaussian random field, exponentiated for
+        # filamentary positive emission
+        k = np.sqrt(
+            np.fft.fftfreq(n)[:, None] ** 2 + np.fft.rfftfreq(n)[None, :] ** 2
+        )
+        with np.errstate(divide="ignore"):
+            amp_k = np.where(k > 0, k**-1.35, 0.0)
+        white = rng.standard_normal((n, n))
+        g = np.fft.irfft2(np.fft.rfft2(white) * amp_k, s=(n, n))
+        g = (g - g.mean()) / (g.std() + 1e-30)
+        data = 5e-5 * np.exp(0.8 * g)
+    elif name == "quasar":
+        s = width_rad / n
+        data = 3e-3 * np.exp(-(X**2 + Y**2) / (2 * s**2))
+    elif name == "protoplanetary_disk":
+        inc, pa = 0.7, 1.1
+        Xr = np.cos(pa) * X + np.sin(pa) * Y
+        Yr = (-np.sin(pa) * X + np.cos(pa) * Y) / np.cos(inc)
+        r = np.sqrt(Xr**2 + Yr**2)
+        data = 1e-3 * np.exp(-((r - width_rad / 6) ** 2) / (2 * (width_rad / 40) ** 2))
+        data += 5e-4 * np.exp(-((r - width_rad / 3) ** 2) / (2 * (width_rad / 30) ** 2))
+        data += 2e-3 * np.exp(-(X**2 + Y**2) / (2 * (width_rad / n) ** 2))
+    elif name == "time_evolving_source":
+        s = width_rad / 30
+        frames = []
+        for amp in (1e-4, 8e-4, 2e-4):  # quiescent -> flare -> decay
+            frames.append(amp * np.exp(-(X**2 + Y**2) / (2 * s**2)))
+        data = np.stack(frames)  # (t, y, x)
+    else:
+        raise KeyError(name)
+
+    if data.ndim == 3:  # time-evolving
+        # frame times are absolute unix stamps (the samplers blend by
+        # map.t - obs.t[0]); pass t=(t0, t0 + dt, ...) to align with a plan
+        if t is None:
+            t = 1.75e9 + np.array([0.0, 300.0, 600.0])
+        w = _edge_taper_weight(data.shape[-2:])
+        return ProjectionMap(
+            data=data[None, None].astype(np.float32),
+            weight=np.broadcast_to(w, (1, 1, data.shape[0], *w.shape)).astype(np.float32).copy(),
+            center=center, width=cfg["width"], frame="ra/dec",
+            nu=[cfg["nu"]], t=np.asarray(t, dtype=np.float64), units=cfg["units"], degrees=True,
+        )
+
+    w = _edge_taper_weight(data.shape[-2:])
+    return ProjectionMap(
+        data=data[None, None, None].astype(np.float32),
+        weight=w[None, None, None].astype(np.float32),
+        center=center,
+        width=cfg["width"],
+        frame="ra/dec",
+        nu=[cfg["nu"]],
+        units=cfg["units"],
+        degrees=True,
+    )
+
+
+MAP_ALIASES = {
+    alias: key for key, cfg in EXAMPLE_MAPS.items() for alias in cfg.get("aliases", [])
+}
+
+# canonical sky centres (deg, ra/dec) of the named products whose
+# stand-ins are synthesized here, so that the documented Planner
+# constraints (site and elevation windows) stay feasible: M1, for one,
+# must rise above 60 deg at Green Bank
+REFERENCE_MAP_CENTERS = {
+    "M1": (83.63, 22.01), "crab_nebula": (83.63, 22.01),
+    "30dor": (84.68, -69.10),
+    "orion_A": (83.82, -5.39),
+    "monoceros_R2": (161.0, -7.6),
+    "M51HA": (202.47, 47.20),
+    "circinus_galaxy": (213.29, -65.34),
+    "radio_galaxy_3C_288": (206.18, 38.85),
+    "quasar_3C_286": (202.78, 30.51),
+    "polarized_quasar": (202.78, 30.51),
+    "einstein": (339.49, 3.36),
+    "12CO(2-1)": (83.82, -5.39),
+    "protoplanetary_disk": (165.46, -34.70),
+    "cluster": (150.0, -30.0), "cluster1": (150.0, -30.0),
+    "cluster2": (150.5, -29.5), "cluster3": (149.5, -30.5),
+    "big_cluster": (150.0, -30.0),
+}
+
+
+def get(name: str, **kwargs) -> ProjectionMap:
+    """The named input map: a family of EXAMPLE_MAPS, one of its
+    aliases, or the path form of either ("maps/M1.h5"). ``kwargs`` go to
+    the generator: center (degrees), t, and overrides of the family's
+    configuration."""
+    stem = os.path.splitext(os.path.basename(name))[0]
+    if name not in EXAMPLE_MAPS and name not in MAP_ALIASES and (stem in EXAMPLE_MAPS or stem in MAP_ALIASES):
+        name = stem
+    if name == "sun":  # "maps/sun.h5" is the time-evolving sun
+        name = "time_evolving_sun"
+    family = MAP_ALIASES.get(name, name)
+    if family not in EXAMPLE_MAPS:
+        raise ValueError(f"'{name}' is not a known map (known: {sorted({*EXAMPLE_MAPS, *MAP_ALIASES})}).")
+    if name in REFERENCE_MAP_CENTERS:
+        kwargs.setdefault("center", REFERENCE_MAP_CENTERS[name])
+    return _synthesize_example(family, **kwargs)

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..coords import check_frame
+from ..coords import Frame
 from ..map import ProjectionMap
 
 
@@ -14,8 +14,18 @@ class BaseProjectionMapper:
     def __init__(self, tods, center=None, width=None, height=None, resolution=None,
                  frame: str = "ra/dec", units: str = "K_RJ", degrees: bool = True,
                  tod_preprocessing: dict = {}, map_postprocessing: dict = {}, t_bins: int = 1,
-                 stokes: str = None):
-        self.frame = check_frame(frame)
+                 stokes: str = None, target=None):
+        if target is not None:
+            # copy the geometry of a target map: BinMapper(tod, target=input_map)
+            scale = 180 / np.pi if degrees else 1.0
+            center = center if center is not None else tuple(scale * c for c in target.center)
+            width = width if width is not None else scale * target.width
+            height = height if height is not None else scale * target.height
+            resolution = resolution if resolution is not None else scale * target.resolution
+            frame = target.frame
+        self.frame = Frame(frame)
+        if self.frame.name == "galactic":
+            raise ValueError("a projection mapper's frame is 'az/el' or 'ra/dec'")
         if tod_preprocessing:
             raise NotImplementedError("TOD preprocessing (ROADMAP queue 1, item 12: processing)")
         if units not in ("K_RJ", "pW"):
@@ -27,6 +37,10 @@ class BaseProjectionMapper:
         self.tods = [tod.to(units) for tod in tods]
 
         sw = np.concatenate([tod.dets.stokes_weight() for tod in self.tods], axis=0)
+        # the simulation's input map rides along on the TODs' metadata
+        input_maps = [tod.metadata["input_map"] for tod in self.tods if tod.metadata.get("input_map") is not None]
+        self.input_map = input_maps[0] if input_maps else None
+
         self.stokes = stokes or "".join(s for i, s in enumerate("IQUV") if np.abs(sw[:, i]).max() > 1e-8)
 
         self.bands, seen = [], set()
@@ -45,12 +59,12 @@ class BaseProjectionMapper:
 
         to_rad = np.pi / 180 if degrees else 1.0
         if center is None or width is None:
-            centers = [tod.boresight.center() for tod in self.tods]
+            centers = [tod.boresight.center(frame=self.frame) for tod in self.tods]
             center_inferred = (float(np.mean([c[0] for c in centers])), float(np.mean([c[1] for c in centers])))
             center_rad = center_inferred if center is None else (center[0] * to_rad, center[1] * to_rad)
             max_half = 0.0
             for tod in self.tods:
-                bs_off = tod.boresight.offsets(center=center_rad)
+                bs_off = tod.boresight.offsets(frame=self.frame, center=center_rad)
                 det_r = np.abs(tod.pointing.offsets).max() if tod.pointing.offsets.size else 0.0
                 max_half = max(max_half, np.abs(bs_off).max() + det_r)
             width_rad = height_rad = 2.05 * max_half
@@ -97,7 +111,7 @@ class BaseProjectionMapper:
             weight=np.asarray(weights, dtype=np.float32),
             center=np.degrees(self.center),
             resolution=np.degrees(self.res),
-            frame=self.frame,
+            frame=self.frame.name,
             stokes=self.stokes,
             nu=self.nu,
             t=self.t_centers,

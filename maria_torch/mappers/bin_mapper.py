@@ -1,6 +1,7 @@
 """Binned map-making (maria_tpu/mappers/bin_mapper.py).
 
-Pixel ids come from the detectors' pointing on the TOD's device; the
+Pixel ids come from the detectors' pointing in the map's frame (az/el or
+ra/dec) on the TOD's device; the
 sums of weight * stokes_weight * data and of weight * |stokes_weight|
 per pixel are one call of kernel K2 (``ops.bin_map``) per (TOD, band,
 time bin). The TPU's Hilbert-ordered one-hot plans are not needed: the
@@ -21,7 +22,7 @@ from ..coords import phi_theta_to_offsets
 from ..ops.bin_map import bin_map
 from .base import BaseProjectionMapper
 
-__all__ = ["BinMapper", "azel_pixel_ids", "bin_total", "field_pixel_ids", "pixel_ids"]
+__all__ = ["BinMapper", "azel_pixel_ids", "bin_total", "field_pixel_ids", "pixel_ids", "radec_pixel_ids"]
 
 
 def pixel_ids(dx, dy, x0: float, y0: float, res: float, n_x: int, n_y: int):
@@ -33,14 +34,23 @@ def pixel_ids(dx, dy, x0: float, y0: float, res: float, n_x: int, n_y: int):
     return torch.where(inside, iy * n_x + ix, torch.full_like(ix, -1))
 
 
+def _centred_pixel_ids(phi, theta, center, res: float, n_x: int, n_y: int):
+    offsets = phi_theta_to_offsets(torch.stack([phi, theta], dim=-1), *center)
+    x0, y0 = -(n_x - 1) / 2 * res, -(n_y - 1) / 2 * res
+    return pixel_ids(offsets[..., 0], offsets[..., 1], x0, y0, res, n_x, n_y)
+
+
 def azel_pixel_ids(pointing, center, res: float, n_x: int, n_y: int, device=None):
     """Flat int32 ids (n_det, n_t) at which BinMapper(frame="az/el") bins
     a TOD of this ``pointing``: an n_x x n_y map of pixels ``res``
     (radians) wide centred on ``center`` (az, el in radians), -1 outside."""
-    az, el = pointing.det_azel(device=device)
-    offsets = phi_theta_to_offsets(torch.stack([az, el], dim=-1), *center)
-    x0, y0 = -(n_x - 1) / 2 * res, -(n_y - 1) / 2 * res
-    return pixel_ids(offsets[..., 0], offsets[..., 1], x0, y0, res, n_x, n_y)
+    return _centred_pixel_ids(*pointing.det_azel(device=device), center, res, n_x, n_y)
+
+
+def radec_pixel_ids(pointing, center, res: float, n_x: int, n_y: int, device=None):
+    """As ``azel_pixel_ids`` for BinMapper(frame="ra/dec"): ``center`` is
+    (ra, dec) in radians, the pointing the detectors' ra/dec."""
+    return _centred_pixel_ids(*pointing.det_radec(device=device), center, res, n_x, n_y)
 
 
 def field_pixel_ids(boresight, offsets, n_x: int = 128, n_y: int = 128, device=None):
@@ -79,7 +89,8 @@ class BinMapper(BaseProjectionMapper):
 
         for tod in self.tods:
             device = tod.device
-            ids_all = azel_pixel_ids(tod.pointing, self.center, self.res, self.n_x, self.n_y, device=device)
+            frame_ids = radec_pixel_ids if self.frame.name == "ra/dec" else azel_pixel_ids
+            ids_all = frame_ids(tod.pointing, self.center, self.res, self.n_x, self.n_y, device=device)
             t_index = np.digitize(np.asarray(tod.time), self.t_edges) - 1
             data, weight = tod.signal, tod.weight
 

@@ -14,9 +14,11 @@ from ..band import axis_transform, fractional_index
 
 __all__ = [
     "interp_bilinear_uniform",
+    "interp_bilinear_grid",
     "TableEval",
     "upsample_time_phases",
     "upsample_time",
+    "apply_integration_kernel",
 ]
 
 
@@ -37,6 +39,28 @@ def interp_bilinear_uniform(values, x, y, x0, dx, y0, dy, fill_value=0.0):
     v10 = flat[base + nx]
     v11 = flat[base + nx + 1]
     out = v00 * (1 - wy) * (1 - wx) + v01 * (1 - wy) * wx + v10 * wy * (1 - wx) + v11 * wy * wx
+    return torch.where(inside, out, torch.full_like(out, fill_value))
+
+
+def interp_bilinear_grid(values, x, y, x_side, y_side, fill_value=0.0):
+    """Bilinear sample of a (ny, nx) field at points (x, y) on the grid
+    with pixel centres ``x_side`` and ``y_side`` (host arrays; uniform or
+    log-uniform); points beyond the outermost centres get ``fill_value``."""
+    ny, nx = values.shape
+    fx = fractional_index(axis_transform(x_side), x, torch)
+    fy = fractional_index(axis_transform(y_side), y, torch)
+    inside = (
+        (x >= float(x_side[0])) & (x <= float(x_side[-1])) & (y >= float(y_side[0])) & (y <= float(y_side[-1]))
+    )
+    ix = torch.clamp(torch.floor(fx).to(torch.int64), 0, nx - 2)
+    iy = torch.clamp(torch.floor(fy).to(torch.int64), 0, ny - 2)
+    wx, wy = fx - ix, fy - iy
+    flat = values.reshape(-1)
+    base = iy * nx + ix
+    out = (
+        flat[base] * (1 - wy) * (1 - wx) + flat[base + 1] * (1 - wy) * wx
+        + flat[base + nx] * wy * (1 - wx) + flat[base + nx + 1] * wy * wx
+    )
     return torch.where(inside, out, torch.full_like(out, fill_value))
 
 
@@ -125,3 +149,11 @@ def upsample_time(values, t_coarse, t_fine, kind: str = "cubic"):
         + (2 * p0 - 5 * p1 + 4 * p2 - p3) * s**2
         + (-p0 + 3 * p1 - 3 * p2 + p3) * s**3
     )
+
+
+def apply_integration_kernel(x):
+    """[1/4, 1/2, 1/4] triangular kernel along the time axis of
+    (n_det, n_t), the ends padded with their own value: it mimics
+    continuous integration over a sample."""
+    padded = torch.cat([x[:, :1], x, x[:, -1:]], dim=1)
+    return 0.25 * padded[:, :-2] + 0.5 * padded[:, 1:-1] + 0.25 * padded[:, 2:]

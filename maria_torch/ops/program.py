@@ -25,9 +25,9 @@ from ..coords import offsets_to_phi_theta
 from ..device import resolve_device
 from ..noise import generate_noise_with_knee
 from .ar_extrude import ar_extrude, ar_plan
-from .interp import TableEval, upsample_time, upsample_time_phases
+from .interp import TableEval, apply_integration_kernel, upsample_time, upsample_time_phases
 
-__all__ = ["BandBlock", "TODProgram", "build_tod_program"]
+__all__ = ["BandBlock", "TODProgram", "band_noise_basis", "build_tod_program", "gain_errors"]
 
 
 @dataclass
@@ -44,6 +44,9 @@ class BandBlock:
     noise_basis: np.ndarray = None  # (n_band_det, k) correlated-noise basis
     corr_prop: float = 0.0
     NEP_per_loading: float = 0.0
+    # the input map's stages: one (pW-per-K_RJ table on the band's (pwv, el)
+    # window, static K_RJ samples (n_band_det, n_t) on the device) a channel
+    map_stages: list = None
 
     def __post_init__(self):
         if self.NEP_per_loading:
@@ -147,6 +150,11 @@ class TODProgram:
                 "ar_plan": ar_plan(self.ar_processes, device) if self.ar_processes and device.type == "cuda" else None,
                 "groups": [group_tensors(g, device) for g in self.groups],
                 "power": [TableEval(b.pwv_side, b.el_side, b.power_table, device=device) for b in self.bands],
+                "map": [
+                    [(TableEval(b.pwv_side, b.el_side, table, device=device), samples.to(device))
+                     for table, samples in b.map_stages or []]
+                    for b in self.bands
+                ],
                 "det_index": [torch.tensor(b.det_index, dtype=torch.int64, device=device) for b in self.bands],
                 "basis": [
                     None if b.noise_basis is None else torch.tensor(np.asarray(b.noise_basis), **f32)
@@ -191,8 +199,9 @@ class TODProgram:
         (a program holds Fourier screens and groups or AR processes,
         never both: the atmosphere's method applies to all its layers).
         ``upto`` stops early: "pwv" ->
-        {"pwv": coarse pwv}, "atmosphere" or "signal" -> the fields
-        without noise (the upsampled atmospheric loading).
+        {"pwv": coarse pwv}, "atmosphere" -> {"atmosphere": the upsampled
+        atmospheric loading}, "signal" -> every field but the noise (the
+        atmosphere and, with an input map, "map").
         """
         device = resolve_device(device)
         draws = draws or {}
@@ -222,7 +231,27 @@ class TODProgram:
             p = tabs["power"][i](pwv[idx], el_clip[idx])
             loading_c[idx] = tabs["mueller_I"][idx, None] * p
         fields = {"atmosphere": self._upsample(loading_c, "cubic")}
-        if upto in ("atmosphere", "signal"):
+        if upto == "atmosphere":
+            return fields
+
+        # the input map's stage: the sky timelines are static; their
+        # K_RJ -> pW calibration is evaluated at the fine rate, where the
+        # pwv carries the fast fluctuations that modulate the transmission,
+        # and the integration kernel comes after it
+        pwv_f = None
+        if any(b.map_stages for b in self.bands):
+            pwv_f, el_f = self._upsample(pwv, "linear"), self._upsample(el_clip, "cubic")
+            map_field = torch.zeros((self.n_det, self.n_t), dtype=torch.float32, device=device)
+            for i in range(len(self.bands)):
+                if not tabs["map"][i]:
+                    continue
+                rows = tabs["det_index"][i]
+                pwv_b, el_b = pwv_f[rows], el_f[rows]
+                map_field[rows] = sum(cal(pwv_b, el_b) * samples for cal, samples in tabs["map"][i])
+            del pwv_b, el_b
+            fields["map"] = apply_integration_kernel(map_field)
+            del el_f, map_field
+        if upto == "signal":
             return fields
 
         if self.with_noise:
@@ -237,21 +266,13 @@ class TODProgram:
                 )
                 noise[tabs["det_index"][i]] = float(np.float32(1e12 * band.NEP)) * unscaled
             fields["noise"] = noise
-        return fields, self._upsample(pwv, "linear")
+        return fields, pwv_f if pwv_f is not None else self._upsample(pwv, "linear")
 
     def draw_gains(self, generator=None, draw=None, device=None):
         """(n_det, 1) multiplicative gain errors exp(gain_error * N(0, 1)),
         or None when the program carries none; ``draw`` optionally
         supplies the (n_det,) normals."""
-        if self.gain_error is None:
-            return None
-        device = resolve_device(device)
-        if draw is None:
-            draw = torch.randn((self.n_det,), generator=generator, device=device, dtype=torch.float32)
-        elif tuple(draw.shape) != (self.n_det,):
-            raise ValueError(f"gain draw must have shape ({self.n_det},), got {tuple(draw.shape)}")
-        g = torch.as_tensor(np.asarray(self.gain_error, dtype=np.float32), device=device)
-        return torch.exp(g * draw.to(device=device, dtype=torch.float32))[:, None]
+        return None if self.gain_error is None else gain_errors(self.gain_error, generator, draw, device)
 
     def use_noise_matmul(self) -> bool:
         """Whether ``total_power_fn`` runs the noise stage as one matrix
@@ -347,7 +368,11 @@ class TODProgram:
                 f32 = dict(dtype=torch.float32, device=device)
                 tabs["noise_cols"] = None if corr_cols is None else torch.as_tensor(corr_cols, **f32)
                 tabs["row_scale"] = None if row_scale is None else torch.as_tensor(row_scale, **f32)
-            A = self.fields(generator=generator, draws=draws, device=device, upto="signal")["atmosphere"]
+            signal = self.fields(generator=generator, draws=draws, device=device, upto="signal")
+            A = signal.pop("atmosphere")
+            for v in signal.values():
+                A += v
+            del signal
             gains = self.draw_gains(generator=generator, draw=draws.get("gains"), device=device)
             if gains is not None:
                 A = gains * A
@@ -376,9 +401,44 @@ def _crop_table(x_side, y_side, table, x_lo, x_hi, y_lo, y_hi):
     return x[i0:i1], y[j0:j1], np.asarray(table)[i0:i1, j0:j1]
 
 
-def build_tod_program(obs, with_noise: bool = True, noise_kwargs: dict = {}) -> TODProgram:
-    """Assemble the program from an initialized Observation."""
+def gain_errors(gain_error, generator=None, draw=None, device=None):
+    """(n_det, 1) multiplicative gain errors exp(gain_error * N(0, 1))
+    on ``device``; ``draw`` optionally supplies the (n_det,) normals."""
+    device = resolve_device(device)
+    n_det = len(gain_error)
+    if draw is None:
+        draw = torch.randn((n_det,), generator=generator, device=device, dtype=torch.float32)
+    elif tuple(draw.shape) != (n_det,):
+        raise ValueError(f"gain draw must have shape ({n_det},), got {tuple(draw.shape)}")
+    g = torch.as_tensor(np.asarray(gain_error, dtype=np.float32), device=device)
+    return torch.exp(g * draw.to(device=device, dtype=torch.float32))[:, None]
+
+
+def band_noise_basis(band_offsets, noise_kwargs: dict):
+    """(basis, corr_prop) of one band's correlated detector noise: the
+    (n_band_det, 5) spatial basis over the band's focal plane and the
+    share of the pink power it carries, or (None, 0.0) for a band too
+    small for one or with the share set to 0."""
     from ..utils import compute_diameter, generate_spatial_basis
+
+    cp = noise_kwargs.get("correlated_noise_proportion", 0.0)
+    fov = compute_diameter(band_offsets)
+    if cp > 0 and fov > 0 and len(band_offsets) > 16:
+        return generate_spatial_basis(
+            offsets=band_offsets, k=5, n_side=16,
+            scale=fov * noise_kwargs.get("correlated_noise_spatial_scale", 1.0),
+        ), cp
+    return None, 0.0
+
+
+def build_tod_program(obs, with_noise: bool = True, noise_kwargs: dict = {}, input_map=None,
+                      map_kwargs: dict = {}, device=None) -> TODProgram:
+    """Assemble the program from an initialized Observation. With
+    ``input_map`` (a ProjectionMap) the map stage runs in the program:
+    its sky timelines are made here, band by band on ``device`` (the
+    pointing is static), and its pwv- and elevation-dependent calibration
+    is evaluated per realization."""
+    from ..sim.map import map_transmission_table, static_map_samples
 
     atm = obs.atmosphere
     T_base = float(atm.weather.temperature[0])
@@ -408,20 +468,21 @@ def build_tod_program(obs, with_noise: bool = True, noise_kwargs: dict = {}) -> 
         pwv_side, el_side, table = (np.asarray(a, dtype=np.float32) for a in (pwv_side, el_side, table))
         xs, ys, tab = _crop_table(pwv_side, el_side, table, pwv_lo, pwv_hi, el_lo, el_hi)
 
-        basis, corr_prop = None, 0.0
-        cp = noise_kwargs.get("correlated_noise_proportion", 0.0)
-        band_offsets = dets.offsets[det_index]
-        fov = compute_diameter(band_offsets)
-        if with_noise and cp > 0 and fov > 0 and len(det_index) > 16:
-            basis = generate_spatial_basis(
-                offsets=band_offsets, k=5, n_side=16,
-                scale=fov * noise_kwargs.get("correlated_noise_spatial_scale", 1.0),
-            )
-            corr_prop = cp
+        basis, corr_prop = band_noise_basis(dets.offsets[det_index], noise_kwargs) if with_noise else (None, 0.0)
+
+        map_stages = None
+        if input_map is not None:
+            map_stages = []
+            for channel, samples in static_map_samples(
+                input_map, band, det_index, obs, bilinear=map_kwargs.get("bilinear_sampling", True),
+                device=resolve_device(device),
+            ):
+                cal = map_transmission_table(band, input_map, channel, atm.spectrum, T_base)
+                map_stages.append((_crop_table(pwv_side, el_side, cal, pwv_lo, pwv_hi, el_lo, el_hi)[2], samples))
         bands.append(BandBlock(
             name=band.name, det_index=det_index, pwv_side=xs, el_side=ys, power_table=tab,
             NEP=band.NEP, knee=band.knee, noise_basis=basis, corr_prop=corr_prop,
-            NEP_per_loading=band.NEP_per_loading,
+            NEP_per_loading=band.NEP_per_loading, map_stages=map_stages,
         ))
 
     # the AR processes' covariance operators are factorized here, on the

@@ -1,0 +1,223 @@
+"""Scan plans (maria_tpu/plan/plan.py): time-ordered boresight tracks in
+az/el, ra/dec or galactic, made from the daisy pattern.
+
+The pattern is the reference's petal-curve daisy with its
+speed-normalizing fixed-point loop, reproduced so the same arguments
+give the same boresight track as maria_tpu.
+"""
+
+from __future__ import annotations
+
+import time as _time
+from datetime import datetime, timezone
+
+import numpy as np
+
+from ..coords import Coordinates, EarthLocation, offsets_to_phi_theta
+from ..site import get_site
+
+__all__ = ["Plan", "PlanList", "daisy", "parse_time"]
+
+
+def parse_time(t) -> float:
+    """Unix seconds of a number, an ISO date string (UTC unless it says
+    otherwise) or a datetime; now for None."""
+    if t is None:
+        return _time.time()
+    if isinstance(t, (int, float)):
+        return float(t)
+    if isinstance(t, str):
+        dt = datetime.fromisoformat(t.replace("Z", "+00:00"))
+        if dt.tzinfo is None:
+            dt = dt.replace(tzinfo=timezone.utc)
+        return dt.timestamp()
+    if isinstance(t, datetime):
+        return t.timestamp()
+    raise ValueError(f"Cannot parse time {t!r}.")
+
+
+def _daisy_from_phase(phase, a, b, petals, miss_freq):
+    x = a * np.cos(petals * phase) * np.sin(phase) + b * np.sin(petals * phase) * np.cos(miss_freq * phase)
+    y = a * np.cos(petals * phase) * np.cos(phase) + b * np.sin(petals * phase) * np.sin(miss_freq * phase)
+    X = np.stack([x, y])
+    return (a + b) * X / np.sqrt(np.square(X).sum(axis=0).max())
+
+
+def daisy(time, x_throw, y_throw, speed, petals=np.sqrt(np.e), miss_factor=0.2, miss_freq=0.1):
+    """(2, n_t) daisy offsets in the units of the throws."""
+    radius = x_throw
+    if radius <= 0:
+        return np.zeros((2, len(time)))
+    a = radius / (1 + miss_factor)
+    b = a * miss_factor
+    dp = (speed / radius) * np.gradient(time)
+    for _ in range(4):
+        phase = np.cumsum(dp)
+        tx, ty = _daisy_from_phase(phase, a=a, b=b, petals=petals, miss_freq=miss_freq)
+        v = np.sqrt((np.gradient(tx) / np.gradient(time)) ** 2 + (np.gradient(ty) / np.gradient(time)) ** 2)
+        max_speed = v.max()
+        if abs(np.log(max_speed / speed)) > 0.01:
+            dp *= speed / max_speed
+        else:
+            break
+    x, y = _daisy_from_phase(np.cumsum(dp), a=a, b=b, petals=petals, miss_freq=miss_freq)
+    return np.stack([x, (y_throw / x_throw) * y])
+
+
+def _daisy_kwargs(scan_options: dict) -> dict:
+    o = dict(scan_options)
+    allowed = {"radius", "x_throw", "y_throw", "speed", "petals", "miss_factor", "miss_freq"}
+    if set(o) - allowed:
+        raise NotImplementedError(f"daisy options {sorted(set(o) - allowed)} (ROADMAP queue 1, item 13)")
+    if "x_throw" not in o:
+        o["x_throw"] = o.pop("radius", 1.0)
+    o.pop("radius", None)
+    o.setdefault("y_throw", o["x_throw"])
+    o.setdefault("speed", max(o["x_throw"], o["y_throw"]) / 4)
+    return o
+
+
+class Plan:
+    """Time-ordered boresight pointing (phi, theta) in ``frame``, radians."""
+
+    @classmethod
+    def generate(cls, site=None, description: str = "", start_time=None, duration: float = 60.0,
+                 sample_rate: float = 50.0, frame: str = "ra/dec", degrees: bool = True, jitter: float = 0.0,
+                 roll: float = 0.0, scan_center=(0.0, 0.0), scan_pattern: str = "daisy", scan_options: dict = {}) -> "Plan":
+        if scan_pattern != "daisy":
+            raise NotImplementedError(f"scan pattern '{scan_pattern}' (ROADMAP queue 1, item 13)")
+        t0 = parse_time(start_time)
+        time = np.arange(t0, t0 + float(duration), 1 / float(sample_rate))
+        scan_offsets = daisy(time - time[0], **_daisy_kwargs(scan_options))
+        scan_center = np.asarray(scan_center, dtype=float)
+        if degrees:
+            scan_offsets = np.radians(scan_offsets)
+            scan_center = np.radians(scan_center)
+        if jitter:
+            jitter_rng = np.random.default_rng(np.uint64(int(t0 * 1e3)))
+            scan_offsets = scan_offsets + np.radians(jitter) * jitter_rng.standard_normal(scan_offsets.shape)
+        pt = offsets_to_phi_theta(scan_offsets.T, float(scan_center[0]), float(scan_center[1]))
+        return cls(time=time, phi=pt[..., 0], theta=pt[..., 1], roll=roll, frame=frame, site=site,
+                   description=description)
+
+    def __init__(self, time, phi, theta, roll: float = 0.0, frame: str = "ra/dec", site=None,
+                 latitude: float = None, longitude: float = None, altitude: float = 0.0, description: str = ""):
+        self.site = get_site(site) if isinstance(site, str) else site
+        if self.site is not None:
+            earth_location = self.site.earth_location
+        elif latitude is not None and longitude is not None:
+            earth_location = EarthLocation(lat_deg=latitude, lon_deg=longitude, height_m=altitude)
+        else:
+            earth_location = EarthLocation()
+        self.coords = Coordinates(phi, theta, time, earth_location=earth_location, frame=frame)
+        self.roll = roll
+        self.description = description
+
+    @property
+    def time(self):
+        return self.coords.t
+
+    @property
+    def n(self) -> int:
+        return len(self.time)
+
+    @property
+    def frame(self):
+        return self.coords.frame
+
+    @property
+    def earth_location(self):
+        return self.coords.earth_location
+
+    @property
+    def sample_rate(self) -> float:
+        return 1 / float(np.mean(np.gradient(self.time)))
+
+    @property
+    def duration(self) -> float:
+        return float(np.ptp(self.time))
+
+    @property
+    def start_time(self) -> float:
+        return float(self.time[0])
+
+    @property
+    def end_time(self) -> float:
+        return float(self.time[-1])
+
+    def __getattr__(self, attr):
+        coords = self.__dict__.get("coords")
+        if coords is not None and attr in ("az", "el", "ra", "dec", "l", "b"):
+            return getattr(coords, attr)
+        raise AttributeError(attr)
+
+    def offsets(self, frame=None, center=None):
+        return self.coords.offsets(frame=frame or self.frame, center=center)
+
+    def __add__(self, other: "Plan") -> "Plan":
+        """The two plans one after the other, in this plan's frame."""
+        if other.start_time < self.end_time:
+            raise ValueError("Plans overlap in time.")
+        return Plan(
+            time=np.concatenate([self.time, other.time]),
+            phi=np.concatenate([getattr(self, self.frame.phi_name), getattr(other, self.frame.phi_name)]),
+            theta=np.concatenate([getattr(self, self.frame.theta_name), getattr(other, self.frame.theta_name)]),
+            roll=self.roll, frame=self.frame.name, site=self.site,
+        )
+
+    def __repr__(self):
+        cphi, ctheta = np.degrees(self.coords.center())
+        return (f"Plan({self.description or 'custom'}: {self.frame.name}, centre ({cphi:.2f}, {ctheta:.2f}) deg, "
+                f"{self.duration:.0f} s at {self.sample_rate:.0f} Hz, n={self.n})")
+
+
+class PlanList:
+    """Plans in a list, with the grouping of those that follow closely."""
+
+    def __init__(self, plans):
+        if isinstance(plans, PlanList):
+            plans = plans.plans
+        if isinstance(plans, Plan):
+            plans = [plans]
+        self.plans = list(plans)
+
+    def __iter__(self):
+        return iter(self.plans)
+
+    def __len__(self):
+        return len(self.plans)
+
+    def __getitem__(self, i):
+        return self.plans[i]
+
+    @property
+    def start_time(self):
+        return min(p.start_time for p in self.plans)
+
+    @property
+    def end_time(self):
+        return max(p.end_time for p in self.plans)
+
+    def plan_groups(self, max_gap: float = 60.0):
+        """Indices of plans separated by less than ``max_gap`` seconds."""
+        order = np.argsort([p.start_time for p in self.plans])
+        groups = [[int(order[0])]] if len(order) else []
+        for i in order[1:]:
+            prev = self.plans[groups[-1][-1]]
+            if self.plans[int(i)].start_time - prev.end_time < max_gap:
+                groups[-1].append(int(i))
+            else:
+                groups.append([int(i)])
+        return groups
+
+    def group_plans(self, max_gap: float = 60.0) -> "PlanList":
+        merged = []
+        for group in self.plan_groups(max_gap=max_gap):
+            plan = self.plans[group[0]]
+            for i in group[1:]:
+                plan = plan + self.plans[i]
+            merged.append(plan)
+        return PlanList(merged)
+
+    def __repr__(self):
+        return f"PlanList({len(self.plans)} plans)"

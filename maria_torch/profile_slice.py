@@ -1,6 +1,7 @@
 """Where the time of a slice goes, on a CUDA card.
 
-    python -m maria_torch.profile_slice [--scene mustang2|atlast] [--duration 60] [--reps 10] [--trace PATH]
+    python -m maria_torch.profile_slice [--scene mustang2|atlast|sky] [--map FAMILY] [--duration 60] [--reps 10]
+                                        [--trace PATH]
 
 Scene "mustang2" (the default): the MUSTANG-2 daisy through
 ``Simulation.run()`` and ``BinMapper.run()``; cumulative stage times of
@@ -8,7 +9,12 @@ the program (``fields(upto="pwv")``, ``upto="atmosphere"``, all fields)
 and of the K_RJ conversion. Scene "atlast": AtLAST-50k with the 3-D
 atmosphere through ``TODProgram.total_power_fn()`` and the field map
 (``field_pixel_ids``, ``bin_total``); cumulative stage times
-``fields(upto="pwv")``, ``upto="signal"``, the total, total + binning.
+``fields(upto="pwv")``, ``upto="atmosphere"``, ``upto="signal"``, the
+total, total + binning. ``--map dust`` lets either scene observe that
+family of sky over its field, so that "upto signal" less "upto
+atmosphere" is the map stage. Scene "sky": MUSTANG-2 on the Planner's
+ra/dec daisy over ``big_cluster`` (``scenes.sky_simulation``), mapped in
+ra/dec on the input map's 512 x 512 grid.
 Each is host-timed around a synchronize; then a ``torch.profiler``
 table of device time by kernel over one realization and its map, with
 the device's busy share of that window. ``--trace`` also writes the
@@ -37,7 +43,8 @@ def _wall_ms(fn, reps: int) -> float:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--scene", choices=("mustang2", "atlast"), default="mustang2")
+    parser.add_argument("--scene", choices=("mustang2", "atlast", "sky"), default="mustang2")
+    parser.add_argument("--map", default=None, help="a family of maria_torch.map for mustang2 or atlast to observe")
     parser.add_argument("--duration", type=float, default=60.0)
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--trace", default=None)
@@ -47,7 +54,7 @@ def main(argv=None) -> int:
 
     from maria_torch.mappers import BinMapper
     from maria_torch.mappers.bin_mapper import bin_total, field_pixel_ids
-    from maria_torch.scenes import SCENES, simulation
+    from maria_torch.scenes import SCENES, simulation, sky_mapper, sky_simulation
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -55,13 +62,17 @@ def main(argv=None) -> int:
     ).stdout.strip()
     device = torch.device("cuda")
     atlast = args.scene == "atlast"
-    scene = SCENES[args.scene]
-    sim = simulation(args.scene, args.duration, device)
+    scene = SCENES["mustang2" if args.scene == "sky" else args.scene]
+    if args.scene == "sky":
+        sim = sky_simulation(args.duration, device)
+    else:
+        sim = simulation(args.scene, args.duration, device, input_map=args.map)
     program = sim.program()
     gen = sim.generator
     n = program.n_det * program.n_t
     print(f"card: {card}; scene {scene['instrument']} {program.n_det} x {program.n_t} = {n} samples, "
-          f"{len(program.screens)} screens, {sum(len(g.heights) for g in program.groups)} group layers")
+          f"{len(program.screens)} screens, {sum(len(g.heights) for g in program.groups)} group layers; input map "
+          f"{sim.map}")
 
     if atlast:
         fn = program.total_power_fn()
@@ -76,6 +87,7 @@ def main(argv=None) -> int:
 
         stages = {
             "fields upto pwv": lambda: program.fields(generator=gen, device=device, upto="pwv"),
+            "fields upto atmosphere": lambda: program.fields(generator=gen, device=device, upto="atmosphere"),
             "fields upto signal": lambda: program.fields(generator=gen, device=device, upto="signal"),
             "total_power_fn()": lambda: fn(generator=gen, device=device),
             "total + bin_total": run_map,
@@ -85,6 +97,8 @@ def main(argv=None) -> int:
         center = tuple(np.degrees(tod.boresight.center()))
 
         def run_map():
+            if args.scene == "sky":
+                return sky_mapper([tod], sim.map).run()
             return BinMapper(tod, center=center, width=0.25, resolution=0.25 / 128, frame="az/el").run()
 
         def realization():
@@ -94,6 +108,7 @@ def main(argv=None) -> int:
         stages = {
             "fields upto pwv": lambda: program.fields(generator=gen, device=device, upto="pwv"),
             "fields upto atmosphere": lambda: program.fields(generator=gen, device=device, upto="atmosphere"),
+            "fields upto signal": lambda: program.fields(generator=gen, device=device, upto="signal"),
             "fields (all)": lambda: program.fields(generator=gen, device=device),
             "run_obs (fields + gains, pW)": lambda: sim.run_obs(0),
             "run() (+ K_RJ)": lambda: sim.run(),

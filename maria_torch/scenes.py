@@ -1,5 +1,6 @@
-"""The scenes that chip_smoke.py and the profilers (``profile_slice``,
-``profile_bin``) drive, built through the user's entry points.
+"""The scenes that chip_smoke.py, the profilers (``profile_slice``,
+``profile_bin``) and the card tests drive, built through the user's entry
+points.
 
 "mustang2": MUSTANG-2 at the GBT with the 2-D atmosphere (bench.py's
 MUSTANG-2 scene at 60 s; the README's flow at 600 s); "atlast":
@@ -7,25 +8,145 @@ AtLAST-50k at ALMA with the 3-D atmosphere (bench.py's ``config_b``).
 Both scan the daisy at (150, 41) deg in az/el at 50 Hz, with noise, seed
 0, and take the atmosphere's ``method``: "fourier" (the default) or "ar"
 (the autoregressive extrusion, ``atmosphere_kwargs={"method": "ar"}``).
+``simulation(..., input_map="dust")`` lets the scene observe that family
+of ``maria_torch.map``, widened to cover the scan's field in ra/dec.
+
+``sky_simulation`` is the observer's flow: MUSTANG-2 on a Planner-made
+ra/dec daisy over the synthetic ``big_cluster`` map at (150, 10) deg, with
+or without an atmosphere and noise; ``sky_mapper`` maps its TODs back in
+ra/dec on the input map's grid, and ``sky_recovery`` holds that map
+against the input.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 SCENES = {
     "mustang2": dict(instrument="MUSTANG-2", site="GBT", atmosphere="2d", radius=0.083, speed=0.017),
     "atlast": dict(instrument="AtLAST-50k", site="ALMA", atmosphere="3d", radius=0.5, speed=0.25),
 }
+START_TIME = 1.75e9
+SKY_CENTER = (150.0, 10.0)  # deg, ra/dec
 
 
-def simulation(scene: str, duration: float, device=None, method: str = "fourier"):
+def field_map(family: str, plan, offsets, n: int = 512):
+    """The map family ``family`` centred on the plan's mean ra/dec and
+    widened (the generator's ``width`` override) to 1.05 x the field that
+    the detectors at ``offsets`` sweep, on n x n pixels."""
+    import maria_torch
+
+    center = plan.coords.center(frame="ra/dec")
+    half = np.abs(plan.offsets(frame="ra/dec", center=center)).max() + np.sqrt((np.asarray(offsets) ** 2).sum(-1)).max()
+    return maria_torch.map.get(family, center=tuple(np.degrees(center)), width=float(np.degrees(2.1 * half)), n=n)
+
+
+def simulation(scene: str, duration: float, device=None, method: str = "fourier", input_map: str = None):
     """The ``Simulation`` of ``scene`` (a key of SCENES) for ``duration``
-    seconds on ``device``, with the atmosphere's ``method``."""
+    seconds on ``device``, with the atmosphere's ``method`` and, with
+    ``input_map`` (a family's name), that sky over the scan's field."""
     import maria_torch
 
     s = SCENES[scene]
     plan = maria_torch.get_plan(
-        "daisy_5arcmin_60s", start_time=1.75e9, scan_center=(150.0, 41.0), frame="az/el", duration=duration,
-        sample_rate=50.0, scan_options={"radius": s["radius"], "speed": s["speed"]},
+        "daisy_5arcmin_60s", start_time=START_TIME, scan_center=(150.0, 41.0), frame="az/el", duration=duration,
+        sample_rate=50.0, scan_options={"radius": s["radius"], "speed": s["speed"]}, site=s["site"],
     )
-    return maria_torch.Simulation(instrument=s["instrument"], plans=plan, site=s["site"], atmosphere=s["atmosphere"],
-                                  atmosphere_kwargs={"method": method}, noise=True, seed=0, device=device)
+    instrument = maria_torch.get_instrument(s["instrument"])
+    sky = None if input_map is None else field_map(input_map, plan, instrument.dets.offsets)
+    return maria_torch.Simulation(instrument=instrument, plans=plan, site=s["site"], atmosphere=s["atmosphere"],
+                                  atmosphere_kwargs={"method": method}, map=sky, noise=True, seed=0, device=device)
+
+
+def sky_simulation(duration: float = 600.0, device=None, atmosphere="2d", noise: bool = True):
+    """MUSTANG-2 at the GBT observing ``big_cluster`` at SKY_CENTER on the
+    first feasible ``duration`` seconds of a ra/dec daisy that the Planner
+    finds from START_TIME on; ``atmosphere`` "2d" or None."""
+    import maria_torch
+
+    s = SCENES["mustang2"]
+    input_map = maria_torch.map.get("big_cluster", center=SKY_CENTER)
+    plan = maria_torch.Planner(target=input_map, site=s["site"]).generate_plans(
+        start_time=START_TIME, horizon_days=2, total_duration=duration, chunk_duration=duration,
+        scan_pattern="daisy", scan_options={"radius": s["radius"], "speed": s["speed"]}, sample_rate=50,
+    )[0]
+    return maria_torch.Simulation(s["instrument"], plans=plan, site=s["site"], atmosphere=atmosphere, map=input_map,
+                                  noise=noise, seed=0, device=device)
+
+
+def sky_mapper(tods, input_map):
+    """BinMapper in the input map's frame, at its centre, width and
+    resolution."""
+    import maria_torch
+
+    return maria_torch.BinMapper(
+        tods, center=tuple(np.degrees(input_map.center)), width=float(np.degrees(input_map.width)),
+        resolution=float(np.degrees(input_map.resolution)), frame=input_map.frame,
+    )
+
+
+def sky_recovery(sim, out_map) -> float:
+    """Correlation of a binned map of ``sim`` with its beam-smoothed input
+    map sampled at the mapper's pixel centres, over the better-covered
+    half of the hit pixels."""
+    import torch
+
+    from .sim.map import band_fwhm
+
+    if out_map.center != sim.map.center or out_map.frame != sim.map.frame:
+        raise ValueError("the binned map is not centred on the input map")
+    obs = sim.obs_list[0]
+    truth_map = sim.map.smooth(band_fwhm(obs, obs.instrument.dets.bands[0]), device=out_map.data.device)
+    X, Y = np.meshgrid(out_map.x_side, out_map.y_side)
+    truth = truth_map.sample(torch.as_tensor(X, dtype=torch.float32), torch.as_tensor(Y, dtype=torch.float32))
+    w, d = out_map.weight[0, 0, 0], out_map.data[0, 0, 0]
+    covered = w >= w[w > 0].median()
+    return float(torch.corrcoef(torch.stack([d[covered].double(), truth[covered].double()]))[0, 1])
+
+
+def map_stage_errors(sim, device) -> dict:
+    """The map stage of ``sim`` (a scene without an atmosphere) on
+    ``device`` against the CPU:
+
+    - "smooth": the beam-smoothed map, float32 on the device, against the
+      same smoothing in float64 on the CPU, as a share of its maximum;
+    - "offsets_rad": the detectors' offsets from the map's centre, float32
+      on both, largest difference in radians;
+    - "gather": the device's K_RJ samples against a float64 gather on the
+      CPU, of the device's smoothed map at the device's own offsets, as a
+      share of the smoothed map's maximum;
+    - "field": the calibrated, time-filtered "map" field, device against
+      CPU, as a share of its maximum, and "field_limit": what one float32
+      ulp of the map centre's phi moves a sample by, twice the map's
+      steepest step between neighbouring pixels times the ulp's share of a
+      pixel."""
+    import torch
+
+    from .map.projection import gaussian_beam_fft_filter
+    from .ops.interp import interp_bilinear_grid
+    from .sim.map import band_fwhm, map_offsets, sample_maps, static_map_samples
+    from .tod import Pointing
+
+    obs = sim.obs_list[0]
+    band = obs.instrument.dets.bands[0]
+    pointing = Pointing(obs.boresight, obs.offsets, obs.q)
+    on_device = map_offsets(sim.map, pointing, device=device)
+    on_cpu = map_offsets(sim.map, pointing, device="cpu")
+    ((_, samples),) = static_map_samples(sim.map, band, np.arange(obs.shape[0]), obs, device=device)
+    fwhm = band_fwhm(obs, band)
+    smoothed = sim.map.smooth(fwhm, device=device)
+    d = smoothed.data[0, 0, 0].cpu()
+    F = gaussian_beam_fft_filter(d.shape, smoothed.y_res, smoothed.x_res, fwhm, dtype=torch.float64)
+    smoothed64 = torch.fft.irfft2(torch.fft.rfft2(sim.map.data[0, 0, 0].double()) * F, s=tuple(d.shape))
+    exact = interp_bilinear_grid(d.double(), on_device[..., 0].cpu().double(), on_device[..., 1].cpu().double(),
+                                 smoothed.x_side, smoothed.y_side)
+    scale = float(d.abs().max())
+    field, field_cpu = sample_maps(sim.map, obs, device=device).cpu(), sample_maps(sim.map, obs, device="cpu")
+    step = max(float((d[:, 1:] - d[:, :-1]).abs().max()), float((d[1:] - d[:-1]).abs().max()))
+    return {
+        "smooth": float((d.double() - smoothed64).abs().max()) / scale,
+        "offsets_rad": float((on_device.cpu() - on_cpu).abs().max()),
+        "gather": float((samples.cpu().double() - exact).abs().max()) / scale,
+        "field": float((field - field_cpu).abs().max()) / float(field_cpu.abs().max()),
+        "field_limit": 2 * step * float(np.spacing(np.float32(sim.map.center[0]))) / smoothed.x_res / scale,
+    }

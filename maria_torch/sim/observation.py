@@ -1,8 +1,9 @@
 """A single observation: instrument x plan x site (maria_tpu/sim/observation.py).
 
-The pointing stays factorized: the boresight track (host float64) plus
-static detector offsets. The frame-rotation angle q(t) to ra/dec needs
-the ephemeris and is not ported yet (ROADMAP queue 1, item 13).
+The pointing stays factorized: the boresight track in the plan's frame
+(host float64), static detector offsets in the az/el frame, and the
+frame-rotation angle q(t) between az/el and ra/dec. Per-detector
+coordinates are made on the device, never on the host.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import logging
 import numpy as np
 
 from ..atmosphere import Atmosphere
-from ..coords import Coordinates
+from ..coords import Coordinates, phi_theta_to_offsets
 from ..utils import rotation_matrix_2d
 
 logger = logging.getLogger("maria_torch")
@@ -26,7 +27,11 @@ class Observation:
         self.instrument = instrument
         self.plan = plan
         self.site = site
-        self.boresight = Coordinates(plan.az, plan.el, plan.time, earth_location=site.earth_location)
+        # the boresight in the plan's frame, tied to the site
+        self.boresight = Coordinates(
+            getattr(plan, plan.frame.phi_name), getattr(plan, plan.frame.theta_name), plan.time,
+            earth_location=site.earth_location, frame=plan.frame.name,
+        )
 
         el_deg = np.degrees(self.boresight.el)
         if el_deg.min() < MIN_ELEVATION_ERROR:
@@ -53,6 +58,17 @@ class Observation:
         if plan.roll:
             offsets = offsets @ rotation_matrix_2d(plan.roll).T
         self.offsets = offsets
+
+        # frame-rotation angle q(t): tangent-plane offsets in az/el map to
+        # offsets rotated by q in ra/dec (the frame transform is a rigid
+        # rotation). A probe a small step up in elevation lands at angle q
+        # from the dec direction: offsets_radec = R(q) @ offsets_azel
+        probe = self.boresight.broadcast(np.array([[0.0, 1e-5]]), frame="az/el")
+        probe_offsets = phi_theta_to_offsets(
+            np.stack([probe.ra, probe.dec], axis=-1), self.boresight.ra, self.boresight.dec
+        )[0]  # (n_t, 2)
+        self.q = np.arctan2(-probe_offsets[:, 0], probe_offsets[:, 1])
+
         self.t = plan.time
         self.sample_rate = float(plan.sample_rate)
 

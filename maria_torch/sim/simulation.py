@@ -1,5 +1,8 @@
 """The Simulation engine (maria_tpu/sim/simulation.py): one Observation
-per plan, one TODProgram per observation, and TODs out.
+per plan and TODs out. With an atmosphere every field comes from the
+observation's TODProgram (the input map's stage included); without one,
+the map is sampled and calibrated in a vacuum and the detector noise is
+drawn band by band.
 
 Every random draw comes from the simulation's ``torch.Generator`` (seeded
 with ``seed``) unless ``run`` is handed the draws explicitly.
@@ -15,11 +18,12 @@ import torch
 
 from ..device import resolve_device
 from ..instrument import Instrument, get_instrument
-from ..noise import DEFAULT_NOISE_SIM_KWARGS
-from ..ops.program import build_tod_program
-from ..plan import Plan, get_plan
+from ..noise import DEFAULT_NOISE_SIM_KWARGS, generate_noise_with_knee
+from ..ops.program import band_noise_basis, build_tod_program, gain_errors
+from ..plan import Plan, PlanList, get_plan
 from ..site import Site, get_site
 from ..tod import TOD, Pointing
+from .map import DEFAULT_MAP_SIM_KWARGS, initialize_map, sample_maps
 from .observation import Observation
 
 logger = logging.getLogger("maria_torch")
@@ -27,7 +31,7 @@ logger = logging.getLogger("maria_torch")
 
 class Simulation:
     def __init__(self, instrument, plans=None, site=None, atmosphere=None,
-                 atmosphere_kwargs: dict = {}, cmb=None, map=None,  # noqa: A002
+                 atmosphere_kwargs: dict = {}, cmb=None, map=None, map_kwargs: dict = {},  # noqa: A002
                  noise: bool = True, noise_kwargs: dict = {}, seed: int = None,
                  device=None, plan=None, **kwargs):
         if plans is None:
@@ -37,13 +41,7 @@ class Simulation:
         if site is None:
             raise TypeError("Simulation requires 'site'.")
         if cmb:
-            raise NotImplementedError("CMB (ROADMAP queue 1, item 8: sky stages)")
-        if map is not None:
-            raise NotImplementedError("input maps (ROADMAP queue 1, item 8: sky stages)")
-        if atmosphere is None:
-            raise NotImplementedError(
-                "scenes without an atmosphere (ROADMAP queue 1, item 13: noise-only scenes)"
-            )
+            raise NotImplementedError("CMB (ROADMAP queue 1, item 8b: the CMB, healpix and the SHT)")
         if kwargs:
             raise NotImplementedError(f"simulation options {sorted(kwargs)} (ROADMAP queue 1, item 13)")
 
@@ -58,7 +56,7 @@ class Simulation:
             plans = [get_plan(plans)]
         elif isinstance(plans, Plan):
             plans = [plans]
-        self.plans = list(plans)
+        self.plans = PlanList(plans)
 
         self.atmosphere = atmosphere
         self.atmosphere_kwargs = dict(atmosphere_kwargs)
@@ -71,15 +69,26 @@ class Simulation:
                 instrument=self.instrument, plan=plan, site=self.site,
                 atmosphere=self.atmosphere, atmosphere_kwargs=self.atmosphere_kwargs,
             )
-            obs.atmosphere.initialize(obs)
+            if atmosphere is not None:
+                obs.atmosphere.initialize(obs)
             self.obs_list.append(obs)
         self._programs = {}
 
+        self.map = None
+        if map is not None:
+            self.map_kwargs = {**DEFAULT_MAP_SIM_KWARGS, **map_kwargs}
+            self.map = initialize_map(map, **self.map_kwargs)
+
     def program(self, obs_index: int = 0):
-        """The observation's TODProgram, built once."""
+        """The observation's TODProgram, built once (a simulation with
+        an atmosphere has one an observation)."""
+        if self.atmosphere is None:
+            raise ValueError("a simulation without an atmosphere has no TODProgram")
         if obs_index not in self._programs:
             self._programs[obs_index] = build_tod_program(
-                self.obs_list[obs_index], with_noise=self.noise, noise_kwargs=self.noise_kwargs
+                self.obs_list[obs_index], with_noise=self.noise, noise_kwargs=self.noise_kwargs,
+                input_map=self.map, map_kwargs=self.map_kwargs if self.map is not None else {},
+                device=self.device,
             )
         return self._programs[obs_index]
 
@@ -99,31 +108,70 @@ class Simulation:
         normals); anything missing is drawn from the generator."""
         obs = self.obs_list[obs_index]
         draws = draws or {}
-        program = self.program(obs_index)
-        fields, pwv_fine = program.fields(generator=self.generator, draws=draws, device=self.device)
-        obs.zenith_scaled_pwv = pwv_fine
-
-        # multiplicative per-detector gain error on every non-noise field
-        gains = program.draw_gains(generator=self.generator, draw=draws.get("gains"), device=self.device)
-        if gains is not None:
-            fields = {k: v if k == "noise" else v * gains for k, v in fields.items()}
-
+        dets = obs.instrument.dets
         metadata = {
-            "atmosphere": True,
+            "atmosphere": self.atmosphere is not None,
             "sim_time": _time.time(),
             "altitude": float(obs.site.altitude),
             "region": obs.site.region,
-            "pwv": float(np.round(obs.atmosphere.weather.pwv, 3)),
-            "base_temperature": float(np.round(obs.atmosphere.weather.temperature[0], 3)),
         }
+        if self.atmosphere is not None:
+            program = self.program(obs_index)
+            fields, pwv_fine = program.fields(generator=self.generator, draws=draws, device=self.device)
+            obs.zenith_scaled_pwv = pwv_fine
+            gains = program.draw_gains(generator=self.generator, draw=draws.get("gains"), device=self.device)
+            metadata["pwv"] = float(np.round(obs.atmosphere.weather.pwv, 3))
+            metadata["base_temperature"] = float(np.round(obs.atmosphere.weather.temperature[0], 3))
+        else:
+            fields = {}
+            if self.map is not None:
+                fields["map"] = sample_maps(
+                    self.map, obs, bilinear=self.map_kwargs["bilinear_sampling"], device=self.device
+                )
+            if self.noise:
+                fields["noise"] = self._simulate_noise(obs, draws)
+            if not fields:
+                raise ValueError("nothing to simulate: no atmosphere, no map and no noise")
+            gains = gain_errors(dets.gain_error, self.generator, draws.get("gains"), self.device)
+        if self.map is not None:
+            metadata["input_map"] = self.map
+
+        # multiplicative per-detector gain error on every non-noise field
+        if gains is not None:
+            fields = {k: v if k == "noise" else v * gains for k, v in fields.items()}
+
         return TOD(
             data=fields,
-            dets=obs.instrument.dets,
-            pointing=Pointing(obs.boresight, obs.offsets),
+            dets=dets,
+            pointing=Pointing(obs.boresight, obs.offsets, obs.q),
             units="pW",
             metadata=metadata,
-            spectrum=obs.atmosphere.spectrum,
+            spectrum=obs.atmosphere.spectrum if self.atmosphere is not None else None,
         )
+
+    def _simulate_noise(self, obs, draws: dict):
+        """The "noise" field (n_det, n_t) in pW of a scene without an
+        atmosphere: per band, white plus 1/f noise with its spatially
+        correlated part, every row through kernel K1."""
+        dets = obs.instrument.dets
+        noise = torch.zeros(obs.shape, dtype=torch.float32, device=self.device)
+        for i, band in enumerate(dets.bands):
+            band_idx = np.where(dets.band_name == band.name)[0]
+            if len(band_idx) == 0:
+                continue
+            if band.NEP_per_loading:
+                raise NotImplementedError(
+                    "NEP_per_loading (ROADMAP queue 1, item 13: the photon-loading noise term)"
+                )
+            basis, corr_prop = band_noise_basis(dets.offsets[band_idx], self.noise_kwargs)
+            unscaled = generate_noise_with_knee(
+                (len(band_idx), obs.shape[-1]), sample_rate=obs.sample_rate, knee=band.knee, basis=basis,
+                corr_prop=corr_prop, generator=self.generator,
+                white=None if "noise" not in draws else draws["noise"][i],
+                mode_white=None if "modes" not in draws else draws["modes"][i], device=self.device,
+            )
+            noise[torch.as_tensor(band_idx, device=self.device)] = float(np.float32(1e12 * band.NEP)) * unscaled
+        return noise
 
     def __repr__(self):
         return f"Simulation({self.instrument!r}, {self.site!r}, {len(self.plans)} plan(s), device={self.device})"

@@ -3,6 +3,7 @@ configurations use, stored as JSON."""
 
 from __future__ import annotations
 
+from ..coords.earth import EarthLocation
 from ..io import read_config
 
 __all__ = ["Site", "get_site", "get_region"]
@@ -16,16 +17,6 @@ def get_region(region: str) -> dict:
             f"supported: {sorted(regions)}"
         )
     return regions[region]
-
-
-class EarthLocation:
-    def __init__(self, lat_deg: float, lon_deg: float, height_m: float):
-        self.lat_deg = lat_deg
-        self.lon_deg = lon_deg
-        self.height_m = height_m
-
-    def __repr__(self):
-        return f"EarthLocation(lat={self.lat_deg}°, lon={self.lon_deg}°, h={self.height_m} m)"
 
 
 class Site:

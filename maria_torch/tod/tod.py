@@ -13,32 +13,55 @@ from ..coords import offsets_to_phi_theta
 __all__ = ["TOD", "Pointing"]
 
 
-class Pointing:
-    """Boresight az/el track + detector offsets (az/el frame)."""
+def _f32(x, device):
+    return torch.as_tensor(np.asarray(x, dtype=np.float32), dtype=torch.float32, device=device)
 
-    def __init__(self, boresight, offsets):
+
+class Pointing:
+    """Factorized pointing: the boresight track, the detector offsets
+    (az/el frame) and the az/el -> ra/dec frame-rotation angle q(t),
+    which only the ra/dec pointing needs."""
+
+    def __init__(self, boresight, offsets, q=None):
         self.boresight = boresight
         self.offsets = np.asarray(offsets)
+        self.q = None if q is None else np.asarray(q)
 
     @property
     def t(self):
         return self.boresight.t
 
+    @property
+    def shape(self):
+        return (len(self.offsets), len(self.t))
+
     def det_azel(self, device=None, idx=None):
-        """(az, el) float32 tensors of shape (n_det, n_t)."""
+        """(az, el) float32 tensors of shape (n_det, n_t) on ``device``,
+        of the detectors ``idx`` (all by default)."""
         offsets = self.offsets if idx is None else self.offsets[idx]
-        f32 = dict(dtype=torch.float32, device=device)
         pt = offsets_to_phi_theta(
-            torch.as_tensor(np.asarray(offsets[:, None, :], dtype=np.float32), **f32),
-            torch.as_tensor(np.asarray(self.boresight.az, dtype=np.float32), **f32),
-            torch.as_tensor(np.asarray(self.boresight.el, dtype=np.float32), **f32),
+            _f32(offsets[:, None, :], device), _f32(self.boresight.az, device), _f32(self.boresight.el, device)
         )
         return pt[..., 0], pt[..., 1]
 
-    def det_radec(self):
-        raise NotImplementedError(
-            "ra/dec pointing needs the ephemeris and the frame-rotation angle q (ROADMAP queue 1, item 13)"
+    def offsets_radec(self, device=None, idx=None):
+        """Detector offsets in the ra/dec frame, R(q(t)) @ offsets, a
+        float32 tensor (n_det, n_t, 2) built on ``device`` from the host's
+        float64 q."""
+        if self.q is None:
+            raise ValueError("this Pointing was made without the frame-rotation angle q")
+        offsets = _f32(self.offsets if idx is None else self.offsets[idx], device)
+        c, s = _f32(np.cos(self.q), device), _f32(np.sin(self.q), device)
+        x, y = offsets[:, None, 0], offsets[:, None, 1]
+        return torch.stack([c * x - s * y, s * x + c * y], dim=-1)
+
+    def det_radec(self, device=None, idx=None):
+        """(ra, dec) float32 tensors of shape (n_det, n_t), as ``det_azel``."""
+        pt = offsets_to_phi_theta(
+            self.offsets_radec(device=device, idx=idx), _f32(self.boresight.ra, device),
+            _f32(self.boresight.dec, device),
         )
+        return pt[..., 0], pt[..., 1]
 
 
 class TOD:
@@ -98,16 +121,14 @@ class TOD:
             idx = np.where(self.dets.band_name == band.name)[0]
             if len(idx) == 0:
                 continue
-            if not self.metadata.get("atmosphere"):
-                raise NotImplementedError("calibration without an atmosphere (ROADMAP queue 1, item 13)")
-            _, el = self.pointing.det_azel(device=self.device, idx=idx)
+            kwargs = {}
+            if self.metadata.get("atmosphere"):
+                _, el = self.pointing.det_azel(device=self.device, idx=idx)
+                kwargs = dict(spectrum=self.spectrum, zenith_pwv=self.metadata["pwv"],
+                              base_temperature=self.metadata["base_temperature"],
+                              elevation=torch.clamp(el, max=float(np.pi / 2)))
             factor = conversion_factor(
-                self.units, units, band,
-                polarized=bool(~np.isnan(self.dets.gamma[idx]).all()),
-                spectrum=self.spectrum,
-                zenith_pwv=self.metadata["pwv"],
-                base_temperature=self.metadata["base_temperature"],
-                elevation=torch.clamp(el, max=float(np.pi / 2)),
+                self.units, units, band, polarized=bool(~np.isnan(self.dets.gamma[idx]).all()), **kwargs
             )
             rows = torch.as_tensor(idx, device=self.device)
             for field in self.fields:

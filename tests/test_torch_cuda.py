@@ -366,3 +366,55 @@ def test_process_run_defaults_to_the_card(cuda_device):
     torch.cuda.synchronize()
     assert values.device.type == "cuda" and values.shape == (36, 6)
     assert ar_extrude.launches == before + 1 and bool(torch.isfinite(values).all())
+
+
+@pytest.mark.cuda
+def test_radec_pixel_ids_on_card_match_cpu(cuda_device):
+    """The ra/dec ids of the 60 s sky scene on its 512 x 512 map: float32
+    pointing rounds across a pixel border for at most 0.5% of the samples,
+    each into a neighbouring pixel."""
+    from maria_torch.mappers.bin_mapper import radec_pixel_ids
+    from maria_torch.scenes import sky_simulation
+    from maria_torch.tod import Pointing
+
+    sim = sky_simulation(60.0, "cpu", atmosphere=None, noise=False)
+    obs, sky = sim.obs_list[0], sim.map
+    pointing = Pointing(obs.boresight, obs.offsets, obs.q)
+    on_cpu = radec_pixel_ids(pointing, sky.center, sky.resolution, sky.n_x, sky.n_y, device="cpu")
+    on_card = radec_pixel_ids(pointing, sky.center, sky.resolution, sky.n_x, sky.n_y, device=cuda_device)
+    assert on_card.device.type == "cuda" and on_card.dtype == torch.int32 and int(on_cpu.min()) >= 0
+    a, b = on_cpu.long(), on_card.cpu().long()
+    moved = a != b
+    assert float(moved.float().mean()) <= 5e-3
+    assert int(((a // sky.n_x - b // sky.n_x).abs().max())) <= 1 and int((a % sky.n_x - b % sky.n_x).abs().max()) <= 1
+
+
+@pytest.mark.cuda
+def test_map_stage_on_card_matches_cpu(cuda_device):
+    """The card's beam smoothing 1e-5 of the map's maximum against float64
+    on the CPU (its result stays on the card), offsets 2e-6 rad (float32
+    both), the gather 1e-5 of the map's maximum against float64 at the
+    same offsets, the whole field within one float32 ulp of ra over the
+    map's steepest pixel."""
+    from maria_torch.scenes import map_stage_errors, sky_simulation
+
+    sim = sky_simulation(60.0, cuda_device, atmosphere=None, noise=False)
+    assert sim.map.data.device.type == "cpu" and sim.map.smooth(1e-4).data.device.type == "cuda"
+    e = map_stage_errors(sim, cuda_device)
+    assert e["smooth"] <= 1e-5 and e["offsets_rad"] <= 2e-6 and e["gather"] <= 1e-5 and e["field"] <= e["field_limit"] < 1e-3, e
+
+
+@pytest.mark.cuda
+def test_sky_scene_on_card_recovers_its_input_map(cuda_device):
+    """The 600 s scene without atmosphere or noise, binned in ra/dec on the
+    input map's grid by one K2 launch: correlation with the beam-smoothed
+    input above 0.95 over the better-covered half of the hit pixels."""
+    from maria_torch.scenes import sky_mapper, sky_recovery, sky_simulation
+
+    sim = sky_simulation(600.0, cuda_device, atmosphere=None, noise=False)
+    tod = sim.run()[0]
+    assert tod.device.type == "cuda" and tod.fields == ["map"] and tod.shape == (217, 30000)
+    before = bin_map.launches
+    out = sky_mapper([tod], sim.map).run()
+    assert bin_map.launches == before + 1 and float(out.weight.sum()) == 217 * 30000
+    assert sky_recovery(sim, out) > 0.95
