@@ -78,12 +78,42 @@ Phases, each of which must pass (any failure exits non-zero):
    rad, the card's samples within 1e-5 of the map's maximum of a float64
    gather on the CPU at the card's own offsets, and the calibrated,
    time-filtered "map" field of the noise-free scene within what one
-   float32 ulp of ra moves a sample by.
+   float32 ulp of ra moves a sample by;
+15. KS1 sht_synth and KS2 sht_anal, the spherical harmonic transforms'
+   Wigner-d recursion, against their plain torch versions at nside 1024
+   and lmax 2500, for one CMB's aT, aE and aB drawn on the card: the
+   scalar and spin-2 synthesis (every acc plane within 1e-5 of its
+   maximum, and the whole T, Q and U maps), then the analysis of those
+   maps (every ys plane, and the a_lm);
+16. the spectra of a full-width CMB: generate_cmb(nside=1024) analysed at
+   lmax 2500, TT, EE and BB band-averaged over l in [30, 1500) in bands
+   of 100 within 10% of get_cmb_spectrum, the TE correlation within 0.1
+   of the input's; KS1 and KS2 launched; the warm generate_cmb's
+   seconds by stage (host tables, draw, KS1, belt FFT, polar caps);
+17. slice (k), the documented flow with a CMB: slice (h)'s scene with
+   cmb="generate" (nside 1024): fields atmosphere, cmb, map and noise of
+   217 x 30,000, the "cmb" field against _compute_cmb_loading's path on
+   the same fine pwv (the difference's std under 5% of the field's, its
+   max under half of it), KS1 launched by generate_cmb, K1 twice a run()
+   and K2 once a BinMapper.run(), the noise PSD; the CMB stage's share of
+   a warm run();
+18. slice (l), (k) with only the CMB (no atmosphere, no input map, noise
+   off) on (k)'s grid: the "cmb" field within 1e-5 of its maximum of a
+   float64 evaluation of P0 w_I + dP/dT sum_s w_s map_s[pix] at the
+   card's own pixel ids, the TOD's field the gains times it, and the
+   binned sky term (the gains divided out, the monopole P0 w_I taken
+   off) correlating above 0.95 with the unsmoothed CMB at the mapper's
+   pixel centres over the better-covered half of the hit pixels;
+19. slice (m), slice (c)'s AtLAST-50k total with cmb="generate" (nside
+   1024) through build_tod_program(cmb=) and total_power_fn(), held as
+   slice (c), and with the CMB 1e6 times brighter the total minus a
+   CMB-free total on the same draws equal to gains x the "cmb" field to
+   1e-5 of its maximum.
 
 Every kernel is timed (CUDA events, in turns) beside its plain version,
 the PyTorch library call that computes the same function where there is
 one (K1 torch.fft.irfft; K2 torch.bincount or index_add_ on ids filtered
-beforehand; K3 and the AR kernel none), and its bound: the larger of its
+beforehand; K3, the AR kernel, KS1 and KS2 none), and its bound: the larger of its
 bytes at 3.35 TB/s and its operations at their peak rate (K3: the least
 loop body that meets its contract, K3_LEAST_BODY, for every bin pair at
 the card's issue and pipe rates; the AR kernel: the latency of its chain
@@ -98,6 +128,7 @@ before that the kernels' JSON record; the last line is the JSON result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -113,6 +144,7 @@ ATLAST_BANDS = 9
 N_MAP = 128
 WARM_REPS = 5  # warm realizations a slice is timed over
 MAP_WIDTH_DEG = 0.25
+SKY_NSIDE, SKY_LMAX = 1024, 2500  # the CMB's default nside and its lmax, min(3 nside - 1, 2500)
 # peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes/s, and
 # float32 operations/s outside the tensor cores (67 TFLOP/s, an FMA as two)
 HBM_BYTES_S = 3.35e12
@@ -151,10 +183,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
+def cuda_ms(fn, reps: int = 20, warm: bool = True) -> float:
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -431,6 +464,267 @@ def check_ar_extrude(device, gen, label, processes):
     return r
 
 
+@contextlib.contextmanager
+def plain_transforms():
+    """The spherical harmonic transforms with KS1 and KS2's plain versions
+    in their place, on the card."""
+    import maria_torch.healpix.sht as sht
+    from maria_torch.ops.sht import sht_anal_plain, sht_synth_plain
+
+    own = sht.sht_synth, sht.sht_anal
+    sht.sht_synth, sht.sht_anal = sht_synth_plain, sht_anal_plain
+    try:
+        yield
+    finally:
+        sht.sht_synth, sht.sht_anal = own
+
+
+@contextlib.contextmanager
+def stage_times(targets: dict):
+    """{label: seconds} of the functions ``targets`` names ({label: (module,
+    attribute)}), each call timed from a synchronize before it to one after."""
+    import torch
+
+    times, own = {label: 0.0 for label in targets}, {}
+    for label, (module, name) in targets.items():
+        fn = own[label] = getattr(module, name)
+
+        def timed(*args, _fn=fn, _label=label, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[_label] += time.perf_counter() - start
+            return out
+
+        setattr(module, name, timed)
+    try:
+        yield times
+    finally:
+        for label, (module, name) in targets.items():
+            setattr(module, name, own[label])
+
+
+def sht_bound(launches, synth: bool) -> dict:
+    """The bound of KS1 (``synth``) or KS2 over ``launches`` [(tables,
+    planes)]: the larger of the bytes (tables, seeds and planes read once,
+    the output written once) at 3.35 TB/s and the flops at 67 TFLOP/s: a
+    lane-step of the m <= l triangle (counted from these tables' seed
+    steps) is 5 of the recursion and 2 a plane."""
+    n_bytes = n_flops = 0
+    for t, x in launches:
+        L, nh = t["seed_val"].shape
+        S = x.shape[0]
+        lane_steps = nh * int((L - t["seed_step"].clamp(max=L)).sum())
+        n_flops += lane_steps * (5 + 2 * S)
+        n_bytes += 4 * (3 * L * L + 2 * L * nh + L + nh) + 4 * S * L * L + 4 * S * L * nh
+    return bound(n_bytes, n_flops)
+
+
+def check_sht_planes(label, launches, synth: bool):
+    """One kind of KS1 or KS2 launch set against the plain version on the
+    same inputs: every output plane within 1e-5 of its maximum (the share
+    of bit-equal elements printed), then kernel and plain timed in turns
+    (plain, kernel, kernel, plain; 5 kernel runs and 1 plain a turn)."""
+    import torch
+
+    from maria_torch.ops.sht import sht_anal, sht_anal_plain, sht_synth, sht_synth_plain
+
+    kernel, plain = (sht_synth, sht_synth_plain) if synth else (sht_anal, sht_anal_plain)
+    outs = [kernel(t, x) for t, x in launches]
+    refs = [plain(t, x) for t, x in launches]
+    torch.cuda.synchronize()
+    worst, err, n_equal, n_all = 0.0, 0.0, 0, 0
+    for out, ref in zip(outs, refs):
+        for o, r in zip(out, ref):
+            scale = float(r.abs().max())
+            e = float((o - r).abs().max())
+            err, worst = max(err, e), max(worst, e / scale if scale > 0 else float("inf"))
+        n_equal += int((out == ref).sum())
+        n_all += out.numel()
+    ok = all(bool(torch.isfinite(o).all()) for o in outs) and worst <= 1e-5
+    shapes = [tuple(x.shape) for _, x in launches]
+    name = f"{'KS1 sht_synth' if synth else 'KS2 sht_anal'} ({label}; {len(launches)} launch(es) of planes {shapes})"
+    print(f"{name}: every plane within {worst:.2e} of its maximum (limit 1e-5), bit-equal share {n_equal / n_all:.6f} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+    del outs, refs
+
+    def run_kernel():
+        return [kernel(t, x) for t, x in launches]
+
+    def run_plain():
+        return [plain(t, x) for t, x in launches]
+
+    p1, k1 = cuda_ms(run_plain, reps=1, warm=False), cuda_ms(run_kernel, reps=5)
+    k2, p2 = cuda_ms(run_kernel, reps=5), cuda_ms(run_plain, reps=1, warm=False)
+    r = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": None,
+         "shape": shapes, "exact_share": n_equal / n_all, **sht_bound(launches, synth)}
+    print(timing_line(f"{name}; no library call", r), flush=True)
+    return r
+
+
+def check_maps_within(label, ours, refs, limit=1e-5):
+    worst = max(float((o - r).abs().max()) / float(r.abs().max()) for o, r in zip(ours, refs))
+    ok = worst <= limit and all(bool(o.isfinite().all()) for o in ours)
+    print(f"{label}: within {worst:.2e} of their maximum (limit {limit:.0e}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{label} disagree with the plain transforms")
+
+
+def check_sht(device, gen):
+    """Phase 15: KS1 and KS2 against their plain versions at nside 1024
+    and lmax 2500, for one CMB's aT, aE and aB drawn on the card."""
+    from maria_torch.cmb import get_cmb_spectrum
+    from maria_torch.healpix.sht import (
+        alm2map, alm2map_spin, anal_inputs, map2alm, map2alm_spin, synalm_cmb_device, synth_inputs,
+    )
+
+    aT, aE, aB = synalm_cmb_device(get_cmb_spectrum(lmax=SKY_LMAX), SKY_LMAX, generator=gen)
+    out = {"synth": check_sht_planes("scalar synthesis of aT", synth_inputs(aT, SKY_NSIDE), True),
+           "synth_spin": check_sht_planes("spin-2 synthesis of aE, aB", synth_inputs(aB, SKY_NSIDE, e=aE), True)}
+    T, (Q, U) = alm2map(aT, SKY_NSIDE), alm2map_spin(aE, aB, SKY_NSIDE)
+    with plain_transforms():
+        T_plain, (Q_plain, U_plain) = alm2map(aT, SKY_NSIDE), alm2map_spin(aE, aB, SKY_NSIDE)
+    check_maps_within(f"the T, Q and U maps (nside {SKY_NSIDE}) against the plain transforms'", (T, Q, U),
+                      (T_plain, Q_plain, U_plain))
+    del T_plain, Q_plain, U_plain
+    out["anal"] = check_sht_planes("scalar analysis of T", anal_inputs(T, SKY_LMAX), False)
+    out["anal_spin"] = check_sht_planes("spin-2 analysis of Q, U", anal_inputs(Q, SKY_LMAX, U=U), False)
+    alms = (map2alm(T, SKY_LMAX), *map2alm_spin(Q, U, SKY_LMAX))
+    with plain_transforms():
+        alms_plain = (map2alm(T, SKY_LMAX), *map2alm_spin(Q, U, SKY_LMAX))
+    check_maps_within(f"aT, aE and aB of those maps (lmax {SKY_LMAX}) against the plain transforms'", alms, alms_plain)
+    return out
+
+
+def band_spectra(alms, spec):
+    """TT, EE, BB band powers over l in [30, 1500) in bands of 100 against
+    the input's, and the TE correlation against the input's, per band."""
+    import torch
+
+    aT, aE, aB = alms
+    ell = np.arange(SKY_LMAX + 1)
+    bands = [(lo, min(lo + 100, 1500)) for lo in range(30, 1500, 100)]
+
+    def cross(x, y):
+        p = (x * y.conj()).real.double()
+        return ((2 * p.sum(1) - p[:, 0]) / torch.as_tensor(2 * ell + 1, device=p.device)).cpu().numpy()
+
+    cl = {"TT": cross(aT, aT), "EE": cross(aE, aE), "BB": cross(aB, aB), "TE": cross(aT, aE)}
+    ratios = {k: [float(cl[k][lo:hi].sum() / spec[k][lo:hi].sum()) for lo, hi in bands] for k in ("TT", "EE", "BB")}
+    rho = [(float(cl["TE"][lo:hi].sum() / np.sqrt(cl["TT"][lo:hi].sum() * cl["EE"][lo:hi].sum())),
+            float(spec["TE"][lo:hi].sum() / np.sqrt(spec["TT"][lo:hi].sum() * spec["EE"][lo:hi].sum())))
+           for lo, hi in bands]
+    return bands, ratios, rho
+
+
+def check_cmb_spectra(device):
+    """Phase 16: a full-width CMB's spectra, KS1's and KS2's launches on
+    that path, and the warm generate_cmb by stage."""
+    import torch
+
+    import maria_torch.cmb as cmb_module
+    import maria_torch.healpix.sht as sht
+    from maria_torch.cmb import generate_cmb, get_cmb_spectrum
+    from maria_torch.ops.sht import sht_anal, sht_synth
+
+    sht_synth.launches = sht_anal.launches = 0
+    s = time.perf_counter()
+    cmb = generate_cmb(nside=SKY_NSIDE, seed=0, device=device)
+    T, Q, U = cmb.data[:, 0, 0]
+    alms = (sht.map2alm(T, SKY_LMAX), *sht.map2alm_spin(Q, U, SKY_LMAX))
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - s
+    launches = {"sht_synth": sht_synth.launches, "sht_anal": sht_anal.launches}
+    bands, ratios, rho = band_spectra(alms, get_cmb_spectrum(lmax=SKY_LMAX))
+    worst = max(abs(r - 1) for v in ratios.values() for r in v)
+    worst_rho = max(abs(a - b) for a, b in rho)
+    ok = launches == {"sht_synth": 3, "sht_anal": 3} and cmb.shape == (3, 1, 1, 12 * SKY_NSIDE**2)
+    ok &= bool(torch.isfinite(cmb.data).all()) and worst <= 0.10 and worst_rho <= 0.1
+    for k, v in ratios.items():
+        print(f"CMB spectra: {k} band power / input in bands {bands[0]}..{bands[-1]}: {[round(r, 4) for r in v]}",
+              flush=True)
+    print(f"CMB spectra: TE correlation (measured, input) per band {[(round(a, 3), round(b, 3)) for a, b in rho]}",
+          flush=True)
+    print(f"CMB spectra of generate_cmb(nside={SKY_NSIDE}) at lmax {SKY_LMAX}: worst |band power / input - 1| "
+          f"{worst:.4f} (limit 0.10), worst |TE correlation - input| {worst_rho:.4f} (limit 0.1); launches {launches}; "
+          f"cold generate + analysis {cold_s:.2f} s {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("the generated CMB does not carry its input spectra")
+    del alms, cmb, T, Q, U
+    targets = {"host tables": (sht, "lane_tables"), "sign and phase tables": (sht, "_device_consts"),
+               "draw": (cmb_module, "synalm_cmb_device"), "KS1": (sht, "sht_synth"), "belt FFT": (sht, "_belt_synth"),
+               "polar caps": (sht, "_polar_synth")}
+    with stage_times(targets) as times:
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        generate_cmb(nside=SKY_NSIDE, seed=1, device=device)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - s
+    stages = ", ".join(f"{k} {v:.4f} s" for k, v in times.items())
+    print(f"warm generate_cmb(nside={SKY_NSIDE}, lmax {SKY_LMAX}): {warm_s:.4f} s; by stage: {stages}; the rest "
+          f"(device-host copies of the caps' columns, assembly) {warm_s - sum(times.values()):.4f} s", flush=True)
+    return launches, {"warm_s": warm_s, **times}
+
+
+def check_cmb_only(sim, tod, out_map, device):
+    """Slice (l)'s checks: the "cmb" field against a float64 evaluation
+    at the card's own pixel ids, the TOD's field against the gains times
+    it, and the binned sky term against the unsmoothed CMB."""
+    import torch
+
+    from maria_torch.ops.program import gain_errors
+    from maria_torch.scenes import cmb_recovery, sky_mapper
+    from maria_torch.sim.cmb import cmb_power_grids
+    from maria_torch.tod import TOD, Pointing
+
+    obs = sim.obs_list[0]
+    dets = obs.instrument.dets
+    loading = sim._compute_cmb_loading(obs)
+    sw = torch.as_tensor(np.asarray(dets.stokes_weight(), dtype=np.float64))
+    pix = sim.cmb.radec_pixels(*Pointing(obs.boresight, obs.offsets, obs.q).det_radec(device=device)).cpu()
+    data = sim.cmb.data[:, 0, 0].double().cpu()
+    sky = sum(sw[:, s, None] * data[s][pix] for s in range(sim.cmb.n_stokes))
+    expected = torch.zeros(obs.shape, dtype=torch.float64)
+    P0s = {}
+    for band in dets.bands:
+        rows = torch.as_tensor(np.where(dets.band_name == band.name)[0])
+        P0, dPdT = (x.double().cpu() for x in cmb_power_grids(obs, band, device))
+        P0s[band.name] = P0
+        expected[rows] = P0 * sw[rows, :1] + dPdT * sky[rows]
+    scale = float(expected.abs().max())
+    err = float((loading.double().cpu() - expected).abs().max())
+    state = sim.generator.get_state()
+    tod_pw = sim.run(units="pW")[0]
+    sim.generator.set_state(state)
+    gains = gain_errors(dets.gain_error, sim.generator, None, device)
+    sim.generator.set_state(state)
+    gained = bool(torch.equal(tod_pw.data["cmb"], loading * gains))
+    ok = err <= 1e-5 * scale and gained and tod.fields == ["cmb"]
+    print(f"slice (l): 'cmb' field against a float64 evaluation of P0 w_I + dP/dT sum_s w_s map_s[pix] at the card's "
+          f"pixel ids: {err / scale:.2e} of its max (limit 1e-5); the TOD's field the gains times it: {gained} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (l) cmb field")
+    # the binned sky term: the 5% gain errors times the monopole P0 w_I
+    # (~0.03 pW) outweigh the anisotropy (~1e-5 pW) a hundredfold, so the
+    # gains are divided out and the monopole taken off before binning
+    term = tod_pw.data["cmb"] / gains
+    for band in dets.bands:
+        rows = torch.as_tensor(np.where(dets.band_name == band.name)[0], device=device)
+        term[rows] -= (P0s[band.name].to(device) * sw[rows.cpu(), :1].to(device)).float()
+    sky_tod = TOD(data={"cmb": term}, pointing=tod_pw.pointing, units="pW", dets=dets, metadata=tod_pw.metadata)
+    binned = sky_mapper([sky_tod], out_map).run()
+    corr = cmb_recovery(sim.cmb, binned)
+    ok = corr > 0.95
+    print(f"slice (l): the binned sky term against the unsmoothed CMB at the mapper's pixel centres, correlation over "
+          f"the better-covered half of the hit pixels {corr:.5f} (limit 0.95) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (l) does not recover the CMB")
+
+
 def map_tod(tod):
     import maria_torch
 
@@ -581,10 +875,11 @@ def check_total_noise_psd(program, device, gen, label):
     return ok
 
 
-def run_atlast(device, label="c", method="fourier", duration=60.0, n_det=5556 * ATLAST_BANDS, input_map=None):
-    """Slices (c), (g) and (j): the AtLAST-50k total-power path (bench.py's
-    config_b), with the 3-D Fourier or AR atmosphere and, with
-    ``input_map``, that family of sky over the field."""
+def run_atlast(device, label="c", method="fourier", duration=60.0, n_det=5556 * ATLAST_BANDS, input_map=None,
+               cmb=None):
+    """Slices (c), (g), (j) and (m): the AtLAST-50k total-power path
+    (bench.py's config_b), with the 3-D Fourier or AR atmosphere and, with
+    ``input_map``, that family of sky over the field, with ``cmb`` a CMB."""
     import torch
 
     from maria_torch.mappers.bin_mapper import bin_total, field_pixel_ids
@@ -596,7 +891,7 @@ def run_atlast(device, label="c", method="fourier", duration=60.0, n_det=5556 * 
     from maria_torch.scenes import simulation
 
     s = time.perf_counter()
-    sim = simulation("atlast", duration, device, method=method, input_map=input_map)
+    sim = simulation("atlast", duration, device, method=method, input_map=input_map, cmb=cmb)
     program = sim.program()
     fn = program.total_power_fn()
     obs = sim.obs_list[0]
@@ -626,6 +921,18 @@ def run_atlast(device, label="c", method="fourier", duration=60.0, n_det=5556 * 
         del field
         if not ok:
             fail(f"slice ({label}) map field")
+    if cmb is not None:
+        state = sim.generator.get_state()
+        field = program.fields(generator=sim.generator, device=device, upto="signal")["cmb"]
+        sim.generator.set_state(state)
+        ok = tuple(field.shape) == (program.n_det, program.n_t) and bool(torch.isfinite(field).all())
+        ok &= all(b.cmb_samples is not None and b.cmb_samples.device.type == "cuda" for b in program.bands)
+        ok &= float(field.std()) > 0
+        print(f"slice ({label}): CMB {sim.cmb}; 'cmb' field mean {float(field.mean()):.4e} pW, std "
+              f"{float(field.std()):.3e} pW {'ok' if ok else 'FAIL'}", flush=True)
+        del field
+        if not ok:
+            fail(f"slice ({label}) cmb field")
 
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -699,60 +1006,113 @@ def run_atlast(device, label="c", method="fourier", duration=60.0, n_det=5556 * 
     return launches, program, ids, sim
 
 
-def run_sky_slice(label, device, atmosphere, noise, card, duration=600.0):
-    """Slices (h) and (i): ``maria_torch.scenes.sky_simulation`` ->
-    run() -> BinMapper in ra/dec on the input map's grid."""
+def run_sky_slice(label, device, atmosphere, noise, card, duration=600.0, cmb=None, input_map=True):
+    """Slices (h), (i), (k) and (l): ``maria_torch.scenes.sky_simulation``
+    -> run() -> BinMapper in ra/dec on the input map's grid (big_cluster's,
+    also where the simulation leaves the map out)."""
     import torch
 
+    import maria_torch
+    import maria_torch.sim.simulation as simulation_module
     from maria_torch.ops.ar_extrude import ar_extrude
     from maria_torch.ops.bin_map import bin_map
     from maria_torch.ops.pink_noise import pink_noise
-    from maria_torch.scenes import sky_mapper, sky_recovery, sky_simulation
+    from maria_torch.ops.sht import sht_anal, sht_synth
+    from maria_torch.scenes import SKY_CENTER, sky_mapper, sky_recovery, sky_simulation
 
+    pink_noise.launches = bin_map.launches = ar_extrude.launches = sht_synth.launches = sht_anal.launches = 0
     s = time.perf_counter()
-    sim = sky_simulation(duration, device, atmosphere=atmosphere, noise=noise)
+    with stage_times({"cmb": (simulation_module, "initialize_cmb")}) as cmb_s:
+        sim = sky_simulation(duration, device, atmosphere=atmosphere, noise=noise, cmb=cmb, input_map=input_map)
     if atmosphere is not None:
         sim.program()
     torch.cuda.synchronize()
+    setup_s = time.perf_counter() - s
+    setup_launches = {"sht_synth": sht_synth.launches, "sht_anal": sht_anal.launches}
+    grid = sim.map if sim.map is not None else maria_torch.map.get("big_cluster", center=SKY_CENTER)
     plan = sim.plans[0]
-    print(f"slice ({label}) {duration:.0f} s, atmosphere {atmosphere}, noise {noise}: scene setup "
-          f"{time.perf_counter() - s:.2f} s; the Planner's plan starts {plan.start_time - 1.75e9:.0f} s after 1.75e9 in "
-          f"{plan.frame}, boresight el {np.degrees(plan.el.min()):.1f}-{np.degrees(plan.el.max()):.1f} deg; input map "
-          f"{sim.map}", flush=True)
+    print(f"slice ({label}) {duration:.0f} s, atmosphere {atmosphere}, noise {noise}, cmb {cmb}: scene setup "
+          f"{setup_s:.2f} s (the CMB {cmb_s['cmb']:.2f} s of it; setup launches {setup_launches}); the Planner's plan "
+          f"starts {plan.start_time - 1.75e9:.0f} s after 1.75e9 in {plan.frame}, boresight el "
+          f"{np.degrees(plan.el.min()):.1f}-{np.degrees(plan.el.max()):.1f} deg; input map {sim.map}; CMB {sim.cmb}",
+          flush=True)
 
-    pink_noise.launches = bin_map.launches = ar_extrude.launches = 0
+    pink_noise.launches = bin_map.launches = ar_extrude.launches = sht_synth.launches = sht_anal.launches = 0
     s = time.perf_counter()
     tod = sim.run()[0]
     torch.cuda.synchronize()
     run_s = time.perf_counter() - s
     k1_run = pink_noise.launches
     s = time.perf_counter()
-    out_map = sky_mapper([tod], sim.map).run()
+    out_map = sky_mapper([tod], grid).run()
     torch.cuda.synchronize()
     map_s = time.perf_counter() - s
-    launches = {"pink_noise": pink_noise.launches, "bin_map": bin_map.launches, "ar_extrude": ar_extrude.launches}
+    launches = {"pink_noise": pink_noise.launches, "bin_map": bin_map.launches, "ar_extrude": ar_extrude.launches,
+                "sht_synth": setup_launches["sht_synth"] + sht_synth.launches, "sht_anal": sht_anal.launches}
     print(f"slice ({label}): first run() {run_s:.3f} s, first BinMapper.run() {map_s:.3f} s, main-path launches "
-          f"{launches}", flush=True)
+          f"{launches} (KS1's in the setup)", flush=True)
 
     n_det, n_t = 217, int(round(duration * 50.0))
-    fields = {"map"} | ({"atmosphere"} if atmosphere is not None else set()) | ({"noise"} if noise else set())
-    n = sim.map.n_x
+    fields = ({"map"} if input_map else set()) | ({"atmosphere"} if atmosphere is not None else set()) | (
+        {"noise"} if noise else set()) | ({"cmb"} if cmb else set())
+    n = grid.n_x
     ok = tod.shape == (n_det, n_t) and tod.units == "K_RJ" and tod.device.type == "cuda"
     ok &= set(tod.fields) == fields and all(bool(torch.isfinite(v).all()) for v in tod.data.values())
-    ok &= float(tod.data["map"].abs().max()) > 0
+    ok &= all(float(tod.data[k].abs().max()) > 0 for k in fields & {"map", "cmb"})
     ok &= tuple(out_map.data.shape) == (1, 1, 1, n, n) and out_map.frame == "ra/dec"
     ok &= bool(torch.isfinite(out_map.data).all()) and float(out_map.weight[..., n // 2, n // 2].min()) > 0
     ok &= float(out_map.weight.sum()) == n_det * n_t  # the whole scan lies on the input map
     ok &= k1_run == launches["pink_noise"] == (2 if noise else 0) and launches["bin_map"] == 1
-    ok &= launches["ar_extrude"] == 0
-    print(f"slice ({label}): TOD {tod.shape} {tod.fields} in {tod.units}, max |map| "
-          f"{float(tod.data['map'].abs().max()):.3e} K_RJ, map {tuple(out_map.data.shape)} in {out_map.frame}, hit share "
-          f"{float((out_map.weight > 0).float().mean()):.3f}, centre weight "
+    ok &= launches["ar_extrude"] == 0 and launches["sht_anal"] == 0
+    ok &= launches["sht_synth"] == (3 if cmb else 0) and sht_synth.launches == 0  # KS1 in generate_cmb alone
+    maxima = ", ".join(f"max |{k}| {float(tod.data[k].abs().max()):.3e} K_RJ" for k in sorted(fields & {"map", "cmb"}))
+    print(f"slice ({label}): TOD {tod.shape} {tod.fields} in {tod.units}, {maxima}, map {tuple(out_map.data.shape)} in "
+          f"{out_map.frame}, hit share {float((out_map.weight > 0).float().mean()):.3f}, centre weight "
           f"{float(out_map.weight[..., n // 2, n // 2].min()):.0f} {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         fail(f"slice ({label}) output check")
 
-    if atmosphere is None and not noise:
+    if cmb and atmosphere is not None:
+        # the program's CMB stage against the chain outside it, on the same fine pwv
+        obs = sim.obs_list[0]
+        state = sim.generator.get_state()
+        signal, pwv = sim.program().fields(generator=sim.generator, device=device)
+        sim.generator.set_state(state)
+        obs.zenith_scaled_pwv = pwv
+        outside = sim._compute_cmb_loading(obs)
+        diff = (signal["cmb"] - outside).double()
+        std = float(outside.double().std())
+        ok = float(diff.std()) < 0.05 * std and float(diff.abs().max()) < 0.5 * std
+        print(f"slice ({label}): the program's 'cmb' field against _compute_cmb_loading's on the same fine pwv: the "
+              f"difference's std {float(diff.std()) / std:.4f} of the field's (limit 0.05), its max "
+              f"{float(diff.abs().max()) / std:.4f} (limit 0.5) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"slice ({label}) program cmb stage")
+        del signal, outside, diff
+        program = sim.program()
+        stage_ms = {}
+        for stage in ("with", "without"):
+            kept = [b.cmb_samples for b in program.bands]
+            if stage == "without":
+                for b in program.bands:
+                    b.cmb_samples = None
+            ms = []
+            for _ in range(WARM_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                program.fields(generator=sim.generator, device=device, upto="signal")
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            for b, samples in zip(program.bands, kept):
+                b.cmb_samples = samples
+            stage_ms[stage] = float(np.mean(ms))
+        print(f"slice ({label}): fields(upto='signal') {stage_ms['with']:.2f} ms with the CMB stage, "
+              f"{stage_ms['without']:.2f} ms without: the CMB stage {stage_ms['with'] - stage_ms['without']:.2f} ms "
+              f"(means of {WARM_REPS}; {card})", flush=True)
+    if cmb and atmosphere is None:
+        check_cmb_only(sim, tod, out_map, device)
+
+    if atmosphere is None and not noise and input_map:
         corr = sky_recovery(sim, out_map)
         ok = corr > 0.95
         print(f"slice ({label}): binned map against the beam-smoothed input map on the mapper's grid, correlation over "
@@ -767,7 +1127,7 @@ def run_sky_slice(label, device, atmosphere, noise, card, duration=600.0):
         torch.cuda.synchronize()
         run_ms.append((time.perf_counter() - s) * 1e3)
         s = time.perf_counter()
-        sky_mapper([tod], sim.map).run()
+        sky_mapper([tod], grid).run()
         torch.cuda.synchronize()
         map_ms.append((time.perf_counter() - s) * 1e3)
     print(f"slice ({label}): warm run() {np.mean(run_ms):.2f} ms, warm BinMapper.run() {np.mean(map_ms):.2f} ms "
@@ -797,18 +1157,20 @@ def check_map_stage(sim, device):
         fail("the map stage on the card disagrees with the CPU")
 
 
-def check_total_carries_map(sim, device, label):
-    """With slice (j)'s map made 1e6 times brighter: total_power_fn()
-    minus the total of a map-free program on the same draws against
-    gains x the "map" field, to 1e-5 of its maximum."""
+def check_total_carries(sim, device, label, stage="map"):
+    """With slice (j)'s map (stage "map") or slice (m)'s CMB ("cmb") made
+    1e6 times brighter: total_power_fn() minus the total of a program
+    without that stage on the same draws against gains x the stage's
+    field, to 1e-5 of its maximum."""
     import torch
 
     from maria_torch.ops.program import build_tod_program
 
     obs = sim.obs_list[0]
-    bright = sim.map._replace(data=sim.map.data * 1e6)
+    sky = sim.map if stage == "map" else sim.cmb
+    bright = {"input_map" if stage == "map" else "cmb": sky._replace(data=sky.data * 1e6)}
     kw = dict(with_noise=True, noise_kwargs=sim.noise_kwargs, device=device)
-    program, bare = build_tod_program(obs, input_map=bright, **kw), build_tod_program(obs, **kw)
+    program, bare = build_tod_program(obs, **bright, **kw), build_tod_program(obs, **kw)
     state = sim.generator.get_state()
     with_map = program.total_power_fn()(generator=sim.generator, device=device)
     sim.generator.set_state(state)
@@ -817,17 +1179,17 @@ def check_total_carries_map(sim, device, label):
     del with_map
     diff -= bare.total_power_fn()(generator=sim.generator, device=device)
     sim.generator.set_state(state)
-    field = program.fields(generator=sim.generator, device=device, upto="signal")["map"]
+    field = program.fields(generator=sim.generator, device=device, upto="signal")[stage]
     gains = program.draw_gains(generator=sim.generator, device=device)
     expected = (gains * field).double()
     scale = float(expected.abs().max())
     err = float((diff - expected).abs().max())
     ok = scale > 0 and err <= 1e-5 * scale
-    print(f"slice ({label}) with the map 1e6 times brighter: total minus the map-free total of the same draws against "
-          f"gains x the 'map' field: max|diff| {err:.3e} pW = {err / scale:.2e} of the field's max {scale:.3e} pW "
-          f"(limit 1e-5; largest total {largest:.1f} pW) {'ok' if ok else 'FAIL'}", flush=True)
+    print(f"slice ({label}) with the {stage} 1e6 times brighter: total minus the {stage}-free total of the same draws "
+          f"against gains x the '{stage}' field: max|diff| {err:.3e} pW = {err / scale:.2e} of the field's max "
+          f"{scale:.3e} pW (limit 1e-5; largest total {largest:.1f} pW) {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        fail(f"slice ({label}): the total does not carry the map with the gains applied")
+        fail(f"slice ({label}): the total does not carry the {stage} with the gains applied")
 
 
 def main() -> int:
@@ -884,8 +1246,17 @@ def main() -> int:
     launches_i_noise = run_sky_slice("i, noise on", device, None, True, card)[3]
     launches_j, _, ids_j, sim_j = run_atlast(device, label="j", input_map="dust")
     del ids_j
-    check_total_carries_map(sim_j, device, "j")
+    check_total_carries(sim_j, device, "j")
     del sim_j
+
+    ks = check_sht(device, gen)
+    launches_spectra, _ = check_cmb_spectra(device)
+    launches_k = run_sky_slice("k", device, "2d", True, card, cmb="generate")[3]
+    launches_l = run_sky_slice("l", device, None, False, card, cmb="generate", input_map=False)[3]
+    launches_m, _, ids_m, sim_m = run_atlast(device, label="m", cmb="generate")
+    del ids_m
+    check_total_carries(sim_m, device, "m", stage="cmb")
+    del sim_m
 
     ar = {label: check_ar_extrude(device, gen, f"slice {label}", results[label][3].ar_processes)
           for label in AR_SLICES}
@@ -913,8 +1284,9 @@ def main() -> int:
 
     launches_b = results["b"][2]
     by_slice = {**{label: r[2] for label, r in results.items()}, "c": launches_c, "g": launches_g, "h": launches_h,
-                "i": launches_i, "i, noise on": launches_i_noise, "j": launches_j}
-    for name in ("pink_noise", "bin_map", "shared_v", "ar_extrude"):
+                "i": launches_i, "i, noise on": launches_i_noise, "j": launches_j, "CMB spectra": launches_spectra,
+                "k": launches_k, "l": launches_l, "m": launches_m}
+    for name in ("pink_noise", "bin_map", "shared_v", "ar_extrude", "sht_synth", "sht_anal"):
         print(f"main-path launches of {name} by slice: {({k: v[name] for k, v in by_slice.items() if name in v})}",
               flush=True)
     kernels_line = {"kernels": [
@@ -930,7 +1302,14 @@ def main() -> int:
         {"name": "ar_extrude", "route": "cuda", "source": "maria_torch/csrc/ar_extrude.cu",
          "replaces": "maria_tpu/atmosphere/process.py:34", "launches": results["f"][2]["ar_extrude"],
          **ar["f"]},
+        {"name": "sht_synth", "route": "cuda", "source": "maria_torch/csrc/sht.cu",
+         "replaces": "maria_tpu/healpix/sht.py:480", "launches": launches_k["sht_synth"], **ks["synth"]},
+        {"name": "sht_anal", "route": "cuda", "source": "maria_torch/csrc/sht.cu",
+         "replaces": "maria_tpu/healpix/sht.py:523", "launches": launches_spectra["sht_anal"], **ks["anal"]},
     ]}
+    for key, r in ks.items():
+        print(f"KS summary {key}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_ms'] / r['ms']:.1%}), bit-equal share {r['exact_share']:.6f}", flush=True)
     for key, r in ar.items():
         launches = launches_g if key == "g" else results[key][2]
         print(f"AR summary {key}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "

@@ -1,15 +1,19 @@
 """maria_torch — the PyTorch/CUDA port of maria_tpu.
 
-Two slices run end to end, with the same scene API and names as
+These paths run end to end, with the same scene API and names as
 ``maria_tpu``: the MUSTANG-2 simulate-and-bin path,
-``Simulation(...).run()`` -> ``TOD`` -> ``BinMapper(...).run()`` -> map;
-and the AtLAST-50k total-power path, ``build_tod_program(obs)`` ->
-``TODProgram.total_power_fn()`` (3-D Fourier atmosphere, the noise as
-one matrix product) -> total pW -> a map binned over the field.
-Per-sample work runs in torch on the selected device; detector noise,
-the shared-shape noise draw and map binning run as hand-written CUDA
-kernels (``maria_torch/csrc``) when the tensors live on a card, and as
-their plain torch versions on the CPU.
+``Simulation(...).run()`` -> ``TOD`` -> ``BinMapper(...).run()`` -> map,
+in az/el or observing a sky in ra/dec (an input map, a CMB from
+``generate_cmb``); and the AtLAST-50k total-power path,
+``build_tod_program(obs)`` -> ``TODProgram.total_power_fn()`` (3-D
+Fourier or AR atmosphere, the noise as one matrix product) -> total pW
+-> a map binned over the field. Per-sample work runs in torch on the
+card (``device="cpu"`` asks for the CPU; without a card an entry point
+given no device raises); detector noise, the shared-shape noise draw,
+map binning, the AR extrusion and the spherical harmonic transforms'
+recursion run as hand-written CUDA kernels (``maria_torch/csrc``) when
+the tensors live on a card, and as their plain torch versions on the
+CPU.
 
 The package imports neither jax nor maria_tpu: it carries its own numpy
 scene layer for the configurations it supports.

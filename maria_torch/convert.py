@@ -1,9 +1,9 @@
 """Carry a maria_tpu scene into the port as plain arrays.
 
-``plan_from_arrays`` and ``map_from_arrays`` take the arrays of a
-maria_tpu ``Plan`` (or an ``Observation``'s plan) and ``ProjectionMap``
-and return the port's, so that both packages compute on the same
-inputs. ``program_from_tables`` takes the tables of a maria_tpu ``TODProgram``
+``plan_from_arrays``, ``map_from_arrays`` and ``healpix_map_from_arrays``
+take the arrays of a maria_tpu ``Plan`` (or an ``Observation``'s plan),
+``ProjectionMap`` and ``HEALPixMap`` or ``CMB`` and return the port's, so
+that both packages compute on the same inputs. ``program_from_tables`` takes the tables of a maria_tpu ``TODProgram``
 as plain numpy arrays and scalars and returns the port's ``TODProgram``;
 ``pixel_ids_from_tables`` turns (iy, ix) map indices into the flat int32
 ids kernel K2 takes; ``ar_process_from_arrays`` builds the port's
@@ -32,13 +32,14 @@ import torch
 
 from .atmosphere.atmosphere import LayerScreen, ScreenGroup
 from .atmosphere.process import AutoregressiveProcess
-from .map import ProjectionMap
+from .cmb import CMB
+from .map import HEALPixMap, ProjectionMap
 from .noise.dft import NoiseBandSpec
 from .ops.program import BandBlock, TODProgram
 from .plan import Plan
 
-__all__ = ["ar_process_from_arrays", "map_from_arrays", "plan_from_arrays", "program_from_tables",
-           "pixel_ids_from_tables"]
+__all__ = ["ar_process_from_arrays", "healpix_map_from_arrays", "map_from_arrays", "plan_from_arrays",
+           "program_from_tables", "pixel_ids_from_tables"]
 
 
 def plan_from_arrays(time, phi, theta, frame: str, site=None, roll: float = 0.0) -> Plan:
@@ -57,6 +58,15 @@ def map_from_arrays(data, center, width: float, height: float, frame: str = "ra/
     return ProjectionMap(data=np.asarray(data, dtype=np.float32), center=center, width=float(width),
                          height=float(height), frame=frame, stokes=stokes, nu=nu, t=t, units=units,
                          weight=None if weight is None else np.asarray(weight, dtype=np.float32), degrees=False)
+
+
+def healpix_map_from_arrays(data, stokes: str, frame: str = "galactic", units: str = "K_CMB", nu=None,
+                            cmb: bool = False) -> HEALPixMap:
+    """The port's HEALPixMap (a CMB with ``cmb``) of a (stokes, nu, t,
+    npix) RING-ordered cube, as maria_tpu's map holds it, on the host."""
+    cls = CMB if cmb else HEALPixMap
+    return cls(data=np.asarray(data, dtype=np.float32), stokes=stokes, frame=frame, units=units, nu=nu)
+
 
 _SCREEN_FIELDS = ("h", "z", "res", "pwv_rms", "angle", "vx", "vy", "tx_min", "ty_min",
                   "nx", "ny", "W", "ty_res", "win_x", "win_y", "band")

@@ -14,11 +14,16 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
-
 def default_device() -> torch.device:
-    """``cuda`` when a card is present, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The device an entry point computes on when it is given none: the card."""
+    return torch.device("cuda")
 
 
 def resolve_device(device=None) -> torch.device:
-    return default_device() if device is None else torch.device(device)
+    """``device`` as a torch.device; None means the card, and raises where
+    there is none: the port never falls back to the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: pass device="cpu" to run on the CPU')
+    return default_device()

@@ -13,9 +13,10 @@ import zlib
 
 import numpy as np
 
+from .healpix import HEALPixMap  # noqa: F401
 from .projection import ProjectionMap  # noqa: F401
 
-__all__ = ["EXAMPLE_MAPS", "MAP_ALIASES", "REFERENCE_MAP_CENTERS", "ProjectionMap", "get"]
+__all__ = ["EXAMPLE_MAPS", "HEALPixMap", "MAP_ALIASES", "REFERENCE_MAP_CENTERS", "ProjectionMap", "get"]
 
 EXAMPLE_MAPS = {
     "cluster": {

@@ -1,0 +1,160 @@
+"""All-sky HEALPix maps (maria_tpu/map/healpix.py).
+
+Data are float32 tensors of shape (stokes, nu, t, npix), in RING order.
+Sampling along a line of sight is ``ang2pix_ring`` and a gather, on the
+device of the pointing it is asked for; ``smooth`` runs the spherical
+harmonic transforms (``maria_torch.healpix``) on the card unless told
+otherwise. Plotting and HDF files are not ported (ROADMAP queue 1, item
+12).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..coords.ephemeris import ICRS_TO_GAL
+from ..device import resolve_device
+from ..healpix.core import ang2pix_ring, npix2nside
+from .projection import STOKES_ORDER, _as_float32, _unit_scales
+
+__all__ = ["HEALPixMap"]
+
+
+class HEALPixMap:
+    """An all-sky map in ``frame`` ("galactic" or "ra/dec"). A tensor's
+    data stay on their device; anything else lands on the host."""
+
+    def __init__(self, data, frame: str = "galactic", stokes: str = None, nu=None, t=None, units: str = "K_CMB"):
+        _unit_scales(units)
+        data = _as_float32(data)
+        if data.ndim < 4:
+            data = data.reshape((1,) * (4 - data.ndim) + tuple(data.shape))
+        if data.ndim != 4:
+            raise ValueError(f"HEALPix map data must be (stokes, nu, t, npix), got {tuple(data.shape)}")
+        self.data = data
+        self.frame = frame
+        self.units = units
+        self.nside = npix2nside(data.shape[-1])
+        self.stokes = stokes or STOKES_ORDER[: data.shape[0]]
+        if len(self.stokes) != data.shape[0]:
+            raise ValueError(f"Stokes '{self.stokes}' does not match data shape {tuple(data.shape)}.")
+        self.nu = np.atleast_1d(np.asarray(nu if nu is not None else [150e9], dtype=float))
+        self.t = np.atleast_1d(np.asarray(t if t is not None else [0.0], dtype=float))
+        if (len(self.nu), len(self.t)) != tuple(data.shape[1:3]):
+            raise ValueError(f"nu ({len(self.nu)}) and t ({len(self.t)}) do not match data shape {tuple(data.shape)}.")
+
+    def _replace(self, **kwargs) -> "HEALPixMap":
+        params = dict(data=self.data, frame=self.frame, stokes=self.stokes, nu=self.nu, t=self.t, units=self.units)
+        params.update(kwargs)
+        return type(self)(**params)
+
+    @property
+    def shape(self):
+        return tuple(self.data.shape)
+
+    @property
+    def n_stokes(self) -> int:
+        return len(self.stokes)
+
+    @property
+    def n_nu(self) -> int:
+        return len(self.nu)
+
+    @property
+    def npix(self) -> int:
+        return self.data.shape[-1]
+
+    @property
+    def resolution(self) -> float:
+        """The side of a pixel of equal area, in radians."""
+        return float(np.sqrt(4 * np.pi / self.npix))
+
+    def to(self, units: str) -> "HEALPixMap":
+        """The map in other ``units`` of its own quantity (a linear scale)."""
+        scales = _unit_scales(self.units)
+        if units not in scales:
+            raise NotImplementedError(
+                f"map units '{self.units}' -> '{units}' (ROADMAP queue 1, item 13: the calibration graph)"
+            )
+        factor = scales[self.units] / scales[units]
+        if factor == 1.0:
+            return self
+        return self._replace(data=self.data * factor, units=units)
+
+    # -- sampling --------------------------------------------------------------------------
+    def pixel_index(self, phi, lat):
+        """int32 RING pixel of (longitude, latitude) tensors in the map's frame."""
+        return ang2pix_ring(self.nside, np.pi / 2 - lat, phi)
+
+    def radec_pixels(self, ra, dec):
+        """int64 RING pixels of ICRS (ra, dec) tensors, rotated into the
+        map's frame first (ICRS -> galactic is one 3 x 3 rotation)."""
+        if self.frame == "galactic":
+            R = torch.as_tensor(ICRS_TO_GAL, dtype=torch.float32, device=ra.device)
+            cos_d = torch.cos(dec)
+            v = torch.stack([torch.cos(ra) * cos_d, torch.sin(ra) * cos_d, torch.sin(dec)], dim=-1)
+            v_gal = torch.einsum("ij,...j->...i", R, v)
+            phi = torch.atan2(v_gal[..., 1], v_gal[..., 0])
+            lat = torch.asin(torch.clamp(v_gal[..., 2], -1, 1))
+        elif self.frame == "ra/dec":
+            phi, lat = ra, dec
+        else:
+            raise ValueError(f"Cannot sample a HEALPixMap in frame '{self.frame}'.")
+        return self.pixel_index(phi, lat).to(torch.int64)
+
+    def sample_stokes(self, pointing, stokes_weight, nu_index: int = 0, t_index: int = 0, device=None):
+        """Stokes-weighted sample along each line of sight, (n_det, n_t):
+        ``pointing`` a tod.Pointing, ``stokes_weight`` (n_det, n_stokes).
+        Runs on the device of ``stokes_weight`` when it is a tensor (or
+        ``device``): ra/dec of the detectors there, their pixels
+        (``radec_pixels``), then the gather."""
+        if device is None and isinstance(stokes_weight, torch.Tensor):
+            device = stokes_weight.device
+        device = resolve_device(device)
+        weight = torch.as_tensor(stokes_weight, dtype=torch.float32, device=device)
+        pix = self.radec_pixels(*pointing.det_radec(device=device))
+        out = 0.0
+        for s in range(self.n_stokes):
+            field = self.data[s, nu_index, t_index].to(device)
+            out = out + weight[:, s][:, None] * field[pix]
+        return out
+
+    def smooth(self, fwhm: float, device=None) -> "HEALPixMap":
+        """The map smoothed by a Gaussian beam of ``fwhm`` (radians) in
+        harmonic space, on ``device``: every scalar slice in one batched
+        transform, Q and U by the spin-2 transform (smoothing them as
+        scalars would mix E and B power near the poles)."""
+        from ..healpix.sht import alm2map, alm2map_spin, map2alm, map2alm_spin
+
+        device = resolve_device(device)
+        sigma = float(fwhm) / (2 * np.sqrt(2 * np.log(2)))
+        lmax = min(3 * self.nside - 1, 2048)
+        ells = np.arange(lmax + 1)
+        beam = torch.as_tensor(np.exp(-0.5 * ells * (ells + 1) * sigma**2)[:, None], dtype=torch.float32,
+                               device=device)
+        data = self.data.to(device)
+        new_data = data.clone()
+        n_slices = self.n_nu * len(self.t)
+        scalar = [i for i, s in enumerate(self.stokes) if s not in "QU"]
+        if scalar:
+            alm = map2alm(data[scalar].reshape(len(scalar) * n_slices, -1), lmax=lmax)
+            new_data[scalar] = alm2map(alm * beam, self.nside).reshape(len(scalar), self.n_nu, len(self.t), -1)
+        if "Q" in self.stokes and "U" in self.stokes:
+            iq, iu = self.stokes.index("Q"), self.stokes.index("U")
+            aE, aB = map2alm_spin(data[iq].reshape(n_slices, -1), data[iu].reshape(n_slices, -1), lmax=lmax)
+            Qs, Us = alm2map_spin(aE * beam, aB * beam, self.nside)
+            new_data[iq] = Qs.reshape(self.n_nu, len(self.t), -1)
+            new_data[iu] = Us.reshape(self.n_nu, len(self.t), -1)
+        return self._replace(data=new_data)
+
+    def plot(self, *args, **kwargs):
+        raise NotImplementedError("HEALPixMap.plot (ROADMAP queue 1, item 12: plotting and map files)")
+
+    def to_hdf(self, path: str):
+        raise NotImplementedError("HEALPixMap.to_hdf (ROADMAP queue 1, item 12: plotting and map files)")
+
+    def __repr__(self):
+        return (f"{type(self).__name__}(shape={self.shape}, stokes='{self.stokes}', "
+                f"nu={[f'{n / 1e9:.0f} GHz' for n in self.nu]}, units='{self.units}', nside={self.nside}, "
+                f"frame='{self.frame}')")

@@ -28,11 +28,13 @@ STOKES_ORDER = "IQUV"
 RJ_UNITS = {"K_RJ": 1.0, "mK_RJ": 1e-3, "uK_RJ": 1e-6}
 # a mapper's map of TODs in power: carried as it is, converted to nothing
 POWER_UNITS = {"pW": 1.0}
+# CMB temperature anisotropy (the CMB skies): unit -> factor to K_CMB
+CMB_UNITS = {"K_CMB": 1.0, "mK_CMB": 1e-3, "uK_CMB": 1e-6}
 
 
 def _unit_scales(units: str) -> dict:
     """The table of the quantity that ``units`` belongs to."""
-    for scales in (RJ_UNITS, POWER_UNITS):
+    for scales in (RJ_UNITS, POWER_UNITS, CMB_UNITS):
         if units in scales:
             return scales
     raise NotImplementedError(f"map units '{units}' (ROADMAP queue 1, item 13: the calibration graph)")

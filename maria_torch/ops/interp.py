@@ -16,6 +16,7 @@ __all__ = [
     "interp_bilinear_uniform",
     "interp_bilinear_grid",
     "TableEval",
+    "interp_grid",
     "upsample_time_phases",
     "upsample_time",
     "apply_integration_kernel",
@@ -62,6 +63,30 @@ def interp_bilinear_grid(values, x, y, x_side, y_side, fill_value=0.0):
         + flat[base + nx] * wy * (1 - wx) + flat[base + nx + 1] * wy * wx
     )
     return torch.where(inside, out, torch.full_like(out, fill_value))
+
+
+def interp_grid(points, values, xi):
+    """Multilinear interpolation of ``values`` (a tensor over the grid
+    ``points``, plus trailing value dims) at the coordinate tensors ``xi``,
+    clipped to the grid, with the axis transforms of maria_tpu's
+    RegularGridInterpolator (``band.interp_grid_np`` on the host)."""
+    xi = torch.broadcast_tensors(*[x.to(values.dtype) for x in xi])
+    los, ws = [], []
+    for side, x in zip(points, xi):
+        n = len(side)
+        f = torch.clamp(fractional_index(axis_transform(side), x, torch), 0.0, n - 1.0)
+        lo = torch.clamp(torch.floor(f).to(torch.int64), 0, n - 2)
+        los.append(lo)
+        ws.append((f - lo)[..., None])
+    out = 0.0
+    for corner in range(1 << len(points)):
+        idx, w = [], 1.0
+        for d in range(len(points)):
+            hi = (corner >> d) & 1
+            idx.append(los[d] + hi)
+            w = w * (ws[d] if hi else 1 - ws[d])
+        out = out + values[tuple(idx)] * w
+    return out
 
 
 class TableEval:

@@ -23,7 +23,7 @@ __all__ = ["load", "build", "library_path"]
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PACKAGE_DIR, "csrc")
-SOURCES = ("pink_noise.cu", "bin_map.cu", "shared_v.cu", "ar_extrude.cu")
+SOURCES = ("pink_noise.cu", "bin_map.cu", "shared_v.cu", "ar_extrude.cu", "sht.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
@@ -100,6 +100,12 @@ def load() -> ctypes.CDLL:
     lib.maria_ar_extrude.restype = i
     lib.maria_ar_probe.argtypes = [i, i, i, i, p, p]
     lib.maria_ar_probe.restype = i
+    lib.maria_sht_synth.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
+    lib.maria_sht_synth.restype = i
+    lib.maria_sht_anal.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
+    lib.maria_sht_anal.restype = i
+    lib.maria_sht_max_rings.argtypes = []
+    lib.maria_sht_max_rings.restype = i
     lib.maria_max_dynamic_smem.argtypes = [i]
     lib.maria_max_dynamic_smem.restype = i
     lib.maria_cuda_error_string.argtypes = [i]

@@ -44,6 +44,12 @@ class BandBlock:
     noise_basis: np.ndarray = None  # (n_band_det, k) correlated-noise basis
     corr_prop: float = 0.0
     NEP_per_loading: float = 0.0
+    # the CMB stage: static Stokes-weighted K_CMB samples (n_band_det, n_t)
+    # on the device, and the (pwv, el) tables of P(T_CMB) in pW and of
+    # dP/dT_CMB in pW/K_CMB on the band's window
+    cmb_samples: object = None
+    cmb_P0_table: np.ndarray = None
+    cmb_dPdT_table: np.ndarray = None
     # the input map's stages: one (pW-per-K_RJ table on the band's (pwv, el)
     # window, static K_RJ samples (n_band_det, n_t) on the device) a channel
     map_stages: list = None
@@ -150,6 +156,14 @@ class TODProgram:
                 "ar_plan": ar_plan(self.ar_processes, device) if self.ar_processes and device.type == "cuda" else None,
                 "groups": [group_tensors(g, device) for g in self.groups],
                 "power": [TableEval(b.pwv_side, b.el_side, b.power_table, device=device) for b in self.bands],
+                "cmb": [
+                    None if b.cmb_samples is None else (
+                        TableEval(b.pwv_side, b.el_side, b.cmb_P0_table, device=device),
+                        TableEval(b.pwv_side, b.el_side, b.cmb_dPdT_table, device=device),
+                        b.cmb_samples.to(device),
+                    )
+                    for b in self.bands
+                ],
                 "map": [
                     [(TableEval(b.pwv_side, b.el_side, table, device=device), samples.to(device))
                      for table, samples in b.map_stages or []]
@@ -201,7 +215,7 @@ class TODProgram:
         ``upto`` stops early: "pwv" ->
         {"pwv": coarse pwv}, "atmosphere" -> {"atmosphere": the upsampled
         atmospheric loading}, "signal" -> every field but the noise (the
-        atmosphere and, with an input map, "map").
+        atmosphere and, with a CMB or an input map, "cmb" and "map").
         """
         device = resolve_device(device)
         draws = draws or {}
@@ -234,13 +248,24 @@ class TODProgram:
         if upto == "atmosphere":
             return fields
 
-        # the input map's stage: the sky timelines are static; their
-        # K_RJ -> pW calibration is evaluated at the fine rate, where the
-        # pwv carries the fast fluctuations that modulate the transmission,
-        # and the integration kernel comes after it
-        pwv_f = None
-        if any(b.map_stages for b in self.bands):
+        # the CMB and input-map stages: the sky timelines are static; their
+        # calibration to pW is evaluated at the fine rate, where the pwv
+        # carries the fast fluctuations that modulate the transmission
+        pwv_f = el_f = None
+        if any(b.cmb_samples is not None or b.map_stages for b in self.bands):
             pwv_f, el_f = self._upsample(pwv, "linear"), self._upsample(el_clip, "cubic")
+        if any(b.cmb_samples is not None for b in self.bands):
+            cmb_field = torch.zeros((self.n_det, self.n_t), dtype=torch.float32, device=device)
+            for i in range(len(self.bands)):
+                if tabs["cmb"][i] is None:
+                    continue
+                rows = tabs["det_index"][i]
+                P0, dPdT, samples = tabs["cmb"][i]
+                pwv_b, el_b = pwv_f[rows], el_f[rows]
+                cmb_field[rows] = P0(pwv_b, el_b) * tabs["mueller_I"][rows, None] + dPdT(pwv_b, el_b) * samples
+            fields["cmb"] = cmb_field
+        # the map's integration kernel comes after its calibration
+        if any(b.map_stages for b in self.bands):
             map_field = torch.zeros((self.n_det, self.n_t), dtype=torch.float32, device=device)
             for i in range(len(self.bands)):
                 if not tabs["map"][i]:
@@ -248,9 +273,9 @@ class TODProgram:
                 rows = tabs["det_index"][i]
                 pwv_b, el_b = pwv_f[rows], el_f[rows]
                 map_field[rows] = sum(cal(pwv_b, el_b) * samples for cal, samples in tabs["map"][i])
-            del pwv_b, el_b
             fields["map"] = apply_integration_kernel(map_field)
-            del el_f, map_field
+            del map_field
+        del el_f
         if upto == "signal":
             return fields
 
@@ -431,14 +456,17 @@ def band_noise_basis(band_offsets, noise_kwargs: dict):
     return None, 0.0
 
 
-def build_tod_program(obs, with_noise: bool = True, noise_kwargs: dict = {}, input_map=None,
+def build_tod_program(obs, with_noise: bool = True, noise_kwargs: dict = {}, cmb=None, input_map=None,
                       map_kwargs: dict = {}, device=None) -> TODProgram:
-    """Assemble the program from an initialized Observation. With
-    ``input_map`` (a ProjectionMap) the map stage runs in the program:
-    its sky timelines are made here, band by band on ``device`` (the
-    pointing is static), and its pwv- and elevation-dependent calibration
-    is evaluated per realization."""
+    """Assemble the program from an initialized Observation. With ``cmb``
+    (a HEALPixMap in K_CMB) and ``input_map`` (a ProjectionMap) the CMB
+    and map stages run in the program: their sky timelines are made
+    here, band by band on ``device`` (the pointing is static), and their
+    pwv- and elevation-dependent calibration is evaluated per
+    realization."""
+    from ..sim.cmb import cmb_power_tables
     from ..sim.map import map_transmission_table, static_map_samples
+    from ..tod import Pointing
 
     atm = obs.atmosphere
     T_base = float(atm.weather.temperature[0])
@@ -461,6 +489,9 @@ def build_tod_program(obs, with_noise: bool = True, noise_kwargs: dict = {}, inp
 
     bands = []
     dets = obs.instrument.dets
+    if cmb is not None:
+        stokes_weight = torch.as_tensor(np.asarray(dets.stokes_weight(), dtype=np.float32),
+                                        device=resolve_device(device))
     for band in dets.bands:
         det_index = np.where(dets.band_name == band.name)[0]
         pwv_side, el_side, table = band.atmosphere_power_table(atm.spectrum, T_base)
@@ -469,6 +500,13 @@ def build_tod_program(obs, with_noise: bool = True, noise_kwargs: dict = {}, inp
         xs, ys, tab = _crop_table(pwv_side, el_side, table, pwv_lo, pwv_hi, el_lo, el_hi)
 
         basis, corr_prop = band_noise_basis(dets.offsets[det_index], noise_kwargs) if with_noise else (None, 0.0)
+
+        cmb_samples = cmb_P0 = cmb_dPdT = None
+        if cmb is not None:
+            cmb_samples = cmb.sample_stokes(Pointing(obs.boresight, obs.offsets[det_index], obs.q),
+                                            stokes_weight[torch.as_tensor(det_index, device=stokes_weight.device)])
+            _, _, P0, dPdT = cmb_power_tables(band, atm.spectrum, T_base)
+            cmb_P0, cmb_dPdT = (_crop_table(pwv_side, el_side, t, pwv_lo, pwv_hi, el_lo, el_hi)[2] for t in (P0, dPdT))
 
         map_stages = None
         if input_map is not None:
@@ -482,7 +520,8 @@ def build_tod_program(obs, with_noise: bool = True, noise_kwargs: dict = {}, inp
         bands.append(BandBlock(
             name=band.name, det_index=det_index, pwv_side=xs, el_side=ys, power_table=tab,
             NEP=band.NEP, knee=band.knee, noise_basis=basis, corr_prop=corr_prop,
-            NEP_per_loading=band.NEP_per_loading, map_stages=map_stages,
+            NEP_per_loading=band.NEP_per_loading, cmb_samples=cmb_samples, cmb_P0_table=cmb_P0,
+            cmb_dPdT_table=cmb_dPdT, map_stages=map_stages,
         ))
 
     # the AR processes' covariance operators are factorized here, on the

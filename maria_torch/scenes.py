@@ -13,9 +13,10 @@ of ``maria_torch.map``, widened to cover the scan's field in ra/dec.
 
 ``sky_simulation`` is the observer's flow: MUSTANG-2 on a Planner-made
 ra/dec daisy over the synthetic ``big_cluster`` map at (150, 10) deg, with
-or without an atmosphere and noise; ``sky_mapper`` maps its TODs back in
-ra/dec on the input map's grid, and ``sky_recovery`` holds that map
-against the input.
+or without an atmosphere, noise, the map itself and a CMB; ``sky_mapper``
+maps its TODs back in ra/dec on the input map's grid, and
+``sky_recovery`` (``cmb_recovery`` for the CMB) holds that map against
+the input.
 """
 
 from __future__ import annotations
@@ -41,10 +42,11 @@ def field_map(family: str, plan, offsets, n: int = 512):
     return maria_torch.map.get(family, center=tuple(np.degrees(center)), width=float(np.degrees(2.1 * half)), n=n)
 
 
-def simulation(scene: str, duration: float, device=None, method: str = "fourier", input_map: str = None):
+def simulation(scene: str, duration: float, device=None, method: str = "fourier", input_map: str = None, cmb=None):
     """The ``Simulation`` of ``scene`` (a key of SCENES) for ``duration``
     seconds on ``device``, with the atmosphere's ``method`` and, with
-    ``input_map`` (a family's name), that sky over the scan's field."""
+    ``input_map`` (a family's name), that sky over the scan's field; with
+    ``cmb`` a CMB as ``Simulation`` takes it."""
     import maria_torch
 
     s = SCENES[scene]
@@ -55,23 +57,29 @@ def simulation(scene: str, duration: float, device=None, method: str = "fourier"
     instrument = maria_torch.get_instrument(s["instrument"])
     sky = None if input_map is None else field_map(input_map, plan, instrument.dets.offsets)
     return maria_torch.Simulation(instrument=instrument, plans=plan, site=s["site"], atmosphere=s["atmosphere"],
-                                  atmosphere_kwargs={"method": method}, map=sky, noise=True, seed=0, device=device)
+                                  atmosphere_kwargs={"method": method}, map=sky, cmb=cmb, noise=True, seed=0,
+                                  device=device)
 
 
-def sky_simulation(duration: float = 600.0, device=None, atmosphere="2d", noise: bool = True):
+def sky_simulation(duration: float = 600.0, device=None, atmosphere="2d", noise: bool = True, cmb=None,
+                   cmb_kwargs: dict = {}, input_map: bool = True):
     """MUSTANG-2 at the GBT observing ``big_cluster`` at SKY_CENTER on the
     first feasible ``duration`` seconds of a ra/dec daisy that the Planner
-    finds from START_TIME on; ``atmosphere`` "2d" or None."""
+    finds from START_TIME on; ``atmosphere`` "2d" or None; ``cmb`` (with
+    ``cmb_kwargs``) as ``Simulation`` takes it, "generate" for a CMB of
+    the default nside 1024; ``input_map=False`` leaves the cluster out of
+    the simulation (the Planner still aims at it)."""
     import maria_torch
 
     s = SCENES["mustang2"]
-    input_map = maria_torch.map.get("big_cluster", center=SKY_CENTER)
-    plan = maria_torch.Planner(target=input_map, site=s["site"]).generate_plans(
+    sky = maria_torch.map.get("big_cluster", center=SKY_CENTER)
+    plan = maria_torch.Planner(target=sky, site=s["site"]).generate_plans(
         start_time=START_TIME, horizon_days=2, total_duration=duration, chunk_duration=duration,
         scan_pattern="daisy", scan_options={"radius": s["radius"], "speed": s["speed"]}, sample_rate=50,
     )[0]
-    return maria_torch.Simulation(s["instrument"], plans=plan, site=s["site"], atmosphere=atmosphere, map=input_map,
-                                  noise=noise, seed=0, device=device)
+    return maria_torch.Simulation(s["instrument"], plans=plan, site=s["site"], atmosphere=atmosphere,
+                                  map=sky if input_map else None, cmb=cmb, cmb_kwargs=cmb_kwargs, noise=noise,
+                                  seed=0, device=device)
 
 
 def sky_mapper(tods, input_map):
@@ -99,6 +107,24 @@ def sky_recovery(sim, out_map) -> float:
     truth_map = sim.map.smooth(band_fwhm(obs, obs.instrument.dets.bands[0]), device=out_map.data.device)
     X, Y = np.meshgrid(out_map.x_side, out_map.y_side)
     truth = truth_map.sample(torch.as_tensor(X, dtype=torch.float32), torch.as_tensor(Y, dtype=torch.float32))
+    w, d = out_map.weight[0, 0, 0], out_map.data[0, 0, 0]
+    covered = w >= w[w > 0].median()
+    return float(torch.corrcoef(torch.stack([d[covered].double(), truth[covered].double()]))[0, 1])
+
+
+def cmb_recovery(cmb, out_map) -> float:
+    """Correlation of a binned ra/dec map with the unsmoothed CMB ``cmb``'s
+    Stokes I at the mapper's pixel centres, over the better-covered half
+    of the hit pixels."""
+    import torch
+
+    from .coords import offsets_to_phi_theta
+
+    device = out_map.data.device
+    X, Y = np.meshgrid(out_map.x_side, out_map.y_side)
+    offsets = torch.as_tensor(np.stack([X, Y], axis=-1), dtype=torch.float32, device=device)
+    radec = offsets_to_phi_theta(offsets, *(torch.tensor(c, dtype=torch.float32, device=device) for c in out_map.center))
+    truth = cmb.data[0, 0, 0].to(device)[cmb.radec_pixels(radec[..., 0], radec[..., 1])]
     w, d = out_map.weight[0, 0, 0], out_map.data[0, 0, 0]
     covered = w >= w[w > 0].median()
     return float(torch.corrcoef(torch.stack([d[covered].double(), truth[covered].double()]))[0, 1])

@@ -1,8 +1,8 @@
 """The Simulation engine (maria_tpu/sim/simulation.py): one Observation
 per plan and TODs out. With an atmosphere every field comes from the
-observation's TODProgram (the input map's stage included); without one,
-the map is sampled and calibrated in a vacuum and the detector noise is
-drawn band by band.
+observation's TODProgram (the CMB's and the input map's stages
+included); without one, the CMB and the map are sampled and calibrated
+in a vacuum every run() and the detector noise is drawn band by band.
 
 Every random draw comes from the simulation's ``torch.Generator`` (seeded
 with ``seed``) unless ``run`` is handed the draws explicitly.
@@ -23,6 +23,7 @@ from ..ops.program import band_noise_basis, build_tod_program, gain_errors
 from ..plan import Plan, PlanList, get_plan
 from ..site import Site, get_site
 from ..tod import TOD, Pointing
+from .cmb import DEFAULT_CMB_SIM_KWARGS, compute_cmb_loading, initialize_cmb
 from .map import DEFAULT_MAP_SIM_KWARGS, initialize_map, sample_maps
 from .observation import Observation
 
@@ -31,7 +32,8 @@ logger = logging.getLogger("maria_torch")
 
 class Simulation:
     def __init__(self, instrument, plans=None, site=None, atmosphere=None,
-                 atmosphere_kwargs: dict = {}, cmb=None, map=None, map_kwargs: dict = {},  # noqa: A002
+                 atmosphere_kwargs: dict = {}, cmb=None, cmb_kwargs: dict = {}, map=None,  # noqa: A002
+                 map_kwargs: dict = {},
                  noise: bool = True, noise_kwargs: dict = {}, seed: int = None,
                  device=None, plan=None, **kwargs):
         if plans is None:
@@ -40,8 +42,6 @@ class Simulation:
             raise TypeError("Simulation requires 'plans' (or the alias 'plan').")
         if site is None:
             raise TypeError("Simulation requires 'site'.")
-        if cmb:
-            raise NotImplementedError("CMB (ROADMAP queue 1, item 8b: the CMB, healpix and the SHT)")
         if kwargs:
             raise NotImplementedError(f"simulation options {sorted(kwargs)} (ROADMAP queue 1, item 13)")
 
@@ -74,6 +74,11 @@ class Simulation:
             self.obs_list.append(obs)
         self._programs = {}
 
+        self.cmb = None
+        if cmb:
+            self.cmb_kwargs = {**DEFAULT_CMB_SIM_KWARGS, **cmb_kwargs}
+            self.cmb = initialize_cmb(cmb, seed=seed, device=self.device, **self.cmb_kwargs)
+
         self.map = None
         if map is not None:
             self.map_kwargs = {**DEFAULT_MAP_SIM_KWARGS, **map_kwargs}
@@ -86,7 +91,7 @@ class Simulation:
             raise ValueError("a simulation without an atmosphere has no TODProgram")
         if obs_index not in self._programs:
             self._programs[obs_index] = build_tod_program(
-                self.obs_list[obs_index], with_noise=self.noise, noise_kwargs=self.noise_kwargs,
+                self.obs_list[obs_index], with_noise=self.noise, noise_kwargs=self.noise_kwargs, cmb=self.cmb,
                 input_map=self.map, map_kwargs=self.map_kwargs if self.map is not None else {},
                 device=self.device,
             )
@@ -124,6 +129,8 @@ class Simulation:
             metadata["base_temperature"] = float(np.round(obs.atmosphere.weather.temperature[0], 3))
         else:
             fields = {}
+            if self.cmb is not None:
+                fields["cmb"] = self._compute_cmb_loading(obs)
             if self.map is not None:
                 fields["map"] = sample_maps(
                     self.map, obs, bilinear=self.map_kwargs["bilinear_sampling"], device=self.device
@@ -131,7 +138,7 @@ class Simulation:
             if self.noise:
                 fields["noise"] = self._simulate_noise(obs, draws)
             if not fields:
-                raise ValueError("nothing to simulate: no atmosphere, no map and no noise")
+                raise ValueError("nothing to simulate: no atmosphere, no CMB, no map and no noise")
             gains = gain_errors(dets.gain_error, self.generator, draws.get("gains"), self.device)
         if self.map is not None:
             metadata["input_map"] = self.map
@@ -148,6 +155,12 @@ class Simulation:
             metadata=metadata,
             spectrum=obs.atmosphere.spectrum if self.atmosphere is not None else None,
         )
+
+    def _compute_cmb_loading(self, obs):
+        """The "cmb" field (n_det, n_t) in pW of ``obs`` outside the
+        program (``sim/cmb.py``); with an atmosphere it reads the pwv of
+        the observation's last run()."""
+        return compute_cmb_loading(self.cmb, obs, self.device)
 
     def _simulate_noise(self, obs, draws: dict):
         """The "noise" field (n_det, n_t) in pW of a scene without an

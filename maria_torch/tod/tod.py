@@ -9,12 +9,13 @@ import torch
 
 from ..calibration import conversion_factor
 from ..coords import offsets_to_phi_theta
+from ..device import resolve_device
 
 __all__ = ["TOD", "Pointing"]
 
 
 def _f32(x, device):
-    return torch.as_tensor(np.asarray(x, dtype=np.float32), dtype=torch.float32, device=device)
+    return torch.as_tensor(np.asarray(x, dtype=np.float32), dtype=torch.float32, device=resolve_device(device))
 
 
 class Pointing:

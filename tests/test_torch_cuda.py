@@ -418,3 +418,84 @@ def test_sky_scene_on_card_recovers_its_input_map(cuda_device):
     out = sky_mapper([tod], sim.map).run()
     assert bin_map.launches == before + 1 and float(out.weight.sum()) == 217 * 30000
     assert sky_recovery(sim, out) > 0.95
+
+
+def _sht_case(nside, lmax, S, spin, device, seed=0):
+    """One spin's lane tables on ``device`` and S random planes of each
+    kernel's input, made with numpy from ``seed``."""
+    from maria_torch.healpix.sht import lane_tables
+
+    t = lane_tables(lmax, nside, spin, device)
+    rng = np.random.default_rng(seed)
+    L, nh = lmax + 1, 2 * nside
+    rows = torch.as_tensor(rng.standard_normal((S, L, L)).astype(np.float32), device=device)
+    h = torch.as_tensor(rng.standard_normal((S, L, nh)).astype(np.float32), device=device)
+    return t, rows, h
+
+
+def _planes_within(out, ref, rel=1e-5):
+    """Every plane of ``out`` within ``rel`` of its plain plane's maximum."""
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    for s in range(out.shape[0]):
+        scale = float(ref[s].abs().max())
+        assert scale > 0 and float((out[s] - ref[s]).abs().max()) <= rel * scale, s
+
+
+# (nside, lmax, S, spin): odd nside; lmax below and above nh = 2 nside; one
+# to eight planes; at nside 16 lanes of m up to 200, whose seeds lie far
+# below float32's range and rescale through several exponents
+SHT_CASES = [(8, 12, 1, 0), (8, 40, 4, 2), (33, 50, 8, -2), (33, 90, 3, 0), (64, 100, 4, 0), (64, 200, 4, 2),
+             (16, 200, 4, 0), (16, 200, 8, -2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nside,lmax,S,spin", SHT_CASES)
+def test_sht_synth_kernel_matches_plain(cuda_device, nside, lmax, S, spin):
+    """KS1 against its plain version on the same tables and rows: every
+    acc plane within 1e-5 of its maximum (the kernel's FMA contraction
+    rounds otherwise than the plain version's separate products)."""
+    from maria_torch.ops.sht import sht_synth, sht_synth_plain
+
+    t, rows, _ = _sht_case(nside, lmax, S, spin, cuda_device)
+    before = sht_synth.launches
+    out = sht_synth(t, rows)
+    assert sht_synth.launches == before + 1
+    _planes_within(out, sht_synth_plain(t, rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nside,lmax,S,spin", SHT_CASES)
+def test_sht_anal_kernel_matches_plain(cuda_device, nside, lmax, S, spin):
+    """KS2 against its plain version: every ys plane within 1e-5 of its
+    maximum, and zero for l below each m's seed step."""
+    from maria_torch.ops.sht import sht_anal, sht_anal_plain
+
+    t, _, h = _sht_case(nside, lmax, S, spin, cuda_device)
+    before = sht_anal.launches
+    out = sht_anal(t, h)
+    assert sht_anal.launches == before + 1
+    _planes_within(out, sht_anal_plain(t, h))
+    below = torch.arange(lmax + 1, device=cuda_device)[:, None] < t["seed_step"][None, :]
+    assert float(out[:, below].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_sht_transforms_on_card_match_cpu(cuda_device):
+    """The four transforms at nside 64 and lmax 128 on the card against
+    the CPU, 1e-5 of each output's maximum."""
+    from maria_torch.healpix.sht import alm2map, alm2map_spin, map2alm, map2alm_spin, synalm
+
+    lmax, nside = 128, 64
+    cl = 1.0 / (np.arange(lmax + 1) + 1.0) ** 2
+    a, e, b = (synalm(cl, lmax=lmax, seed=s) for s in (1, 2, 3))
+    for fn, args in ((alm2map, (a, nside)), (alm2map_spin, (e, b, nside))):
+        card, cpu = fn(*args, device=cuda_device), fn(*args, device="cpu")
+        for x, y in zip(card if isinstance(card, tuple) else (card,), cpu if isinstance(cpu, tuple) else (cpu,)):
+            assert x.device.type == "cuda"
+            assert float((x.cpu() - y).abs().max()) <= 1e-5 * float(y.abs().max())
+    m = alm2map(a, nside, device="cpu")
+    Q, U = alm2map_spin(e, b, nside, device="cpu")
+    for card, cpu in ((map2alm(m.to(cuda_device), lmax), map2alm(m, lmax)),
+                      (map2alm_spin(Q.to(cuda_device), U.to(cuda_device), lmax), map2alm_spin(Q, U, lmax))):
+        for x, y in zip(card if isinstance(card, tuple) else (card,), cpu if isinstance(cpu, tuple) else (cpu,)):
+            assert float((x.cpu() - y).abs().max()) <= 1e-5 * float(y.abs().max())

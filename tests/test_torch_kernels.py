@@ -672,3 +672,140 @@ def test_kernel_library_name_tracks_sources():
     path = kernels.library_path()
     assert path.endswith(".so") and "libmaria_torch_kernels_" in path
     assert kernels.library_path() == path
+
+
+# -- KS1 and KS2: the Wigner-d recursion of the spherical harmonic transforms --------------------
+
+
+def _rescale_np(lam, lam_prev, k):
+    """csrc/sht.cu ``rescale`` on float32 lanes: returns the contribution."""
+    a = np.abs(lam)
+    big = a > np.float32(2.0**30)
+    small = (a < np.float32(2.0**-30)) & (k > 0)
+    scale = np.where(big, np.float32(2.0**-60), np.where(small, np.float32(2.0**60), np.float32(1))).astype(np.float32)
+    lam *= scale
+    lam_prev *= scale
+    k += np.where(big, -1, np.where(small, 1, 0)).astype(np.int32)
+    return np.where(k == 0, lam, np.float32(0))
+
+
+def _fma(a, b, c):
+    """float32 fma(a, b, c), through float64 (exact products of float32)."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def _emulate_lanes(t, m, fma=False):
+    """One m's lanes, every ring at once, in the kernels' loop order:
+    seeded at l0 = seed_step[m] (the triangle start), rescaled there, then
+    one recursion step a l. Yields (l, contribution (nh,)). Every product
+    and sum is rounded on its own, as the kernels and the plain version
+    round them; with ``fma`` the recursion contracts as a compiler would
+    ((a z + b) lam - g lam_prev as fma(fma(a, z, b), lam, -(g lam_prev)))."""
+    L = t["seed_step"].shape[0]
+    a_, b_, g_ = (t[k][m].numpy() for k in ("alpha", "beta", "gamma"))  # [m][l] rows
+    z = t["z"].numpy()
+    l0 = int(t["seed_step"][m])
+    lam = t["seed_val"][m].numpy().copy()
+    lam_prev = np.zeros_like(lam)
+    k = t["seed_exp"][m].numpy().copy()
+    yield l0, _rescale_np(lam, lam_prev, k)
+    for l in range(l0 + 1, L):
+        a, b, g = a_[l], b_[l], g_[l]
+        if fma:
+            rec = _fma(_fma(a, z, b), lam, -(g * lam_prev))
+        else:
+            rec = (a * z + b) * lam - g * lam_prev
+        lam_prev, lam = lam, rec.astype(np.float32)
+        yield l, _rescale_np(lam, lam_prev, k)
+
+
+def _emulate_synth(t, rows):
+    """KS1's per-lane loop: acc[s, m, r] summed from l0(m) on."""
+    S, L = rows.shape[:2]
+    acc = np.zeros((S, L, t["z"].shape[0]), np.float32)
+    rows = rows.numpy()
+    for m in range(L):
+        for l, c in _emulate_lanes(t, m):
+            for s in range(S):
+                acc[s, m] = acc[s, m] + rows[s, l, m] * c
+    return acc
+
+
+def _emulate_anal(t, h, threads=256):
+    """KS2's reduction order: a thread's lanes (rings tid, tid + 256, ...)
+    summed in order by FMAs, the 32 threads of a warp by the butterfly,
+    then the 8 warps in order."""
+    S, L, nh = h.shape
+    R = -(-nh // threads)
+    hp = np.zeros((S, L, R * threads), np.float32)
+    hp[..., :nh] = h.numpy()
+    ys = np.zeros((S, L, L), np.float32)
+    for m in range(L):
+        for l, c in _emulate_lanes(t, m):
+            cp = np.zeros(R * threads, np.float32)
+            cp[:nh] = c
+            for s in range(S):
+                p = np.zeros(threads, np.float32)
+                for j in range(R):
+                    p = _fma(cp[j * threads:(j + 1) * threads], hp[s, m, j * threads:(j + 1) * threads], p)
+                w = p.reshape(threads // 32, 32)
+                for off in (16, 8, 4, 2, 1):
+                    w = w + w[:, np.arange(32) ^ off]
+                total = np.float32(0)
+                for x in w[:, 0]:
+                    total = np.float32(total + x)
+                ys[s, l, m] = total
+    return ys
+
+
+@pytest.mark.parametrize("nside,lmax,spin", [(8, 30, 0), (8, 40, 2), (16, 60, -2), (16, 120, 0)])
+def test_sht_synth_kernel_algorithm_matches_plain(nside, lmax, spin):
+    """KS1's loop order (the triangle start at seed_step, the rescale of
+    each lane with its own exponent), rounded as the kernel and the plain
+    version round, gives the plain version's acc bit for bit."""
+    from maria_torch.healpix.sht import lane_tables
+    from maria_torch.ops.sht import sht_synth_plain
+
+    t = lane_tables(lmax, nside, spin, "cpu")
+    rows = torch.as_tensor(np.random.default_rng(lmax).standard_normal((3, lmax + 1, lmax + 1)).astype(np.float32))
+    ref = sht_synth_plain(t, rows).numpy()
+    np.testing.assert_array_equal(_emulate_synth(t, rows), ref)
+
+
+@pytest.mark.parametrize("nside,lmax,spin", [(8, 30, 0), (33, 40, -2), (160, 20, 2)])
+def test_sht_anal_kernel_algorithm_matches_plain(nside, lmax, spin):
+    """KS2's reduction order (lanes a thread, warp butterfly, warps in
+    order; 2 lanes a thread at nside 160) within 1e-5 of each plane's
+    maximum of the plain version's sums, and zero below the seed steps."""
+    from maria_torch.healpix.sht import lane_tables
+    from maria_torch.ops.sht import sht_anal_plain
+
+    t = lane_tables(lmax, nside, spin, "cpu")
+    h = torch.as_tensor(np.random.default_rng(nside).standard_normal((2, lmax + 1, 2 * nside)).astype(np.float32))
+    ref = sht_anal_plain(t, h).numpy()
+    ours = _emulate_anal(t, h)
+    for s in range(2):
+        assert np.abs(ours[s] - ref[s]).max() <= 1e-5 * np.abs(ref[s]).max()
+    below = np.arange(lmax + 1)[:, None] < t["seed_step"].numpy()[None, :]
+    assert np.all(ref[:, below] == 0) and np.all(ours[:, below] == 0)
+
+
+def test_sht_recursion_needs_the_plain_rounding():
+    """Why the kernels round every product and sum on its own: at nside
+    1024 and lmax 2500 (chip_smoke.py's shapes) the m = 0 lanes near the
+    pole, FMA-contracted, drift from the separately rounded ones by more
+    than 1e-4 of their largest value (so a contracted kernel could not be
+    held to the plain version at 1e-5), while at m = 700 the two stay
+    within 1e-5."""
+    from maria_torch.healpix.sht import lane_tables
+
+    t = lane_tables(2500, 1024, 0, "cpu")
+    rings = np.array([0, 5, 200, 1023, 2047])
+    sub = {k: t[k] for k in ("alpha", "beta", "gamma", "seed_step")}
+    sub.update({"z": t["z"][rings], "seed_val": t["seed_val"][:, rings], "seed_exp": t["seed_exp"][:, rings]})
+    drift = {}
+    for m in (0, 700):
+        plain = np.array([c for _, c in _emulate_lanes(sub, m)])
+        fused = np.array([c for _, c in _emulate_lanes(sub, m, fma=True)])
+        drift[m] = np.abs(fused - plain).max() / np.abs(plain).max()
+    assert drift[0] > 1e-4 and drift[700] < 1e-5, drift
