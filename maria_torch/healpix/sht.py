@@ -16,8 +16,10 @@ Where each part runs:
   ``ops/sht.py``, on the device of the a_lm or maps;
 - the equatorial belt's ring FFTs (rings of 4 nside pixels, no
   m-aliasing for lmax < 4 nside): ``torch.fft`` on that device;
-- the polar caps (short rings of irregular length, m-aliased): host
-  numpy, as maria_tpu assembles them.
+- the polar caps (rings of 4 (r + 1) pixels, m-aliased): one batched
+  chirp-z transform over every cap ring of both hemispheres in
+  complex128 (``torch.fft`` at one power-of-two length) on that device,
+  cast to float32 at the end; no host copy of a map or an accumulator.
 
 Polarization follows healpy/HEALPix (COSMO): Q + iU = -sum_lm (aE + i aB)_lm 2Y_lm.
 """
@@ -243,7 +245,10 @@ def _belt_tables(nside: int, lmax: int):
 def lane_tables(lmax: int, nside: int, spin: int, device) -> dict:
     """One spin's recursion tables as the kernels take them, on
     ``device`` (built once per device): alpha, beta, gamma transposed to
-    [m, l], seed_val, seed_exp and seed_step as int32, z."""
+    [m, l]; coef (L, L, 4) [m, l] = (alpha, beta, gamma, 0), packed for
+    one 16-byte load a step, and (0, 1, 0, 0) at each m's seed step, where
+    the kernels' recursion copies the seed (``csrc/sht.cu``); seed_val,
+    seed_exp and seed_step as int32, z."""
     return _lane_tables(lmax, nside, spin, str(device))
 
 
@@ -251,6 +256,14 @@ def lane_tables(lmax: int, nside: int, spin: int, device) -> dict:
 def _lane_tables(lmax: int, nside: int, spin: int, device: str) -> dict:
     t = _host_tables(lmax, nside, spin)
     out = {k: torch.as_tensor(np.ascontiguousarray(t[k].T), device=device) for k in ("alpha", "beta", "gamma")}
+    L = lmax + 1
+    coef = np.zeros((L, L, 4), np.float32)
+    for i, k in enumerate(("alpha", "beta", "gamma")):
+        coef[..., i] = t[k].T
+    m = np.arange(L)
+    seeded = t["seed_step"] < L
+    coef[m[seeded], t["seed_step"][seeded]] = (0.0, 1.0, 0.0, 0.0)
+    out["coef"] = torch.as_tensor(coef, device=device)
     out.update({k: torch.as_tensor(t[k], device=device) for k in ("seed_val", "seed_exp", "seed_step", "z")})
     return out
 
@@ -300,94 +313,113 @@ def _belt_anal(belt_vals, bt, phase, lmax, conj_input=False):
 
 
 def _h_layout(h_pol_n, h_pol_s, h_belt, bt):
-    """(h_north, h_south) in the (L, nh) lane layout from the polar (host)
-    and belt (device) pieces; the equator column of h_south is zero."""
+    """(h_north, h_south) in the (L, nh) lane layout from the polar-cap
+    and belt pieces; the equator column of h_south is zero."""
     nb_north = bt["nh"] - bt["b0"]
     belt_n = h_belt[..., :nb_north]
     belt_s = torch.flip(h_belt[..., nb_north:], dims=(-1,))
-    device = h_belt.device
-    zero_eq = torch.zeros((*belt_s.shape[:-1], 1), dtype=belt_s.dtype, device=device)
-    h_n = torch.cat([torch.as_tensor(h_pol_n, device=device), belt_n], dim=-1)
-    h_s = torch.cat([torch.as_tensor(h_pol_s, device=device), belt_s, zero_eq], dim=-1)
-    return h_n, h_s
+    zero_eq = torch.zeros((*belt_s.shape[:-1], 1), dtype=belt_s.dtype, device=belt_s.device)
+    return torch.cat([h_pol_n, belt_n], dim=-1), torch.cat([h_pol_s, belt_s, zero_eq], dim=-1)
 
 
-# -- the polar caps, on the host --------------------------------------------------------------
-def _fold(w, n):
-    """F[j] = sum_{m: m % n == j} w[..., m]."""
-    L = w.shape[-1]
-    k = -(-L // n)
-    wp = np.pad(w, [*[(0, 0)] * (w.ndim - 1), (0, k * n - L)])
-    return wp.reshape(*w.shape[:-1], k, n).sum(axis=-2)
+# -- the polar caps, on the device --------------------------------------------------------------
+def _cap_tables(nside: int, lmax: int, device) -> dict:
+    """The caps' chirp-z tables and index tables on ``device``."""
+    return _cap_tables_on(nside, lmax, str(device))
 
 
-def _polar_ring_params(nside, r):
-    """(n_pix, phi0) of 0-based polar-cap ring r (the same in both hemispheres)."""
+@lru_cache(maxsize=8)
+def _cap_tables_on(nside: int, lmax: int, device: str) -> dict:
+    """Ring r of a cap (0-based from the pole, the same in both
+    hemispheres) has n_r = 4 (r + 1) pixels at phi0 = pi / n_r. Its ring
+    sums take the chirp-z (Bluestein) form, complex128: with W = e^{2 pi i
+    / n} and 2 m p = m^2 + p^2 - (p - m)^2,
+        sum_m x_m e^{i m phi0} W^{m p} = chirp_p[p] sum_m (x_m chirp_m[m]) b[p - m],
+    chirp_m = e^{i pi (m^2 + m) / n}, chirp_p = e^{i pi p^2 / n},
+    b[d] = e^{-i pi d^2 / n}: one convolution a ring, taken by FFTs of
+    length P, a power of two with P / 2 > max(L, n_max) - 1 (n_max = 4
+    npol), so every difference d of either direction (-(L - 1)..n_max - 1
+    and the reverse) has its own place on the circle, and b, even in d,
+    serves both (the analysis takes the conjugates). The phases are reduced
+    mod 2 n in integers before the exponential. The index tables move
+    between the (npol, n_max) ring arrays and the flat caps (the north
+    pole-first, the south pole-last): ``north_idx``/``south_idx`` gather
+    the flat caps from the ring arrays, ``north_pos``/``south_pos`` the ring
+    arrays from the flat caps with one zero appended (pixels past n_r read
+    it)."""
+    npol, L = nside - 1, lmax + 1
+    n_max, n_cap = 4 * npol, 2 * npol * (npol + 1)
+    P = 1 << (2 * max(L, n_max) - 2).bit_length()
+    r = np.arange(npol, dtype=np.int64)[:, None]
+    m = np.arange(L, dtype=np.int64)[None, :]
+    p = np.arange(n_max, dtype=np.int64)[None, :]
+    k = np.arange(P, dtype=np.int64)[None, :]
     n = 4 * (r + 1)
-    return n, 0.5 * (2 * np.pi / n)
+    off = 2 * r * (r + 1)  # pixels in the rings nearer the pole
+    inside = p < n
+    north_pos = np.where(inside, off + p, n_cap)
+    south_pos = np.where(inside, n_cap - off - n + p, n_cap)
+    north_idx = np.empty(n_cap, np.int64)
+    south_idx = np.empty(n_cap, np.int64)
+    north_idx[north_pos[inside]] = south_idx[south_pos[inside]] = (r * n_max + p)[inside]
+
+    def phase(q):
+        return np.exp(1j * np.pi * (q % (2 * n)) / n)
+
+    d = np.where(k < P // 2, k, k - P)
+    out = {"north_pos": north_pos, "south_pos": south_pos, "north_idx": north_idx, "south_idx": south_idx,
+           "chirp_m": phase(m * m + m), "chirp_p": phase(p * p), "b": np.conj(phase(d * d))}
+    out = {key: torch.as_tensor(v, device=device) for key, v in out.items()}
+    out["b_fft"] = torch.fft.fft(out.pop("b"), dim=-1)
+    out["P"] = P
+    return out
 
 
-def _polar_synth(gp_n, gn_n, gp_s, gn_s, nside, lmax, complex_out=False):
-    """Host synthesis of the polar caps. gp_* multiply e^{+im phi},
-    conj(gn_*) fills the -m side. Returns (north_flat, south_flat)."""
-    npol = nside - 1
-    m_arr = np.arange(lmax + 1)
-    batch = gp_n.shape[:-2]
-    n_pix_cap = 2 * npol * (npol + 1)
-    dt = complex if complex_out else float
-    north = np.empty((*batch, n_pix_cap), dtype=dt)
-    south = np.empty((*batch, n_pix_cap), dtype=dt)
-    off_n = 0
-    for r in range(npol):
-        n, phi0 = _polar_ring_params(nside, r)
-        phase = np.exp(1j * m_arr * phi0)
-        idx_rev = (-np.arange(n)) % n
-        for block, gp, gn in ((north, gp_n, gn_n), (south, gp_s, gn_s)):
-            wp = gp[..., r] * phase
-            wn = np.conj(gn[..., r] * phase)
-            wn[..., 0] = 0.0  # m = 0 counted once
-            F = _fold(wp, n) + _fold(wn, n)[..., idx_rev]
-            vals = np.fft.ifft(F, axis=-1) * n
-            block[..., off_n : off_n + n] = vals if complex_out else vals.real
-        off_n += n
-    # the southern cap is stored pole-last: its ring order is the reverse
-    # of the mirror-index order
-    south_blocks = []
-    off = n_pix_cap
-    for r in range(npol - 1, -1, -1):
-        n = 4 * (r + 1)
-        off -= n
-        south_blocks.append(south[..., off : off + n])
-    south_out = np.concatenate(south_blocks, axis=-1) if npol else south
-    return north, south_out
+def _ring_sums(x, ct, forward: bool):
+    """The chirp-z transform of every cap ring at once, complex128.
+    Synthesis (``forward``): x (..., npol, L) [r, m] -> (..., npol,
+    n_max), sum_m x_m e^{i m (phi0 + 2 pi p / n_r)} at pixel p (past n_r:
+    unused). Analysis: x (..., npol, n_max) [r, p] (zero past n_r) ->
+    (..., npol, L), sum_p x_p e^{-i m (phi0 + 2 pi p / n_r)}."""
+    pre, post, b = ct["chirp_m"], ct["chirp_p"], ct["b_fft"]
+    if not forward:
+        pre, post, b = post.conj(), pre.conj(), b.conj()
+    conv = torch.fft.ifft(torch.fft.fft(x * pre, n=ct["P"], dim=-1) * b, dim=-1)
+    return conv[..., : post.shape[-1]] * post
 
 
-def _polar_anal(north_flat, south_flat, nside, lmax, conj_input=False):
-    """Host analysis of the polar caps -> (h_pol_n, h_pol_s), each
-    (..., L, nside - 1) complex64."""
-    npol = nside - 1
-    L = lmax + 1
-    m_arr = np.arange(L)
-    batch = north_flat.shape[:-1]
-    h_n = np.zeros((*batch, L, npol), dtype=np.complex64)
-    h_s = np.zeros((*batch, L, npol), dtype=np.complex64)
-    off_n, off_s = 0, north_flat.shape[-1]
-    for r in range(npol):
-        n, phi0 = _polar_ring_params(nside, r)
-        xn = north_flat[..., off_n : off_n + n]
-        xs = south_flat[..., off_s - n : off_s]
-        if conj_input:
-            xn, xs = np.conj(xn), np.conj(xs)
-        for h, x in ((h_n, xn), (h_s, xs)):
-            F = np.fft.fft(x, axis=-1)
-            h[..., r] = F[..., m_arr % n] * np.exp(-1j * m_arr * phi0)
-        off_n += n
-        off_s -= n
-    return h_n, h_s
+def _caps_synth(gp_n, gn_n, gp_s, gn_s, nside, lmax, complex_out=False):
+    """Synthesis of the polar caps on the device of the accumulators
+    (..., L, npol): gp_* multiply e^{+im phi}, conj(gn_*) fills the -m
+    side (m = 0 once). Returns (north, south) (..., 2 npol (npol + 1)),
+    float64 or complex128, the south pole-last (maria_tpu's _polar_synth).
+    The fold of m onto a ring's n_r frequencies is the chirp-z's own: it
+    sums every m at its e^{i m phi} straight into the pixel, so no
+    scatter (and no float atomic) is needed."""
+    ct = _cap_tables(nside, lmax, gp_n.device)
+    g0 = torch.stack([gn_n, gn_s])[..., 0, :, None].to(torch.complex128)  # (2, ..., npol, 1)
+    if complex_out:
+        y = _ring_sums(torch.stack([gp_n, gp_s, gn_n, gn_s]).transpose(-1, -2).to(torch.complex128), ct, True)
+        vals = y[:2] + y[2:].conj() - g0.conj()
+    else:
+        # Re(B(gp) + conj(B(gn)) - conj(gn_0)) = Re(B(gp + gn)) - Re(gn_0)
+        g = torch.stack([gp_n + gn_n, gp_s + gn_s]).transpose(-1, -2).to(torch.complex128)
+        vals = _ring_sums(g, ct, True).real - g0.real
+    flat = vals.flatten(-2)
+    return flat[0][..., ct["north_idx"]], flat[1][..., ct["south_idx"]]
 
 
-def _host(x):
-    return x.detach().cpu().numpy()
+def _caps_anal(north, south, nside, lmax, conj_input=False):
+    """Analysis of the polar caps (the flat caps (..., n_cap), the south
+    pole-last) on their device -> (h_n, h_s), each (..., L, npol)
+    complex64: h[m, r] = e^{-i m phi0} sum_p x_p W^{-m p} (maria_tpu's
+    _polar_anal: the ring's FFT at m mod n_r)."""
+    ct = _cap_tables(nside, lmax, north.device)
+    zero = torch.zeros((*north.shape[:-1], 1), dtype=north.dtype, device=north.device)
+    x = torch.stack([torch.cat([north, zero], dim=-1)[..., ct["north_pos"]],
+                     torch.cat([south, zero], dim=-1)[..., ct["south_pos"]]]).to(torch.complex128)
+    h = _ring_sums(x.conj() if conj_input else x, ct, False).transpose(-1, -2).to(torch.complex64)
+    return h[0], h[1]
 
 
 # -- one map or one a_lm set ---------------------------------------------------------------------
@@ -413,8 +445,8 @@ def synth_inputs(a, nside: int, e=None):
 
 def anal_inputs(md, lmax: int, U=None):
     """The analysis kernel's launches for one (npix,) float32 map on its
-    device: [(tables, h (4, L, nh))], the belt's ring FFTs on the device
-    and the polar caps' on the host; with ``U``, (Q, U) = (md, U) and two,
+    device: [(tables, h (4, L, nh))], the belt's ring FFTs and the polar
+    caps' chirp-z on that device; with ``U``, (Q, U) = (md, U) and two,
     the s = +2 lanes on (hp north, hm south), the s = -2 lanes on (hp
     south, hm north)."""
     nside = npix2nside(md.shape[-1])
@@ -427,17 +459,17 @@ def anal_inputs(md, lmax: int, U=None):
         return torch.stack([x for p in parts for x in (p.real, p.imag)]).contiguous()
 
     if U is None:
-        h_pol_n, h_pol_s = _polar_anal(_host(md[:s0])[None], _host(md[s0 + nb * N :])[None], nside, lmax)
+        h_pol_n, h_pol_s = _caps_anal(md[:s0], md[s0 + nb * N :], nside, lmax)
         h_belt = _belt_anal(md[s0 : s0 + nb * N].reshape(nb, N), bt, c["phase"], lmax)
-        h_n, h_s = _h_layout(h_pol_n[0], h_pol_s[0], h_belt, bt)
+        h_n, h_s = _h_layout(h_pol_n, h_pol_s, h_belt, bt)
         return [(lane_tables(lmax, nside, 0, device), streams(h_n, h_s))]
     P = torch.complex(md, U)
     belt_P = P[s0 : s0 + nb * N].reshape(nb, N)
-    north, south = _host(P[:s0])[None], _host(P[s0 + nb * N :])[None]
-    hp_n, hp_s = _polar_anal(north, south, nside, lmax)
-    hm_n, hm_s = _polar_anal(north, south, nside, lmax, conj_input=True)
-    hp_n, hp_s = _h_layout(hp_n[0], hp_s[0], _belt_anal(belt_P, bt, c["phase"], lmax), bt)
-    hm_n, hm_s = _h_layout(hm_n[0], hm_s[0], _belt_anal(belt_P, bt, c["phase"], lmax, conj_input=True), bt)
+    north, south = P[:s0], P[s0 + nb * N :]
+    (hp_n, hm_n), (hp_s, hm_s) = _caps_anal(torch.stack([north, north.conj()]), torch.stack([south, south.conj()]),
+                                            nside, lmax)
+    hp_n, hp_s = _h_layout(hp_n, hp_s, _belt_anal(belt_P, bt, c["phase"], lmax), bt)
+    hm_n, hm_s = _h_layout(hm_n, hm_s, _belt_anal(belt_P, bt, c["phase"], lmax, conj_input=True), bt)
     return [(lane_tables(lmax, nside, 2, device), streams(hp_n, hm_s)),
             (lane_tables(lmax, nside, -2, device), streams(hp_s, hm_n))]
 
@@ -445,41 +477,34 @@ def anal_inputs(md, lmax: int, U=None):
 def _alm2map_one(a, nside: int):
     """Scalar synthesis of one (L, L) complex64 a_lm on its device."""
     lmax = a.shape[-2] - 1
-    device = a.device
     ((t, rows),) = synth_inputs(a, nside)
     acc = sht_synth(t, rows)
     g_n, g_s = torch.complex(acc[0], acc[1]), torch.complex(acc[2], acc[3])
     bt = _belt_tables(nside, lmax)
-    belt = _belt_synth(_belt_g(g_n, g_s, bt), _belt_g(g_n, g_s, bt), bt, _device_consts(lmax, nside, device)["phase"],
+    belt = _belt_synth(_belt_g(g_n, g_s, bt), _belt_g(g_n, g_s, bt), bt, _device_consts(lmax, nside, a.device)["phase"],
                        lmax).real
-    npol = bt["npol"]
-    gn, gs = _host(g_n[:, :npol]).astype(np.complex128), _host(g_s[:, :npol]).astype(np.complex128)
-    north, south = _polar_synth(gn, gn, gs, gs, nside, lmax)
-    return torch.cat([torch.as_tensor(north.astype(np.float32), device=device), belt.reshape(-1),
-                      torch.as_tensor(south.astype(np.float32), device=device)])
+    gn, gs = g_n[:, : bt["npol"]], g_s[:, : bt["npol"]]
+    north, south = _caps_synth(gn, gn, gs, gs, nside, lmax)
+    return torch.cat([north.float(), belt.reshape(-1), south.float()])
 
 
 def _alm2map_spin_one(e, b, nside: int):
     """Spin-2 synthesis of one (aE, aB) pair: (Q, U) on their device."""
     lmax = e.shape[-2] - 1
-    device = e.device
     (tp, rows_p), (tm, rows_m) = synth_inputs(b, nside, e=e)
     acc_p, acc_m = sht_synth(tp, rows_p), sht_synth(tm, rows_m)
     gp_n, gp_s = torch.complex(acc_p[0], acc_p[1]), torch.complex(acc_m[2], acc_m[3])
     gm_n, gm_s = torch.complex(acc_m[0], acc_m[1]), torch.complex(acc_p[2], acc_p[3])
     bt = _belt_tables(nside, lmax)
     belt = _belt_synth(_belt_g(gp_n, gp_s, bt), _belt_g(gm_n, gm_s, bt), bt,
-                       _device_consts(lmax, nside, device)["phase"], lmax)
+                       _device_consts(lmax, nside, e.device)["phase"], lmax)
     npol = bt["npol"]
-    north, south = _polar_synth(
-        *(_host(g[:, :npol]).astype(np.complex128) for g in (gp_n, gm_n, gp_s, gm_s)), nside, lmax, complex_out=True,
-    )
+    north, south = _caps_synth(*(g[:, :npol] for g in (gp_n, gm_n, gp_s, gm_s)), nside, lmax, complex_out=True)
 
     def assemble(part, belt_part):
-        return torch.cat([torch.as_tensor(part(north).astype(np.float32), device=device), belt_part.reshape(-1),
-                          torch.as_tensor(part(south).astype(np.float32), device=device)])
+        return torch.cat([part(north).float(), belt_part.reshape(-1), part(south).float()])
 
-    return assemble(np.real, belt.real), assemble(np.imag, belt.imag)
+    return assemble(torch.real, belt.real), assemble(torch.imag, belt.imag)
 
 
 def _alm_of(ys_n, ys_s, c, omega):

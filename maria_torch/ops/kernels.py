@@ -100,9 +100,9 @@ def load() -> ctypes.CDLL:
     lib.maria_ar_extrude.restype = i
     lib.maria_ar_probe.argtypes = [i, i, i, i, p, p]
     lib.maria_ar_probe.restype = i
-    lib.maria_sht_synth.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
+    lib.maria_sht_synth.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
     lib.maria_sht_synth.restype = i
-    lib.maria_sht_anal.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
+    lib.maria_sht_anal.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
     lib.maria_sht_anal.restype = i
     lib.maria_sht_max_rings.argtypes = []
     lib.maria_sht_max_rings.restype = i

@@ -11,11 +11,12 @@ the layouts and the rescale are written out in ``csrc/sht.cu``):
   ys[s, l, m] = sum_r d_l(m, r) h[s, m, r].
 
 ``t`` holds one spin's tables as tensors on one device (``lane_tables``
-in ``healpix/sht.py``): alpha, beta, gamma (L, L) [m, l]; seed_val (L,
-nh); seed_exp (L, nh) int32; seed_step (L,) int32; z (nh,). S <= 8. On a
-CUDA tensor each launches its kernel; on a CPU tensor it runs the plain
-version, which takes the same steps in torch ops, every product and sum
-rounded on its own.
+in ``healpix/sht.py``): alpha, beta, gamma (L, L) [m, l]; the kernels'
+packed coef (L, L, 4) [m, l] = (alpha, beta, gamma, 0), (0, 1, 0, 0) at
+the seed step; seed_val (L, nh); seed_exp (L, nh) int32; seed_step (L,)
+int32; z (nh,). S <= 8. On a CUDA tensor each launches its kernel; on a
+CPU tensor it runs the plain version, which takes the same steps in torch
+ops, every product and sum rounded on its own.
 """
 
 from __future__ import annotations
@@ -74,7 +75,7 @@ def _check(t, planes, name: str, shape_of):
     L, nh = t["seed_val"].shape
     if tuple(planes.shape[1:]) != shape_of(L, nh):
         raise ValueError(f"{name}: planes of shape {shape_of(L, nh)} expected, got {tuple(planes.shape[1:])}")
-    for key in ("alpha", "beta", "gamma", "seed_val", "seed_exp", "seed_step", "z"):
+    for key in ("alpha", "beta", "gamma", "coef", "seed_val", "seed_exp", "seed_step", "z"):
         if t[key].device != planes.device:
             raise ValueError(f"{name}: table {key} lies on {t[key].device}, the planes on {planes.device}")
     return L, nh
@@ -98,22 +99,23 @@ def sht_anal_plain(t, h):
     return ys
 
 
-def _launch(fn, t, planes, out, L, nh):
+def _launch(fn, t, planes, out, L, nh, S):
     lib = kernels.load()
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     code = getattr(lib, fn)(
-        *(t[k].data_ptr() for k in ("alpha", "beta", "gamma", "seed_val", "seed_exp", "seed_step", "z")),
-        planes.data_ptr(), out.data_ptr(), L, nh, planes.shape[0], stream,
+        *(t[k].data_ptr() for k in ("coef", "seed_val", "seed_exp", "seed_step", "z")),
+        planes.data_ptr(), out.data_ptr(), L, nh, S, stream,
     )
     kernels.check(lib, code, f"{fn} kernel launch")
 
 
-def _check_tables(t):
-    for key, dtype in (("alpha", torch.float32), ("beta", torch.float32), ("gamma", torch.float32),
-                       ("seed_val", torch.float32), ("seed_exp", torch.int32), ("seed_step", torch.int32),
-                       ("z", torch.float32)):
+def _check_tables(t, L):
+    for key, dtype in (("coef", torch.float32), ("seed_val", torch.float32), ("seed_exp", torch.int32),
+                       ("seed_step", torch.int32), ("z", torch.float32)):
         if t[key].dtype != dtype or not t[key].is_contiguous():
             raise ValueError(f"table {key} must be contiguous {dtype}, got {t[key].dtype}")
+    if tuple(t["coef"].shape) != (L, L, 4):
+        raise ValueError(f"table coef must be ({L}, {L}, 4), got {tuple(t['coef'].shape)}")
 
 
 def sht_synth(t, rows):
@@ -123,10 +125,13 @@ def sht_synth(t, rows):
         return sht_synth_plain(t, rows)
     if rows.device.type != "cuda":
         raise ValueError(f"sht_synth runs on cpu or cuda tensors, not {rows.device.type}")
-    _check_tables(t)
-    rows_ml = rows.transpose(1, 2).contiguous()  # [s][m][l]: a lane's steps read consecutive addresses
-    acc = torch.empty((rows.shape[0], L, nh), dtype=torch.float32, device=rows.device)
-    _launch("maria_sht_synth", t, rows_ml, acc, L, nh)
+    _check_tables(t, L)
+    S = rows.shape[0]
+    # [m][l][s], the planes of a step in ceil(S / 4) float4s (the rest zero): one 16-byte copy a step
+    packed = torch.zeros((L, L, 4 * -(-S // 4)), dtype=torch.float32, device=rows.device)
+    packed[..., :S] = rows.permute(2, 1, 0)
+    acc = torch.empty((S, L, nh), dtype=torch.float32, device=rows.device)
+    _launch("maria_sht_synth", t, packed, acc, L, nh, S)
     sht_synth.launches += 1
     return acc
 
@@ -138,12 +143,12 @@ def sht_anal(t, h):
         return sht_anal_plain(t, h)
     if h.device.type != "cuda":
         raise ValueError(f"sht_anal runs on cpu or cuda tensors, not {h.device.type}")
-    _check_tables(t)
+    _check_tables(t, L)
     lib = kernels.load()
     if nh > lib.maria_sht_max_rings():
         raise ValueError(f"sht_anal takes at most {lib.maria_sht_max_rings()} rings, got {nh}")
     ys = torch.zeros((h.shape[0], L, L), dtype=torch.float32, device=h.device)  # [s][m][l]; l < seed_step stays 0
-    _launch("maria_sht_anal", t, h.contiguous(), ys, L, nh)
+    _launch("maria_sht_anal", t, h.contiguous(), ys, L, nh, h.shape[0])
     sht_anal.launches += 1
     return ys.transpose(1, 2)
 

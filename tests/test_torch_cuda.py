@@ -452,15 +452,17 @@ SHT_CASES = [(8, 12, 1, 0), (8, 40, 4, 2), (33, 50, 8, -2), (33, 90, 3, 0), (64,
 @pytest.mark.parametrize("nside,lmax,S,spin", SHT_CASES)
 def test_sht_synth_kernel_matches_plain(cuda_device, nside, lmax, S, spin):
     """KS1 against its plain version on the same tables and rows: every
-    acc plane within 1e-5 of its maximum (the kernel's FMA contraction
-    rounds otherwise than the plain version's separate products)."""
+    acc plane within 1e-5 of its maximum, and equal element for element
+    (both round every product and sum on its own)."""
     from maria_torch.ops.sht import sht_synth, sht_synth_plain
 
     t, rows, _ = _sht_case(nside, lmax, S, spin, cuda_device)
     before = sht_synth.launches
     out = sht_synth(t, rows)
     assert sht_synth.launches == before + 1
-    _planes_within(out, sht_synth_plain(t, rows))
+    ref = sht_synth_plain(t, rows)
+    _planes_within(out, ref)
+    assert torch.equal(out, ref)
 
 
 @pytest.mark.cuda
@@ -499,3 +501,76 @@ def test_sht_transforms_on_card_match_cpu(cuda_device):
                       (map2alm_spin(Q.to(cuda_device), U.to(cuda_device), lmax), map2alm_spin(Q, U, lmax))):
         for x, y in zip(card if isinstance(card, tuple) else (card,), cpu if isinstance(cpu, tuple) else (cpu,)):
             assert float((x.cpu() - y).abs().max()) <= 1e-5 * float(y.abs().max())
+
+
+# (nside, lmax, spin): 2, 4 and 8 rings a thread (nh 600, 1200, 2200 and 4096
+# with padded lanes), and at nside 300 and lmax 220 warps of polar rings that
+# walk chunks in the full rescale and skip steps without a contribution
+SHT_WIDE_CASES = [(300, 220, 0), (600, 40, 2), (1100, 30, -2), (2048, 12, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nside,lmax,spin", SHT_WIDE_CASES)
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 5, 8])
+def test_sht_kernels_on_wide_rings(cuda_device, nside, lmax, spin, S):
+    """KS1 equal element for element to its plain version and KS2 within
+    1e-5 of each plane's maximum (zero below the seed steps) at every
+    lanes-a-thread plan and at one to eight planes (one or two float4s of
+    rows a step; butterfly groups of 32, 16, 8 and 4 steps)."""
+    from maria_torch.ops.sht import sht_anal, sht_anal_plain, sht_synth, sht_synth_plain
+
+    t, rows, h = _sht_case(nside, lmax, S, spin, cuda_device, seed=S)
+    assert torch.equal(sht_synth(t, rows), sht_synth_plain(t, rows))
+    out = sht_anal(t, h)
+    _planes_within(out, sht_anal_plain(t, h))
+    below = torch.arange(lmax + 1, device=cuda_device)[:, None] < t["seed_step"][None, :]
+    assert not bool(below.any()) or float(out[:, below].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_sht_packed_tables_on_card(cuda_device):
+    """The kernels' packed coef on the card is the CPU's, and KS2 refuses
+    more rings than one block holds."""
+    from maria_torch.healpix.sht import lane_tables
+    from maria_torch.ops import kernels
+    from maria_torch.ops.sht import sht_anal
+
+    card, cpu = lane_tables(60, 33, 2, cuda_device), lane_tables(60, 33, 2, "cpu")
+    for key in ("coef", "alpha", "seed_val", "seed_exp", "seed_step", "z"):
+        assert card[key].device.type == "cuda" and torch.equal(card[key].cpu(), cpu[key])
+    big = kernels.load().maria_sht_max_rings() // 2 + 1  # nside with nh = 2 nside past the limit
+    t = lane_tables(4, big, 0, cuda_device)
+    with pytest.raises(ValueError, match="at most"):
+        sht_anal(t, torch.zeros((1, 5, 2 * big), device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_sht_transforms_copy_nothing_to_the_host(cuda_device, monkeypatch):
+    """Once the tables are built, the four transforms on the card copy no
+    map, accumulator or a_lm to the host (Tensor.cpu, numpy, tolist and
+    item raise), and generate_cmb with one seed gives the same maps twice."""
+    from maria_torch.cmb import generate_cmb
+    from maria_torch.healpix.sht import alm2map, alm2map_spin, map2alm, map2alm_spin, synalm
+
+    lmax, nside = 95, 32
+    cl = 1.0 / (np.arange(lmax + 1) + 1.0) ** 2
+    a, e = (torch.as_tensor(synalm(cl, lmax=lmax, seed=s), dtype=torch.complex64, device=cuda_device) for s in (1, 2))
+
+    def run():
+        T, (Q, U) = alm2map(a, nside), alm2map_spin(e, a, nside)
+        return T, Q, U, map2alm(T, lmax), *map2alm_spin(Q, U, lmax)
+
+    warm = run()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a device-to-host copy in the transforms")
+
+    for name in ("cpu", "numpy", "tolist", "item"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    again = run()
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    for x, y in zip(warm, again):
+        assert x.device.type == "cuda" and torch.equal(x, y)
+    first, second = (generate_cmb(nside=64, seed=3, device=cuda_device).data for _ in range(2))
+    assert torch.equal(first, second)

@@ -120,6 +120,22 @@ def test_lane_tables_hold_the_kernels_layout():
     assert sht.lane_tables(30, 8, 2, "cpu") is t
 
 
+@pytest.mark.parametrize("lmax,spin", [(30, 2), (1, -2), (20, 0)])
+def test_lane_tables_pack_the_coefficients(lmax, spin):
+    """coef [m, l] = (alpha, beta, gamma, 0) above each m's seed step,
+    (0, 1, 0, 0) at it (the kernels' recursion copies the seed there), the
+    tables' zeros below; no seed step lies past lmax where lmax < |spin|."""
+    t = sht.lane_tables(lmax, 8, spin, "cpu")
+    coef = t["coef"].numpy()
+    assert coef.shape == (lmax + 1, lmax + 1, 4) and t["coef"].is_contiguous()
+    l = np.arange(lmax + 1)[None, :]
+    at_seed = l == t["seed_step"].numpy()[:, None]
+    for i, k in enumerate(("alpha", "beta", "gamma")):
+        np.testing.assert_array_equal(coef[..., i][~at_seed], t[k].numpy()[~at_seed])
+    np.testing.assert_array_equal(coef[at_seed], np.tile([0.0, 1.0, 0.0, 0.0], (int(at_seed.sum()), 1)))
+    assert np.all(coef[..., 3] == 0)
+
+
 def test_check_lmax():
     with pytest.raises(ValueError, match="alias"):
         sht.alm2map(np.zeros((65, 65), np.complex64), 16, device="cpu")
@@ -265,3 +281,63 @@ def test_transforms_need_a_device_without_tensors():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match='device="cpu"'):
         sht.alm2map(np.zeros((9, 9), np.complex64), 4)
+
+
+# -- the polar caps' device form against maria_tpu's host assembly -----------------------------
+
+
+@pytest.mark.parametrize("nside,lmax", [(2, 7), (5, 14), (16, 47), (33, 98)])
+@pytest.mark.parametrize("complex_out", [False, True])
+def test_caps_synth_matches_host_polar_synth(nside, lmax, complex_out):
+    """The caps' batched chirp-z synthesis (complex128 on the tensors'
+    device) against maria_tpu's per-ring fold and inverse FFT on the same
+    accumulator columns: after the float32 cast, within 1e-6 of each
+    output's maximum (both take every sum in float64; the cast rounds at
+    6e-8). gp and gn differ, so the -m side is checked on its own."""
+    from maria_torch.healpix.sht import _caps_synth
+
+    rng = np.random.default_rng(nside + lmax)
+    g = [rng.standard_normal((lmax + 1, nside - 1)) + 1j * rng.standard_normal((lmax + 1, nside - 1))
+         for _ in range(4)]
+    ref = ref_sht._polar_synth(*g, nside, lmax, complex_out=complex_out)
+    ours = _caps_synth(*(torch.as_tensor(x) for x in g), nside, lmax, complex_out=complex_out)
+    for x, y in zip(ours, ref):
+        assert x.dtype == (torch.complex128 if complex_out else torch.float64)
+        _close(x.to(torch.complex64 if complex_out else torch.float32).numpy(),
+               y.astype(np.complex64 if complex_out else np.float32), rel=1e-6)
+
+
+@pytest.mark.parametrize("nside,lmax", [(2, 7), (5, 14), (16, 47), (33, 98)])
+@pytest.mark.parametrize("conj_input", [False, True])
+def test_caps_anal_matches_host_polar_anal(nside, lmax, conj_input):
+    """The caps' chirp-z analysis against maria_tpu's per-ring FFT read
+    at m mod n_r, on the same complex caps (north pole-first, south
+    pole-last), with and without conj_input: within 1e-6 of each output's
+    maximum, both complex64."""
+    from maria_torch.healpix.sht import _caps_anal
+
+    n_cap = 2 * (nside - 1) * nside
+    rng = np.random.default_rng(nside * lmax)
+    north, south = (rng.standard_normal(n_cap) + 1j * rng.standard_normal(n_cap) for _ in range(2))
+    ref = ref_sht._polar_anal(north, south, nside, lmax, conj_input=conj_input)
+    ours = _caps_anal(torch.as_tensor(north), torch.as_tensor(south), nside, lmax, conj_input=conj_input)
+    for x, y in zip(ours, ref):
+        assert x.dtype == torch.complex64 and x.shape == y.shape == (lmax + 1, nside - 1)
+        _close(x.numpy(), y, rel=1e-6)
+
+
+def test_caps_anal_of_real_maps_and_batches():
+    """A real float32 cap, as map2alm hands it, and a leading batch of
+    two (the spin-2 form stacks P and conj(P)), each against maria_tpu's
+    host analysis at 1e-6 of the output's maximum."""
+    from maria_torch.healpix.sht import _caps_anal
+
+    nside, lmax = 9, 26
+    n_cap = 2 * (nside - 1) * nside
+    rng = np.random.default_rng(4)
+    north, south = (rng.standard_normal((2, n_cap)).astype(np.float32) for _ in range(2))
+    ours = _caps_anal(torch.as_tensor(north), torch.as_tensor(south), nside, lmax)
+    for i in range(2):
+        ref = ref_sht._polar_anal(north[i].astype(float), south[i].astype(float), nside, lmax)
+        for x, y in zip(ours, ref):
+            _close(x[i].numpy(), y, rel=1e-6)

@@ -719,50 +719,137 @@ def _emulate_lanes(t, m, fma=False):
         yield l, _rescale_np(lam, lam_prev, k)
 
 
+def _sht_plan(nh):
+    """csrc/sht.cu ``plan``: (R consecutive rings a thread, threads a
+    block) for nh rings."""
+    R = 1
+    while R < 8 and R * 512 < nh:
+        R *= 2
+    n = -(-nh // R)
+    return R, 512 if n >= 512 else -(-n // 32) * 32
+
+
+def _walk(t, m, chunk=32):
+    """The kernels' walk of one m over its lanes, padded to whole warps
+    (a warp: 32 threads of R consecutive rings; padded lanes hold zeros),
+    from l0 with the packed coef (the seed step copies the seed), in
+    chunks of 32 steps. A warp whose lanes all have k == 0 at a chunk's
+    start walks it bare: the emulation asserts that the full rescale would
+    be the identity there. Yields (l, i, contribution (lanes,), the lanes
+    whose warp adds this step), i the step's index from l0."""
+    z = t["z"].numpy()
+    nh, L = z.shape[0], t["seed_step"].shape[0]
+    R, _ = _sht_plan(nh)
+    per_warp = 32 * R
+    n = -(-nh // per_warp) * per_warp
+    coef = t["coef"][m].numpy()
+    l0 = int(t["seed_step"][m])
+    zz, lam, lam_prev = (np.zeros(n, np.float32) for _ in range(3))
+    k = np.zeros(n, np.int32)
+    zz[:nh], lam[:nh], k[:nh] = z, t["seed_val"][m].numpy(), t["seed_exp"][m].numpy()
+    for c0 in range(l0, L, chunk):
+        settled = np.repeat((k.reshape(-1, per_warp) == 0).all(axis=1), per_warp)
+        for l in range(c0, min(c0 + chunk, L)):
+            a, b, g, _ = coef[l]
+            lam_prev, lam = lam, (a * zz + b) * lam - g * lam_prev
+            mag = np.abs(lam)
+            assert not ((mag > np.float32(2.0**30)) | ((mag < np.float32(2.0**-30)) & (k > 0)))[settled].any()
+            c = _rescale_np(lam, lam_prev, k)
+            adds = settled | np.repeat((k.reshape(-1, per_warp) == 0).any(axis=1), per_warp)
+            yield l, l - l0, c, adds
+
+
 def _emulate_synth(t, rows):
-    """KS1's per-lane loop: acc[s, m, r] summed from l0(m) on."""
+    """KS1's walk (R rings a thread, the rescale's exit, the sums skipped
+    on a warp's steps without a contribution): acc[s, m, r] summed from
+    l0(m) on, every product and sum rounded on its own."""
     S, L = rows.shape[:2]
-    acc = np.zeros((S, L, t["z"].shape[0]), np.float32)
+    nh = t["z"].shape[0]
+    acc = np.zeros((S, L, nh), np.float32)
     rows = rows.numpy()
     for m in range(L):
-        for l, c in _emulate_lanes(t, m):
-            for s in range(S):
-                acc[s, m] = acc[s, m] + rows[s, l, m] * c
+        out = np.zeros((S, -(-nh // (32 * _sht_plan(nh)[0])) * 32 * _sht_plan(nh)[0]), np.float32)
+        for l, _, c, adds in _walk(t, m):
+            out = np.where(adds, out + rows[:, l, m, None] * c, out)
+        acc[:, m] = out[:, :nh]
     return acc
 
 
-def _emulate_anal(t, h, threads=256):
-    """KS2's reduction order: a thread's lanes (rings tid, tid + 256, ...)
-    summed in order by FMAs, the 32 threads of a warp by the butterfly,
-    then the 8 warps in order."""
+def _butterfly_np(v):
+    """csrc/sht.cu ``butterfly`` on (warps, 32 lanes, 16 values): lane q
+    ends with its warp's total of value q mod 16 (the half-warps' lanes
+    combined by bit 3, 2, 1, 0, then the two halves)."""
+    v = v.copy()
+    lane = np.arange(32)
+    half = 8
+    while half:
+        upper = (lane & half).astype(bool)[None, :, None]
+        lo, hi = v[..., :half], v[..., half : 2 * half]
+        send, keep = np.where(upper, lo, hi), np.where(upper, hi, lo)
+        v = keep + send[:, lane ^ half]
+        half //= 2
+    return v[..., 0] + v[:, lane ^ 16, 0]
+
+
+def _emulate_anal(t, h, chunk=32):
+    """KS2's order: a thread's R consecutive lanes summed by FMAs into one
+    value a plane and step, for a group of T = 16 / S' steps; the warp's
+    32 x 16 values reduced by the transposing butterfly (lane s T + t holds
+    plane s, step t); once a chunk the warps' totals added in warp order."""
     S, L, nh = h.shape
-    R = -(-nh // threads)
-    hp = np.zeros((S, L, R * threads), np.float32)
+    R, threads = _sht_plan(nh)
+    T = 16 // (1 << (S - 1).bit_length())
+    n = -(-nh // (32 * R)) * 32 * R
+    warps = n // (32 * R)
+    hp = np.zeros((S, L, n), np.float32)
     hp[..., :nh] = h.numpy()
     ys = np.zeros((S, L, L), np.float32)
     for m in range(L):
-        for l, c in _emulate_lanes(t, m):
-            cp = np.zeros(R * threads, np.float32)
-            cp[:nh] = c
+        hm = hp[:, m].reshape(S, -1, R)
+        l0 = int(t["seed_step"][m])
+        v = np.zeros((n // R, 16), np.float32)
+        part = np.zeros((warps, S, chunk), np.float32)
+
+        def flush(i):  # the group ending at step index i (inclusive)
+            totals = _butterfly_np(v.reshape(warps, 32, 16))
+            g = i - i % T
+            for q in range(16):
+                s, tt = divmod(q, T)
+                if s < S and g + tt <= i:
+                    part[:, s, (g + tt) % chunk] = totals[:, q]
+            v[:] = 0
+
+        for l, i, c, adds in _walk(t, m, chunk):
+            cl = np.where(adds, c, np.float32(0)).reshape(-1, R)
             for s in range(S):
-                p = np.zeros(threads, np.float32)
+                p = np.zeros(n // R, np.float32)
                 for j in range(R):
-                    p = _fma(cp[j * threads:(j + 1) * threads], hp[s, m, j * threads:(j + 1) * threads], p)
-                w = p.reshape(threads // 32, 32)
-                for off in (16, 8, 4, 2, 1):
-                    w = w + w[:, np.arange(32) ^ off]
-                total = np.float32(0)
-                for x in w[:, 0]:
-                    total = np.float32(total + x)
-                ys[s, l, m] = total
+                    p = _fma(cl[:, j], hm[s, :, j], p)
+                v[:, s * T + i % T] = p
+            last = l == L - 1
+            if i % T == T - 1 or last:
+                flush(i)
+            if i % chunk == chunk - 1 or last:
+                base = i - i % chunk
+                for s in range(S):
+                    for q in range(i % chunk + 1):
+                        total = np.float32(0)
+                        for w in range(warps):
+                            total = np.float32(total + part[w, s, q])
+                        ys[s, l0 + base + q, m] = total
     return ys
 
 
-@pytest.mark.parametrize("nside,lmax,spin", [(8, 30, 0), (8, 40, 2), (16, 60, -2), (16, 120, 0)])
+@pytest.mark.parametrize("nside,lmax,spin", [(8, 30, 0), (8, 40, 2), (16, 60, -2), (16, 120, 0), (300, 20, 2),
+                                             (600, 14, 0), (1100, 6, -2), (300, 220, 0)])
 def test_sht_synth_kernel_algorithm_matches_plain(nside, lmax, spin):
-    """KS1's loop order (the triangle start at seed_step, the rescale of
-    each lane with its own exponent), rounded as the kernel and the plain
-    version round, gives the plain version's acc bit for bit."""
+    """KS1's walk (the triangle start at seed_step through the packed
+    coef's seed step, R = 1, 2, 4 or 8 rings a thread with padded lanes,
+    the rescale of each lane with its own exponent until its warp settles
+    at k == 0, the sums skipped on a warp's steps without a contribution),
+    rounded as the kernel and the plain version round, gives the plain
+    version's acc bit for bit. At nside 300 and lmax 220 the warps of the
+    polar rings skip 16% of their lane-steps' sums."""
     from maria_torch.healpix.sht import lane_tables
     from maria_torch.ops.sht import sht_synth_plain
 
@@ -772,22 +859,36 @@ def test_sht_synth_kernel_algorithm_matches_plain(nside, lmax, spin):
     np.testing.assert_array_equal(_emulate_synth(t, rows), ref)
 
 
-@pytest.mark.parametrize("nside,lmax,spin", [(8, 30, 0), (33, 40, -2), (160, 20, 2)])
-def test_sht_anal_kernel_algorithm_matches_plain(nside, lmax, spin):
-    """KS2's reduction order (lanes a thread, warp butterfly, warps in
-    order; 2 lanes a thread at nside 160) within 1e-5 of each plane's
-    maximum of the plain version's sums, and zero below the seed steps."""
+def _check_anal_algorithm(nside, lmax, spin, S):
     from maria_torch.healpix.sht import lane_tables
     from maria_torch.ops.sht import sht_anal_plain
 
     t = lane_tables(lmax, nside, spin, "cpu")
-    h = torch.as_tensor(np.random.default_rng(nside).standard_normal((2, lmax + 1, 2 * nside)).astype(np.float32))
+    h = torch.as_tensor(np.random.default_rng(nside).standard_normal((S, lmax + 1, 2 * nside)).astype(np.float32))
     ref = sht_anal_plain(t, h).numpy()
     ours = _emulate_anal(t, h)
-    for s in range(2):
+    for s in range(S):
         assert np.abs(ours[s] - ref[s]).max() <= 1e-5 * np.abs(ref[s]).max()
     below = np.arange(lmax + 1)[:, None] < t["seed_step"].numpy()[None, :]
     assert np.all(ref[:, below] == 0) and np.all(ours[:, below] == 0)
+
+
+@pytest.mark.parametrize("nside,lmax,spin", [(8, 30, 0), (33, 40, -2), (160, 20, 2), (300, 20, 0), (600, 9, 2),
+                                             (160, 250, 2)])
+def test_sht_anal_kernel_algorithm_matches_plain(nside, lmax, spin):
+    """KS2's reduction order (R = 1, 2 or 4 consecutive lanes a thread by
+    FMAs, a group of 32 / S' steps, the transposing butterfly, the warps'
+    totals in order once a chunk) within 1e-5 of each plane's maximum of
+    the plain version's sums, and zero below the seed steps; two planes."""
+    _check_anal_algorithm(nside, lmax, spin, 2)
+
+
+@pytest.mark.parametrize("S", [1, 3, 4, 8])
+def test_sht_anal_kernel_algorithm_planes(S):
+    """The same at one, three, four and eight planes (groups of 16, 4, 4
+    and 2 steps; three planes leave a quarter of the butterfly's values
+    unused), with odd nside and two rings a thread."""
+    _check_anal_algorithm(301, 24, -2, S)
 
 
 def test_sht_recursion_needs_the_plain_rounding():
@@ -809,3 +910,49 @@ def test_sht_recursion_needs_the_plain_rounding():
         fused = np.array([c for _, c in _emulate_lanes(sub, m, fma=True)])
         drift[m] = np.abs(fused - plain).max() / np.abs(plain).max()
     assert drift[0] > 1e-4 and drift[700] < 1e-5, drift
+
+
+def test_sht_butterfly_transposes():
+    """The transposing butterfly leaves on lanes q and q + 16 the warp's
+    total of value q, summed in the tree of a shuffle reduction (lanes
+    combined by bit 3, 2, 1, 0, then 4): 16 shuffle-adds for 16 totals."""
+    v = np.random.default_rng(0).standard_normal((3, 32, 16)).astype(np.float32)
+    ours = _butterfly_np(v)
+    tree = v.copy()
+    for off in (8, 4, 2, 1, 16):
+        tree = tree + tree[:, np.arange(32) ^ off]
+    np.testing.assert_array_equal(ours[:, :16], tree[:, 0, :])
+    np.testing.assert_array_equal(ours[:, 16:], ours[:, :16])
+
+
+@pytest.mark.parametrize("nside,lmax,spin", [(8, 23, 0), (9, 26, 2), (17, 50, -2), (33, 98, 0), (64, 191, 2),
+                                             (5, 14, -2)])
+def test_sht_rescale_never_fires_at_k0(nside, lmax, spin):
+    """What lets the kernels drop the rescale once a warp's lanes reach
+    k == 0: in the plain recursion, over every lane and step, the rescale
+    never fires at k == 0 (no value there is above 2^30; a rescale up needs
+    k > 0), so k == 0 is never left, and the largest |value| at k == 0
+    (Wigner d elements, |d| <= 1, plus float32 drift) lies below 1.01,
+    thirty binary orders under 2^30."""
+    from maria_torch.healpix.sht import lane_tables
+
+    t = {k: v.numpy() for k, v in lane_tables(lmax, nside, spin, "cpu").items()}
+    L, nh = t["seed_val"].shape
+    lam = np.zeros((L, nh), np.float32)
+    lam_prev = np.zeros_like(lam)
+    k = np.full((L, nh), -1, np.int32)  # -1: not seeded yet
+    largest, fired = 0.0, 0
+    for l in range(L):
+        a, b, g = (t[name][:, l, None] for name in ("alpha", "beta", "gamma"))
+        lam_prev, lam = lam, (a * t["z"] + b) * lam - g * lam_prev
+        seed = t["seed_step"] == l
+        lam[seed], lam_prev[seed], k[seed] = t["seed_val"][seed], 0, t["seed_exp"][seed]
+        live = k >= 0
+        at0 = live & (k == 0)
+        largest = max(largest, float(np.abs(lam[at0]).max(initial=0.0)))
+        fired += int((at0 & (np.abs(lam) > np.float32(2.0**30))).sum())
+        lv, lp, kk = lam[live], lam_prev[live], k[live]
+        _rescale_np(lv, lp, kk)
+        lam[live], lam_prev[live], k[live] = lv, lp, kk
+        assert (k[at0] == 0).all()
+    assert fired == 0 and 0.5 < largest < 1.01, (fired, largest)
