@@ -112,7 +112,35 @@ Phases, each of which must pass (any failure exits non-zero):
    1024) through build_tod_program(cmb=) and total_power_fn(), held as
    slice (c), and with the CMB 1e6 times brighter the total minus a
    CMB-free total on the same draws equal to gains x the "cmb" field to
-   1e-5 of its maximum.
+   1e-5 of its maximum;
+20. slice (n), the documented map-making flow (docs/usage.md:94-107) on a
+   TOD of slice (h)'s scene, on a 417 x 417 ra/dec grid (0.25 deg at
+   6e-4 deg) with the overflow buckets: BinMapper(tod_preprocessing=
+   {"remove_slope": True}), MaximumLikelihoodMapper(n_epochs=2,
+   n_cg_iters=50) fits at k=3 and k=0 and by gradient descent: finite
+   maps of that shape with weight at the centre, K2 launched by each fit
+   as often as ``ml_launches`` reckons, the blocks on the card; the ML
+   P^T through K2 against its plain version at the ML ids (1e-5 of the
+   float64 plain sums' maximum); the k=3 fit through K2 against the
+   same fit with the plain P^T, of the TOD processed by the tutorial's
+   chain (2e-3 of the map's maximum; on the unprocessed TOD, whose
+   ~400 K_RJ of atmosphere leave the float32 solve ill-conditioned,
+   printed beside the plain fit against itself summed in float64, not
+   held); decompose's
+   modes, by torch.linalg.svd and by the Gram matrix's eigh, against a
+   float64 SVD (1e-5); the tutorial's processing chain
+   (docs/tutorials.md:59-60) on the card against the CPU (1e-5 of the
+   input's maximum); times: the fit, an epoch, a CG step by part, the
+   noise-model update with and without decompose, K2 a P^T beside
+   index_add_ and its bound, BinMapper with preprocessing, each
+   processing op, the device's busy share over one fit;
+21. slice (o), tests/test_ml_mapper.py's recovery at 600 s on slice (i)'s
+   scene and big_cluster's 512 x 512 grid: with noise off the ML map
+   (n_epochs=2, n_cg_iters=40) correlates above 0.9 with the
+   beam-smoothed input over the better-covered half of the hit pixels,
+   gradient descent above 0.8, and t_bins=2 gives two different weight
+   maps, each frame above 0.8; with noise on and a common mode the k=2 ML
+   map's residual rms lies below BinMapper's.
 
 Every kernel is timed (CUDA events, in turns) beside its plain version,
 the PyTorch library call that computes the same function where there is
@@ -1216,6 +1244,342 @@ def check_total_carries(sim, device, label, stage="map"):
         fail(f"slice ({label}): the total does not carry the {stage} with the gains applied")
 
 
+ML_KW = dict(center=(150.0, 10.0), width=0.25, resolution=6e-4, frame="ra/dec", units="K_RJ")  # docs/usage.md:94-107
+ML_EPOCHS, ML_CG_ITERS, ML_K = 2, 50, 3
+TUTORIAL_CHAIN = {"remove_spline": {"knot_spacing": 60, "remove_el_gradient": True},
+                  "remove_modes": {"modes_to_remove": 1}}  # docs/tutorials.md:59-60
+
+
+def ml_launches(n_blocks, method, n_epochs, n_steps) -> int:
+    """K2 launches of one fit: a P^T a block for the right-hand side and
+    for the white-noise diagonal and one for each of the CG's n_steps + 1
+    operator calls an epoch; steepest descent: one for the right-hand side
+    and two a step an epoch, and the weights' diagonal once at the end."""
+    if method == "conjugate_gradient":
+        return n_blocks * n_epochs * (n_steps + 3)
+    return n_blocks * (n_epochs * (1 + 2 * n_steps) + 1)
+
+
+def bin_map_float64(channels, pixel_ids, n_pix: int, count: bool = False):
+    """K2's plain version summed in float64, rounded to float32 once."""
+    import torch
+
+    out = torch.zeros((channels.shape[0], n_pix), dtype=torch.float64, device=channels.device)
+    out.index_add_(1, pixel_ids.reshape(-1).long(), channels.reshape(channels.shape[0], -1).double())
+    return out.float()
+
+
+@contextlib.contextmanager
+def plain_pt(plain=None):
+    """The ML mapper's P^T with ``plain`` (K2's plain version by default)
+    in K2's place."""
+    import maria_torch.mappers.ml_mapper as ml
+    from maria_torch.ops.bin_map import bin_map_plain
+
+    own, ml.bin_map = ml.bin_map, plain or bin_map_plain
+    try:
+        yield
+    finally:
+        ml.bin_map = own
+
+
+def warm_ms(fn, reps: int = WARM_REPS) -> tuple:
+    """(mean ms, list of ms) of ``reps`` host-timed calls, each ended by a synchronize."""
+    import torch
+
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - start) * 1e3)
+    return float(np.mean(ms)), [round(x, 2) for x in ms]
+
+
+def check_ml_pt(mapper, gen, card) -> dict:
+    """P^T through K2 against K2's plain version on the card at the ML
+    ids, for a random vector: sums within 1e-5 of the maximum of the plain
+    sums taken in float64; timed beside index_add_ on the same ids (all in
+    range: the overflow buckets are real ids) and its byte bound."""
+    import torch
+
+    from maria_torch.ops.bin_map import bin_map, bin_map_plain, bin_plan
+
+    block = mapper.blocks[0]
+    ids = block["pix"]
+    v = torch.randn(ids.shape, generator=gen, device=ids.device)
+    channels = (block["sw"].T[:, :, None] * v[None]).contiguous()
+    out = mapper._project_T(v, block)
+    exact = plain_sums64(channels[0], ids, mapper.n_cpix)
+    plain = bin_map_plain(channels, ids, mapper.n_cpix).reshape(-1)
+    torch.cuda.synchronize()
+    scale = float(exact.abs().max())
+    err, plain_err = float((out - exact).abs().max()), float((plain - exact).abs().max())
+    ok = err <= 1e-5 * scale
+    plan = bin_plan(mapper.n_cpix, 1, ids.numel())
+    print(f"slice (n): the ML P^T through K2 ({plan['form']} form, {plan['blocks']} blocks of {plan['span']} samples) "
+          f"against the float64 plain sums at the ML ids {tuple(ids.shape)} into {mapper.n_cpix} pixels (overflow "
+          f"buckets included): max|diff| {err:.3e} = {err / scale:.2e} of max (limit 1e-5; float32 plain "
+          f"{plain_err / scale:.2e}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (n): K2 as the ML P^T disagrees with its plain version")
+    flat_ids, flat = ids.reshape(-1).long(), channels.reshape(1, -1)
+
+    def by_index_add():
+        return torch.zeros((1, mapper.n_cpix), device=ids.device).index_add_(1, flat_ids, flat)
+
+    ms, plain_ms, library_ms = paired_ms(lambda: bin_map_plain(channels, ids, mapper.n_cpix),
+                                         lambda: bin_map(channels, ids, mapper.n_cpix), by_index_add)
+    r = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+         "shape": [1, *ids.shape, mapper.n_cpix],
+         # the ids and the Stokes-weighted row read once, the map written once; an add a sample
+         **bound(8 * ids.numel() + 4 * mapper.n_cpix, ids.numel())}
+    print(timing_line(f"K2 as the ML P^T (slice n; library call index_add_; {card})", r), flush=True)
+    return r
+
+
+def ml_step_times(mapper) -> dict:
+    """ms of one CG step on the card by CUDA events (means of 20 calls):
+    P, N^-1 as rfft, the weight A^-1, the Woodbury term and irfft, P^T
+    (K2), and the vector updates (a step whose operator hands back a
+    stored A p); and the whole step."""
+    import torch
+
+    from maria_torch.mappers.ml_mapper import cg_step
+
+    block = mapper.blocks[0]
+    v, n = block["data"], block["data"].shape[-1]
+    m = mapper.naive_map
+    fv = torch.fft.rfft(v, dim=-1)
+    x = fv * block["A_inv"]
+    diag = mapper._white_diag()
+    inv_diag = torch.where(diag > 0, 1.0 / torch.clamp(diag, min=1e-30), 1.0)
+    r = mapper._rhs() - mapper._apply_PNP(m)
+    z = r * inv_diag
+    state = (m, r, torch.dot(r, z), z)
+    atol2 = 1e-16 * torch.dot(r, r)
+    Ap = mapper._apply_PNP(z)
+    times = {
+        "P": cuda_ms(lambda: mapper._project(m, block)),
+        "rfft": cuda_ms(lambda: torch.fft.rfft(v, dim=-1)),
+        "weight": cuda_ms(lambda: fv * block["A_inv"]),
+        "Woodbury": cuda_ms(lambda: mapper._woodbury(block, x)),
+        "irfft": cuda_ms(lambda: torch.fft.irfft(x, n=n, dim=-1)),
+        "P^T (K2)": cuda_ms(lambda: mapper._project_T(v, block)),
+        "vector updates": cuda_ms(lambda: cg_step(lambda p: Ap, state, inv_diag, atol2)),
+        "step": cuda_ms(lambda: cg_step(mapper._apply_PNP, state, inv_diag, atol2)),
+    }
+    return times
+
+
+def check_decompose(mapper, card):
+    """The top-k modes of the windowed residuals two ways on the card:
+    torch.linalg.svd of the (n_det, n_t) float32 residuals, and the
+    eigenvectors of their float64 Gram matrix (``decompose``, the one the
+    port keeps); U @ modes against a float64 SVD on the host, where the
+    kept one must lie within 1e-5 of its maximum, and both timed."""
+    import torch
+
+    from maria_torch.mappers.ml_mapper import _tukey
+    from maria_torch.utils.signal import decompose
+
+    block = mapper.blocks[0]
+    resid = block["data"] - mapper._project(mapper.naive_map, block)
+    resid = resid - resid.mean(dim=-1, keepdim=True)
+    wd = (resid * _tukey(resid.shape[-1], resid.device)).contiguous()
+    k = ML_K
+
+    def by_svd():
+        u, s, vh = torch.linalg.svd(wd, full_matrices=False)
+        return u[:, :k] * s[:k], vh[:k]
+
+    u, s, vh = np.linalg.svd(wd.double().cpu().numpy(), full_matrices=False)
+    exact = (u[:, :k] * s[:k]) @ vh[:k]
+    scale = float(np.abs(exact).max())
+    errs = {}
+    for name, fn in (("svd", by_svd), ("gram eigh", lambda: decompose(wd, k=k))):
+        a, b = fn()
+        errs[name] = float(np.abs((a @ b).double().cpu().numpy() - exact).max()) / scale
+    svd_ms, gram_ms = cuda_ms(by_svd, reps=5), cuda_ms(lambda: decompose(wd, k=k), reps=5)
+    ok = errs["gram eigh"] <= 1e-5
+    print(f"slice (n): decompose of the windowed residuals {tuple(wd.shape)}, k = {k}, on the card: U @ modes against "
+          f"a float64 host SVD, the float64 Gram matrix's eigh (decompose, kept) {errs['gram eigh']:.2e} of max in "
+          f"{gram_ms:.3f} ms (limit 1e-5) {'ok' if ok else 'FAIL'}; torch.linalg.svd in float32 {errs['svd']:.2e} "
+          f"({'within' if errs['svd'] <= 1e-5 else 'outside'} the limit) in {svd_ms:.3f} ms ({card})", flush=True)
+    if not ok:
+        fail("slice (n): decompose does not meet its contract")
+
+
+def run_ml_slice(device, card, sim, gen):
+    """Slice (n): the documented map-making flow (docs/usage.md:94-107) on
+    a TOD of slice (h)'s scene: BinMapper with preprocessing, the ML
+    mapper's fits, the tutorial's processing chain on the card against the
+    CPU, with their gates and times."""
+    import torch
+
+    import maria_torch
+    from maria_torch.mappers.ml_mapper import MaximumLikelihoodMapper
+    from maria_torch.ops.bin_map import bin_map
+    from maria_torch.ops.pink_noise import pink_noise
+    from maria_torch.profile_slice import profiled
+    from maria_torch.tod import TOD
+
+    tod = sim.run()[0]
+    n_det, n_t = tod.shape
+    n = int(np.ceil(ML_KW["width"] / ML_KW["resolution"]))
+
+    def check_map(label, out, launches, expected):
+        ok = tuple(out.data.shape) == (1, 1, 1, n, n) and bool(torch.isfinite(out.data).all())
+        ok &= float(out.weight[0, 0, 0, n // 2, n // 2]) > 0 and launches == expected
+        print(f"slice (n): {label}: map {tuple(out.data.shape)}, max |map| {float(out.data.abs().max()):.3e} K_RJ, "
+              f"centre weight {float(out.weight[0, 0, 0, n // 2, n // 2]):.3e}, K2 launches {launches} (expected "
+              f"{expected}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"slice (n): {label}")
+
+    pink_noise.launches = bin_map.launches = 0
+    binned = maria_torch.BinMapper(tod, tod_preprocessing={"remove_slope": True}, **ML_KW).run()
+    torch.cuda.synchronize()
+    check_map("BinMapper(tod_preprocessing={'remove_slope': True})", binned, bin_map.launches, 1)
+
+    fits = {}
+    for label, k, method in (("k=3 CG", ML_K, "conjugate_gradient"), ("k=0 CG", 0, "conjugate_gradient"),
+                             ("k=0 gradient descent", 0, "gradient_descent")):
+        pink_noise.launches = bin_map.launches = 0
+        mapper = MaximumLikelihoodMapper(tod, n_epochs=ML_EPOCHS, n_cg_iters=ML_CG_ITERS, k=k, **ML_KW)
+        built = bin_map.launches
+        out = mapper.fit(method=method)
+        torch.cuda.synchronize()
+        expected = ml_launches(1, method, ML_EPOCHS, ML_CG_ITERS)
+        on_card = all(mapper.blocks[0][key].device.type == "cuda" for key in ("pix", "sw", "data"))
+        print(f"slice (n): {label}: K2 launches {built} building the mapper (hits and the naive map), {bin_map.launches - built} "
+              f"in fit(): {ML_EPOCHS} epochs x ({'1 right-hand side + 1 diagonal + ' + str(ML_CG_ITERS + 1) + ' CG operator calls' if method == 'conjugate_gradient' else '1 right-hand side + 2 x ' + str(ML_CG_ITERS) + ' steps'})"
+              f"{'' if method == 'conjugate_gradient' else ' + 1 final diagonal'} = {expected}; ids, Stokes weights "
+              f"and data on the card {on_card}", flush=True)
+        if built != 2 or not on_card or pink_noise.launches:
+            fail(f"slice (n): {label} blocks")
+        check_map(f"MaximumLikelihoodMapper(n_epochs={ML_EPOCHS}, n_cg_iters={ML_CG_ITERS}, k={k}).fit"
+                  f"(method='{method}')", out, bin_map.launches - built, expected)
+        fits[label] = (mapper, out)
+
+    mapper, out = fits["k=3 CG"]
+    fit_kw = dict(n_epochs=ML_EPOCHS, n_cg_iters=ML_CG_ITERS, k=ML_K, **ML_KW)
+    through = MaximumLikelihoodMapper(tod, tod_preprocessing=TUTORIAL_CHAIN, **fit_kw).fit()
+    with plain_pt():
+        plain = MaximumLikelihoodMapper(tod, tod_preprocessing=TUTORIAL_CHAIN, **fit_kw).fit()
+        raw_plain = MaximumLikelihoodMapper(tod, **fit_kw).fit()
+    with plain_pt(bin_map_float64):
+        raw_plain64 = MaximumLikelihoodMapper(tod, **fit_kw).fit()
+    scale = float(plain.data.abs().max())
+    err = float((through.data - plain.data).abs().max())
+    ok = err <= 2e-3 * scale
+    raw_scale = float(raw_plain.data.abs().max())
+    print(f"slice (n): the k=3 fit of the TOD processed by the tutorial's chain with K2 against the same fit with the "
+          f"plain P^T on the card: max|diff| {err:.3e} = {err / scale:.2e} of the map's max (limit 2e-3) "
+          f"{'ok' if ok else 'FAIL'}; on the unprocessed TOD (~400 K_RJ of atmosphere; float32-ill-conditioned, not "
+          f"held): K2 against plain {float((out.data - raw_plain.data).abs().max()) / raw_scale:.2e}, plain against "
+          f"plain summed in float64 {float((raw_plain64.data - raw_plain.data).abs().max()) / raw_scale:.2e} of the "
+          f"map's max", flush=True)
+    if not ok:
+        fail("slice (n): the fit through K2 disagrees with the plain P^T's")
+    pt = check_ml_pt(mapper, gen, card)
+    check_decompose(mapper, card)
+
+    cpu_tod = TOD(data={key: val.cpu() for key, val in tod.data.items()}, pointing=tod.pointing, weight=tod.weight.cpu(),
+                  units=tod.units, dets=tod.dets, metadata=tod.metadata)
+    on_card, on_cpu = tod.process(**TUTORIAL_CHAIN), cpu_tod.process(**TUTORIAL_CHAIN)
+    input_scale = float(tod.signal.abs().max())
+    err = float((on_card.signal.cpu() - on_cpu.signal).abs().max()) / input_scale
+    ok = on_card.device.type == "cuda" and on_card.fields == ["signal"] and err <= 1e-5
+    print(f"slice (n): tod.process({TUTORIAL_CHAIN}) on the card against the CPU: max|diff| {err:.2e} of the input's "
+          f"max {input_scale:.1f} K_RJ (limit 1e-5, as tests/test_torch_processing.py holds chains with an SVD) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (n): the processed TOD on the card disagrees with the CPU")
+
+    fit_ms, fit_list = warm_ms(lambda: mapper.fit())
+    steps = ml_step_times(mapper)
+    parts = sum(v for key, v in steps.items() if key != "step")
+    print(f"slice (n): warm k=3 fit() {fit_ms:.2f} ms ({fit_list}), {fit_ms / ML_EPOCHS:.2f} ms an epoch of "
+          f"{ML_CG_ITERS} CG steps; one CG step {steps['step']:.4f} ms by CUDA events: "
+          + ", ".join(f"{key} {val:.4f}" for key, val in steps.items() if key != "step")
+          + f" (sum {parts:.4f}) ms ({n_det} x {n_t} samples, {mapper.n_cpix} pixels; {card})", flush=True)
+    with_ms, _ = warm_ms(lambda: mapper._update_noise_model(mapper.naive_map))
+    k0 = fits["k=0 CG"][0]
+    without_ms, _ = warm_ms(lambda: k0._update_noise_model(k0.naive_map))
+    for m in (mapper, k0):
+        del m.noise_model_history[-WARM_REPS:]
+    gd_ms, _ = warm_ms(lambda: fits["k=0 gradient descent"][0].fit(method="gradient_descent"), reps=2)
+    k0_ms, _ = warm_ms(lambda: k0.fit(), reps=2)
+    bin_ms, bin_list = warm_ms(lambda: maria_torch.BinMapper(tod, tod_preprocessing={"remove_slope": True},
+                                                             **ML_KW).run())
+    print(f"slice (n): noise-model update {with_ms:.2f} ms with decompose (k=3), {without_ms:.2f} ms without (k=0); "
+          f"warm k=0 CG fit() {k0_ms:.2f} ms, gradient-descent fit() {gd_ms:.2f} ms (means of 2); BinMapper(tod_"
+          f"preprocessing={{'remove_slope': True}}).run() {bin_ms:.2f} ms ({bin_list}); means of {WARM_REPS} "
+          f"unless stated; {card}", flush=True)
+    ops = {"despike": {"despike": True}, "remove_slope": {"remove_slope": True},
+           "remove_spline (60 s knots, el gradient)": {"remove_spline": TUTORIAL_CHAIN["remove_spline"]},
+           "window (tukey)": {"window": {}}, "filter (fft, 0.1-5 Hz)": {"filter": {"f_lower": 0.1, "f_upper": 5.0}},
+           "filter (bessel, 0.1 Hz)": {"filter": {"f_lower": 0.1, "method": "bessel"}},
+           "remove_modes (1)": {"remove_modes": TUTORIAL_CHAIN["remove_modes"]},
+           "the tutorial chain": TUTORIAL_CHAIN}
+    op_ms = {label: warm_ms(lambda c=config: tod.process(**c))[0] for label, config in ops.items()}
+    print("slice (n): TOD.process ops on the card, warm means of "
+          f"{WARM_REPS}: " + ", ".join(f"{label} {ms:.2f} ms" for label, ms in op_ms.items()) + f" ({card})", flush=True)
+    wall, busy, _ = profiled(lambda: mapper.fit())
+    print(f"slice (n): one k=3 fit() under torch.profiler: {wall:.2f} ms wall, {busy:.2f} ms device kernel time, device "
+          f"busy {busy / wall:.1%} of the window ({busy / fit_ms:.1%} of the warm fit's {fit_ms:.2f} ms without the "
+          f"profiler; {card})", flush=True)
+    return pt
+
+
+def run_ml_recovery(device, card, clean_sim, noisy_sim):
+    """Slice (o): tests/test_ml_mapper.py's recovery at full length on
+    slice (i)'s scene and big_cluster's own 512 x 512 grid."""
+    import torch
+
+    import maria_torch
+    from maria_torch.scenes import sky_mapper, sky_recovery, sky_residual_rms
+
+    tod = clean_sim.run()[0]
+    ML = maria_torch.MaximumLikelihoodMapper
+    start = time.perf_counter()
+    cg = sky_mapper([tod], clean_sim.map, mapper=ML, n_epochs=2, n_cg_iters=40).fit()
+    gd = sky_mapper([tod], clean_sim.map, mapper=ML, n_epochs=1, n_cg_iters=40).fit(method="gradient_descent")
+    bins = sky_mapper([tod], clean_sim.map, mapper=ML, n_epochs=1, n_cg_iters=30, t_bins=2).fit()
+    torch.cuda.synchronize()
+    corr = {"CG": sky_recovery(clean_sim, cg), "GD": sky_recovery(clean_sim, gd),
+            "t bin 0": sky_recovery(clean_sim, bins, t=0), "t bin 1": sky_recovery(clean_sim, bins, t=1)}
+    w = bins.weight[0, 0]
+    different = bool((w[0] > 0).any() and (w[1] > 0).any()) and not bool(torch.equal(w[0] > 0, w[1] > 0))
+    ok = corr["CG"] > 0.9 and corr["GD"] > 0.8 and corr["t bin 0"] > 0.8 and corr["t bin 1"] > 0.8 and different
+    ok &= tuple(bins.data.shape) == (1, 1, 2, 512, 512) and not bool(torch.allclose(bins.data[0, 0, 0],
+                                                                                      bins.data[0, 0, 1]))
+    print(f"slice (o), noise off, {tod.shape} on 512 x 512: correlation with the beam-smoothed input over the "
+          f"better-covered half of the hit pixels: " + ", ".join(f"{k} {v:.5f}" for k, v in corr.items())
+          + f" (limits 0.9 CG, 0.8 GD and each time bin; the bins' weight maps differ {different}) "
+          f"{'ok' if ok else 'FAIL'} ({time.perf_counter() - start:.2f} s)", flush=True)
+    if not ok:
+        fail("slice (o): the ML mapper does not recover the input map")
+
+    noisy = noisy_sim.run()[0]
+    common = 5e-3 * np.cumsum(np.random.default_rng(0).standard_normal(noisy.shape[-1]))
+    data = dict(noisy.data)
+    data["common"] = torch.as_tensor(np.broadcast_to(common, noisy.shape).astype(np.float32), device=device)
+    corrupted = maria_torch.TOD(data=data, pointing=noisy.pointing, units=noisy.units, dets=noisy.dets,
+                                metadata=noisy.metadata)
+    binned = sky_mapper([corrupted], noisy_sim.map).run()
+    ml = sky_mapper([corrupted], noisy_sim.map, mapper=ML, n_epochs=2, n_cg_iters=40, k=2).fit()
+    rms_ml, rms_bin = sky_residual_rms(noisy_sim, ml), sky_residual_rms(noisy_sim, binned)
+    ok = rms_ml < rms_bin
+    print(f"slice (o), noise on with a common mode (5e-3 x cumsum of default_rng(0) normals): residual rms against the "
+          f"beam-smoothed input, ML k=2 {rms_ml:.4e} K_RJ, BinMapper {rms_bin:.4e} K_RJ {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail("slice (o): the ML mapper does not beat binning on the common mode")
+
+
 def main() -> int:
     try:
         import torch
@@ -1267,7 +1631,10 @@ def main() -> int:
     sim_h, tod_h, _, launches_h = run_sky_slice("h", device, "2d", True, card)
     sim_i, _, _, launches_i = run_sky_slice("i", device, None, False, card)
     check_map_stage(sim_i, device)
-    launches_i_noise = run_sky_slice("i, noise on", device, None, True, card)[3]
+    sim_i_noise, _, _, launches_i_noise = run_sky_slice("i, noise on", device, None, True, card)
+    k2_ml = run_ml_slice(device, card, sim_h, gen)
+    run_ml_recovery(device, card, sim_i, sim_i_noise)
+    del sim_i_noise
     launches_j, _, ids_j, sim_j = run_atlast(device, label="j", input_map="dust")
     del ids_j
     check_total_carries(sim_j, device, "j")
@@ -1331,6 +1698,9 @@ def main() -> int:
         {"name": "sht_anal", "route": "cuda", "source": "maria_torch/csrc/sht.cu",
          "replaces": "maria_tpu/healpix/sht.py:523", "launches": launches_spectra["sht_anal"], **ks["anal"]},
     ]}
+    print(f"K2 summary ML P^T (slice n): {k2_ml['ms']:.4f} ms, library {k2_ml['library_ms']:.4f} ms, bound "
+          f"{k2_ml['bound_ms']:.4f} ms ({k2_ml['bound_ms'] / k2_ml['ms']:.1%}), plain {k2_ml['plain_ms']:.4f} ms; "
+          f"{ml_launches(1, 'conjugate_gradient', ML_EPOCHS, ML_CG_ITERS)} launches a fit", flush=True)
     for key, r in ks.items():
         print(f"KS summary {key}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_ms'] / r['ms']:.1%}), the contract's instruction bound {r['contract_bound_ms']:.4f} ms "

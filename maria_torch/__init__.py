@@ -7,7 +7,9 @@ in az/el or observing a sky in ra/dec (an input map, a CMB from
 ``generate_cmb``); and the AtLAST-50k total-power path,
 ``build_tod_program(obs)`` -> ``TODProgram.total_power_fn()`` (3-D
 Fourier or AR atmosphere, the noise as one matrix product) -> total pW
--> a map binned over the field. Per-sample work runs in torch on the
+-> a map binned over the field; and the observer's map-making,
+``TOD.process(...)`` and ``BinMapper`` or ``MaximumLikelihoodMapper``
+with ``tod_preprocessing=``. Per-sample work runs in torch on the
 card (``device="cpu"`` asks for the CPU; without a card an entry point
 given no device raises); detector noise, the shared-shape noise draw,
 map binning, the AR extrusion and the spherical harmonic transforms'
@@ -28,7 +30,7 @@ from .plan import Plan, PlanList, Planner, get_plan  # noqa: F401
 from .site import Site, get_site  # noqa: F401
 from .sim import Simulation  # noqa: F401
 from .tod import TOD  # noqa: F401
-from .mappers import BinMapper  # noqa: F401
+from .mappers import BinMapper, MaximumLikelihoodMapper, compute_residual_map  # noqa: F401
 from . import map  # noqa: F401, A004  (maria_torch.map.get, as maria_tpu.map.get)
 
 __version__ = "0.1.0"
@@ -36,12 +38,14 @@ __version__ = "0.1.0"
 __all__ = [
     "BinMapper",
     "Instrument",
+    "MaximumLikelihoodMapper",
     "Plan",
     "PlanList",
     "Planner",
     "Simulation",
     "Site",
     "TOD",
+    "compute_residual_map",
     "default_device",
     "get_cache_dir",
     "get_instrument",

@@ -8,7 +8,9 @@ as plain numpy arrays and scalars and returns the port's ``TODProgram``;
 ``pixel_ids_from_tables`` turns (iy, ix) map indices into the flat int32
 ids kernel K2 takes; ``ar_process_from_arrays`` builds the port's
 ``AutoregressiveProcess`` from a maria_tpu process's operators and
-lookback indices. Nothing here imports maria_tpu: the caller extracts
+lookback indices; ``ml_state_from_arrays`` puts a maria_tpu ML mapper's
+blocks (ids, Stokes weights, data, and optionally its noise model) into
+the port's mapper. Nothing here imports maria_tpu: the caller extracts
 the arrays (the tests do).
 
 ``tables`` keys: offsets (n_det, 2), bs_az_coarse, bs_el_coarse,
@@ -38,8 +40,8 @@ from .noise.dft import NoiseBandSpec
 from .ops.program import BandBlock, TODProgram
 from .plan import Plan
 
-__all__ = ["ar_process_from_arrays", "healpix_map_from_arrays", "map_from_arrays", "plan_from_arrays",
-           "program_from_tables", "pixel_ids_from_tables"]
+__all__ = ["ar_process_from_arrays", "healpix_map_from_arrays", "map_from_arrays", "ml_state_from_arrays",
+           "plan_from_arrays", "program_from_tables", "pixel_ids_from_tables"]
 
 
 def plan_from_arrays(time, phi, theta, frame: str, site=None, roll: float = 0.0) -> Plan:
@@ -165,3 +167,38 @@ def ar_process_from_arrays(A, B, extrusion_sample_index, cross_section_sample_in
                          f"got {A.shape} and {B.shape}")
     process.A, process.B, process._computed = A, B, True
     return process
+
+
+def ml_state_from_arrays(mapper, blocks: list):
+    """Put a maria_tpu ``MaximumLikelihoodMapper``'s blocks into the
+    port's ``mapper`` (of the same TODs and geometry), on the devices of
+    the port's own blocks, and recompute its hit and starting maps. A
+    block is a dict of numpy arrays: ``pix`` (n_det, n_t) channel-offset
+    ids in [0, mapper.n_cpix), ``sw`` (n_det, n_s), ``data`` (n_det, n_t),
+    the sample rate ``fs``, and optionally the noise model ``A_inv``
+    (n_det, n_f), ``U`` (n_det, k) and ``core`` (n_f, k, k). Returns the
+    mapper."""
+    if len(blocks) != len(mapper.blocks):
+        raise ValueError(f"{len(blocks)} blocks for a mapper of {len(mapper.blocks)} TODs")
+    carried = []
+    for own, block in zip(mapper.blocks, blocks):
+        device = own["data"].device
+        pix = np.asarray(block["pix"])
+        if pix.min() < 0 or pix.max() >= mapper.n_cpix:
+            raise ValueError(f"pixel ids must lie in [0, {mapper.n_cpix})")
+
+        def f32(x):
+            return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
+
+        new = {"pix": torch.as_tensor(pix.astype(np.int32), device=device), "sw": f32(block["sw"]),
+               "data": f32(block["data"]), "fs": float(block["fs"]), "U": None}
+        for key in ("A_inv", "U", "core"):
+            if block.get(key) is not None:
+                new[key] = f32(block[key])
+        if (new["U"] is None) != (new.get("core") is None):
+            raise ValueError("U and core come together")
+        carried.append(new)
+    mapper.blocks = carried
+    mapper._compute_naive_map()
+    mapper.map = mapper._grid_to_map(mapper.naive_map, mapper.hits)
+    return mapper

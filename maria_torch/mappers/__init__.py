@@ -1,1 +1,28 @@
+"""The map-makers (maria_tpu/mappers): ``BinMapper`` and
+``MaximumLikelihoodMapper``, and ``compute_residual_map``."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
 from .bin_mapper import BinMapper  # noqa: F401
+from .ml_mapper import MaximumLikelihoodMapper  # noqa: F401
+
+__all__ = ["BinMapper", "MaximumLikelihoodMapper", "compute_residual_map"]
+
+
+def compute_residual_map(input_map, output_map):
+    """The recovered map less the input sky where the output has weight,
+    zero elsewhere, on the output's grid and device; leading (stokes, nu,
+    t) axes cut to those both maps have."""
+    if tuple(input_map.data.shape[-2:]) != tuple(output_map.data.shape[-2:]) or not np.allclose(
+            input_map.center, output_map.center):
+        raise NotImplementedError("compute_residual_map on another grid: Map.sampled_onto (ROADMAP queue 1, item 12b)")
+    ns, nn, nt = (min(a, b) for a, b in zip(input_map.data.shape[:3], output_map.data.shape[:3]))
+    data_out = output_map.data[:ns, :nn, :nt]
+    data_in = input_map.data[:ns, :nn, :nt].to(data_out.device)
+    w = output_map.weight[:ns, :nn, :nt]
+    resid = torch.where(w > 0, data_out - data_in, 0.0)
+    return output_map._replace(data=resid, weight=w, stokes=output_map.stokes[:ns], nu=output_map.nu[:nn],
+                               **{output_map.axis3_label: output_map.t[:nt]})

@@ -1,6 +1,8 @@
-"""Mapper base (maria_tpu/mappers/base.py): map geometry from the TODs'
-pointing, Stokes and band inference, time bins, and the shared
-postprocessing (optional smoothing, the zero-mean convention)."""
+"""Mapper base (maria_tpu/mappers/base.py): each TOD processed by
+``tod_preprocessing`` (``TOD.process``) and converted to the map's units,
+map geometry from the TODs' pointing, Stokes and band inference, time
+bins, and the shared postprocessing (optional smoothing, the zero-mean
+convention)."""
 
 from __future__ import annotations
 
@@ -26,15 +28,13 @@ class BaseProjectionMapper:
         self.frame = Frame(frame)
         if self.frame.name == "galactic":
             raise ValueError("a projection mapper's frame is 'az/el' or 'ra/dec'")
-        if tod_preprocessing:
-            raise NotImplementedError("TOD preprocessing (ROADMAP queue 1, item 12: processing)")
         if units not in ("K_RJ", "pW"):
             raise NotImplementedError(f"map units '{units}' (ROADMAP queue 1, item 13: the calibration graph)")
         self.units = units
         self.t_bins = t_bins
         self.map_postprocessing = dict(map_postprocessing)
         tods = tods if isinstance(tods, (list, tuple)) else [tods]
-        self.tods = [tod.to(units) for tod in tods]
+        self.tods = [(tod.process(**tod_preprocessing) if tod_preprocessing else tod).to(units) for tod in tods]
 
         sw = np.concatenate([tod.dets.stokes_weight() for tod in self.tods], axis=0)
         # the simulation's input map rides along on the TODs' metadata

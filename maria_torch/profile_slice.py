@@ -41,6 +41,22 @@ def _wall_ms(fn, reps: int) -> float:
     return (time.perf_counter() - start) / reps * 1e3
 
 
+def profiled(fn) -> tuple:
+    """(wall ms, device kernel ms, the profiler) of one call of ``fn``
+    under torch.profiler, from a synchronize before it to one after."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - start) * 1e3
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type is not None and str(e.device_type).endswith("CUDA"))
+    return window_ms, device_us / 1e3, prof
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--scene", choices=("mustang2", "atlast", "sky"), default="mustang2")
@@ -117,20 +133,10 @@ def main(argv=None) -> int:
     for name, stage in stages.items():
         print(f"{name:32s} {_wall_ms(stage, args.reps):9.3f} ms (cumulative, warm, {args.reps} reps)")
 
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        realization()
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - start) * 1e3
-    events = prof.key_averages()
-    device_us = sum(e.self_device_time_total for e in events if e.device_type is not None
-                    and str(e.device_type).endswith("CUDA"))
-    print(f"profiled window (one realization and its map): {window_ms:.3f} ms wall, {device_us / 1e3:.3f} ms device "
-          f"kernel time, device busy {device_us / 1e3 / window_ms:.1%} of the window")
-    print(events.table(sort_by="self_cuda_time_total", row_limit=25))
+    window_ms, device_ms, prof = profiled(realization)
+    print(f"profiled window (one realization and its map): {window_ms:.3f} ms wall, {device_ms:.3f} ms device "
+          f"kernel time, device busy {device_ms / window_ms:.1%} of the window")
+    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
     if args.trace:
         prof.export_chrome_trace(args.trace)
     return 0

@@ -14,9 +14,9 @@ of ``maria_torch.map``, widened to cover the scan's field in ra/dec.
 ``sky_simulation`` is the observer's flow: MUSTANG-2 on a Planner-made
 ra/dec daisy over the synthetic ``big_cluster`` map at (150, 10) deg, with
 or without an atmosphere, noise, the map itself and a CMB; ``sky_mapper``
-maps its TODs back in ra/dec on the input map's grid, and
-``sky_recovery`` (``cmb_recovery`` for the CMB) holds that map against
-the input.
+maps its TODs back in ra/dec on the input map's grid (with BinMapper or
+another mapper), and ``sky_recovery`` (``cmb_recovery`` for the CMB) and
+``sky_residual_rms`` hold that map against the input.
 """
 
 from __future__ import annotations
@@ -82,21 +82,21 @@ def sky_simulation(duration: float = 600.0, device=None, atmosphere="2d", noise:
                                   seed=0, device=device)
 
 
-def sky_mapper(tods, input_map):
-    """BinMapper in the input map's frame, at its centre, width and
-    resolution."""
+def sky_mapper(tods, input_map, mapper=None, **kwargs):
+    """A mapper (``mapper``, BinMapper by default) in the input map's
+    frame, at its centre, width and resolution, with ``kwargs``."""
     import maria_torch
 
-    return maria_torch.BinMapper(
+    return (mapper or maria_torch.BinMapper)(
         tods, center=tuple(np.degrees(input_map.center)), width=float(np.degrees(input_map.width)),
-        resolution=float(np.degrees(input_map.resolution)), frame=input_map.frame,
+        resolution=float(np.degrees(input_map.resolution)), frame=input_map.frame, **kwargs,
     )
 
 
-def sky_recovery(sim, out_map) -> float:
-    """Correlation of a binned map of ``sim`` with its beam-smoothed input
-    map sampled at the mapper's pixel centres, over the better-covered
-    half of the hit pixels."""
+def _covered_against_truth(sim, out_map, t: int):
+    """(map, truth) over the better-covered half of the hit pixels of
+    time bin ``t``: the map, and ``sim``'s beam-smoothed input map sampled
+    at the mapper's pixel centres, float64."""
     import torch
 
     from .sim.map import band_fwhm
@@ -107,9 +107,28 @@ def sky_recovery(sim, out_map) -> float:
     truth_map = sim.map.smooth(band_fwhm(obs, obs.instrument.dets.bands[0]), device=out_map.data.device)
     X, Y = np.meshgrid(out_map.x_side, out_map.y_side)
     truth = truth_map.sample(torch.as_tensor(X, dtype=torch.float32), torch.as_tensor(Y, dtype=torch.float32))
-    w, d = out_map.weight[0, 0, 0], out_map.data[0, 0, 0]
+    w, d = out_map.weight[0, 0, t], out_map.data[0, 0, t]
     covered = w >= w[w > 0].median()
-    return float(torch.corrcoef(torch.stack([d[covered].double(), truth[covered].double()]))[0, 1])
+    return d[covered].double(), truth[covered].double()
+
+
+def sky_recovery(sim, out_map, t: int = 0) -> float:
+    """Correlation of a map of ``sim`` (its time bin ``t``) with its
+    beam-smoothed input map sampled at the mapper's pixel centres, over
+    the better-covered half of the hit pixels."""
+    import torch
+
+    d, truth = _covered_against_truth(sim, out_map, t)
+    return float(torch.corrcoef(torch.stack([d, truth]))[0, 1])
+
+
+def sky_residual_rms(sim, out_map) -> float:
+    """The rms of a map of ``sim`` less its best-fitting multiple of the
+    beam-smoothed input, both less their means, over the better-covered
+    half of the hit pixels (tests/test_ml_mapper.py's measure)."""
+    d, truth = _covered_against_truth(sim, out_map, 0)
+    a, b = d - d.mean(), truth - truth.mean()
+    return float(((a - (a @ b) / (b @ b) * b) ** 2).mean().sqrt())
 
 
 def cmb_recovery(cmb, out_map) -> float:

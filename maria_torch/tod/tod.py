@@ -1,6 +1,7 @@
 """Time-ordered data (maria_tpu/tod/tod.py): fields are (n_det, n_t)
 float32 tensors on the simulation's device; the pointing stays
-factorized as the boresight track times static detector offsets."""
+factorized as the boresight track times static detector offsets.
+``TOD.process`` runs the ops of ``tod.processing``."""
 
 from __future__ import annotations
 
@@ -101,6 +102,16 @@ class TOD:
         return self.pointing.t
 
     @property
+    def fs(self) -> float:
+        """The sample rate in Hz."""
+        return float(1 / np.mean(np.diff(self.time)))
+
+    @property
+    def el(self):
+        """The detectors' elevation (n_det, n_t), a float32 tensor on the TOD's device."""
+        return self.pointing.det_azel(device=self.device)[1]
+
+    @property
     def boresight(self):
         return self.pointing.boresight
 
@@ -136,6 +147,12 @@ class TOD:
                 new_data[field][rows] = self.data[field][rows] * factor
         return TOD(data=new_data, pointing=self.pointing, weight=self.weight, units=units,
                    dets=self.dets, metadata=self.metadata, spectrum=self._spectrum)
+
+    def process(self, **config) -> "TOD":
+        """The TOD processed by ``tod.processing.process_tod``: one "signal" field."""
+        from .processing import process_tod
+
+        return process_tod(self, **config)
 
     def __repr__(self):
         return f"TOD(shape={self.shape}, fields={self.fields}, units={self.units}, device={self.device})"

@@ -1,5 +1,5 @@
 """Host numpy helpers of the scene layer (from maria_tpu/utils and
-maria_tpu/functions)."""
+maria_tpu/functions); the TOD signal tools are in ``utils.signal``."""
 
 from __future__ import annotations
 

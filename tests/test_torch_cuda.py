@@ -574,3 +574,72 @@ def test_sht_transforms_copy_nothing_to_the_host(cuda_device, monkeypatch):
         assert x.device.type == "cuda" and torch.equal(x, y)
     first, second = (generate_cmb(nside=64, seed=3, device=cuda_device).data for _ in range(2))
     assert torch.equal(first, second)
+
+
+def _sky_tods(device, duration, atmosphere=None):
+    """The sky scene's TOD on ``device`` and the same TOD with its fields
+    copied to the CPU."""
+    from maria_torch.scenes import sky_simulation
+    from maria_torch.tod import TOD
+
+    tod = sky_simulation(duration, device, atmosphere=atmosphere, noise=True).run()[0]
+    cpu = TOD(data={k: v.cpu() for k, v in tod.data.items()}, pointing=tod.pointing, weight=tod.weight.cpu(),
+              units=tod.units, dets=tod.dets, metadata=tod.metadata)
+    return tod, cpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_bins", [1, 2])
+def test_bin_map_as_the_ml_pt(cuda_device, t_bins):
+    """K2 as the ML mapper's P^T: one Stokes-weighted channel at the
+    channel- and time-bin-offset ids of a 0.2 deg grid over the 10 s
+    daisy, whose overflow buckets hold some of the samples: one launch,
+    sums within 1e-5 of the maximum of the plain sums taken in float64."""
+    import maria_torch
+
+    tod, _ = _sky_tods(cuda_device, 10.0)
+    mapper = maria_torch.MaximumLikelihoodMapper([tod], t_bins=t_bins, center=(150.0, 10.0), width=0.2,
+                                                 resolution=0.2 / 64, frame="ra/dec")
+    block = mapper.blocks[0]
+    ids = block["pix"]
+    assert all(block[k].device.type == "cuda" for k in ("pix", "sw", "data"))
+    assert bool(((ids % mapper.n_pix1) == mapper.n_pix).any()) and int(ids.max()) < mapper.n_cpix
+    v = torch.randn(ids.shape, generator=torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
+    before = bin_map.launches
+    out = mapper._project_T(v, block)
+    torch.cuda.synchronize()
+    assert bin_map.launches == before + 1
+    row = (block["sw"][:, 0, None] * v).reshape(-1).double()
+    exact = torch.zeros(mapper.n_cpix, dtype=torch.float64, device=cuda_device).index_add_(0, ids.reshape(-1).long(), row)
+    assert float((out.double() - exact).abs().max()) <= 1e-5 * float(exact.abs().max())
+    plain = bin_map_plain((block["sw"].T[:, :, None] * v[None]).contiguous(), ids, mapper.n_cpix).reshape(-1)
+    assert float((plain.double() - exact).abs().max()) <= 1e-5 * float(exact.abs().max())
+
+
+@pytest.mark.cuda
+def test_ml_fit_and_processing_on_card_match_cpu(cuda_device):
+    """A small fit on the card (the 20 s scene, 64 x 64 at 0.5 deg, k = 2,
+    2 epochs x 15 CG steps) against the same fit on the CPU from the card's
+    blocks (the CPU's float32 ra/dec moves a few samples to the next
+    pixel): within 1e-3 of the map's maximum, as
+    tests/test_torch_ml_mapper.py holds the port to maria_tpu; the
+    tutorial's processing chain on the scene with the atmosphere (whose
+    common mode its remove_modes takes out) within 1e-5 of the input's
+    maximum; the maps come back to the host."""
+    import maria_torch
+    from maria_torch.convert import ml_state_from_arrays
+
+    tod, cpu = _sky_tods(cuda_device, 20.0)
+    kw = dict(center=(150.0, 10.0), width=0.5, resolution=0.5 / 64, frame="ra/dec", n_epochs=2, n_cg_iters=15, k=2)
+    on_card = maria_torch.MaximumLikelihoodMapper([tod], **kw)
+    card_map = on_card.fit()
+    block = {k: on_card.blocks[0][k].cpu().numpy() for k in ("pix", "sw", "data")} | {"fs": on_card.blocks[0]["fs"]}
+    cpu_map = ml_state_from_arrays(maria_torch.MaximumLikelihoodMapper([cpu], **kw), [block]).fit()
+    assert card_map.data.device.type == "cpu" and bool(torch.isfinite(card_map.data).all())
+    scale = float(cpu_map.data.abs().max())
+    assert float((card_map.data - cpu_map.data).abs().max()) <= 1e-3 * scale
+    chain = {"remove_spline": {"knot_spacing": 60, "remove_el_gradient": True}, "remove_modes": {"modes_to_remove": 1}}
+    tod, cpu = _sky_tods(cuda_device, 20.0, atmosphere="2d")
+    on_card, on_cpu = tod.process(**chain), cpu.process(**chain)
+    assert on_card.device.type == "cuda"
+    assert float((on_card.signal.cpu() - on_cpu.signal).abs().max()) <= 1e-5 * float(cpu.signal.abs().max())

@@ -180,7 +180,8 @@ def test_import_guard():
         paths += [os.path.join(root, name) for name in files if name.endswith(".py")]
     assert len(paths) > 30
     for module in ("atmosphere/process.py", "ops/ar_extrude.py", "ops/kernels.py", "convert.py", "healpix/core.py",
-                   "healpix/sht.py", "cmb/__init__.py", "cmb/spectra.py", "map/healpix.py", "sim/cmb.py", "ops/sht.py"):
+                   "healpix/sht.py", "cmb/__init__.py", "cmb/spectra.py", "map/healpix.py", "sim/cmb.py", "ops/sht.py",
+                   "utils/signal.py", "tod/processing.py", "mappers/ml_mapper.py"):
         assert os.path.join(REPO, "maria_torch", *module.split("/")) in paths, module
     for path in paths:
         with open(path) as f:
