@@ -140,7 +140,42 @@ Phases, each of which must pass (any failure exits non-zero):
    beam-smoothed input over the better-covered half of the hit pixels,
    gradient descent above 0.8, and t_bins=2 gives two different weight
    maps, each frame above 0.8; with noise on and a common mode the k=2 ML
-   map's residual rms lies below BinMapper's.
+   map's residual rms lies below BinMapper's;
+22. slice (p), the CMB patch of docs/tutorials.md:129-157 as written:
+   act/pa5/f090 and f150 at NET_RJ 10 uK_RJ√s (the setter) and a 10 s
+   knee on a polarized sunflower/circle array (0.7 deg, 1.5 beams, 10 m:
+   1,052 detectors), a 600 s, 20 Hz back-and-forth at cerro_toco,
+   Simulation(cmb="generate", nside 1024) with noise, run() -> the IQU
+   MaximumLikelihoodMapper at 2 arcmin in ra/dec after remove_spline
+   (60 s knots, elevation gradient to order 3) -> fit(epochs=2,
+   steps_per_epoch=25): finite fields and IQU maps of both bands, K1
+   launched by run(), K2 twice building the mapper and 2 x 28 times in
+   fit(); K2 as the three-channel IQU P^T against its float64 plain sums
+   (1e-5 of their maximum), timed beside index_add_ and its byte bound;
+   the fit through K2 against the same fit with the plain P^T (2e-3 of
+   the map's maximum); both bands' noise PSD within 10% of the process
+   of their NEP; the scene without noise on the card against the CPU,
+   one CMB (the card's) and one gains draw handed to both and the card's
+   ra/dec and HEALPix pixels to the CPU (1e-5 of the TOD's maximum; on
+   the CPU's own float32 pointing the share of samples that took a
+   neighbouring pixel is printed); with noise off, the gains' draw
+   zeros and each band's monopole off, the IQU fit without processing
+   correlating with the CMB's T, Q and U at the hit pixel centres above
+   0.95 (I) and 0.8 (Q, U), with more CG steps if 25 fall short
+   (printed); the pure-Q source
+   of tests/test_ml_mapper.py:82-124 on the card (Q correlation above
+   0.7, Q's std over twice I's rms); setup seconds by part, warm run(),
+   processing and fit ms, a CG step by part, the device's busy share;
+23. slice (q), the ACT camera: get_instrument("ACT") (pa4, pa5, pa6:
+   9,000 polarized detectors, six bands) at the ACT site on the registry
+   plan back_and_forth_10deg_45el for 600 s (1.08e8 samples) with the
+   2-D atmosphere, a CMB at nside 1024 and noise -> BinMapper(frame=
+   "ra/dec", resolution=1/30), IQU by itself: finite fields and maps of
+   six bands, K1 and K2 launched; K2 at a band's six IQU channels
+   against its float64 plain sums (1e-5), timed beside index_add_ and
+   its byte bound; every band's noise PSD within 10%; setup seconds by
+   part, warm run() and map ms, peak device memory, the device's busy
+   share.
 
 Every kernel is timed (CUDA events, in turns) beside its plain version,
 the PyTorch library call that computes the same function where there is
@@ -155,7 +190,8 @@ the kernel really pays, of its block or its cluster, is probed and printed
 beside them and enters no bound).
 
 The line before the last is the card as nvidia-smi reports it, the one
-before that the kernels' JSON record; the last line is the JSON result.
+before that the kernels' JSON record (K2's launches counted over slices
+(b), (p) and (q)); the last line is the JSON result.
 """
 
 from __future__ import annotations
@@ -796,35 +832,41 @@ def slice_pixel_ids(tod, mapper_map, n_map=N_MAP):
 
 
 def check_noise_psd(sim, tod_pw):
-    """Mean periodogram of the pW noise field in bins above twice the
-    knee against the expected PSD of the process."""
+    """Per band, the mean periodogram of the pW noise field in bins from
+    twice the knee (from fs / 8 where that is above fs / 4) to Nyquist
+    against the expected PSD of the process of the band's NEP."""
     import torch
 
     from maria_torch.atmosphere.fourier import good_fft_size
     from maria_torch.noise import _pink_weights_np
     from maria_torch.ops.program import band_noise_basis
 
-    band = sim.instrument.dets.bands[0]
+    dets = sim.instrument.dets
     fs = sim.obs_list[0].sample_rate
-    basis, cp = band_noise_basis(sim.instrument.dets.offsets, sim.noise_kwargs)
-    x = tod_pw.data["noise"].double()
-    n = x.shape[-1]
-    X = torch.fft.rfft(x - x.mean(dim=-1, keepdim=True), dim=-1)
-    measured = (X.abs() ** 2).mean(dim=0).cpu().numpy() / n
-    f = np.fft.rfftfreq(n, d=1 / fs)
-    w2 = _pink_weights_np(good_fft_size(n), fs, band.knee, 1.0) ** 2
-    f_fft = np.fft.rfftfreq(good_fft_size(n), d=1 / fs)
-    w2 = np.interp(f, f_fft, w2)
-    b2 = float(np.mean(np.sum(np.asarray(basis) ** 2, axis=-1))) if cp else 0.0
-    expected = (1e12 * band.NEP) ** 2 * (fs + (1 - cp) * w2 + cp * b2 * w2)
-    edges = np.geomspace(2 * band.knee, 0.98 * fs / 2, 7)
-    ratios = []
-    for lo, hi in zip(edges[:-1], edges[1:]):
-        sel = (f >= lo) & (f < hi)
-        ratios.append(float(measured[sel].mean() / expected[sel].mean()))
-    ok = all(abs(r - 1) <= 0.10 for r in ratios)
-    print(f"noise PSD / expected in bins {np.round(edges, 2).tolist()} Hz: "
-          f"{[round(r, 4) for r in ratios]} (limit 10%) {'ok' if ok else 'FAIL'}", flush=True)
+    ok = True
+    for band in dets.bands:
+        rows = np.where(dets.band_name == band.name)[0]
+        basis, cp = band_noise_basis(dets.offsets[rows], sim.noise_kwargs)
+        x = tod_pw.data["noise"][torch.as_tensor(rows, device=tod_pw.device)].double()
+        n = x.shape[-1]
+        X = torch.fft.rfft(x - x.mean(dim=-1, keepdim=True), dim=-1)
+        measured = (X.abs() ** 2).mean(dim=0).cpu().numpy() / n
+        f = np.fft.rfftfreq(n, d=1 / fs)
+        w2 = _pink_weights_np(good_fft_size(n), fs, band.knee, 1.0) ** 2
+        f_fft = np.fft.rfftfreq(good_fft_size(n), d=1 / fs)
+        w2 = np.interp(f, f_fft, w2)
+        b2 = float(np.mean(np.sum(np.asarray(basis) ** 2, axis=-1))) if cp else 0.0
+        expected = (1e12 * band.NEP) ** 2 * (fs + (1 - cp) * w2 + cp * b2 * w2)
+        edges = np.geomspace(2 * band.knee if 2 * band.knee <= fs / 4 else fs / 8, 0.98 * fs / 2, 7)
+        ratios = []
+        for lo, hi in zip(edges[:-1], edges[1:]):
+            sel = (f >= lo) & (f < hi)
+            ratios.append(float(measured[sel].mean() / expected[sel].mean()))
+        band_ok = all(abs(r - 1) <= 0.10 for r in ratios)
+        ok &= band_ok
+        print(f"noise PSD / expected{'' if len(dets.bands) == 1 else f', {band.name} (NEP {band.NEP:.4e} W√s)'} in "
+              f"bins {np.round(edges, 2).tolist()} Hz: {[round(r, 4) for r in ratios]} (limit 10%) "
+              f"{'ok' if band_ok else 'FAIL'}", flush=True)
     return ok
 
 
@@ -1297,11 +1339,12 @@ def warm_ms(fn, reps: int = WARM_REPS) -> tuple:
     return float(np.mean(ms)), [round(x, 2) for x in ms]
 
 
-def check_ml_pt(mapper, gen, card) -> dict:
+def check_ml_pt(mapper, gen, card, label="n") -> dict:
     """P^T through K2 against K2's plain version on the card at the ML
-    ids, for a random vector: sums within 1e-5 of the maximum of the plain
-    sums taken in float64; timed beside index_add_ on the same ids (all in
-    range: the overflow buckets are real ids) and its byte bound."""
+    ids, for a random vector: the n_s Stokes-weighted rows' sums within
+    1e-5 of the maximum of the plain sums taken in float64; timed beside
+    index_add_ on the same ids (all in range: the overflow buckets are real
+    ids) and its byte bound."""
     import torch
 
     from maria_torch.ops.bin_map import bin_map, bin_map_plain, bin_plan
@@ -1310,32 +1353,34 @@ def check_ml_pt(mapper, gen, card) -> dict:
     ids = block["pix"]
     v = torch.randn(ids.shape, generator=gen, device=ids.device)
     channels = (block["sw"].T[:, :, None] * v[None]).contiguous()
-    out = mapper._project_T(v, block)
-    exact = plain_sums64(channels[0], ids, mapper.n_cpix)
-    plain = bin_map_plain(channels, ids, mapper.n_cpix).reshape(-1)
+    n_s = channels.shape[0]
+    out = mapper._project_T(v, block).view(n_s, -1)
+    exact = torch.stack([plain_sums64(channels[s], ids, mapper.n_cpix) for s in range(n_s)])
+    plain = bin_map_plain(channels, ids, mapper.n_cpix)
     torch.cuda.synchronize()
     scale = float(exact.abs().max())
     err, plain_err = float((out - exact).abs().max()), float((plain - exact).abs().max())
     ok = err <= 1e-5 * scale
-    plan = bin_plan(mapper.n_cpix, 1, ids.numel())
-    print(f"slice (n): the ML P^T through K2 ({plan['form']} form, {plan['blocks']} blocks of {plan['span']} samples) "
-          f"against the float64 plain sums at the ML ids {tuple(ids.shape)} into {mapper.n_cpix} pixels (overflow "
-          f"buckets included): max|diff| {err:.3e} = {err / scale:.2e} of max (limit 1e-5; float32 plain "
-          f"{plain_err / scale:.2e}) {'ok' if ok else 'FAIL'}", flush=True)
+    plan = bin_plan(mapper.n_cpix, n_s, ids.numel())
+    print(f"slice ({label}): the ML P^T through K2 ({plan['form']} form, {plan['blocks']} blocks of {plan['span']} "
+          f"samples) against the float64 plain sums, {n_s} Stokes channel(s) at the ML ids {tuple(ids.shape)} into "
+          f"{mapper.n_cpix} pixels (overflow buckets included): max|diff| {err:.3e} = {err / scale:.2e} of max (limit "
+          f"1e-5; float32 plain {plain_err / scale:.2e}) {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        fail("slice (n): K2 as the ML P^T disagrees with its plain version")
-    flat_ids, flat = ids.reshape(-1).long(), channels.reshape(1, -1)
+        fail(f"slice ({label}): K2 as the ML P^T disagrees with its plain version")
+    flat_ids, flat = ids.reshape(-1).long(), channels.reshape(n_s, -1)
 
     def by_index_add():
-        return torch.zeros((1, mapper.n_cpix), device=ids.device).index_add_(1, flat_ids, flat)
+        return torch.zeros((n_s, mapper.n_cpix), device=ids.device).index_add_(1, flat_ids, flat)
 
     ms, plain_ms, library_ms = paired_ms(lambda: bin_map_plain(channels, ids, mapper.n_cpix),
                                          lambda: bin_map(channels, ids, mapper.n_cpix), by_index_add)
     r = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-         "shape": [1, *ids.shape, mapper.n_cpix],
-         # the ids and the Stokes-weighted row read once, the map written once; an add a sample
-         **bound(8 * ids.numel() + 4 * mapper.n_cpix, ids.numel())}
-    print(timing_line(f"K2 as the ML P^T (slice n; library call index_add_; {card})", r), flush=True)
+         "shape": [n_s, *ids.shape, mapper.n_cpix],
+         # the ids and the Stokes-weighted rows read once, the maps written once; an add a sample and row
+         **bound(4 * ids.numel() * (1 + n_s) + 4 * n_s * mapper.n_cpix, n_s * ids.numel())}
+    print(timing_line(f"K2 as the ML P^T (slice {label}, {n_s} channel(s); library call index_add_; {card})", r),
+          flush=True)
     return r
 
 
@@ -1580,6 +1625,373 @@ def run_ml_recovery(device, card, clean_sim, noisy_sim):
         fail("slice (o): the ML mapper does not beat binning on the common mode")
 
 
+PATCH_EPOCHS, PATCH_STEPS = 2, 25  # docs/tutorials.md:150
+PATCH_NSIDE = 1024
+ACT_DURATION = 600.0
+
+
+def patch_fit(mapper, steps=PATCH_STEPS):
+    return mapper.fit(epochs=PATCH_EPOCHS, steps_per_epoch=steps)
+
+
+def check_iqu_map(label, out, n_nu):
+    import torch
+
+    n_y, n_x = out.data.shape[-2:]
+    ok = out.stokes == "IQU" and tuple(out.data.shape[:3]) == (3, n_nu, 1)
+    ok &= bool(torch.isfinite(out.data).all()) and float(out.weight[:, :, 0, n_y // 2, n_x // 2].min()) > 0
+    print(f"slice ({label}): IQU map {tuple(out.data.shape)} in {out.frame} at {np.degrees(out.resolution) * 60:.2f} "
+          f"arcmin, max |I| {float(out.data[0].abs().max()):.3e}, max |Q| {float(out.data[1].abs().max()):.3e}, max |U| "
+          f"{float(out.data[2].abs().max()):.3e} {out.units}, centre weights "
+          f"{out.weight[:, :, 0, n_y // 2, n_x // 2].flatten().tolist()} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"slice ({label}) IQU map")
+
+
+def run_cmb_patch(device, card, gen):
+    """Slice (p): the CMB patch of docs/tutorials.md:129-157 as written,
+    at full size: its instrument, plan and Simulation with a CMB at nside
+    1024, run() -> TOD -> the IQU MaximumLikelihoodMapper after
+    remove_spline, fit(epochs=2, steps_per_epoch=25); its gates (K2 as the
+    IQU P^T, the fit against the plain P^T's, the card against the CPU,
+    the noise PSD of both bands, the IQU recovery and the pure-Q source)
+    and times. Returns (K2's record, main-path launches)."""
+    import torch
+
+    import maria_torch
+    import maria_torch.sim.simulation as simulation_module
+    from maria_torch import scenes
+    from maria_torch.ops.bin_map import bin_map
+    from maria_torch.ops.pink_noise import pink_noise
+    from maria_torch.ops.sht import sht_anal, sht_synth
+    from maria_torch.profile_slice import profiled
+
+    def reset():
+        pink_noise.launches = bin_map.launches = sht_synth.launches = sht_anal.launches = 0
+
+    reset()
+    s = time.perf_counter()
+    instrument = scenes.cmb_patch_instrument()
+    inst_s = time.perf_counter() - s
+    s = time.perf_counter()
+    plan = scenes.cmb_patch_plan()
+    plan_s = time.perf_counter() - s
+    s = time.perf_counter()
+    with stage_times({"cmb": (simulation_module, "initialize_cmb")}) as cmb_s:
+        sim = maria_torch.Simulation(instrument, plans=[plan], site="cerro_toco", cmb="generate",
+                                     cmb_kwargs={"nside": PATCH_NSIDE}, seed=0, device=device)
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - s
+    setup = {"sht_synth": sht_synth.launches}
+    n_det, n_t = instrument.n_dets, plan.n
+    print(f"slice (p) the CMB patch (docs/tutorials.md:129-157): {n_det} detectors ({[b.name for b in instrument.bands]}, "
+          f"NEP {[f'{b.NEP:.4e}' for b in instrument.bands]} W√s from NET_RJ 10 uK_RJ√s) x {n_t} samples; host setup "
+          f"{inst_s + plan_s + sim_s:.2f} s: instrument {inst_s:.2f} s, plan {plan_s:.2f} s, Simulation {sim_s:.2f} s of "
+          f"which generate_cmb(nside={PATCH_NSIDE}) {cmb_s['cmb']:.2f} s (KS1 launches {setup['sht_synth']})", flush=True)
+
+    reset()
+    s = time.perf_counter()
+    tod = sim.run()[0]
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - s
+    k1_run = pink_noise.launches
+    s = time.perf_counter()
+    mapper = scenes.cmb_patch_mapper([tod])
+    built = bin_map.launches
+    out = patch_fit(mapper)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - s
+    fit_launches = bin_map.launches - built
+    expected = ml_launches(1, "conjugate_gradient", PATCH_EPOCHS, PATCH_STEPS)
+    launches = {"pink_noise": k1_run, "bin_map": bin_map.launches, "sht_synth": setup["sht_synth"] + sht_synth.launches}
+    print(f"slice (p): first run() {run_s:.3f} s, the mapper and its first fit {fit_s:.3f} s; main-path launches "
+          f"{launches} (K2: {built} building the mapper, {fit_launches} in fit(), expected {expected})", flush=True)
+    ok = tod.shape == (n_det, n_t) == (1052, 12000) and set(tod.fields) == {"cmb", "noise"}
+    ok &= all(bool(torch.isfinite(v).all()) for v in tod.data.values()) and tod.device.type == "cuda"
+    ok &= k1_run >= len(instrument.bands) and built == 2 and fit_launches == expected and setup["sht_synth"] == 3
+    ok &= mapper.stokes == "IQU" and all(mapper.blocks[0][k].device.type == "cuda" for k in ("pix", "sw", "data"))
+    print(f"slice (p): TOD {tod.shape} {tod.fields} in {tod.units}, max |cmb| {float(tod.data['cmb'].abs().max()):.3e}, "
+          f"noise std {float(tod.data['noise'].std()):.3e} K_RJ; mapper {mapper.stokes} on {mapper.n_x} x "
+          f"{mapper.n_y} pixels a band ({mapper.n_cpix} with the buckets) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (p) output check")
+    check_iqu_map("p", out, 2)
+
+    pt = check_ml_pt(mapper, gen, card, label="p")
+    with plain_pt():
+        plain = patch_fit(scenes.cmb_patch_mapper([tod]))
+    scale = float(plain.data.abs().max())
+    err = float((out.data - plain.data).abs().max())
+    ok = err <= 2e-3 * scale
+    print(f"slice (p): the IQU fit of the processed TOD through K2 against the same fit with the plain P^T on the card: "
+          f"max|diff| {err:.3e} = {err / scale:.2e} of the map's max (limit 2e-3) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (p): the IQU fit through K2 disagrees with the plain P^T's")
+    if not check_noise_psd(sim, sim.run(units="pW")[0]):
+        fail("slice (p) noise PSD")
+
+    # the scene without noise on the card against the CPU: one CMB (the
+    # card's) and one gains draw handed to both. A sample within an ulp of
+    # a pixel's edge may take the neighbouring pixel, so the CPU is run
+    # twice: given the card's HEALPix pixels (held at 1e-5), and on its own
+    # pointing, where at most 1e-4 of the samples may differ, each only
+    # where the CPU's own pixel is a neighbour of the card's (centres
+    # within 2 pixel sizes; a neighbour is within about 1.6), and at most
+    # 1e-3 of the pixels may move (an ulp-wide band along the edges: ~1e-4)
+    from maria_torch.healpix.core import pix2ang_ring
+    from maria_torch.tod import Pointing
+
+    gains = torch.randn(n_det, generator=torch.Generator().manual_seed(5))
+    quiet = {}
+    for where in (device, "cpu"):
+        q = maria_torch.Simulation(instrument, plans=[plan], site="cerro_toco", cmb=sim.cmb, noise=False, seed=0,
+                                   device=where)
+        s = time.perf_counter()
+        quiet[str(where)] = q.run(draws=[{"gains": gains.to(where)}])[0].signal.cpu()
+        torch.cuda.synchronize()
+        quiet[f"{where} s"] = time.perf_counter() - s
+    obs, cmb, dets = q.obs_list[0], sim.cmb, instrument.dets
+    pix = {where: torch.zeros((n_det, n_t), dtype=torch.int64) for where in ("card", "cpu")}
+    for band in dets.bands:  # the order compute_cmb_loading takes the bands in
+        rows = np.where(dets.band_name == band.name)[0]
+        for where, on in (("card", device), ("cpu", "cpu")):
+            pix[where][rows] = cmb.radec_pixels(*Pointing(obs.boresight, obs.offsets[rows], obs.q).det_radec(
+                device=on)).cpu()
+    order = iter(pix["card"][np.where(dets.band_name == band.name)[0]] for band in dets.bands)
+    cmb.radec_pixels = lambda ra, dec: next(order)
+    try:
+        handed = q.run(draws=[{"gains": gains}])[0].signal
+    finally:
+        del cmb.radec_pixels
+    ref, card_tod = quiet["cpu"], quiet[str(device)]
+    scale = float(handed.abs().max())
+    err = float((card_tod - handed).abs().max())
+    beyond = (card_tod - ref).abs() > 1e-5 * scale
+    moved = pix["card"] != pix["cpu"]
+    centres = []  # unit vectors of the moved samples' pixel centres, the card's and the CPU's
+    for w in ("card", "cpu"):
+        theta, phi = pix2ang_ring(cmb.nside, pix[w][moved].numpy())
+        centres.append(np.stack([np.sin(theta) * np.cos(phi), np.sin(theta) * np.sin(phi), np.cos(theta)], -1))
+    apart = np.arccos(np.clip((centres[0] * centres[1]).sum(-1), -1, 1))
+    ok = err <= 1e-5 * scale
+    own_ok = float(beyond.float().mean()) <= 1e-4 and float(moved.float().mean()) <= 1e-3
+    own_ok &= not bool((beyond & ~moved).any()) and bool((apart <= 2 * cmb.resolution).all())
+    print(f"slice (p), noise off: the TOD on the card against the CPU, one CMB and one gains draw; the CPU given the "
+          f"card's HEALPix pixels: max|diff| {err:.3e} = {err / scale:.2e} of its max {scale:.4f} K_RJ (limit 1e-5) "
+          f"{'ok' if ok else 'FAIL'}; the CPU on its own pointing: {float(beyond.float().mean()):.2e} of the samples "
+          f"beyond 1e-5 (limit 1e-4), {float(moved.float().mean()):.2e} in another pixel than the card's (limit 1e-3), "
+          f"each beyond only where its pixel moved {not bool((beyond & ~moved).any())}, the moved pixels' centres at "
+          f"most {float(apart.max(initial=0.0)) / cmb.resolution:.2f} pixel sizes apart (limit 2: a neighbour), max "
+          f"|diff| {float((card_tod - ref).abs().max()) / scale:.2e} of the max {'ok' if own_ok else 'FAIL'} (run() "
+          f"{quiet[f'{device} s']:.2f} s on the card, {quiet['cpu s']:.2f} s on the CPU)", flush=True)
+    if not ok:
+        fail("slice (p): the card disagrees with the CPU")
+    if not own_ok:
+        fail("slice (p): the card's pixels disagree with the CPU's own pointing beyond a neighbouring pixel")
+    del quiet, handed, ref, card_tod, beyond, moved, pix
+
+    # recovery: noise off, no processing; the gains' draw zeros and each
+    # band's monopole off leave the sky term
+    q = maria_torch.Simulation(instrument, plans=[plan], site="cerro_toco", cmb=sim.cmb, noise=False, seed=0,
+                               device=device)
+    clean = scenes.without_band_means(q.run(draws=[{"gains": torch.zeros(n_det, device=device)}])[0])
+    for steps in (PATCH_STEPS, 2 * PATCH_STEPS, 4 * PATCH_STEPS):
+        rec = patch_fit(scenes.cmb_patch_mapper([clean], tod_preprocessing={}), steps=steps)
+        corr = [scenes.stokes_recovery(sim.cmb, rec, nu_index=b) for b in range(2)]
+        ok = all(c["I"] >= 0.95 and c["Q"] >= 0.8 and c["U"] >= 0.8 for c in corr)
+        print(f"slice (p), noise off, no processing, {PATCH_EPOCHS} x {steps} CG steps: correlation of the IQU map with "
+              f"the CMB's T, Q, U at the hit pixel centres, " + "; ".join(
+                  f"{instrument.bands[b].name}: " + ", ".join(f"{k} {v:.5f}" for k, v in c.items())
+                  for b, c in enumerate(corr)) + f" (limits I 0.95, Q and U 0.8) {'ok' if ok else 'not yet'}",
+              flush=True)
+        if ok:
+            break
+    if not ok:
+        fail("slice (p) does not recover the CMB's I, Q and U")
+    corr_iqu = {instrument.bands[b].name: {k: round(v, 5) for k, v in c.items()} for b, c in enumerate(corr)}
+    steps_used = f"{PATCH_EPOCHS} x {steps}"
+    del q, clean, rec
+
+    # tests/test_ml_mapper.py:82-124, the pure-Q source, on the card
+    n = 32
+    data = np.zeros((3, 1, 1, n, n), dtype=np.float32)
+    yy, xx = np.mgrid[:n, :n]
+    data[1] = 2e-3 * np.exp(-((xx - n / 2) ** 2 + (yy - n / 2) ** 2) / (2 * (n / 7) ** 2))
+    qmap = maria_torch.map.ProjectionMap(data=data, center=(150.0, 41.0), width=2.0, frame="az/el", stokes="IQU",
+                                         units="K_RJ", degrees=True)
+    arr = maria_torch.array.Array.from_config({"name": "pol", "n": 60, "field_of_view": 1.0, "primary_size": 10,
+                                               "polarized": True, "bands": ["test/f150"]})
+    qplan = maria_torch.get_plan("five_second_stare", start_time=1.75e9, sample_rate=20, scan_center=(150.0, 41.0),
+                                 frame="az/el", scan_pattern="daisy", scan_options={"radius": 0.4, "speed": 0.25})
+    qsim = maria_torch.Simulation(instrument=maria_torch.Instrument(arrays=[arr]), plans=qplan, site="chajnantor",
+                                  atmosphere=None, noise=False, map=qmap, seed=0, device=device)
+    qout = maria_torch.MaximumLikelihoodMapper([qsim.run()[0]], center=(150.0, 41.0), width=2.0, resolution=2.0 / n,
+                                               frame="az/el", units="K_RJ", n_epochs=1, n_cg_iters=60).fit()
+    qq, w = qout.data[1, 0, 0].cpu().numpy(), qout.weight[1, 0, 0].cpu().numpy()
+    mask = w > 0
+    a, b = qq[mask] - qq[mask].mean(), data[1, 0, 0][mask] - data[1, 0, 0][mask].mean()
+    corr = float((a * b).sum() / np.sqrt((a**2).sum() * (b**2).sum() + 1e-30))
+    ratio = float(qq[mask].std() / qout.data[0, 0, 0].cpu().numpy()[mask].std())
+    ok = qout.stokes == "IQU" and corr > 0.7 and ratio > 2
+    print(f"slice (p): tests/test_ml_mapper.py's pure-Q source on the card: Q correlation {corr:.5f} (limit 0.7), Q's "
+          f"std / I's rms {ratio:.3f} (limit 2) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (p): the pure-Q source is not recovered")
+
+    run_ms, run_list = warm_ms(lambda: sim.run())
+    proc_ms, proc_list = warm_ms(lambda: tod.process(**scenes.CMB_PATCH_PREPROCESSING))
+    build_ms, _ = warm_ms(lambda: scenes.cmb_patch_mapper([tod]), reps=2)
+    fit_ms, fit_list = warm_ms(lambda: patch_fit(mapper), reps=3)
+    steps = ml_step_times(mapper)
+    parts = sum(v for key, v in steps.items() if key != "step")
+    wall, busy, _ = profiled(lambda: patch_fit(mapper))
+    print(f"slice (p): warm run() {run_ms:.2f} ms ({run_list}), processing (remove_spline, el gradient order 3) "
+          f"{proc_ms:.2f} ms ({proc_list}), the mapper built (processing, blocks, naive map) {build_ms:.2f} ms, warm "
+          f"fit(epochs={PATCH_EPOCHS}, steps_per_epoch={PATCH_STEPS}) {fit_ms:.2f} ms ({fit_list}); one CG step "
+          f"{steps['step']:.4f} ms by CUDA events: " + ", ".join(f"{k} {v:.4f}" for k, v in steps.items() if k != "step")
+          + f" (sum {parts:.4f}) ms; one fit under torch.profiler {wall:.2f} ms wall, {busy:.2f} ms device kernel "
+          f"time, device busy {busy / wall:.1%} ({n_det} x {n_t} samples, n_s = 3, {mapper.n_cpix} pixels; {card})",
+          flush=True)
+    summary = {"setup_s": round(inst_s + plan_s + sim_s, 2), "instrument_s": round(inst_s, 2),
+               "plan_s": round(plan_s, 2), "generate_cmb_s": round(cmb_s["cmb"], 2), "run_ms": round(run_ms, 2),
+               "processing_ms": round(proc_ms, 2), "fit_ms": round(fit_ms, 2), "cg_step_ms": round(steps["step"], 4),
+               "busy": round(busy / wall, 3), "recovery": corr_iqu, "cg_steps": steps_used}
+    return pt, launches, summary
+
+
+def check_binmapper_k2(tod, mapper, gen, card, label):
+    """K2 as BinMapper bins one band in IQU: six channels (w sw_s d and
+    w |sw_s|) at the band's ids into the map, against the float64 plain
+    sums (1e-5 of their maximum); timed beside index_add_ on the ids kept
+    beforehand and the byte bound."""
+    import torch
+
+    from maria_torch.mappers.bin_mapper import radec_pixel_ids
+    from maria_torch.ops.bin_map import bin_map, bin_map_plain, bin_plan
+
+    band = mapper.bands[0]
+    rows = torch.as_tensor(np.where(tod.dets.band_name == band.name)[0], device=tod.device)
+    n_pix = mapper.n_x * mapper.n_y
+    ids = radec_pixel_ids(tod.pointing, mapper.center, mapper.res, mapper.n_x, mapper.n_y,
+                          device=tod.device)[rows].contiguous()
+    sw = torch.as_tensor(tod.dets.stokes_weight()[rows.cpu().numpy()][:, :3], dtype=torch.float32, device=tod.device)
+    d, w = tod.signal[rows], tod.weight[rows]
+    channels = torch.stack([w * sw[:, s, None] * d for s in range(3)]
+                           + [w * torch.abs(sw[:, s, None]) for s in range(3)]).contiguous()
+    out = bin_map(channels, ids, n_pix)
+    exact = torch.stack([plain_sums64(channels[c], ids, n_pix) for c in range(6)])
+    torch.cuda.synchronize()
+    scale = float(exact.abs().max())
+    err = float((out - exact).abs().max())
+    ok = err <= 1e-5 * scale
+    plan = bin_plan(n_pix, 6, ids.numel())
+    print(f"slice ({label}): K2 as BinMapper's IQU band ({band.name}, 6 channels {tuple(ids.shape)} into {n_pix} "
+          f"pixels; {plan['form']}, {plan['groups']} group(s) of at most 4 slots) against the float64 plain sums: "
+          f"max|diff| {err:.3e} = {err / scale:.2e} of max (limit 1e-5) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"slice ({label}): K2 disagrees with its plain version at BinMapper's IQU channels")
+    keep = (ids >= 0).reshape(-1)
+    ids_kept, rows_kept = ids.reshape(-1)[keep].long(), channels.reshape(6, -1)[:, keep].contiguous()
+
+    def by_index_add():
+        return torch.zeros((6, n_pix), device=tod.device).index_add_(1, ids_kept, rows_kept)
+
+    ms, plain_ms, library_ms = paired_ms(lambda: bin_map_plain(channels, ids, n_pix),
+                                         lambda: bin_map(channels, ids, n_pix), by_index_add)
+    r = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+         "shape": [6, *ids.shape, n_pix],
+         # ids and six channels read once, six maps written once; an add a sample and channel
+         **bound(4 * ids.numel() * 7 + 4 * 6 * n_pix, 6 * ids.numel())}
+    print(timing_line(f"K2 as BinMapper's IQU band (slice {label}; library call index_add_; {card})", r), flush=True)
+    return r
+
+
+def run_act(device, card, gen):
+    """Slice (q): the ACT camera (pa4, pa5, pa6: 9,000 polarized detectors
+    in six bands) at the ACT site on back_and_forth_10deg_45el for
+    ACT_DURATION seconds, with the 2-D atmosphere, a CMB at nside 1024 and
+    noise, run() -> BinMapper(frame="ra/dec", resolution=1/30), IQU by
+    itself; K2 at BinMapper's six IQU channels, the noise PSD of every
+    band, times, peak memory, the device's busy share. Returns (K2's
+    record, main-path launches)."""
+    import torch
+
+    import maria_torch
+    import maria_torch.sim.simulation as simulation_module
+    from maria_torch import scenes
+    from maria_torch.ops.bin_map import bin_map
+    from maria_torch.ops.pink_noise import pink_noise
+    from maria_torch.ops.sht import sht_synth
+    from maria_torch.profile_slice import profiled
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pink_noise.launches = bin_map.launches = sht_synth.launches = 0
+    s = time.perf_counter()
+    with stage_times({"instrument": (simulation_module, "get_instrument"), "plan": (maria_torch, "get_plan"),
+                      "cmb": (simulation_module, "initialize_cmb")}) as parts:
+        sim = scenes.act_simulation(ACT_DURATION, device, cmb_kwargs={"nside": PATCH_NSIDE})
+    setup_s = time.perf_counter() - s
+    instrument, plan = sim.instrument, sim.plans[0]
+    inst_s, plan_s = parts["instrument"], parts["plan"]
+    sim_s = setup_s - inst_s - plan_s
+    s = time.perf_counter()
+    program = sim.program()
+    torch.cuda.synchronize()
+    prog_s = time.perf_counter() - s
+    ks1 = sht_synth.launches
+    n_det, n_t = instrument.n_dets, plan.n
+    print(f"slice (q) the ACT camera: {n_det} detectors in {len(instrument.bands)} bands ({instrument.bands.names}) x "
+          f"{n_t} samples at {plan.sample_rate:.0f} Hz; host setup {inst_s + plan_s + sim_s + prog_s:.2f} s: instrument "
+          f"{inst_s:.2f} s, plan {plan_s:.2f} s, Simulation {sim_s:.2f} s (generate_cmb {parts['cmb']:.2f} s of it), "
+          f"program {prog_s:.2f} s ({len(program.screens)} screens)", flush=True)
+
+    pink_noise.launches = bin_map.launches = 0
+    s = time.perf_counter()
+    tod = sim.run()[0]
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - s
+    k1_run = pink_noise.launches
+    s = time.perf_counter()
+    mapper = maria_torch.BinMapper(tod, frame="ra/dec", resolution=1 / 30)
+    out = mapper.run()
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - s
+    launches = {"pink_noise": k1_run, "bin_map": bin_map.launches, "sht_synth": ks1}
+    print(f"slice (q): first run() {run_s:.3f} s, first BinMapper.run() {map_s:.3f} s; main-path launches {launches}",
+          flush=True)
+    ok = tod.shape == (n_det, n_t) == (9000, int(ACT_DURATION * 20)) and set(tod.fields) == {"atmosphere", "cmb", "noise"}
+    ok &= all(bool(torch.isfinite(v).all()) for v in tod.data.values()) and tod.device.type == "cuda"
+    ok &= k1_run >= 6 and launches["bin_map"] >= 6 and ks1 == 3 and mapper.stokes == "IQU"
+    print(f"slice (q): TOD {tod.shape} {tod.fields} in {tod.units}, atmosphere mean "
+          f"{float(tod.data['atmosphere'].mean()):.3f}, max |cmb| {float(tod.data['cmb'].abs().max()):.3e}, noise std "
+          f"{float(tod.data['noise'].std()):.3e} K_RJ {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (q) output check")
+    check_iqu_map("q", out, 6)
+    k2 = check_binmapper_k2(tod, mapper, gen, card, "q")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    run_ms, run_list = warm_ms(lambda: sim.run(), reps=3)
+    map_ms, map_list = warm_ms(lambda: maria_torch.BinMapper(tod, frame="ra/dec", resolution=1 / 30).run(), reps=3)
+
+    def one():
+        t = sim.run()[0]
+        maria_torch.BinMapper(t, frame="ra/dec", resolution=1 / 30).run()
+
+    wall, busy, _ = profiled(one)
+    print(f"slice (q): warm run() {run_ms:.2f} ms ({run_list}), warm BinMapper.run() {map_ms:.2f} ms ({map_list}) "
+          f"into {mapper.n_x} x {mapper.n_y} pixels a band; one run() + map under torch.profiler {wall:.2f} ms wall, "
+          f"{busy:.2f} ms device kernel time, device busy {busy / wall:.1%}; peak device memory {peak_gb:.2f} GB "
+          f"({n_det * n_t} samples; {card})", flush=True)
+    if not check_noise_psd(sim, sim.run(units="pW")[0]):
+        fail("slice (q) noise PSD")
+    summary = {"setup_s": round(inst_s + plan_s + sim_s + prog_s, 2), "run_ms": round(run_ms, 2),
+               "map_ms": round(map_ms, 2), "busy": round(busy / wall, 3), "peak_gb": round(peak_gb, 2),
+               "map_pixels": [mapper.n_y, mapper.n_x]}
+    return k2, launches, summary
+
+
 def main() -> int:
     try:
         import torch
@@ -1648,6 +2060,8 @@ def main() -> int:
     del ids_m
     check_total_carries(sim_m, device, "m", stage="cmb")
     del sim_m
+    k2_p, launches_p, summary_p = run_cmb_patch(device, card, gen)
+    k2_q, launches_q, summary_q = run_act(device, card, gen)
 
     ar = {label: check_ar_extrude(device, gen, f"slice {label}", results[label][3].ar_processes)
           for label in AR_SLICES}
@@ -1676,7 +2090,7 @@ def main() -> int:
     launches_b = results["b"][2]
     by_slice = {**{label: r[2] for label, r in results.items()}, "c": launches_c, "g": launches_g, "h": launches_h,
                 "i": launches_i, "i, noise on": launches_i_noise, "j": launches_j, "CMB spectra": launches_spectra,
-                "k": launches_k, "l": launches_l, "m": launches_m}
+                "k": launches_k, "l": launches_l, "m": launches_m, "p": launches_p, "q": launches_q}
     for name in ("pink_noise", "bin_map", "shared_v", "ar_extrude", "sht_synth", "sht_anal"):
         print(f"main-path launches of {name} by slice: {({k: v[name] for k, v in by_slice.items() if name in v})}",
               flush=True)
@@ -1685,7 +2099,8 @@ def main() -> int:
          "replaces": "maria_tpu/ops/pallas_noise.py:269", "launches": launches_b["pink_noise"],
          **k1[(30000, 32768)]},
         {"name": "bin_map", "route": "cuda", "source": "maria_torch/csrc/bin_map.cu",
-         "replaces": "maria_tpu/ops/pallas_binning.py:119", "launches": launches_b["bin_map"],
+         "replaces": "maria_tpu/ops/pallas_binning.py:119",
+         "launches": launches_b["bin_map"] + launches_p["bin_map"] + launches_q["bin_map"],
          **k2["b"]["stacked"]},
         {"name": "shared_v", "route": "cuda", "source": "maria_torch/csrc/shared_v.cu",
          "replaces": "maria_tpu/ops/pallas_noise.py:427", "launches": launches_c["shared_v"],
@@ -1701,6 +2116,14 @@ def main() -> int:
     print(f"K2 summary ML P^T (slice n): {k2_ml['ms']:.4f} ms, library {k2_ml['library_ms']:.4f} ms, bound "
           f"{k2_ml['bound_ms']:.4f} ms ({k2_ml['bound_ms'] / k2_ml['ms']:.1%}), plain {k2_ml['plain_ms']:.4f} ms; "
           f"{ml_launches(1, 'conjugate_gradient', ML_EPOCHS, ML_CG_ITERS)} launches a fit", flush=True)
+    for key, r in (("IQU ML P^T (slice p)", k2_p), ("IQU BinMapper band (slice q)", k2_q)):
+        print(f"K2 summary {key}: {r['ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_ms'] / r['ms']:.1%}), plain {r['plain_ms']:.4f} ms, shape {r['shape']}", flush=True)
+    print(f"slice (p) summary, the CMB patch (1052 x 12000, IQU ML fit; {card}): {json.dumps(summary_p)}", flush=True)
+    print(f"slice (q) summary, the ACT camera (9000 x 12000, IQU BinMapper; {card}): {json.dumps(summary_q)}",
+          flush=True)
+    print(f"K2's launches in the kernels line: slice (b) {launches_b['bin_map']} + slice (p) {launches_p['bin_map']} + "
+          f"slice (q) {launches_q['bin_map']}", flush=True)
     for key, r in ks.items():
         print(f"KS summary {key}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_ms'] / r['ms']:.1%}), the contract's instruction bound {r['contract_bound_ms']:.4f} ms "

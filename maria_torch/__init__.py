@@ -18,7 +18,8 @@ the tensors live on a card, and as their plain torch versions on the
 CPU.
 
 The package imports neither jax nor maria_tpu: it carries its own numpy
-scene layer for the configurations it supports.
+scene layer, with every band, array, instrument, site, region and plan of
+maria_tpu's registries, polarized arrays included.
 """
 
 from __future__ import annotations

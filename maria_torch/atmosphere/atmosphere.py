@@ -101,7 +101,7 @@ class Atmosphere:
         if method not in ("fourier", "ar"):
             raise NotImplementedError(
                 f"atmosphere method '{method}': the port has the 'fourier' and 'ar' models "
-                "(ROADMAP queue 1, item 13: atmosphere arguments)"
+                "(ROADMAP queue 1, item 13.3: atmosphere arguments)"
             )
         self.model = model
         self.method = method

@@ -1,44 +1,66 @@
 """Spectral passbands (maria_tpu/band/__init__.py): the passband table,
-the noise spec and the host-integrated (pwv, elevation) -> loading
-power table that the program interpolates per sample."""
+the noise spec (NEP, or NET_RJ through the K_RJ <-> W kernel of
+``radiometry``) and the host-integrated (pwv, elevation) -> loading power
+table that the program interpolates per sample. The registry holds all
+ten of maria_tpu's band files, flattened to "<file>/<name>" keys."""
 
 from __future__ import annotations
+
+import logging
+from collections.abc import Mapping
 
 import numpy as np
 
 from ..constants import MAX_NU_HZ, MIN_NU_HZ, k_B
-from ..io import read_config
+from ..io import flatten_config, read_config
+from ..radiometry import rayleigh_jeans_kernel
 
-__all__ = ["Band", "get_band", "BAND_CONFIGS"]
+__all__ = ["BAND_CONFIGS", "Band", "BandList", "all_bands", "get_band", "parse_band"]
 
+logger = logging.getLogger("maria_torch")
 
-def _band_configs() -> dict:
-    # configs/band_<tag>.json holds maria_tpu/band/configs/<tag>.yml,
-    # flattened to "<tag>/<name>" keys as maria_tpu does
-    return {
-        f"{tag}/{name}": cfg for tag in ("atlast", "m2") for name, cfg in read_config(f"band_{tag}").items()
-    }
-
-
-BAND_CONFIGS = _band_configs()
+# configs/band_<tag>.json holds maria_tpu/band/configs/<tag>.yml
+BAND_TAGS = ("abs", "act", "alma", "apex", "atlast", "m2", "music", "so", "test", "toltec")
+BAND_CONFIGS = flatten_config({tag: read_config(f"band_{tag}") for tag in BAND_TAGS})
+all_bands = sorted(BAND_CONFIGS)
 
 
 def get_band(band_name: str) -> "Band":
     if band_name not in BAND_CONFIGS:
-        raise NotImplementedError(
-            f"band '{band_name}' (ROADMAP queue 1, item 13: other instruments and sites); "
-            f"supported: {sorted(BAND_CONFIGS)}"
-        )
+        raise ValueError(f"'{band_name}' is not a valid pre-defined band name; known: {all_bands}")
     return Band(name=band_name, **BAND_CONFIGS[band_name])
+
+
+def parse_band(band) -> "Band":
+    """A Band from a Band, a dict of its keywords or a registry name."""
+    if isinstance(band, Band):
+        return band
+    if isinstance(band, Mapping):
+        return Band(**band)
+    if isinstance(band, str):
+        return get_band(band)
+    raise ValueError(f"Cannot parse band {band!r}.")
 
 
 def generate_passband(center: float, width: float, shape: str, samples: int = 256):
     """(nu, tau) of a parametric passband (maria_tpu/band/__init__.py
-    ``generate_passband``); only the gaussian shape is ported."""
-    if shape != "gaussian":
-        raise NotImplementedError(f"passband shape '{shape}' (ROADMAP queue 1, item 13: other instruments)")
-    nu = np.linspace(center - 1.5 * width, center + 1.5 * width, samples)
-    return nu, np.exp(np.log(0.5) * (2 * (nu - center) / width) ** 2)
+    ``generate_passband``): "gaussian", "flat" or "top_hat"."""
+    if shape == "flat":
+        nu_min, nu_max = center - 0.6 * width, center + 0.6 * width
+    elif shape == "top_hat":
+        nu_min, nu_max = center - width, center + width
+    else:
+        nu_min, nu_max = center - 1.5 * width, center + 1.5 * width
+    nu = np.linspace(nu_min, nu_max, samples)
+    if shape == "flat":
+        tau = np.where((nu > center - 0.5 * width) & (nu < center + 0.5 * width), 1.0, 0.0)
+    elif shape == "gaussian":
+        tau = np.exp(np.log(0.5) * (2 * (nu - center) / width) ** 2)
+    elif shape == "top_hat":
+        tau = np.exp(np.log(0.5) * (2 * (nu - center) / width) ** 8)
+    else:
+        raise ValueError(f"Invalid passband shape '{shape}'.")
+    return nu, tau
 
 
 def axis_transform(side):
@@ -92,40 +114,93 @@ def interp_grid_np(points, values, xi):
 
 
 class Band:
-    def __init__(self, nu=None, tau=None, name: str = None, center: float = None, width: float = None,
-                 shape: str = "gaussian", efficiency: float = 0.5, NEP: float = None,
-                 NEP_per_loading: float = 0.0, gain_error: float = 0.0, knee: float = 1.0,
-                 time_constant: float = 0.0, **unsupported):
-        if unsupported:
-            raise NotImplementedError(
-                f"band options {sorted(unsupported)} (ROADMAP queue 1, item 13: other instruments)"
-            )
-        if NEP is None:
-            raise NotImplementedError("bands specified by NET (ROADMAP queue 1, item 13)")
+    def __init__(self, center: float = None, width: float = None, nu=None, tau=None, name: str = None,
+                 shape: str = "gaussian", efficiency: float = 0.5, NET_RJ: float = None, NET_CMB: float = None,
+                 NEP: float = None, NEP_per_loading: float = 0.0, gain_error: float = 0.0, knee: float = 1.0,
+                 time_constant: float = 0.0, spectrum_kwargs: dict = {}):
         if (center is not None and width is not None) == (nu is not None and tau is not None):
             raise ValueError("Pass either both 'center' and 'width' or both 'nu' and 'tau'.")
         if center is not None:
             # a parametric passband keeps its efficiency as given
             self.nu, self.tau = generate_passband(center, width, shape, samples=1024)
-            self.efficiency = efficiency
         else:
             tau = np.asarray(tau, dtype=float)
             tau_max = tau.max()
-            self.efficiency = efficiency * tau_max
+            efficiency *= tau_max
             self.nu = np.asarray(nu, dtype=float)
             self.tau = tau / tau_max
+            if self.nu.shape != self.tau.shape or self.nu.ndim != 1:
+                raise ValueError(f"'nu' and 'tau' have mismatched shapes ({self.nu.shape}, {self.tau.shape}).")
         if (self.nu < MIN_NU_HZ).any() or (self.nu > MAX_NU_HZ).any():
             raise ValueError("passband frequencies out of bounds")
-        self.name = name
-        self.NEP = float(NEP)
+        # e.g. 150 GHz -> "f150"
+        self.name = name or f"f{10 ** (np.log10(self.center) % 3):>03.0f}"
+        self.shape = shape
+        self.efficiency = efficiency
         self.NEP_per_loading = NEP_per_loading
         self.gain_error = gain_error
         self.knee = knee
         self.time_constant = time_constant
 
+        # NET_RJ <-> NEP in a vacuum, or through a spectrum of spectrum_kwargs' region
+        self.spectrum = None
+        self.spectrum_kwargs = {}
+        if spectrum_kwargs:
+            from ..spectrum import AtmosphericSpectrum
+
+            self.spectrum = AtmosphericSpectrum(region=spectrum_kwargs["region"])
+            self.spectrum_kwargs = {
+                "zenith_pwv": spectrum_kwargs.get("pwv", 1.0),
+                "base_temperature": spectrum_kwargs.get(
+                    "temperature", float(np.mean(self.spectrum.side_base_temperature))),
+                "elevation": np.radians(spectrum_kwargs.get("elevation", 45)),
+            }
+
+        if NEP is not None:
+            self.NEP = float(NEP)
+        elif NET_RJ is not None:
+            self.NET_RJ = NET_RJ
+        elif NET_CMB is not None:
+            self.NET_CMB = NET_CMB
+        else:
+            logger.warning(f"No noise level specified for band {self.name}; assuming 50 uK_RJ√s.")
+            self.NET_RJ = 50e-6
+
+    def _rj_kernel(self) -> float:
+        """W per K_RJ of an unpolarized detector, as the NET_RJ of
+        maria_tpu's ``Calibration("K_RJ -> W")`` takes it."""
+        integral = self.compute_transmission_integral(spectrum=self.spectrum, **self.spectrum_kwargs)
+        return float(rayleigh_jeans_kernel(integral))
+
+    @property
+    def NET_RJ(self) -> float:
+        return self.NEP / self._rj_kernel()
+
+    @NET_RJ.setter
+    def NET_RJ(self, value):
+        self.NEP = float(value * self._rj_kernel())
+
+    @property
+    def NET_CMB(self):
+        raise NotImplementedError("NET_CMB (ROADMAP queue 1, item 13.4: the calibration graph's K_CMB leg)")
+
+    @NET_CMB.setter
+    def NET_CMB(self, value):
+        raise NotImplementedError("NET_CMB (ROADMAP queue 1, item 13.4: the calibration graph's K_CMB leg)")
+
     @property
     def center(self) -> float:
         return float(np.round(np.sum(self.nu * self.tau) / np.sum(self.tau), 2))
+
+    @property
+    def width(self) -> float:
+        """Full width at half maximum of the passband, in Hz."""
+        crossings = np.where((self.tau[1:] > 0.5) != (self.tau[:-1] > 0.5))[0]
+        nus = []
+        for i in crossings:
+            order = np.argsort(self.tau[[i, i + 1]])
+            nus.append(np.interp(0.5, self.tau[[i, i + 1]][order], self.nu[[i, i + 1]][order]))
+        return float(np.ptp(nus)) if len(nus) > 1 else float(np.ptp(self.nu))
 
     def passband(self, nu):
         return self.efficiency * np.interp(np.asarray(nu, dtype=float), self.nu, self.tau, left=0, right=0)
@@ -170,3 +245,32 @@ class Band:
 
     def __repr__(self):
         return f"Band({self.name}, center={self.center:.4g} Hz, NEP={self.NEP:.3g} W√s)"
+
+
+class BandList:
+    """Bands in a list, addressed by position or name
+    (maria_tpu/band/__init__.py ``BandList``)."""
+
+    def __init__(self, bands):
+        self.bands = [parse_band(b) for b in (bands if isinstance(bands, (list, tuple)) else [bands])]
+
+    @property
+    def names(self):
+        return [band.name for band in self.bands]
+
+    def __getitem__(self, key):
+        if isinstance(key, str):
+            for band in self.bands:
+                if band.name == key:
+                    return band
+            raise KeyError(key)
+        return self.bands[key]
+
+    def __iter__(self):
+        return iter(self.bands)
+
+    def __len__(self):
+        return len(self.bands)
+
+    def __repr__(self):
+        return f"BandList({self.names})"

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..band import axis_transform, fractional_index, interp_grid_np
-from ..constants import k_B
+from ..radiometry import rayleigh_jeans_kernel
 
 __all__ = ["transmission_integral", "UNITS"]
 
@@ -44,7 +44,7 @@ def conversion_factor(in_units: str, out_units: str, band, polarized: bool, spec
     (a tensor shaped as ``elevation``) with a spectrum, a float without."""
     for u in (in_units, out_units):
         if u not in UNITS:
-            raise NotImplementedError(f"units '{u}' (ROADMAP queue 1, item 13: the calibration graph)")
+            raise NotImplementedError(f"units '{u}' (ROADMAP queue 1, item 13.4: the calibration graph)")
     (q_in, s_in), (q_out, s_out) = UNITS[in_units], UNITS[out_units]
     if q_in == q_out:
         return s_in / s_out
@@ -52,7 +52,7 @@ def conversion_factor(in_units: str, out_units: str, band, polarized: bool, spec
         integral = band.compute_transmission_integral()
     else:
         integral = transmission_integral(band, spectrum, zenith_pwv, base_temperature, elevation)
-    kernel = (0.5 if polarized else 1.0) * k_B * integral
+    kernel = rayleigh_jeans_kernel(integral, polarized)
     if q_in == "power":  # W -> K_RJ
         return (s_in / s_out) / kernel
     return (s_in / s_out) * kernel  # K_RJ -> W

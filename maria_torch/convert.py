@@ -10,7 +10,8 @@ ids kernel K2 takes; ``ar_process_from_arrays`` builds the port's
 ``AutoregressiveProcess`` from a maria_tpu process's operators and
 lookback indices; ``ml_state_from_arrays`` puts a maria_tpu ML mapper's
 blocks (ids, Stokes weights, data, and optionally its noise model) into
-the port's mapper. Nothing here imports maria_tpu: the caller extracts
+the port's mapper; ``array_from_columns`` makes the port's ``Array`` of a
+maria_tpu detector table's columns (its uuid-named arrays included). Nothing here imports maria_tpu: the caller extracts
 the arrays (the tests do).
 
 ``tables`` keys: offsets (n_det, 2), bs_az_coarse, bs_el_coarse,
@@ -32,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .array import Array
 from .atmosphere.atmosphere import LayerScreen, ScreenGroup
 from .atmosphere.process import AutoregressiveProcess
 from .cmb import CMB
@@ -40,7 +42,7 @@ from .noise.dft import NoiseBandSpec
 from .ops.program import BandBlock, TODProgram
 from .plan import Plan
 
-__all__ = ["ar_process_from_arrays", "healpix_map_from_arrays", "map_from_arrays", "ml_state_from_arrays",
+__all__ = ["ar_process_from_arrays", "array_from_columns", "healpix_map_from_arrays", "map_from_arrays", "ml_state_from_arrays",
            "plan_from_arrays", "program_from_tables", "pixel_ids_from_tables"]
 
 
@@ -202,3 +204,34 @@ def ml_state_from_arrays(mapper, blocks: list):
     mapper._compute_naive_map()
     mapper.map = mapper._grid_to_map(mapper.naive_map, mapper.hits)
     return mapper
+
+
+ARRAY_COLUMNS = ("xi", "eta", "gamma", "band_name", "pol_label", "base_det_index", "array_name", "primary_size",
+                 "bath_temp", "time_constant")
+
+
+def array_from_columns(columns: dict, bands, name: str = None) -> Array:
+    """The port's Array of a maria_tpu ``Array``'s detector columns, as
+    numpy arrays (``xi eta gamma band_name pol_label base_det_index
+    array_name primary_size bath_temp time_constant``, and optionally the
+    baselines, zero without them), with ``bands`` (the port's Bands, or
+    registry names or dicts) and ``name`` (the "+"-joined array names
+    without it). The rows keep their order and their arrays' names."""
+    from .band import parse_band
+
+    missing = [k for k in ARRAY_COLUMNS if k not in columns]
+    if missing:
+        raise ValueError(f"missing detector columns {missing}")
+    n = len(np.asarray(columns["xi"]))
+    dets = {}
+    for key in ARRAY_COLUMNS + ("baseline_x", "baseline_y", "baseline_z"):
+        value = columns.get(key, np.zeros(n))
+        dets[key] = np.asarray(value, dtype=object if key in ("band_name", "pol_label", "array_name") else None)
+    dets["base_det_index"] = dets["base_det_index"].astype(np.int64)
+    for key in ("xi", "eta", "gamma", "primary_size", "bath_temp", "time_constant", "baseline_x", "baseline_y",
+                "baseline_z"):
+        dets[key] = dets[key].astype(np.float64)
+    names = list(dict.fromkeys(dets["array_name"]))
+    array = Array(name or "+".join(names), dets, [parse_band(b) for b in bands])
+    array.dets["array_name"] = dets["array_name"]
+    return array

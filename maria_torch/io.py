@@ -39,6 +39,21 @@ def read_config(name: str) -> dict:
     return json.loads(json.dumps(_read_config(name)))
 
 
+def flatten_config(config: dict, delimiter: str = "/") -> dict:
+    """Nested namespaces flattened to delimited keys, as maria_tpu's
+    registries hold them: {"act": {"pa4": {"f150": {...}}}} ->
+    {"act/pa4/f150": {...}}. A node is a namespace iff all its values are
+    dicts."""
+    flat = {}
+    for key, entry in config.items():
+        if isinstance(entry, dict) and entry and all(isinstance(v, dict) for v in entry.values()):
+            for inner_key, inner in flatten_config(entry, delimiter).items():
+                flat[f"{key}{delimiter}{inner_key}"] = inner
+        else:
+            flat[key] = entry
+    return flat
+
+
 def atomic_save_npz(path: str, **arrays):
     """Write an .npz through a private temporary file in the same
     directory, then rename it into place: concurrent writers never see

@@ -1,9 +1,9 @@
 """Sky maps (maria_tpu/map): ``ProjectionMap`` and the named input maps.
 
 ``get`` synthesizes a named map directly with numpy, seeded by the
-family's name; it fetches nothing and writes no file. The families that
-need Stokes IQUV or a velocity axis are not ported (ROADMAP queue 1,
-item 13).
+family's name; it fetches nothing and writes no file. Every family of
+maria_tpu's is here: ``polarized_source`` in Stokes IQUV and
+``spectral_line_cube`` on a velocity axis among them.
 """
 
 from __future__ import annotations
@@ -98,10 +98,6 @@ EXAMPLE_MAPS = {
     },
 }
 
-# families of EXAMPLE_MAPS that the port does not synthesize yet
-UNPORTED_FAMILIES = {"spectral_line_cube": "a velocity axis", "polarized_source": "Stokes IQUV"}
-
-
 def _edge_taper_weight(shape) -> np.ndarray:
     """Cosine-taper observation weight: highest in the middle, falling
     toward the edges, as real map products' coverage weights do."""
@@ -115,10 +111,6 @@ def _synthesize_example(name: str, center=(150.0, 10.0), t=None, **overrides) ->
     ``overrides`` replace entries of its EXAMPLE_MAPS configuration (n,
     width, nu, ...). Seeded by the family's name, so every process makes
     the same map, bit for bit the one maria_tpu makes."""
-    if name in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"map family '{name}' needs {UNPORTED_FAMILIES[name]} (ROADMAP queue 1, item 13: scene breadth)"
-        )
     cfg = {**EXAMPLE_MAPS[name], **overrides}
     n = cfg["n"]
     width_rad = np.radians(cfg["width"])
@@ -169,6 +161,49 @@ def _synthesize_example(name: str, center=(150.0, 10.0), t=None, **overrides) ->
     elif name == "quasar":
         s = width_rad / n
         data = 3e-3 * np.exp(-(X**2 + Y**2) / (2 * s**2))
+    elif name == "spectral_line_cube":
+        # rotating inclined disk: each velocity channel lights up where
+        # the line-of-sight rotation speed matches the channel
+        inc, pa = 0.8, 0.5
+        Xr = np.cos(pa) * X + np.sin(pa) * Y
+        Yr = (-np.sin(pa) * X + np.cos(pa) * Y) / np.cos(inc)
+        r = np.sqrt(Xr**2 + Yr**2) + 1e-12
+        scale = width_rad / 8
+        disk = np.exp(-r / scale)
+        v_max = 200e3  # m/s flat rotation speed
+        v_los = v_max * (Xr / r) * np.sin(inc)  # projected rotation
+        n_v = cfg.get("n_v", 16)
+        v_chan = np.linspace(-1.1 * v_max, 1.1 * v_max, n_v)
+        dv = v_chan[1] - v_chan[0]
+        data = np.stack(
+            [2e-4 * disk * np.exp(-((v_los - vc) ** 2) / (2 * (0.8 * dv) ** 2)) for vc in v_chan]
+        )  # (v, y, x)
+        w = _edge_taper_weight(data.shape[-2:])
+        return ProjectionMap(
+            data=data[None, None].astype(np.float32),
+            weight=np.broadcast_to(w, (1, 1, n_v, *w.shape)).astype(np.float32).copy(),
+            center=center, width=cfg["width"], frame="ra/dec",
+            nu=[cfg["nu"]], v=v_chan, units=cfg["units"], degrees=True,
+        )
+    elif name == "polarized_source":
+        # ring + core in I; tangential ~10% linear polarization, V=0
+        r = np.sqrt(X**2 + Y**2)
+        chi = np.arctan2(Y, X) + np.pi / 2  # tangential polarization angle
+        ring = np.exp(-((r - width_rad / 6) ** 2) / (2 * (width_rad / 40) ** 2))
+        core = np.exp(-(r**2) / (2 * (width_rad / n) ** 2))
+        I = 1e-3 * ring + 3e-3 * core
+        p = 0.1 * ring / (ring.max() + 1e-30)
+        Q = p * I * np.cos(2 * chi)
+        U = p * I * np.sin(2 * chi)
+        V = np.zeros_like(I)
+        data = np.stack([I, Q, U, V])  # (stokes, y, x)
+        w = _edge_taper_weight(I.shape)
+        return ProjectionMap(
+            data=data[:, None, None].astype(np.float32),
+            weight=np.broadcast_to(w, (4, 1, 1, *w.shape)).astype(np.float32).copy(),
+            center=center, width=cfg["width"], frame="ra/dec", stokes="IQUV",
+            nu=[cfg["nu"]], units=cfg["units"], degrees=True,
+        )
     elif name == "protoplanetary_disk":
         inc, pa = 0.7, 1.1
         Xr = np.cos(pa) * X + np.sin(pa) * Y

@@ -75,7 +75,7 @@ class HEALPixMap:
         scales = _unit_scales(self.units)
         if units not in scales:
             raise NotImplementedError(
-                f"map units '{self.units}' -> '{units}' (ROADMAP queue 1, item 13: the calibration graph)"
+                f"map units '{self.units}' -> '{units}' (ROADMAP queue 1, item 13.4: the calibration graph)"
             )
         factor = scales[self.units] / scales[units]
         if factor == 1.0:

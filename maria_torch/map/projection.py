@@ -37,7 +37,7 @@ def _unit_scales(units: str) -> dict:
     for scales in (RJ_UNITS, POWER_UNITS, CMB_UNITS):
         if units in scales:
             return scales
-    raise NotImplementedError(f"map units '{units}' (ROADMAP queue 1, item 13: the calibration graph)")
+    raise NotImplementedError(f"map units '{units}' (ROADMAP queue 1, item 13.4: the calibration graph)")
 
 
 def gaussian_beam_fft_filter(shape, res_y: float, res_x: float, fwhm: float, dtype=torch.float32):
@@ -176,7 +176,7 @@ class ProjectionMap:
         scales = _unit_scales(self.units)
         if units not in scales:
             raise NotImplementedError(
-                f"map units '{self.units}' -> '{units}' (ROADMAP queue 1, item 13: the calibration graph)"
+                f"map units '{self.units}' -> '{units}' (ROADMAP queue 1, item 13.4: the calibration graph)"
             )
         factor = scales[self.units] / scales[units]
         if factor == 1.0:

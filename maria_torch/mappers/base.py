@@ -29,7 +29,7 @@ class BaseProjectionMapper:
         if self.frame.name == "galactic":
             raise ValueError("a projection mapper's frame is 'az/el' or 'ra/dec'")
         if units not in ("K_RJ", "pW"):
-            raise NotImplementedError(f"map units '{units}' (ROADMAP queue 1, item 13: the calibration graph)")
+            raise NotImplementedError(f"map units '{units}' (ROADMAP queue 1, item 13.4: the calibration graph)")
         self.units = units
         self.t_bins = t_bins
         self.map_postprocessing = dict(map_postprocessing)

@@ -79,7 +79,7 @@ def generate_noise_with_knee(shape: tuple, sample_rate: float = 1.0, knee: float
     n_det, n = shape
     device = white.device if device is None and white is not None else device
     if knee <= 0:
-        raise NotImplementedError("noise without a 1/f knee (ROADMAP queue 1, item 13)")
+        raise NotImplementedError("noise without a 1/f knee (ROADMAP queue 1, item 13.9)")
 
     n_fft = good_fft_size(n)
     n_f = n_fft // 2 + 1

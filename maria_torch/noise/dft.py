@@ -36,6 +36,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.shared_v import draw_key, shared_v, shared_v_plain
 from . import band_half_spectrum
 
@@ -121,10 +122,10 @@ def noise_total_matmul(A, specs, n: int, n_fft: int, corr_cols=None, shared_c=No
     Draws come from ``generator`` unless injected: ``z`` the white draw,
     (n_det, 2, m+1) float32 normals (per band, rows start:stop of it,
     when the shape is not shared), and ``mode_z`` a list indexed by
-    ``key_index`` of (k, 2, m+1) mode normals.
+    ``key_index`` of (k, 2, m+1) mode normals. It computes on ``device``,
+    else on ``A``'s device when ``A`` is a tensor, else on the card.
     """
-    device = torch.device(device) if device is not None else (
-        A.device if torch.is_tensor(A) else torch.device("cpu"))
+    device = A.device if device is None and torch.is_tensor(A) else resolve_device(device)
     m1 = n_fft // 2 + 1
     n_det = specs[-1].stop
     cs, cs_bf16 = _basis_tensors(n_fft, n, str(device))

@@ -57,7 +57,7 @@ class BandBlock:
     def __post_init__(self):
         if self.NEP_per_loading:
             raise NotImplementedError(
-                "NEP_per_loading (ROADMAP queue 1, item 13: the photon-loading noise term)"
+                "NEP_per_loading (ROADMAP queue 1, item 13.8: the photon-loading noise term)"
             )
 
 

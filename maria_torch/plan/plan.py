@@ -1,10 +1,6 @@
 """Scan plans (maria_tpu/plan/plan.py): time-ordered boresight tracks in
-az/el, ra/dec or galactic, made from the daisy pattern.
-
-The pattern is the reference's petal-curve daisy with its
-speed-normalizing fixed-point loop, reproduced so the same arguments
-give the same boresight track as maria_tpu.
-"""
+az/el, ra/dec or galactic, made from a scan pattern of ``patterns``
+around a scan centre."""
 
 from __future__ import annotations
 
@@ -15,8 +11,9 @@ import numpy as np
 
 from ..coords import Coordinates, EarthLocation, offsets_to_phi_theta
 from ..site import get_site
+from .patterns import get_scan_pattern_generator, parse_scan_kwargs
 
-__all__ = ["Plan", "PlanList", "daisy", "parse_time"]
+__all__ = ["Plan", "PlanList", "parse_time"]
 
 
 def parse_time(t) -> float:
@@ -36,47 +33,6 @@ def parse_time(t) -> float:
     raise ValueError(f"Cannot parse time {t!r}.")
 
 
-def _daisy_from_phase(phase, a, b, petals, miss_freq):
-    x = a * np.cos(petals * phase) * np.sin(phase) + b * np.sin(petals * phase) * np.cos(miss_freq * phase)
-    y = a * np.cos(petals * phase) * np.cos(phase) + b * np.sin(petals * phase) * np.sin(miss_freq * phase)
-    X = np.stack([x, y])
-    return (a + b) * X / np.sqrt(np.square(X).sum(axis=0).max())
-
-
-def daisy(time, x_throw, y_throw, speed, petals=np.sqrt(np.e), miss_factor=0.2, miss_freq=0.1):
-    """(2, n_t) daisy offsets in the units of the throws."""
-    radius = x_throw
-    if radius <= 0:
-        return np.zeros((2, len(time)))
-    a = radius / (1 + miss_factor)
-    b = a * miss_factor
-    dp = (speed / radius) * np.gradient(time)
-    for _ in range(4):
-        phase = np.cumsum(dp)
-        tx, ty = _daisy_from_phase(phase, a=a, b=b, petals=petals, miss_freq=miss_freq)
-        v = np.sqrt((np.gradient(tx) / np.gradient(time)) ** 2 + (np.gradient(ty) / np.gradient(time)) ** 2)
-        max_speed = v.max()
-        if abs(np.log(max_speed / speed)) > 0.01:
-            dp *= speed / max_speed
-        else:
-            break
-    x, y = _daisy_from_phase(np.cumsum(dp), a=a, b=b, petals=petals, miss_freq=miss_freq)
-    return np.stack([x, (y_throw / x_throw) * y])
-
-
-def _daisy_kwargs(scan_options: dict) -> dict:
-    o = dict(scan_options)
-    allowed = {"radius", "x_throw", "y_throw", "speed", "petals", "miss_factor", "miss_freq"}
-    if set(o) - allowed:
-        raise NotImplementedError(f"daisy options {sorted(set(o) - allowed)} (ROADMAP queue 1, item 13)")
-    if "x_throw" not in o:
-        o["x_throw"] = o.pop("radius", 1.0)
-    o.pop("radius", None)
-    o.setdefault("y_throw", o["x_throw"])
-    o.setdefault("speed", max(o["x_throw"], o["y_throw"]) / 4)
-    return o
-
-
 class Plan:
     """Time-ordered boresight pointing (phi, theta) in ``frame``, radians."""
 
@@ -84,11 +40,11 @@ class Plan:
     def generate(cls, site=None, description: str = "", start_time=None, duration: float = 60.0,
                  sample_rate: float = 50.0, frame: str = "ra/dec", degrees: bool = True, jitter: float = 0.0,
                  roll: float = 0.0, scan_center=(0.0, 0.0), scan_pattern: str = "daisy", scan_options: dict = {}) -> "Plan":
-        if scan_pattern != "daisy":
-            raise NotImplementedError(f"scan pattern '{scan_pattern}' (ROADMAP queue 1, item 13)")
         t0 = parse_time(start_time)
         time = np.arange(t0, t0 + float(duration), 1 / float(sample_rate))
-        scan_offsets = daisy(time - time[0], **_daisy_kwargs(scan_options))
+        scan_offsets = get_scan_pattern_generator(scan_pattern)(time - time[0], **parse_scan_kwargs(scan_options))
+        if np.isnan(scan_offsets).any():
+            raise RuntimeError(f"Scan pattern '{scan_pattern}' produced NaNs.")
         scan_center = np.asarray(scan_center, dtype=float)
         if degrees:
             scan_offsets = np.radians(scan_offsets)

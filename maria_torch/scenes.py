@@ -17,6 +17,16 @@ or without an atmosphere, noise, the map itself and a CMB; ``sky_mapper``
 maps its TODs back in ra/dec on the input map's grid (with BinMapper or
 another mapper), and ``sky_recovery`` (``cmb_recovery`` for the CMB) and
 ``sky_residual_rms`` hold that map against the input.
+
+``cmb_patch_simulation`` is the CMB-camera tutorial of docs/tutorials.md
+("A CMB patch with an ACT-like array"): two act/pa5 bands at NET_RJ 10
+uK_RJ√s and a 10 s knee, a polarized sunflower array of 1,052 detectors,
+a 600 s, 20 Hz back-and-forth at cerro_toco and a CMB; ``cmb_patch_mapper``
+is its IQU maximum-likelihood mapper after ``remove_spline``, and
+``stokes_recovery`` holds a map's Stokes planes against a CMB's.
+``act_simulation`` is the ACT camera (pa4, pa5, pa6: 9,000 polarized
+detectors in six bands) at the ACT site on the registry's
+back_and_forth_10deg_45el plan with the 2-D atmosphere, a CMB and noise.
 """
 
 from __future__ import annotations
@@ -195,3 +205,112 @@ def map_stage_errors(sim, device) -> dict:
         "field": float((field - field_cpu).abs().max()) / float(field_cpu.abs().max()),
         "field_limit": 2 * step * float(np.spacing(np.float32(sim.map.center[0]))) / smoothed.x_res / scale,
     }
+
+
+CMB_PATCH_START = "2026-03-05T12:00:00"
+CMB_PATCH_PREPROCESSING = {"remove_spline": {"knot_spacing": 60, "remove_el_gradient_order": 3}}
+
+
+def cmb_patch_instrument():
+    """The tutorial's instrument: act/pa5/f090 and f150 at NET_RJ 10
+    uK_RJ√s and a 10 s knee, through the NET_RJ setter, on a polarized
+    sunflower/circle array of 0.7 deg at 1.5 beams' spacing, 10 m primary."""
+    import maria_torch
+    from maria_torch.band import get_band
+
+    bands = []
+    for name in ("act/pa5/f090", "act/pa5/f150"):
+        band = get_band(name)
+        band.NET_RJ = 10e-6
+        band.knee = 1e1
+        bands.append(band)
+    return maria_torch.get_instrument(array={
+        "field_of_view": 0.7, "beam_spacing": 1.5, "primary_size": 10, "packing": "sunflower", "shape": "circle",
+        "polarized": True, "bands": bands})
+
+
+def cmb_patch_plan(duration: float = 600.0):
+    """The tutorial's plan: a back-and-forth of 2 deg throw at 1 deg/s in
+    az/el at (45, 45), 20 Hz, at cerro_toco."""
+    import maria_torch
+
+    return maria_torch.Plan.generate(duration=duration, sample_rate=20, start_time=CMB_PATCH_START,
+                                     scan_center=(45, 45), scan_pattern="back-and-forth",
+                                     scan_options={"x_throw": 2, "y_throw": 0, "speed": 1.0}, frame="az/el",
+                                     site="cerro_toco")
+
+
+def cmb_patch_simulation(duration: float = 600.0, device=None, cmb="generate", cmb_kwargs: dict = {"nside": 1024},
+                         noise: bool = True, seed: int = 0):
+    """The tutorial's Simulation, without an atmosphere: ``cmb`` as
+    ``Simulation`` takes it ("generate" with ``cmb_kwargs``, or a drawn
+    CMB handed in)."""
+    import maria_torch
+
+    return maria_torch.Simulation(cmb_patch_instrument(), plans=[cmb_patch_plan(duration)], site="cerro_toco",
+                                  cmb=cmb, cmb_kwargs=cmb_kwargs, noise=noise, seed=seed, device=device)
+
+
+def cmb_patch_mapper(tods, tod_preprocessing=CMB_PATCH_PREPROCESSING, **kwargs):
+    """The tutorial's MaximumLikelihoodMapper: ra/dec at 2 arcmin, IQU
+    from the polarized detectors, after ``remove_spline`` with the
+    elevation gradient to order 3 (``tod_preprocessing={}`` maps the TODs
+    as they are)."""
+    import maria_torch
+
+    return maria_torch.MaximumLikelihoodMapper(tods=tods, frame="ra/dec", resolution=2 / 60,
+                                               tod_preprocessing=tod_preprocessing, **kwargs)
+
+
+def without_band_means(tod):
+    """The TOD (one field, "signal") less each band's mean over its
+    detectors and samples: the CMB's monopole P0 w_I is one number a band
+    of polarized detectors without gain errors, and taking it off leaves
+    the anisotropy that a mapper should recover."""
+    import torch
+
+    from .tod import TOD
+
+    data = tod.signal.clone()
+    for band in tod.dets.bands:
+        rows = torch.as_tensor(np.where(tod.dets.band_name == band.name)[0], device=data.device)
+        data[rows] -= data[rows].double().mean().float()
+    return TOD(data={"signal": data}, pointing=tod.pointing, weight=tod.weight, units=tod.units, dets=tod.dets,
+               metadata=tod.metadata)
+
+
+def stokes_recovery(cmb, out_map, nu_index: int = 0) -> dict:
+    """Correlation of each Stokes plane of a ra/dec map with the CMB's
+    plane of the same name at the mapper's pixel centres, over the hit
+    pixels: the simulator's own convention, in which a detector sees
+    sum_s w_s map_s with the galactic-frame Q and U (no angle rotated
+    between frames)."""
+    import torch
+
+    from .coords import offsets_to_phi_theta
+
+    device = out_map.data.device
+    X, Y = np.meshgrid(out_map.x_side, out_map.y_side)
+    offsets = torch.as_tensor(np.stack([X, Y], axis=-1), dtype=torch.float32, device=device)
+    radec = offsets_to_phi_theta(offsets, *(torch.tensor(c, dtype=torch.float32, device=device)
+                                            for c in out_map.center))
+    pix = cmb.radec_pixels(radec[..., 0], radec[..., 1])
+    out = {}
+    for i, s in enumerate(out_map.stokes):
+        hit = out_map.weight[i, nu_index, 0] > 0
+        d = out_map.data[i, nu_index, 0][hit].double()
+        truth = cmb.data[cmb.stokes.index(s), 0, 0].to(device)[pix][hit].double()
+        out[s] = float(torch.corrcoef(torch.stack([d, truth]))[0, 1])
+    return out
+
+
+def act_simulation(duration: float = 600.0, device=None, cmb="generate", cmb_kwargs: dict = {}, noise: bool = True,
+                   atmosphere="2d", seed: int = 0):
+    """The ACT camera at the ACT site on the registry's
+    back_and_forth_10deg_45el plan for ``duration`` seconds (9,000
+    detectors x 20 Hz), with the 2-D atmosphere, a CMB and noise."""
+    import maria_torch
+
+    plan = maria_torch.get_plan("back_and_forth_10deg_45el", duration=duration, site="ACT")
+    return maria_torch.Simulation("ACT", plans=plan, site="ACT", atmosphere=atmosphere, cmb=cmb,
+                                  cmb_kwargs=cmb_kwargs, noise=noise, seed=seed, device=device)

@@ -83,7 +83,7 @@ def initialize_cmb(cmb, seed: int = None, device=None, **cmb_kwargs):
         raise ValueError(f"Invalid value for cmb '{cmb}'.")
     if cmb.units != "K_CMB":
         raise NotImplementedError(
-            f"a CMB map in {cmb.units} (ROADMAP queue 1, item 13: the calibration graph has no K_CMB conversion)"
+            f"a CMB map in {cmb.units} (ROADMAP queue 1, item 13.4: the calibration graph has no K_CMB conversion)"
         )
     return cmb
 

@@ -43,7 +43,8 @@ class Simulation:
         if site is None:
             raise TypeError("Simulation requires 'site'.")
         if kwargs:
-            raise NotImplementedError(f"simulation options {sorted(kwargs)} (ROADMAP queue 1, item 13)")
+            raise NotImplementedError(
+                f"simulation options {sorted(kwargs)} (ROADMAP queue 1, item 13.2: the Simulation constructor)")
 
         self.device = resolve_device(device)
         self.seed = seed
@@ -174,7 +175,7 @@ class Simulation:
                 continue
             if band.NEP_per_loading:
                 raise NotImplementedError(
-                    "NEP_per_loading (ROADMAP queue 1, item 13: the photon-loading noise term)"
+                    "NEP_per_loading (ROADMAP queue 1, item 13.8: the photon-loading noise term)"
                 )
             basis, corr_prop = band_noise_basis(dets.offsets[band_idx], self.noise_kwargs)
             unscaled = generate_noise_with_knee(

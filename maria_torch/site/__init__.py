@@ -1,22 +1,26 @@
-"""Observing sites and regions (maria_tpu/site): the entries the port's
-configurations use, stored as JSON."""
+"""Observing sites and regions (maria_tpu/site): the 26 named sites with
+their aliases and altitude overrides, and the 25 regions with their
+geography and the climatological pwv of the synthetic weather, stored as
+JSON. A region's name is a site of its own. The world height map is
+downloaded data and is not ported."""
 
 from __future__ import annotations
 
 from ..coords.earth import EarthLocation
 from ..io import read_config
 
-__all__ = ["Site", "get_site", "get_region"]
+__all__ = ["REGIONS", "SITE_CONFIGS", "Site", "all_regions", "all_sites", "get_region", "get_site", "get_site_config"]
+
+REGIONS = read_config("regions")
+SITE_CONFIGS = read_config("sites")
+all_regions = list(REGIONS)
+all_sites = sorted(SITE_CONFIGS)
 
 
 def get_region(region: str) -> dict:
-    regions = read_config("regions")
-    if region not in regions:
-        raise NotImplementedError(
-            f"region '{region}' (ROADMAP queue 1, item 13: other instruments and sites); "
-            f"supported: {sorted(regions)}"
-        )
-    return regions[region]
+    if region not in REGIONS:
+        raise ValueError(f"'{region}' is not a valid region; known: {all_regions}")
+    return dict(REGIONS[region])
 
 
 class Site:
@@ -38,12 +42,28 @@ class Site:
         return f"Site({self.name}: region={self.region}, altitude={self.altitude} m)"
 
 
-def get_site(site_name: str, **kwargs) -> Site:
-    for name, config in read_config("sites").items():
+def _named(site_name: str):
+    for name, config in SITE_CONFIGS.items():
         if site_name == name or site_name in config.get("aliases", []):
-            cfg = {k: v for k, v in config.items() if k != "aliases"}
-            cfg.update(kwargs)
-            return Site(name=name, **cfg)
-    raise NotImplementedError(
-        f"site '{site_name}' (ROADMAP queue 1, item 13: other instruments and sites)"
-    )
+            return name, {k: v for k, v in config.items() if k != "aliases"}
+    return None, None
+
+
+def get_site_config(site_name: str = "hoagie_haven", **kwargs) -> dict:
+    """The configuration of a named site (or alias), with overrides."""
+    name, cfg = _named(site_name)
+    if name is None:
+        raise ValueError(f"'{site_name}' is not a valid site; known: {all_sites}")
+    return {**cfg, **kwargs}
+
+
+def get_site(site_name: str, **kwargs) -> Site:
+    """A named site (or alias) or a region, with overrides such as
+    ``altitude=``."""
+    name, cfg = _named(site_name)
+    if name is not None:
+        return Site(name=name, **{**cfg, **kwargs})
+    if site_name in REGIONS:
+        return Site(region=site_name, **kwargs)
+    raise ValueError(f"'{site_name}' is not a valid site or region; known: {all_sites + all_regions}")
+

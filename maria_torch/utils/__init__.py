@@ -9,11 +9,20 @@ import numpy as np
 import scipy as sp
 
 
+# maria_tpu's compute_diameter takes the hull of 10,000 points drawn with
+# replacement by default_rng(0) from a larger cloud; the diameter-and-spacing
+# iteration of an array's pattern (and AtLAST-SZ's detector count) depends on it.
+_MAX_DIAMETER_SAMPLE = 10000
+
+
 def compute_diameter(points) -> float:
-    """Diameter of a point cloud via its convex hull."""
+    """Diameter of a point cloud via its convex hull (of the subsample
+    above for more than ``_MAX_DIAMETER_SAMPLE`` points)."""
     points = np.atleast_2d(points)
     if len(points) < 2:
         return 0.0
+    if len(points) > _MAX_DIAMETER_SAMPLE:
+        points = points[np.random.default_rng(0).choice(len(points), size=_MAX_DIAMETER_SAMPLE, replace=True)]
     dims_vary = np.ptp(points, axis=0) > 0
     if dims_vary.sum() == 0:
         return 0.0

@@ -643,3 +643,59 @@ def test_ml_fit_and_processing_on_card_match_cpu(cuda_device):
     on_card, on_cpu = tod.process(**chain), cpu.process(**chain)
     assert on_card.device.type == "cuda"
     assert float((on_card.signal.cpu() - on_cpu.signal).abs().max()) <= 1e-5 * float(cpu.signal.abs().max())
+
+
+# -- polarization: K2 at the IQU shapes, the CMB patch on the card ---------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_channels", [3, 6])
+def test_bin_map_at_the_polarized_shapes(cuda_device, n_channels):
+    """K2 with three channels (the IQU P^T of the CMB patch: ids in
+    [0, n_pix), 2 x (197 x 197 + 1) pixels) and six (BinMapper's IQU
+    band: -1 off the map) at 1,052 x 12,000 samples against its float64
+    plain sums: within 1e-5 of their maximum."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    n_pix = 2 * (197 * 197 + 1)
+    low = 0 if n_channels == 3 else -1
+    ids = torch.randint(low, n_pix, (1052, 12000), generator=g, device=cuda_device, dtype=torch.int32)
+    data = torch.randn((n_channels, 1052, 12000), generator=g, device=cuda_device)
+    out = bin_map(data, ids, n_pix)
+    keep = ids.reshape(-1) >= 0
+    exact = torch.zeros((n_channels, n_pix), dtype=torch.float64, device=cuda_device)
+    exact.index_add_(1, ids.reshape(-1)[keep].long(), data.reshape(n_channels, -1)[:, keep].double())
+    assert float((out.double() - exact).abs().max()) <= 1e-5 * float(exact.abs().max())
+
+
+@pytest.mark.cuda
+def test_cmb_patch_on_card_matches_cpu(cuda_device):
+    """The CMB patch of docs/tutorials.md (a 20 s cut, noise off, one CMB
+    at nside 256 drawn on the card and one gains draw handed to both) on
+    the card against the CPU, the CPU given the card's HEALPix pixels (a
+    sample within an ulp of a pixel's edge may take the neighbour): within
+    1e-5 of the TOD's maximum; and the IQU ML fit of both bands finite."""
+    from maria_torch import scenes
+    from maria_torch.cmb import generate_cmb
+    from maria_torch.tod import Pointing
+
+    cmb = generate_cmb(nside=256, seed=0, device=cuda_device)
+    gains = torch.randn(1052, generator=torch.Generator().manual_seed(5))
+    sims = {d: scenes.cmb_patch_simulation(20.0, d, cmb=cmb, noise=False) for d in ("cuda", "cpu")}
+    card = sims["cuda"].run(draws=[{"gains": gains.cuda()}])[0]
+    obs = sims["cuda"].obs_list[0]
+    det_index = np.arange(obs.shape[0])
+    pix = {}
+    for band in obs.instrument.dets.bands:
+        rows = det_index[obs.instrument.dets.band_name == band.name]
+        ra, dec = Pointing(obs.boresight, obs.offsets[rows], obs.q).det_radec(device="cuda")
+        pix[band.name] = cmb.radec_pixels(ra, dec).cpu()
+    order = iter(pix.values())
+    cmb.radec_pixels = lambda ra, dec: next(order)  # the bands in the order compute_cmb_loading takes them
+    try:
+        cpu = sims["cpu"].run(draws=[{"gains": gains}])[0]
+    finally:
+        del cmb.radec_pixels
+    scale = float(cpu.signal.abs().max())
+    assert float((card.signal.cpu() - cpu.signal).abs().max()) <= 1e-5 * scale
+    out = scenes.cmb_patch_mapper([card]).fit(epochs=1, steps_per_epoch=5)
+    assert out.stokes == "IQU" and out.data.shape[:2] == (3, 2) and bool(torch.isfinite(out.data).all())

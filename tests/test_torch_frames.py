@@ -191,8 +191,11 @@ def test_plan_jitter_and_date_strings():
     assert maria_torch.plan.parse_time(12) == 12.0
     with pytest.raises(ValueError, match="Cannot parse"):
         maria_torch.plan.parse_time([1])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        maria_torch.Plan.generate(scan_pattern="raster")
+    ref, ours = maria_tpu.Plan.generate(scan_pattern="raster", start_time=T0), \
+        maria_torch.Plan.generate(scan_pattern="raster", start_time=T0)  # every pattern is ported
+    assert angle_diff(ours.ra, ref.ra) <= TOL and angle_diff(ours.dec, ref.dec) <= TOL
+    with pytest.raises(ValueError, match="Invalid scan pattern"):
+        maria_torch.Plan.generate(scan_pattern="spiral")
 
 
 def test_plan_add_and_plan_list():

@@ -30,12 +30,12 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_slice import jax_draws, to_torch  # noqa: E402
 
 from maria_torch.convert import map_from_arrays  # noqa: E402
-from maria_torch.map import EXAMPLE_MAPS, UNPORTED_FAMILIES, ProjectionMap  # noqa: E402
+from maria_torch.map import EXAMPLE_MAPS, ProjectionMap  # noqa: E402
 
 T0 = 1.75e9
 SEED = 0
 CENTER = (150.0, 10.0)
-FAMILIES = [name for name in EXAMPLE_MAPS if name not in UNPORTED_FAMILIES]
+FAMILIES = list(EXAMPLE_MAPS)
 PLANNER_KW = dict(start_time=T0, horizon_days=2, total_duration=20.0, chunk_duration=20.0, scan_pattern="daisy",
                   scan_options={"radius": 0.083, "speed": 0.017}, sample_rate=50)
 
@@ -139,9 +139,10 @@ def test_get_names_overrides_and_unported():
         maria_torch.map.get("dust", width=2.0, n=64, center=(10.0, -20.0))
     np.testing.assert_array_equal(wide.data.numpy(), np.asarray(wide_ref.data))
     assert wide.width == wide_ref.width.rad and wide.shape == (1, 1, 1, 64, 64)
-    for name in ("polarized_source", "12CO(2-1)"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            maria_torch.map.get(name)
+    for name in ("polarized_source", "12CO(2-1)"):  # Stokes IQUV and a velocity axis, ported
+        ref, ours = ref_get(name), maria_torch.map.get(name)
+        np.testing.assert_array_equal(ours.data.numpy(), np.asarray(ref.data))
+        assert ours.stokes == ref.stokes and ours.center == ref.center
     with pytest.raises(ValueError, match="not a known map"):
         maria_torch.map.get("andromeda")
 

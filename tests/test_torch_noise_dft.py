@@ -231,3 +231,28 @@ def test_shared_v_writes_into_a_wider_buffer():
     V = shared_v(key, c, 3, out=out)
     assert torch.equal(V, shared_v_plain(key, c, 3))
     assert torch.all(out[..., 10:] == 7.0)
+
+
+def test_noise_total_matmul_needs_a_device_without_a_card():
+    """Given neither a device nor a tensor A, noise_total_matmul computes
+    on the card and raises where there is none; it never falls back to
+    the CPU unasked."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    _, specs, corr_cols, extra, _ = _problem(shared=True)
+    with pytest.raises(RuntimeError, match='pass device="cpu"'):
+        dft.noise_total_matmul(0.0, specs, n=N, n_fft=N_FFT, corr_cols=corr_cols, **extra)
+
+
+def test_noise_total_matmul_on_the_cpu_when_asked():
+    """device="cpu" (with a scalar A) computes on the CPU, the same total
+    as a CPU tensor A gives from the same draws."""
+    _, specs, corr_cols, extra, _ = _problem(shared=True)
+    n_det = specs[-1].stop
+    g = torch.Generator().manual_seed(5)
+    z = torch.randn((n_det, 2, M1), generator=g)
+    mode_z = [torch.randn((sp.k_modes, 2, M1), generator=g) if sp.k_modes else None for sp in specs]
+    kw = dict(n=N, n_fft=N_FFT, corr_cols=corr_cols, z=z, mode_z=mode_z, basis_dtype=torch.float32, **extra)
+    ours = dft.noise_total_matmul(0.0, specs, device="cpu", **kw)
+    assert ours.device.type == "cpu" and ours.shape == (n_det, N)
+    np.testing.assert_array_equal(ours.numpy(), dft.noise_total_matmul(torch.zeros((n_det, N)), specs, **kw).numpy())

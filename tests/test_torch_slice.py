@@ -145,7 +145,11 @@ def program_tables(p):
         ("band_m2", "maria_tpu/band/configs/m2.yml"),
         ("instrument_atlast", "maria_tpu/instrument/configs/atlast.yml"),
         ("band_atlast", "maria_tpu/band/configs/atlast.yml"),
-    ],
+    ] + [(f"{kind}_{tag}", f"maria_tpu/{kind}/configs/{tag}.yml") for kind, tags in (
+        ("band", ("abs", "act", "alma", "apex", "music", "so", "test", "toltec")),
+        ("array", ("act", "alma", "apex", "hd", "so")),
+        ("instrument", ("act", "alma", "apex", "hd", "lmt", "music", "newmusic", "so", "test")),
+    ) for tag in tags],
 )
 def test_json_configs_equal_yaml_sources(json_name, yaml_path):
     with open(os.path.join(REPO, "maria_torch", "configs", f"{json_name}.json")) as f:
@@ -164,6 +168,9 @@ def test_plan_site_region_configs_equal_sources():
         plans = yaml.safe_load(f)
     for name, cfg in read_config("plans").items():
         assert cfg == plans[name]
+    assert sorted(read_config("plans")) == sorted(plans)
+    assert sorted(read_config("sites")) == sorted(SITE_CONFIGS)
+    assert list(read_config("regions")) == list(REGIONS.index)
     for name, cfg in read_config("sites").items():
         assert cfg == SITE_CONFIGS[name]
     for name, row in read_config("regions").items():
@@ -181,7 +188,9 @@ def test_import_guard():
     assert len(paths) > 30
     for module in ("atmosphere/process.py", "ops/ar_extrude.py", "ops/kernels.py", "convert.py", "healpix/core.py",
                    "healpix/sht.py", "cmb/__init__.py", "cmb/spectra.py", "map/healpix.py", "sim/cmb.py", "ops/sht.py",
-                   "utils/signal.py", "tod/processing.py", "mappers/ml_mapper.py"):
+                   "utils/signal.py", "tod/processing.py", "mappers/ml_mapper.py", "radiometry.py",
+                   "array/generation.py", "plan/patterns.py", "band/__init__.py", "array/__init__.py",
+                   "instrument/__init__.py", "site/__init__.py", "scenes.py"):
         assert os.path.join(REPO, "maria_torch", *module.split("/")) in paths, module
     for path in paths:
         with open(path) as f:
