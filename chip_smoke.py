@@ -8,9 +8,9 @@ Phases, each of which must pass (any failure exits non-zero):
 2. build: compiles the hand-written kernels (maria_torch/csrc) with nvcc,
    one process per source, and prints ptxas's register and spill lines;
 3. K1 pink_noise against its plain torch version (irfft) at the slices'
-   shapes (one pass at n_fft 3072; two passes at 32768 and 65536), a
-   1-hour scan at 50 Hz (n_fft 196608, odd part 3, two passes) and a
-   small one-pass case, |diff| <= 2e-4 x std;
+   shapes (one pass at n_fft 3072, also at slice (s)'s 5,556 rows; two
+   passes at 32768 and 65536), a 1-hour scan at 50 Hz (n_fft 196608, odd
+   part 3, two passes) and a small one-pass case, |diff| <= 2e-4 x std;
 4. K3 shared_v against its plain torch version (the same Philox and
    Box-Muller in torch ops) at the AtLAST shape (50,004 rows, m+1 =
    1537), at a small odd one, and as slice (c) launches it, with its
@@ -50,7 +50,8 @@ Phases, each of which must pass (any failure exits non-zero):
    over blocks) and (d)'s ids on a 512 x 512 map (global atomics), each
    as (data, 1) and as data with the in-kernel count: hit counts exact,
    sums within 1e-5 of the map's maximum of the plain sums taken in
-   float64; and at slice (h)'s ra/dec ids on its 512 x 512 map;
+   float64; and at slice (h)'s ra/dec ids on its 512 x 512 map and slice
+   (r)'s on its 417 x 417 maps;
 11. slice (h), the observer's flow at full width: MUSTANG-2 at the GBT on
    a Planner-made 600 s ra/dec daisy over the synthetic big_cluster map
    (512 x 512, 0.5 deg) at (150, 10) deg with the 2-D atmosphere and
@@ -175,7 +176,35 @@ Phases, each of which must pass (any failure exits non-zero):
    against its float64 plain sums (1e-5), timed beside index_add_ and
    its byte bound; every band's noise PSD within 10%; setup seconds by
    part, warm run() and map ms, peak device memory, the device's busy
-   share.
+   share;
+24. slice (r), docs/usage.md:43-63 as written: MUSTANG-2 at the GBT on the
+   Planner's 600 s ra/dec daisy over (150, 10) deg (its default 20 Hz: 217
+   x 12,000), the 2-D atmosphere, cmb="generate" (nside 1024, KS1 in the
+   setup), the cluster map, noise, the loose pwv=1.2 and seed 0, then
+   run(units="K_RJ"): the loose pwv reaches the weather (zenith pwv 1.2
+   mm within 1e-4), finite fields atmosphere, cmb, map and noise, K1
+   launched by the run; Simulation.from_config(config) with the same
+   keywords gives the same TOD to the bit (else within 1e-6 of its
+   maximum, and the differing fields are printed); tod.to("uK_CMB") on
+   the card within 1e-5 of the same conversion on the CPU of the same pW
+   TOD, and the per-sample dP/dT_CMB factor within 1e-5 relative; BinMapper
+   maps in uK_RJ, uK_CMB and Jy/pixel on docs/usage.md:94-107's 417 x 417
+   grid, K2 once a map, the Jy/pixel map equal to the K_RJ map's
+   .to("Jy/pixel") and the uK_RJ map to 1e6 x the K_RJ map within 1e-6 of
+   the TOD's largest sample in that unit; Simulation(fused=False) of the
+   same scene, each field's std within 0.5-2x of the fused run's; the noise
+   PSD; warm times and peak memory;
+25. slice (s), AtLAST-50k photon noise: slice (c)'s scene with every band's
+   NEP_per_loading set to its NEP over the band's mean loading (so the
+   loading term equals the NEP there) and the last band without a knee,
+   through total_power_fn(): no matrix product, K3 never and K1 twice a
+   band with a knee (its 5,556 rows at n_fft 3072 and its correlated
+   modes); the total equal to the gained sum of the program's fields
+   (1e-6 of its maximum); each band's noise (NEP + NEP_per_loading P) /
+   NEP times that of the same program without the term on the same draws,
+   within 1e-5 relative sample by sample; the knee-free band's noise in
+   the program without the term of variance fs NEP^2 within 5% and a PSD
+   flat within 10%; warm time and peak memory.
 
 Every kernel is timed (CUDA events, in turns) beside its plain version,
 the PyTorch library call that computes the same function where there is
@@ -190,8 +219,9 @@ the kernel really pays, of its block or its cluster, is probed and printed
 beside them and enters no bound).
 
 The line before the last is the card as nvidia-smi reports it, the one
-before that the kernels' JSON record (K2's launches counted over slices
-(b), (p) and (q)); the last line is the JSON result.
+before that the kernels' JSON record (K1's launches counted over slices
+(b), (r) and (s), K2's over (b), (p), (q) and (r)); the last line is the
+JSON result.
 """
 
 from __future__ import annotations
@@ -1992,6 +2022,279 @@ def run_act(device, card, gen):
     return k2, launches, summary
 
 
+USAGE_CENTER = (150.0, 10.0)
+USAGE_MAP_KW = dict(center=USAGE_CENTER, width=0.25, resolution=6e-4, frame="ra/dec")  # docs/usage.md:94-107
+USAGE_UNITS = ("uK_RJ", "uK_CMB", "Jy/pixel")
+
+
+def usage_config():
+    """docs/usage.md:43-63 as written: the Planner's 600 s daisy over
+    (150, 10) deg at the GBT (its default 20 Hz), and the Simulating
+    snippet's keywords; the device is the card, the default."""
+    import maria_torch
+
+    plans = maria_torch.Planner(target=USAGE_CENTER, site="GBT").generate_plans(
+        start_time=1.75e9, horizon_days=2, total_duration=600, scan_pattern="daisy", scan_options={"radius": 0.083},
+    )
+    return dict(instrument="MUSTANG-2", plans=plans, site="GBT", atmosphere="2d", cmb="generate",
+                map=maria_torch.map.get("cluster", center=USAGE_CENTER), noise=True, pwv=1.2, seed=0)
+
+
+def tod_on_cpu(tod):
+    """The same TOD (fields, pointing, detectors, metadata) with its
+    fields on the CPU."""
+    import maria_torch
+
+    return maria_torch.TOD(data={k: v.cpu() for k, v in tod.data.items()}, pointing=tod.pointing, dets=tod.dets,
+                           units=tod.units, metadata=tod.metadata, spectrum=tod.spectrum)
+
+
+def run_usage(device, card):
+    """Slice (r): docs/usage.md's Simulating snippet as written, then the
+    checks of the units layer on its TOD. Returns (main-path launches,
+    the pixel ids of its maps, the map's pixel count, summary)."""
+    import torch
+
+    import maria_torch
+    from maria_torch.calibration import Calibration
+    from maria_torch.mappers.bin_mapper import radec_pixel_ids
+    from maria_torch.ops.bin_map import bin_map
+    from maria_torch.ops.pink_noise import pink_noise
+    from maria_torch.ops.sht import sht_synth
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sht_synth.launches = 0
+    s = time.perf_counter()
+    config = usage_config()
+    sim = maria_torch.Simulation(**config)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - s
+    obs = sim.obs_list[0]
+    zenith_pwv = float(obs.atmosphere.weather.pwv)
+    ks1 = sht_synth.launches
+    ok = abs(zenith_pwv - 1.2) < 1e-4 and len(sim.obs_list) == 1 and ks1 == 3 and sim.device.type == "cuda"
+    print(f"slice (r) docs/usage.md's scene: {obs.shape[0]} detectors x {obs.shape[1]} samples at "
+          f"{obs.sample_rate:.0f} Hz (the Planner's default rate), setup {setup_s:.2f} s; the loose pwv=1.2 reaches "
+          f"the weather: zenith pwv {zenith_pwv:.6f} mm; KS1 launched {ks1} times by generate_cmb "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (r) setup")
+
+    pink_noise.launches = bin_map.launches = 0
+    s = time.perf_counter()
+    tod = sim.run(units="K_RJ")[0]
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - s
+    k1_run = pink_noise.launches
+    ok = tod.shape == obs.shape and tod.fields == ["atmosphere", "cmb", "map", "noise"] and tod.units == "K_RJ"
+    ok &= all(bool(torch.isfinite(v).all()) for v in tod.data.values()) and tod.device.type == "cuda"
+    ok &= k1_run == 2
+    print(f"slice (r): first run() {run_s:.3f} s, K1 launched {k1_run} times (the band's rows and its correlated "
+          f"modes); TOD {tod.shape} {tod.fields} in {tod.units}, map field max "
+          f"{float(tod.data['map'].abs().max()):.3e} K_RJ {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (r) output check")
+
+    # the same keywords through from_config: a second simulation with seed 0
+    again = maria_torch.Simulation.from_config(config).run(units="K_RJ")[0]
+    diffs = {k: float((again.data[k] - tod.data[k]).abs().max()) for k in tod.fields}
+    scale = max(float(v.abs().max()) for v in tod.data.values())
+    exact = all(d == 0.0 for d in diffs.values())
+    ok = again.fields == tod.fields and (exact or max(diffs.values()) <= 1e-6 * scale)
+    print(f"slice (r): Simulation.from_config(config) against the constructor, both seed 0: "
+          f"{'equal to the bit' if exact else f'max|diff| by field {diffs}, limit 1e-6 of {scale:.3e}'} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (r) from_config / seed repeatability")
+    del again
+
+    # tod.to("uK_CMB") on the card against the CPU, on the same pW TOD
+    tod_pw = sim.run(units="pW")[0]
+    card_cmb = tod_pw.to("uK_CMB")
+    cpu_tod = tod_on_cpu(tod_pw)
+    cpu_cmb = cpu_tod.to("uK_CMB")
+    worst = 0.0
+    for k in tod_pw.fields:
+        ref = cpu_cmb.data[k]
+        worst = max(worst, float((card_cmb.data[k].cpu() - ref).abs().max()) / float(ref.abs().max()))
+    band = tod_pw.dets.bands[0]
+    card_f = Calibration("pW -> uK_CMB", band=band, **tod_pw.calibration_kwargs(band))(1.0)
+    cpu_f = Calibration("pW -> uK_CMB", band=band, **cpu_tod.calibration_kwargs(band))(1.0)
+    f_err = float(((card_f.cpu() - cpu_f) / cpu_f).abs().max())
+    ok = worst <= 1e-5 and f_err <= 1e-5 and card_f.device.type == "cuda"
+    print(f"slice (r): tod.to('uK_CMB') on the card against the CPU: worst field max|diff| {worst:.3e} of its max; "
+          f"the per-sample pW -> uK_CMB factor (dP/dT_CMB through the atmosphere, {float(cpu_f.min()):.4e} to "
+          f"{float(cpu_f.max()):.4e} uK_CMB/pW) {f_err:.3e} relative (limits 1e-5) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail("slice (r) TOD.to on the card")
+    del cpu_tod, cpu_cmb, card_cmb, card_f, cpu_f
+
+    # BinMapper in three units: K2 once a band and unit
+    rj_map = maria_torch.BinMapper(tod, **USAGE_MAP_KW).run()
+    bin_map.launches = 0
+    maps, map_ms = {}, {}
+    for units in USAGE_UNITS:
+        s = time.perf_counter()
+        maps[units] = maria_torch.BinMapper(tod, units=units, **USAGE_MAP_KW).run()
+        map_ms[units] = (time.perf_counter() - s) * 1e3
+    k2_maps = bin_map.launches
+    # each map against the K_RJ map converted, within 1e-6 of the TOD's
+    # largest sample in the map's unit: a float32 rounding of each sample
+    # (and K2's atomic order) before the binning and the demeaning
+    signal_max = float(tod.signal.abs().max())
+    jy_ref = rj_map.to("Jy/pixel").data.numpy()
+    jy_factor = float(np.nanmax(np.abs(jy_ref)) / np.nanmax(np.abs(rj_map.data.numpy())))
+    jy_err = float(np.nanmax(np.abs(maps["Jy/pixel"].data.numpy() - jy_ref))) / (jy_factor * signal_max)
+    uk_err = float(np.nanmax(np.abs(maps["uK_RJ"].data.numpy() - 1e6 * rj_map.data.numpy()))) / (1e6 * signal_max)
+    ok = k2_maps == len(USAGE_UNITS) and jy_err <= 1e-6 and uk_err <= 1e-6
+    ok &= all(m.units == u and bool(np.isfinite(m.data.numpy()).all()) for u, m in maps.items())
+    print(f"slice (r): BinMapper maps in {list(USAGE_UNITS)} ({rj_map.n_y} x {rj_map.n_x}), K2 launched {k2_maps} "
+          f"times; the Jy/pixel map against the K_RJ map's .to('Jy/pixel') {jy_err:.3e}, the uK_RJ map against 1e6 x "
+          f"the K_RJ map {uk_err:.3e} of the TOD's largest sample in the unit (limits 1e-6) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (r) maps in other units")
+
+    # the per-stage path of the same scene
+    staged_sim = maria_torch.Simulation(fused=False, **config)
+    staged = staged_sim.run(units="K_RJ")[0]
+    ratios = {k: float(staged.data[k].std() / tod.data[k].std()) for k in tod.fields}
+    diffs = {k: float((staged.data[k] - tod.data[k]).abs().max() / tod.data[k].abs().max()) for k in tod.fields}
+    ok = staged.fields == tod.fields and all(0.5 <= r <= 2.0 for r in ratios.values()) and not staged_sim._programs
+    print(f"slice (r): Simulation(fused=False) std / fused std by field "
+          f"{({k: round(r, 5) for k, r in ratios.items()})} "
+          f"(maria_tpu's gate 0.5-2); max|diff| of the fields from the fused run's, of its max "
+          f"{({k: f'{d:.2e}' for k, d in diffs.items()})} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (r) per-stage path")
+
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    run_ms, run_list = warm_ms(lambda: sim.run(units="K_RJ"))
+    staged_ms, staged_list = warm_ms(lambda: staged_sim.run(units="K_RJ"))
+    to_ms, to_list = warm_ms(lambda: tod_pw.to("uK_CMB"))
+    warm_map = {u: warm_ms(lambda u=u: maria_torch.BinMapper(tod, units=u, **USAGE_MAP_KW).run()) for u in USAGE_UNITS}
+    print(f"slice (r): warm run() {run_ms:.2f} ms ({run_list}), fused=False {staged_ms:.2f} ms ({staged_list}), "
+          f"tod.to('uK_CMB') {to_ms:.2f} ms ({to_list}), BinMapper.run() by unit "
+          f"{({u: round(m[0], 2) for u, m in warm_map.items()})} ms (means of {WARM_REPS}); peak device memory "
+          f"{peak_gb:.2f} GB ({card})", flush=True)
+    if not check_noise_psd(sim, tod_pw):
+        fail("slice (r) noise PSD")
+    mapper = maria_torch.BinMapper(tod, **USAGE_MAP_KW)
+    ids = radec_pixel_ids(tod.pointing, mapper.center, mapper.res, mapper.n_x, mapper.n_y, device=device).contiguous()
+    summary = {"setup_s": round(setup_s, 2), "run_ms": round(run_ms, 2), "staged_run_ms": round(staged_ms, 2),
+               "to_uK_CMB_ms": round(to_ms, 2), "map_ms": {u: round(m[0], 2) for u, m in warm_map.items()},
+               "peak_gb": round(peak_gb, 2), "shape": list(tod.shape)}
+    return {"pink_noise": k1_run, "bin_map": k2_maps, "sht_synth": ks1}, ids, mapper.n_x * mapper.n_y, summary
+
+
+def run_photon_noise(device, card):
+    """Slice (s): slice (c)'s scene with every band's NEP_per_loading set
+    so that the loading term equals the band's NEP at the band's mean
+    loading, and the last band without a knee. Returns (main-path
+    launches, summary)."""
+    import torch
+
+    from maria_torch import scenes
+    from maria_torch.atmosphere.fourier import good_fft_size
+    from maria_torch.ops.pink_noise import pink_noise
+    from maria_torch.ops.shared_v import shared_v
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    s = time.perf_counter()
+    sim = scenes.simulation("atlast", 60.0, device)
+    bands = sim.instrument.dets.bands
+    bands[-1].knee = 0.0
+    plain = sim.program()  # no band carries NEP_per_loading yet
+    state = sim.generator.get_state()
+    signal = plain.fields(generator=sim.generator, device=device, upto="signal")
+    loading = sum(signal.values())
+    del signal
+    sim.generator.set_state(state)
+    mean_W = {}
+    for band, block in zip(bands, plain.bands):
+        mean_W[band.name] = 1e-12 * float(loading[torch.as_tensor(block.det_index, device=device)].double().mean())
+        band.NEP_per_loading = band.NEP / mean_W[band.name]
+    sim._programs.clear()
+    program = sim.program()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - s
+    npl = {b.name: b.NEP_per_loading for b in bands}
+    print(f"slice (s) AtLAST-50k photon noise: {program.n_det} x {program.n_t}, {len(bands)} bands; NEP_per_loading = "
+          f"NEP / mean loading a band, {({k: f'{v:.4e}' for k, v in npl.items()})} /√s at mean loadings "
+          f"{({k: f'{1e12 * v:.3f} pW' for k, v in mean_W.items()})}; {bands[-1].name} without a knee; setup "
+          f"{setup_s:.2f} s; noise matmul {program.use_noise_matmul()}", flush=True)
+
+    fn = program.total_power_fn()
+    pink_noise.launches = shared_v.launches = 0
+    s = time.perf_counter()
+    total = fn(generator=sim.generator, device=device)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - s
+    launches = {"pink_noise": pink_noise.launches, "shared_v": shared_v.launches}
+    n_knee = sum(1 for b in bands if b.knee > 0)
+    ok = not program.use_noise_matmul() and launches == {"pink_noise": 2 * n_knee, "shared_v": 0}
+    ok &= tuple(total.shape) == (program.n_det, program.n_t) and bool(torch.isfinite(total).all())
+    print(f"slice (s): first total_power_fn() {cold_s:.3f} s, launches {launches} (K1 twice a band with a knee: its "
+          f"5,556 rows at n_fft {good_fft_size(program.n_t)} and its correlated modes; K3 never) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (s) launches")
+
+    # the total against its fields, and each band's noise against the
+    # NEP_per_loading-free program's on the same draws
+    sim.generator.set_state(state)
+    fields, _ = program.fields(generator=sim.generator, device=device)
+    gains = program.draw_gains(generator=sim.generator, device=device)
+    by_sum = 0.0
+    for name, v in fields.items():
+        by_sum = by_sum + (v if name == "noise" else v * gains)
+    total_err = float((total - by_sum).abs().max()) / float(total.abs().max())
+    del by_sum, gains
+    sim.generator.set_state(state)
+    plain_fields, _ = plain.fields(generator=sim.generator, device=device)
+    loading_W = 1e-12 * sum(v.double() for k, v in fields.items() if k != "noise")
+    worst = 0.0
+    for band, block in zip(bands, program.bands):
+        rows = torch.as_tensor(block.det_index, device=device)
+        expected = plain_fields["noise"][rows].double() * (1 + band.NEP_per_loading / band.NEP * loading_W[rows])
+        err = float(((fields["noise"][rows].double() - expected).abs() / expected.abs().clamp_min(1e-30)).max())
+        worst = max(worst, err)
+    ok = total_err <= 1e-6 and worst <= 1e-5
+    print(f"slice (s): total against the gained sum of its fields {total_err:.3e} of its max (limit 1e-6); each band's "
+          f"noise against (NEP + NEP_per_loading P) / NEP x the same program's without the term on the same draws: "
+          f"worst {worst:.3e} relative (limit 1e-5) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (s) photon-loading noise")
+    del loading_W, fields, total
+
+    # the knee-free band of the plain program: white noise of variance fs NEP^2
+    band = bands[-1]
+    rows = torch.as_tensor(plain.bands[-1].det_index, device=device)
+    x = plain_fields["noise"][rows].double()
+    fs, n = plain.sample_rate, plain.n_t
+    var_ratio = float(x.var()) / (fs * (1e12 * band.NEP) ** 2)
+    psd = (torch.fft.rfft(x - x.mean(dim=-1, keepdim=True), dim=-1).abs() ** 2).mean(dim=0).cpu().numpy()[1:] / n
+    means = [float(p.mean()) for p in np.array_split(psd, 8)]
+    flat = max(abs(m / np.mean(means) - 1) for m in means)
+    ok = abs(var_ratio - 1) <= 0.05 and flat <= 0.10
+    print(f"slice (s): {band.name} without a knee: variance / (fs NEP^2) {var_ratio:.5f} (limit 5%), PSD in eight "
+          f"bands of frequency within {flat:.4f} of their mean (limit 10%) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (s) knee-free band")
+    del plain_fields, x
+
+    total_ms, total_list = warm_ms(lambda: fn(generator=sim.generator, device=device))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"slice (s): warm total_power_fn() {total_ms:.2f} ms ({total_list}; means of {WARM_REPS}), peak device "
+          f"memory {peak_gb:.2f} GB ({card})", flush=True)
+    summary = {"setup_s": round(setup_s, 2), "total_ms": round(total_ms, 2), "peak_gb": round(peak_gb, 2),
+               "NEP_per_loading": {k: float(f"{v:.4e}") for k, v in npl.items()}}
+    return launches, summary
+
+
 def main() -> int:
     try:
         import torch
@@ -2023,8 +2326,8 @@ def main() -> int:
     gen.manual_seed(1234)
     k1 = {}
     for n_det, n, n_fft in ((217, 3000, 3072), (217, 30000, 32768), (5, 500, 512), (217, 60000, 65536),
-                            (217, 180000, 196608)):
-        k1[(n, n_fft)] = check_pink_noise(device, gen, n_det, n, n_fft)
+                            (217, 180000, 196608), (5556, 3000, 3072)):
+        k1[(n_det, n, n_fft)] = check_pink_noise(device, gen, n_det, n, n_fft)
     k3 = {}
     for n_det, m1 in ((5556 * ATLAST_BANDS, 1537), (5, 257)):
         k3[n_det] = check_shared_v(device, gen, n_det, m1)
@@ -2062,6 +2365,8 @@ def main() -> int:
     del sim_m
     k2_p, launches_p, summary_p = run_cmb_patch(device, card, gen)
     k2_q, launches_q, summary_q = run_act(device, card, gen)
+    launches_r, ids_r, n_pix_r, summary_r = run_usage(device, card)
+    launches_s, summary_s = run_photon_noise(device, card)
 
     ar = {label: check_ar_extrude(device, gen, f"slice {label}", results[label][3].ar_processes)
           for label in AR_SLICES}
@@ -2082,6 +2387,8 @@ def main() -> int:
     sky = sim_h.map
     ids_h = radec_pixel_ids(tod_h.pointing, sky.center, sky.resolution, sky.n_x, sky.n_y, device=device).contiguous()
     k2["h"] = check_bin_map(device, gen, ids_h, "slice h ra/dec ids, 512 x 512", n_pix=sky.n_x * sky.n_y)
+    k2["r"] = check_bin_map(device, gen, ids_r, "slice r ra/dec ids, the three maps' shape", n_pix=n_pix_r)
+    del ids_r
     for key, r in k2.items():
         for form, x in r.items():
             print(f"K2 summary {key} {form}: {x['ms']:.4f} ms, library {x['library_ms']:.4f} ms, bound "
@@ -2090,17 +2397,19 @@ def main() -> int:
     launches_b = results["b"][2]
     by_slice = {**{label: r[2] for label, r in results.items()}, "c": launches_c, "g": launches_g, "h": launches_h,
                 "i": launches_i, "i, noise on": launches_i_noise, "j": launches_j, "CMB spectra": launches_spectra,
-                "k": launches_k, "l": launches_l, "m": launches_m, "p": launches_p, "q": launches_q}
+                "k": launches_k, "l": launches_l, "m": launches_m, "p": launches_p, "q": launches_q, "r": launches_r,
+                "s": launches_s}
     for name in ("pink_noise", "bin_map", "shared_v", "ar_extrude", "sht_synth", "sht_anal"):
         print(f"main-path launches of {name} by slice: {({k: v[name] for k, v in by_slice.items() if name in v})}",
               flush=True)
     kernels_line = {"kernels": [
         {"name": "pink_noise", "route": "cuda", "source": "maria_torch/csrc/pink_noise.cu",
-         "replaces": "maria_tpu/ops/pallas_noise.py:269", "launches": launches_b["pink_noise"],
-         **k1[(30000, 32768)]},
+         "replaces": "maria_tpu/ops/pallas_noise.py:269",
+         "launches": launches_b["pink_noise"] + launches_r["pink_noise"] + launches_s["pink_noise"],
+         **k1[(217, 30000, 32768)]},
         {"name": "bin_map", "route": "cuda", "source": "maria_torch/csrc/bin_map.cu",
          "replaces": "maria_tpu/ops/pallas_binning.py:119",
-         "launches": launches_b["bin_map"] + launches_p["bin_map"] + launches_q["bin_map"],
+         "launches": launches_b["bin_map"] + launches_p["bin_map"] + launches_q["bin_map"] + launches_r["bin_map"],
          **k2["b"]["stacked"]},
         {"name": "shared_v", "route": "cuda", "source": "maria_torch/csrc/shared_v.cu",
          "replaces": "maria_tpu/ops/pallas_noise.py:427", "launches": launches_c["shared_v"],
@@ -2122,8 +2431,13 @@ def main() -> int:
     print(f"slice (p) summary, the CMB patch (1052 x 12000, IQU ML fit; {card}): {json.dumps(summary_p)}", flush=True)
     print(f"slice (q) summary, the ACT camera (9000 x 12000, IQU BinMapper; {card}): {json.dumps(summary_q)}",
           flush=True)
+    print(f"slice (r) summary, docs/usage.md's scene ({summary_r['shape'][0]} x {summary_r['shape'][1]}; {card}): "
+          f"{json.dumps(summary_r)}", flush=True)
+    print(f"slice (s) summary, AtLAST-50k photon noise (50004 x 3000; {card}): {json.dumps(summary_s)}", flush=True)
     print(f"K2's launches in the kernels line: slice (b) {launches_b['bin_map']} + slice (p) {launches_p['bin_map']} + "
-          f"slice (q) {launches_q['bin_map']}", flush=True)
+          f"slice (q) {launches_q['bin_map']} + slice (r) {launches_r['bin_map']}; K1's: slice (b) "
+          f"{launches_b['pink_noise']} + slice (r) {launches_r['pink_noise']} + slice (s) {launches_s['pink_noise']}",
+          flush=True)
     for key, r in ks.items():
         print(f"KS summary {key}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_ms'] / r['ms']:.1%}), the contract's instruction bound {r['contract_bound_ms']:.4f} ms "

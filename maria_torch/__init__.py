@@ -9,7 +9,8 @@ in az/el or observing a sky in ra/dec (an input map, a CMB from
 Fourier or AR atmosphere, the noise as one matrix product) -> total pW
 -> a map binned over the field; and the observer's map-making,
 ``TOD.process(...)`` and ``BinMapper`` or ``MaximumLikelihoodMapper``
-with ``tod_preprocessing=``. Per-sample work runs in torch on the
+with ``tod_preprocessing=``, in any unit of maria_tpu's calibration graph
+(``Quantity``, ``Calibration``, ``TOD.to``, ``Map.to``). Per-sample work runs in torch on the
 card (``device="cpu"`` asks for the CPU; without a card an entry point
 given no device raises); detector noise, the shared-shape noise draw,
 map binning, the AR extrusion and the spherical harmonic transforms'
@@ -32,17 +33,21 @@ from .site import Site, get_site  # noqa: F401
 from .sim import Simulation  # noqa: F401
 from .tod import TOD  # noqa: F401
 from .mappers import BinMapper, MaximumLikelihoodMapper, compute_residual_map  # noqa: F401
+from .units import Quantity  # noqa: F401
+from .calibration import Calibration  # noqa: F401
 from . import map  # noqa: F401, A004  (maria_torch.map.get, as maria_tpu.map.get)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "BinMapper",
+    "Calibration",
     "Instrument",
     "MaximumLikelihoodMapper",
     "Plan",
     "PlanList",
     "Planner",
+    "Quantity",
     "Simulation",
     "Site",
     "TOD",

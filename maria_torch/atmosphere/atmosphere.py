@@ -19,6 +19,7 @@ import time as _time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..coords import offsets_to_phi_theta
 from ..spectrum import AtmosphericSpectrum
@@ -89,20 +90,33 @@ class ScreenGroup:
     beam: np.ndarray = None  # (L, ny, nx//2+1)
 
 
+SUPPORTED_MODELS = ["2d", "3d"]
+SUPPORTED_METHODS = ["fourier", "ar"]
+
+
 class Atmosphere:
+    """The atmosphere of an observation. ``seed`` seeds ``simulate_pwv``
+    when it is given no generator (a simulation's fused program draws
+    from the simulation's generator instead). ``disable_progress_bars``
+    is taken for maria_tpu's signature: the port draws no progress bars.
+    ``sampler_dec_tol`` tunes maria_tpu's decimated TPU group sampler; the
+    port samples every layer exactly at every step, so it takes the value
+    and changes nothing."""
+
     def __init__(self, model: str = "2d", timestamp: float = None, region: str = "princeton",
                  altitude: float = None, weather: dict = {}, weather_quantiles: dict = {},
                  weather_source: str = "synthetic", spectrum_source: str = "synthetic/v1",
                  pwv_rms_frac: float = 0.03, max_height: float = 5e3, timestep: float = None,
                  method: str = "fourier", n_layers: int = None, min_height: float = None,
-                 outer_scale: float = None):
-        if model not in ("2d", "3d"):
-            raise ValueError(f"Invalid model '{model}'. Supported models are ['2d', '3d'].")
-        if method not in ("fourier", "ar"):
-            raise NotImplementedError(
-                f"atmosphere method '{method}': the port has the 'fourier' and 'ar' models "
-                "(ROADMAP queue 1, item 13.3: atmosphere arguments)"
-            )
+                 outer_scale: float = None, seed: int = None, disable_progress_bars: bool = True,
+                 sampler_dec_tol: float = None):
+        if model not in SUPPORTED_MODELS:
+            raise ValueError(f"Invalid model '{model}'. Supported models are {SUPPORTED_MODELS}.")
+        if method not in SUPPORTED_METHODS:
+            raise ValueError(f"Invalid method '{method}'. Supported methods are {SUPPORTED_METHODS}.")
+        self.seed = seed
+        self.disable_progress_bars = disable_progress_bars
+        self.sampler_dec_tol = sampler_dec_tol
         self.model = model
         self.method = method
         self.spectrum = AtmosphericSpectrum(region=region, source=spectrum_source)
@@ -139,6 +153,8 @@ class Atmosphere:
             self.timestep = max(dt_f, round(self.timestep / dt_f) * dt_f)
 
         self.boresight = obs.boresight.downsample(timestep=self.timestep)
+        self.offsets = np.asarray(obs.offsets, dtype=np.float32)
+        self.t0 = float(obs.t[0])  # the coarse times are taken relative to the observation's first sample
         n_t = self.boresight.shape[-1]
         dt = self.timestep
         outer_offsets = obs.instrument.dets.outer().offsets
@@ -312,3 +328,36 @@ class Atmosphere:
                     win_x=win_x, win_y=win_y, **common,
                 ))
         return self
+
+    def simulate_pwv(self, instrument=None, generator=None, draws: dict = None, device=None):
+        """The zenith-scaled pwv (n_det, n_coarse) in mm of one realization,
+        on ``device``: the mean plus every screen's and layer's sample
+        along the lines of sight at the coarse steps (``accumulate_pwv``,
+        the program's own sampler). The draws come from ``generator``, or
+        from one seeded with ``seed`` (a random seed without one); ``draws``
+        optionally supplies "screens", "groups" and "ar" as
+        ``TODProgram.fields`` takes them. ``instrument`` is taken for
+        maria_tpu's signature: the detectors are the observation's. Sets
+        ``zenith_scaled_pwv`` and ``det_el`` (n_det, n_coarse)."""
+        from ..device import resolve_device
+        from ..ops.program import ar_screen_values, line_of_sight
+        from .sampling import accumulate_pwv
+
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=device)
+            generator.manual_seed(int(self.seed) if self.seed is not None else int(np.random.randint(2**31)))
+        draws = draws or {}
+        f32 = dict(dtype=torch.float32, device=device)
+        det_el, _, px, py = line_of_sight(
+            torch.as_tensor(self.offsets, **f32), torch.as_tensor(np.asarray(self.boresight.az, np.float32), **f32),
+            torch.as_tensor(np.asarray(self.boresight.el, np.float32), **f32),
+        )
+        t_rel = torch.as_tensor(np.asarray(self.boresight.t, np.float64) - self.t0, **f32)
+        ar_values = ar_screen_values(self.screens, generator, draws.get("ar"), device)
+        self.zenith_scaled_pwv = accumulate_pwv(
+            self.weather.pwv, self.screens, px, py, t_rel, generator=generator, draws=draws.get("screens"),
+            groups=self.groups, group_draws=draws.get("groups"), ar_values=ar_values,
+        )
+        self.det_el = det_el
+        return self.zenith_scaled_pwv

@@ -1,7 +1,8 @@
 """Spectral passbands (maria_tpu/band/__init__.py): the passband table,
-the noise spec (NEP, or NET_RJ through the K_RJ <-> W kernel of
-``radiometry``) and the host-integrated (pwv, elevation) -> loading power
-table that the program interpolates per sample. The registry holds all
+the noise spec (NEP, NET_RJ through the K_RJ <-> W kernel of
+``radiometry``, or NET_CMB through the calibration graph) and the
+host-integrated (pwv, elevation) -> loading power table that the
+program interpolates per sample. The registry holds all
 ten of maria_tpu's band files, flattened to "<file>/<name>" keys."""
 
 from __future__ import annotations
@@ -92,7 +93,8 @@ def fractional_index(transform, x, xp=np):
 def interp_grid_np(points, values, xi):
     """Multilinear interpolation on a regular grid with clipped
     coordinates and the same axis transforms as maria_tpu's
-    RegularGridInterpolator; host float64."""
+    RegularGridInterpolator; host float64. Dims of ``values`` after the
+    grid's are carried along."""
     xi = np.broadcast_arrays(*[np.asarray(x, dtype=np.float64) for x in xi])
     los, ws = [], []
     for side, x in zip(points, xi):
@@ -102,6 +104,7 @@ def interp_grid_np(points, values, xi):
         los.append(lo)
         ws.append(f - lo)
     values = np.asarray(values)
+    trailing = (1,) * (values.ndim - len(points))  # the value dims after the grid's
     out = 0.0
     for corner in range(1 << len(points)):
         idx, w = [], 1.0
@@ -109,7 +112,7 @@ def interp_grid_np(points, values, xi):
             hi = (corner >> d) & 1
             idx.append(los[d] + hi)
             w = w * (ws[d] if hi else 1 - ws[d])
-        out = out + values[tuple(idx)] * w
+        out = out + values[tuple(idx)] * np.reshape(w, np.shape(w) + trailing)
     return out
 
 
@@ -180,13 +183,19 @@ class Band:
     def NET_RJ(self, value):
         self.NEP = float(value * self._rj_kernel())
 
+    def cal(self, signature: str, **kwargs):
+        """The ``Calibration`` of ``signature`` ("W -> K_CMB", ...) for this band."""
+        from ..calibration import Calibration
+
+        return Calibration(signature, band=self, **kwargs)
+
     @property
-    def NET_CMB(self):
-        raise NotImplementedError("NET_CMB (ROADMAP queue 1, item 13.4: the calibration graph's K_CMB leg)")
+    def NET_CMB(self) -> float:
+        return float(self.cal("W -> K_CMB", spectrum=self.spectrum, **self.spectrum_kwargs)(self.NEP))
 
     @NET_CMB.setter
     def NET_CMB(self, value):
-        raise NotImplementedError("NET_CMB (ROADMAP queue 1, item 13.4: the calibration graph's K_CMB leg)")
+        self.NEP = float(self.cal("K_CMB -> W", spectrum=self.spectrum, **self.spectrum_kwargs)(value))
 
     @property
     def center(self) -> float:

@@ -16,17 +16,20 @@ import torch
 from ..coords.ephemeris import ICRS_TO_GAL
 from ..device import resolve_device
 from ..healpix.core import ang2pix_ring, npix2nside
-from .projection import STOKES_ORDER, _as_float32, _unit_scales
+from ..units import as_radians
+from .base import Map, check_map_units
+from .projection import STOKES_ORDER, _as_float32
 
 __all__ = ["HEALPixMap"]
 
 
-class HEALPixMap:
+class HEALPixMap(Map):
     """An all-sky map in ``frame`` ("galactic" or "ra/dec"). A tensor's
     data stay on their device; anything else lands on the host."""
 
-    def __init__(self, data, frame: str = "galactic", stokes: str = None, nu=None, t=None, units: str = "K_CMB"):
-        _unit_scales(units)
+    def __init__(self, data, frame: str = "galactic", stokes: str = None, nu=None, t=None, units: str = "K_CMB",
+                 weight=None):
+        check_map_units(units)
         data = _as_float32(data)
         if data.ndim < 4:
             data = data.reshape((1,) * (4 - data.ndim) + tuple(data.shape))
@@ -43,9 +46,12 @@ class HEALPixMap:
         self.t = np.atleast_1d(np.asarray(t if t is not None else [0.0], dtype=float))
         if (len(self.nu), len(self.t)) != tuple(data.shape[1:3]):
             raise ValueError(f"nu ({len(self.nu)}) and t ({len(self.t)}) do not match data shape {tuple(data.shape)}.")
+        # inverse variances, carried only where given (a CMB has none)
+        self.weight = None if weight is None else _as_float32(weight).reshape(data.shape)
 
     def _replace(self, **kwargs) -> "HEALPixMap":
-        params = dict(data=self.data, frame=self.frame, stokes=self.stokes, nu=self.nu, t=self.t, units=self.units)
+        params = dict(data=self.data, frame=self.frame, stokes=self.stokes, nu=self.nu, t=self.t, units=self.units,
+                      weight=self.weight)
         params.update(kwargs)
         return type(self)(**params)
 
@@ -70,17 +76,8 @@ class HEALPixMap:
         """The side of a pixel of equal area, in radians."""
         return float(np.sqrt(4 * np.pi / self.npix))
 
-    def to(self, units: str) -> "HEALPixMap":
-        """The map in other ``units`` of its own quantity (a linear scale)."""
-        scales = _unit_scales(self.units)
-        if units not in scales:
-            raise NotImplementedError(
-                f"map units '{self.units}' -> '{units}' (ROADMAP queue 1, item 13.4: the calibration graph)"
-            )
-        factor = scales[self.units] / scales[units]
-        if factor == 1.0:
-            return self
-        return self._replace(data=self.data * factor, units=units)
+    def _calibration_kwargs(self) -> dict:
+        return {"pixel_area": 4 * np.pi / self.npix}
 
     # -- sampling --------------------------------------------------------------------------
     def pixel_index(self, phi, lat):
@@ -120,15 +117,16 @@ class HEALPixMap:
             out = out + weight[:, s][:, None] * field[pix]
         return out
 
-    def smooth(self, fwhm: float, device=None) -> "HEALPixMap":
-        """The map smoothed by a Gaussian beam of ``fwhm`` (radians) in
+    def smooth(self, fwhm, device=None) -> "HEALPixMap":
+        """The map smoothed by a Gaussian beam of ``fwhm`` (radians, or an
+        angle ``Quantity``) in
         harmonic space, on ``device``: every scalar slice in one batched
         transform, Q and U by the spin-2 transform (smoothing them as
         scalars would mix E and B power near the poles)."""
         from ..healpix.sht import alm2map, alm2map_spin, map2alm, map2alm_spin
 
         device = resolve_device(device)
-        sigma = float(fwhm) / (2 * np.sqrt(2 * np.log(2)))
+        sigma = as_radians(fwhm) / (2 * np.sqrt(2 * np.log(2)))
         lmax = min(3 * self.nside - 1, 2048)
         ells = np.arange(lmax + 1)
         beam = torch.as_tensor(np.exp(-0.5 * ells * (ells + 1) * sigma**2)[:, None], dtype=torch.float32,

@@ -2,7 +2,9 @@
 the input skies a simulation scans and the maps the mappers return.
 
 Data and weight are float32 tensors of shape (stokes, nu, t, n_y, n_x).
-The maps that ``map.get`` and the mappers make live on the host;
+Units convert through the calibration graph (``Map.to``, one call per
+frequency channel). The maps that ``map.get`` and the mappers make live
+on the host;
 ``smooth(fwhm, device=)`` computes on ``device`` (the card when there is
 one) and its result stays there. ``sample`` (a bilinear or nearest-pixel
 gather) and ``pixel_index`` run on the device of the offsets they are
@@ -20,24 +22,12 @@ import torch
 
 from ..device import resolve_device
 from ..ops.interp import interp_bilinear_grid
+from ..units import as_radians
+from .base import Map, check_map_units
 
 __all__ = ["ProjectionMap", "gaussian_beam_fft_filter", "STOKES_ORDER"]
 
 STOKES_ORDER = "IQUV"
-# units of one quantity, Rayleigh-Jeans temperature: unit -> factor to K_RJ
-RJ_UNITS = {"K_RJ": 1.0, "mK_RJ": 1e-3, "uK_RJ": 1e-6}
-# a mapper's map of TODs in power: carried as it is, converted to nothing
-POWER_UNITS = {"pW": 1.0}
-# CMB temperature anisotropy (the CMB skies): unit -> factor to K_CMB
-CMB_UNITS = {"K_CMB": 1.0, "mK_CMB": 1e-3, "uK_CMB": 1e-6}
-
-
-def _unit_scales(units: str) -> dict:
-    """The table of the quantity that ``units`` belongs to."""
-    for scales in (RJ_UNITS, POWER_UNITS, CMB_UNITS):
-        if units in scales:
-            return scales
-    raise NotImplementedError(f"map units '{units}' (ROADMAP queue 1, item 13.4: the calibration graph)")
 
 
 def gaussian_beam_fft_filter(shape, res_y: float, res_x: float, fwhm: float, dtype=torch.float32):
@@ -54,7 +44,7 @@ def _as_float32(x):
     return x.to(torch.float32) if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x), dtype=torch.float32)
 
 
-class ProjectionMap:
+class ProjectionMap(Map):
     """A tangent-plane map around ``center`` in ``frame``. The third
     slice axis carries one label: time ``t`` (the default), redshift
     ``z`` or velocity ``v``."""
@@ -62,8 +52,7 @@ class ProjectionMap:
     def __init__(self, data, center=(0.0, 0.0), width=None, height=None, resolution=None,
                  frame: str = "ra/dec", stokes: str = None, nu=None, t=None, z=None, v=None,
                  units: str = "K_RJ", weight=None, degrees: bool = True):
-        _unit_scales(units)
-        self.units = units
+        self.units = check_map_units(units)
         self.frame = frame
 
         # normalize to (stokes, nu, t, n_y, n_x): missing slice axes go
@@ -167,21 +156,13 @@ class ProjectionMap:
         edges = [0.0, *(0.5 * (self.nu[1:] + self.nu[:-1])), np.inf]
         return list(zip(edges[:-1], edges[1:]))
 
-    # -- units ---------------------------------------------------------------------
-    def to(self, units: str, band=None) -> "ProjectionMap":
-        """The map in other ``units`` of its own quantity (a linear
-        scale; the weights, inverse variances, scale with its inverse
-        square): between quantities it raises. ``band`` belongs to the
-        reference's conversions between quantities and is unused here."""
-        scales = _unit_scales(self.units)
-        if units not in scales:
-            raise NotImplementedError(
-                f"map units '{self.units}' -> '{units}' (ROADMAP queue 1, item 13.4: the calibration graph)"
-            )
-        factor = scales[self.units] / scales[units]
-        if factor == 1.0:
-            return self
-        return self._replace(data=self.data * factor, weight=self.weight / factor**2, units=units)
+    @property
+    def pixel_area(self) -> float:
+        """The solid angle of a pixel in sr."""
+        return float(self.resolution * (self.height / self.n_y))
+
+    def _calibration_kwargs(self) -> dict:
+        return {"pixel_area": self.pixel_area}
 
     # -- sampling --------------------------------------------------------------------
     def sample(self, dx, dy, stokes_weight=None, nu_index: int = 0, t_index: int = 0, bilinear: bool = True):
@@ -222,11 +203,12 @@ class ProjectionMap:
         return flat, inside
 
     # -- image-space operations ------------------------------------------------------
-    def smooth(self, fwhm: float, device=None) -> "ProjectionMap":
-        """The map smoothed by a Gaussian beam of ``fwhm`` (radians), as
+    def smooth(self, fwhm, device=None) -> "ProjectionMap":
+        """The map smoothed by a Gaussian beam of ``fwhm`` (radians, or an
+        angle ``Quantity``), as
         one multiply in Fourier space, computed and kept on ``device``."""
         device = resolve_device(device)
-        F = gaussian_beam_fft_filter((self.n_y, self.n_x), self.y_res, self.x_res, float(fwhm)).to(device)
+        F = gaussian_beam_fft_filter((self.n_y, self.n_x), self.y_res, self.x_res, as_radians(fwhm)).to(device)
         flat = self.data.to(device).reshape(-1, self.n_y, self.n_x)
         smoothed = torch.fft.irfft2(torch.fft.rfft2(flat) * F, s=(self.n_y, self.n_x))
         return self._replace(data=smoothed.reshape(self.data.shape), weight=self.weight.to(device))

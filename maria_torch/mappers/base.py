@@ -2,7 +2,9 @@
 ``tod_preprocessing`` (``TOD.process``) and converted to the map's units,
 map geometry from the TODs' pointing, Stokes and band inference, time
 bins, and the shared postprocessing (optional smoothing, the zero-mean
-convention)."""
+convention). A unit of a TOD quantity is accumulated as it is; a
+map-only unit (Jy/pixel, Jy/beam, Jy/sr, compton y) is accumulated in
+K_RJ and the final map converted."""
 
 from __future__ import annotations
 
@@ -10,6 +12,8 @@ import numpy as np
 
 from ..coords import Frame
 from ..map import ProjectionMap
+from ..tod.tod import VALID_TOD_QUANTITIES
+from ..units import Quantity, parse_units
 
 
 class BaseProjectionMapper:
@@ -25,16 +29,23 @@ class BaseProjectionMapper:
             height = height if height is not None else scale * target.height
             resolution = resolution if resolution is not None else scale * target.resolution
             frame = target.frame
+        # angle Quantities convert to the caller's angular convention
+        def number(x):
+            return (float(x.deg) if degrees else float(x.rad)) if isinstance(x, Quantity) else x
+
+        width, height, resolution = number(width), number(height), number(resolution)
+        if center is not None:
+            center = tuple(number(c) for c in center)
         self.frame = Frame(frame)
         if self.frame.name == "galactic":
             raise ValueError("a projection mapper's frame is 'az/el' or 'ra/dec'")
-        if units not in ("K_RJ", "pW"):
-            raise NotImplementedError(f"map units '{units}' (ROADMAP queue 1, item 13.4: the calibration graph)")
         self.units = units
+        self.tod_units = units if parse_units(units).quantity in VALID_TOD_QUANTITIES else "K_RJ"
         self.t_bins = t_bins
         self.map_postprocessing = dict(map_postprocessing)
         tods = tods if isinstance(tods, (list, tuple)) else [tods]
-        self.tods = [(tod.process(**tod_preprocessing) if tod_preprocessing else tod).to(units) for tod in tods]
+        self.tods = [(tod.process(**tod_preprocessing) if tod_preprocessing else tod).to(self.tod_units)
+                     for tod in tods]
 
         sw = np.concatenate([tod.dets.stokes_weight() for tod in self.tods], axis=0)
         # the simulation's input map rides along on the TODs' metadata
@@ -106,7 +117,7 @@ class BaseProjectionMapper:
         return m, weights
 
     def make_map(self, data, weights) -> ProjectionMap:
-        return ProjectionMap(
+        out = ProjectionMap(
             data=np.nan_to_num(data).astype(np.float32),
             weight=np.asarray(weights, dtype=np.float32),
             center=np.degrees(self.center),
@@ -115,5 +126,6 @@ class BaseProjectionMapper:
             stokes=self.stokes,
             nu=self.nu,
             t=self.t_centers,
-            units=self.units,
+            units=self.tod_units,
         )
+        return out if self.units == self.tod_units else out.to(self.units)

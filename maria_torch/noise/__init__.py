@@ -75,11 +75,16 @@ def generate_noise_with_knee(shape: tuple, sample_rate: float = 1.0, knee: float
     ``white`` optionally supplies the detector draw, (n_det, n_fft//2+1, 2)
     unit normals, and ``mode_white`` the correlated modes' draw,
     (k, n_fft//2+1, 2); otherwise they come from ``generator``.
+
+    Without a knee (``knee <= 0``) the noise is white alone,
+    sqrt(sample_rate) N(0, 1), and has no correlated part, as in
+    maria_tpu: ``white`` is then the (n_det, n) time-domain draw itself,
+    and no kernel runs (maria_tpu draws it with ``jax.random.normal``).
     """
     n_det, n = shape
     device = white.device if device is None and white is not None else device
     if knee <= 0:
-        raise NotImplementedError("noise without a 1/f knee (ROADMAP queue 1, item 13.9)")
+        return float(np.sqrt(sample_rate)) * _draw((n_det, n), generator, device, white, "white")
 
     n_fft = good_fft_size(n)
     n_f = n_fft // 2 + 1

@@ -54,12 +54,6 @@ class BandBlock:
     # window, static K_RJ samples (n_band_det, n_t) on the device) a channel
     map_stages: list = None
 
-    def __post_init__(self):
-        if self.NEP_per_loading:
-            raise NotImplementedError(
-                "NEP_per_loading (ROADMAP queue 1, item 13.8: the photon-loading noise term)"
-            )
-
 
 @dataclass
 class TODProgram:
@@ -114,11 +108,7 @@ class TODProgram:
     @property
     def ar_processes(self) -> list:
         """The distinct AR processes of the screens, in screen order."""
-        seen = {}
-        for s in self.screens:
-            if s.process is not None:
-                seen.setdefault(id(s.process), s.process)
-        return list(seen.values())
+        return ar_processes(self.screens)
 
     @property
     def n_det(self) -> int:
@@ -177,22 +167,6 @@ class TODProgram:
             }
         return self._device_cache[key]
 
-    def _ar_values(self, tabs, generator, draws, device):
-        """{screen index: (ny, nx) extruded values} of the AR screens, or
-        None without AR processes. ``draws`` optionally gives each
-        process's (buffer_init, noise) in ``ar_processes`` order."""
-        processes = self.ar_processes
-        if not processes:
-            return None
-        if draws is None:
-            draws = [p.draw(generator, device) for p in processes]
-        elif len(draws) != len(processes):
-            raise ValueError(f"draws['ar'] must hold one (buffer_init, noise) pair per process ({len(processes)})")
-        buffers = [torch.as_tensor(d[0], dtype=torch.float32, device=device) for d in draws]
-        noises = [torch.as_tensor(d[1], dtype=torch.float32, device=device) for d in draws]
-        values = dict(zip(map(id, processes), ar_extrude(processes, buffers, noises, plan=tabs["ar_plan"])))
-        return {i: values[id(s.process)][:, s.ar_columns].T for i, s in enumerate(self.screens) if s.process is not None}
-
     def _upsample(self, values, kind):
         if self.upsample_ratio is not None:
             return upsample_time_phases(values, self.upsample_ratio, self.n_t, kind=kind)
@@ -221,20 +195,13 @@ class TODProgram:
         draws = draws or {}
         tabs = self._tensors(device)
 
-        # detector az/el at the coarse timestep and the unit-height
-        # line-of-sight projection (x=E, y=N)
-        pt = offsets_to_phi_theta(tabs["offsets"][:, None, :], tabs["bs_az"], tabs["bs_el"])
-        det_az, det_el = pt[..., 0], pt[..., 1]
-        el_clip = torch.clamp(det_el, float(np.float32(np.radians(5.0))), float(np.float32(np.pi / 2)))
-        cot_el = 1 / torch.tan(el_clip)
-        px = torch.sin(det_az) * cot_el
-        py = torch.cos(det_az) * cot_el
-
+        _, el_clip, px, py = line_of_sight(tabs["offsets"], tabs["bs_az"], tabs["bs_el"])
         pwv = accumulate_pwv(
             self.mean_pwv, self.screens, px, py, tabs["t_c"], W=tabs["W"],
             generator=generator, draws=draws.get("screens"),
             groups=self.groups, group_tables=tabs["groups"], group_draws=draws.get("groups"),
-            ar_values=self._ar_values(tabs, generator, draws.get("ar"), device), blur=tabs["blur"],
+            ar_values=ar_screen_values(self.screens, generator, draws.get("ar"), device, plan=tabs["ar_plan"]),
+            blur=tabs["blur"],
         )
         if upto == "pwv":
             return {"pwv": pwv}
@@ -282,6 +249,7 @@ class TODProgram:
         if self.with_noise:
             noise = torch.empty((self.n_det, self.n_t), dtype=torch.float32, device=device)
             for i, band in enumerate(self.bands):
+                rows = tabs["det_index"][i]
                 unscaled = generate_noise_with_knee(
                     (len(band.det_index), self.n_t), sample_rate=self.sample_rate, knee=band.knee,
                     basis=tabs["basis"][i], corr_prop=band.corr_prop, generator=generator,
@@ -289,7 +257,7 @@ class TODProgram:
                     mode_white=None if "modes" not in draws else draws["modes"][i],
                     device=device,
                 )
-                noise[tabs["det_index"][i]] = float(np.float32(1e12 * band.NEP)) * unscaled
+                noise[rows] = band_noise_scale(band, [v[rows] for v in fields.values()]) * unscaled
             fields["noise"] = noise
         return fields, pwv_f if pwv_f is not None else self._upsample(pwv, "linear")
 
@@ -424,6 +392,59 @@ def _crop_table(x_side, y_side, table, x_lo, x_hi, y_lo, y_hi):
     i0 = min(i0, len(x) - 2)
     j0 = min(j0, len(y) - 2)
     return x[i0:i1], y[j0:j1], np.asarray(table)[i0:i1, j0:j1]
+
+
+def line_of_sight(offsets, bs_az, bs_el):
+    """(det_el, el_clip, px, py), each (n_det, n_t): the detectors'
+    elevation at the boresight's steps, clamped to [5, 90] deg, and the
+    unit-height line-of-sight projection (x east, y north) of the
+    offsets (n_det, 2) about the boresight (n_t,) tensors."""
+    pt = offsets_to_phi_theta(offsets[:, None, :], bs_az, bs_el)
+    det_az, det_el = pt[..., 0], pt[..., 1]
+    el_clip = torch.clamp(det_el, float(np.float32(np.radians(5.0))), float(np.float32(np.pi / 2)))
+    cot_el = 1 / torch.tan(el_clip)
+    return det_el, el_clip, torch.sin(det_az) * cot_el, torch.cos(det_az) * cot_el
+
+
+def ar_processes(screens) -> list:
+    """The distinct AR processes of ``screens``, in screen order."""
+    seen = {}
+    for s in screens:
+        if s.process is not None:
+            seen.setdefault(id(s.process), s.process)
+    return list(seen.values())
+
+
+def ar_screen_values(screens, generator, draws, device, plan=None):
+    """{screen index: (ny, nx) extruded values} of the AR screens, or
+    None without AR processes: every process extruded by one launch of
+    the AR kernel (its plain loop on the CPU). ``draws`` optionally gives
+    each process's (buffer_init, noise) in ``ar_processes`` order;
+    ``plan`` is the kernel's ``ar_plan`` (made here on a card without one)."""
+    processes = ar_processes(screens)
+    if not processes:
+        return None
+    if draws is None:
+        draws = [p.draw(generator, device) for p in processes]
+    elif len(draws) != len(processes):
+        raise ValueError(f"draws['ar'] must hold one (buffer_init, noise) pair per process ({len(processes)})")
+    if plan is None and torch.device(device).type == "cuda":
+        plan = ar_plan(processes, device)
+    buffers = [torch.as_tensor(d[0], dtype=torch.float32, device=device) for d in draws]
+    noises = [torch.as_tensor(d[1], dtype=torch.float32, device=device) for d in draws]
+    values = dict(zip(map(id, processes), ar_extrude(processes, buffers, noises, plan=plan)))
+    return {i: values[id(s.process)][:, s.ar_columns].T for i, s in enumerate(screens) if s.process is not None}
+
+
+def band_noise_scale(band, loadings):
+    """The factor taking a band's unit-NEP noise to pW: 1e12 NEP, plus
+    with ``NEP_per_loading`` its photon-loading term, 1e12 (NEP +
+    NEP_per_loading P) with P the sum of ``loadings`` (the band's
+    non-noise fields, (n_band_det, n_t) pW each) in W, sample by sample."""
+    if not band.NEP_per_loading or not loadings:
+        return float(np.float32(1e12 * band.NEP))
+    loading_W = 1e-12 * sum(loadings)
+    return 1e12 * (band.NEP + band.NEP_per_loading * loading_W)
 
 
 def gain_errors(gain_error, generator=None, draw=None, device=None):

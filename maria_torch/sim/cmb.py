@@ -17,9 +17,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import T_CMB, c, h, k_B
+from ..constants import T_CMB, k_B
 from ..device import resolve_device
 from ..ops.interp import interp_grid
+from ..radiometry import inverse_rayleigh_jeans_spectrum, planck_spectrum
 from ..tod import Pointing
 
 __all__ = ["DEFAULT_CMB_SIM_KWARGS", "cmb_power_grids", "cmb_power_tables", "compute_cmb_loading", "initialize_cmb"]
@@ -31,12 +32,9 @@ EPS = 1e-6  # K: the step of the two-point dP/dT
 
 def _test_T_RJ(nu):
     """(n_nu, 2): the RJ temperatures of blackbodies at T_CMB and T_CMB +
-    EPS (maria_tpu/functions/radiometry.py's Planck spectrum, inverted
-    as a Rayleigh-Jeans one)."""
-    T_b = np.array([T_CMB, T_CMB + EPS])[None]
+    EPS (the Planck spectrum, inverted as a Rayleigh-Jeans one)."""
     nu = nu[:, None]
-    radiance = 2 * h * nu**3 / (c**2 * np.expm1(h * nu / (k_B * T_b)))
-    return radiance * c**2 / (2 * k_B * nu**2)
+    return inverse_rayleigh_jeans_spectrum(planck_spectrum(np.array([T_CMB, T_CMB + EPS])[None], nu), nu)
 
 
 def _det_power_grid(band, spectrum):
@@ -72,7 +70,7 @@ def initialize_cmb(cmb, seed: int = None, device=None, **cmb_kwargs):
     """The simulation's CMB sky: "generate" (or a synonym) draws one with
     ``generate_cmb(seed=seed, **cmb_kwargs)`` on ``device``, "real" or
     "planck" is ``get_cmb``'s stand-in, and a HEALPixMap is taken as it
-    is. It must be in K_CMB."""
+    is, converted to K_CMB where it is in other units."""
     from ..cmb import generate_cmb, get_cmb
 
     if isinstance(cmb, str) and cmb in GENERATE:
@@ -81,11 +79,7 @@ def initialize_cmb(cmb, seed: int = None, device=None, **cmb_kwargs):
         cmb = get_cmb(device=device)
     elif not hasattr(cmb, "sample_stokes"):
         raise ValueError(f"Invalid value for cmb '{cmb}'.")
-    if cmb.units != "K_CMB":
-        raise NotImplementedError(
-            f"a CMB map in {cmb.units} (ROADMAP queue 1, item 13.4: the calibration graph has no K_CMB conversion)"
-        )
-    return cmb
+    return cmb if cmb.units == "K_CMB" else cmb.to("K_CMB")
 
 
 def cmb_power_grids(obs, band, device):

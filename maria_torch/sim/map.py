@@ -9,8 +9,8 @@ kernel does not commute with a calibration that varies in time.
 
 ``static_map_samples`` and ``map_transmission_table`` feed the program's
 map stage (``ops/program.py``), which calibrates with the realization's
-own pwv; ``sample_maps`` is the whole chain for a scene without an
-atmosphere. The smoothing and the samples are made on the device and
+own pwv; ``sample_maps`` is the whole chain outside the program (a
+scene without an atmosphere, or the per-stage path). The smoothing and the samples are made on the device and
 stay there.
 """
 
@@ -24,7 +24,7 @@ from ..constants import k_B
 from ..coords import phi_theta_to_offsets
 from ..device import resolve_device
 from ..map import ProjectionMap, get
-from ..ops.interp import apply_integration_kernel
+from ..ops.interp import apply_integration_kernel, interp_grid
 from ..tod import Pointing
 
 __all__ = [
@@ -131,20 +131,38 @@ def map_transmission_table(band, input_map, channel: int, spectrum, base_tempera
 
 
 def sample_maps(input_map, obs, bilinear: bool = True, device=None):
-    """The "map" field (n_det, n_t) in pW of a scene without an
-    atmosphere: each band's channels calibrated by the passband's
-    integral in a vacuum, summed, then the integration kernel."""
+    """The "map" field (n_det, n_t) in pW outside the program: each band's
+    channels calibrated, summed, then the integration kernel. Without an
+    atmosphere the calibration is the passband's integral in a vacuum;
+    with one (the per-stage path of ``Simulation(fused=False)``, after the
+    atmosphere stage set ``obs.zenith_scaled_pwv``) it is the channel's
+    transmission integral at each sample's fine-rate pwv and elevation,
+    its (T_base, pwv, el) grid interpolated on the device in float64."""
     device = resolve_device(device)
     map_loading = torch.zeros(obs.shape, dtype=torch.float32, device=device)
     dets = obs.instrument.dets
+    atm = getattr(obs, "atmosphere", None)
     for band in dets.bands:
         band_idx = np.where(dets.band_name == band.name)[0]
         if len(band_idx) == 0:
             continue
+        rows = torch.as_tensor(band_idx, device=device)
+        if atm is not None:
+            T0 = torch.tensor(float(atm.weather.temperature[0]), dtype=torch.float64, device=device)
+            pwv = torch.as_tensor(obs.zenith_scaled_pwv, device=device)[rows]
+            _, el = Pointing(obs.boresight, obs.offsets, obs.q).det_azel(device=device, idx=band_idx)
+            xi = (T0, pwv, torch.clamp(el, max=float(np.pi / 2)))
         band_loading = 0.0
         for channel, samples in static_map_samples(input_map, band, band_idx, obs, bilinear=bilinear, device=device):
             nu_min, nu_max = input_map.nu_bin_bounds[channel]
-            pW_per_K_RJ = 1e12 * k_B * band.compute_transmission_integral(nu_min_Hz=nu_min, nu_max_Hz=nu_max)
-            band_loading = band_loading + float(np.float32(pW_per_K_RJ)) * samples
-        map_loading[torch.as_tensor(band_idx, device=map_loading.device)] = band_loading
+            if atm is None:
+                pW_per_K_RJ = float(np.float32(
+                    1e12 * k_B * band.compute_transmission_integral(nu_min_Hz=nu_min, nu_max_Hz=nu_max)))
+            else:
+                grid = torch.as_tensor(band.transmission_integral_grid(atm.spectrum, nu_min, nu_max)[..., None],
+                                       dtype=torch.float64, device=device)
+                integral = interp_grid(atm.spectrum.points[:3], grid, xi)[..., 0]
+                pW_per_K_RJ = (1e12 * k_B * integral).to(torch.float32)
+            band_loading = band_loading + pW_per_K_RJ * samples
+        map_loading[rows] = band_loading
     return apply_integration_kernel(map_loading)

@@ -1,11 +1,16 @@
 """The Simulation engine (maria_tpu/sim/simulation.py): one Observation
 per plan and TODs out. With an atmosphere every field comes from the
 observation's TODProgram (the CMB's and the input map's stages
-included); without one, the CMB and the map are sampled and calibrated
-in a vacuum every run() and the detector noise is drawn band by band.
+included), or with ``fused=False`` from the per-stage path: the
+atmosphere (``sim/atmosphere.py``), the CMB, the map and the noise one
+after another, from the same draws in the same order. Without an
+atmosphere, the CMB and the map are sampled and calibrated in a vacuum
+every run() and the detector noise is drawn band by band.
 
-Every random draw comes from the simulation's ``torch.Generator`` (seeded
-with ``seed``) unless ``run`` is handed the draws explicitly.
+Loose keywords (``pwv=1.2``, ``nside=...``) are routed to their
+subsystem by ``sim/params.py``. Every random draw comes from the
+simulation's ``torch.Generator`` (seeded with ``seed``) unless ``run`` is
+handed the draws explicitly.
 """
 
 from __future__ import annotations
@@ -19,22 +24,46 @@ import torch
 from ..device import resolve_device
 from ..instrument import Instrument, get_instrument
 from ..noise import DEFAULT_NOISE_SIM_KWARGS, generate_noise_with_knee
-from ..ops.program import band_noise_basis, build_tod_program, gain_errors
+from ..ops.program import band_noise_basis, band_noise_scale, build_tod_program, gain_errors
 from ..plan import Plan, PlanList, get_plan
 from ..site import Site, get_site
 from ..tod import TOD, Pointing
+from .atmosphere import DEFAULT_ATMOSPHERE_SIM_KWARGS, compute_atmospheric_loading, simulate_atmosphere
 from .cmb import DEFAULT_CMB_SIM_KWARGS, compute_cmb_loading, initialize_cmb
 from .map import DEFAULT_MAP_SIM_KWARGS, initialize_map, sample_maps
 from .observation import Observation
+from .params import parse_sim_kwargs
 
 logger = logging.getLogger("maria_torch")
 
 
+def _check_dtype(dtype):
+    """The port computes in float32 only: any other dtype raises."""
+    ok = dtype is torch.float32
+    if not ok:
+        try:
+            ok = np.dtype(dtype) == np.float32
+        except TypeError:
+            ok = False
+    if not ok:
+        raise ValueError(f"dtype {dtype!r}: the port computes in float32 only")
+
+
 class Simulation:
+    """``progress_bars`` and ``keep_mean_signal`` are kept for maria_tpu's
+    signature (it stores both and reads neither in a run); ``dtype`` must
+    be float32."""
+
+    @classmethod
+    def from_config(cls, config: dict = {}, **params):
+        """A Simulation of ``config``'s keywords, ``params`` taking precedence."""
+        return cls(**{**config, **params})
+
     def __init__(self, instrument, plans=None, site=None, atmosphere=None,
                  atmosphere_kwargs: dict = {}, cmb=None, cmb_kwargs: dict = {}, map=None,  # noqa: A002
                  map_kwargs: dict = {},
-                 noise: bool = True, noise_kwargs: dict = {}, seed: int = None,
+                 noise: bool = True, noise_kwargs: dict = {}, fused: bool = True, progress_bars: bool = False,
+                 keep_mean_signal: bool = False, seed: int = None, dtype=torch.float32,
                  device=None, plan=None, **kwargs):
         if plans is None:
             plans = plan
@@ -42,10 +71,23 @@ class Simulation:
             raise TypeError("Simulation requires 'plans' (or the alias 'plan').")
         if site is None:
             raise TypeError("Simulation requires 'site'.")
-        if kwargs:
-            raise NotImplementedError(
-                f"simulation options {sorted(kwargs)} (ROADMAP queue 1, item 13.2: the Simulation constructor)")
+        _check_dtype(dtype)
 
+        # loose keywords (pwv=1.2, ...) go to their subsystem; pwv is sugar
+        # for the weather's override
+        loose = parse_sim_kwargs(kwargs)
+        atmosphere_kwargs = {**loose["atmosphere"], **atmosphere_kwargs}
+        if "pwv" in atmosphere_kwargs:
+            pwv = atmosphere_kwargs.pop("pwv")
+            atmosphere_kwargs["weather"] = {**atmosphere_kwargs.get("weather", {}), "pwv": pwv}
+        cmb_kwargs = {**loose["cmb"], **cmb_kwargs}
+        map_kwargs = {**loose["map"], **map_kwargs}
+        noise_kwargs = {**loose["noise"], **noise_kwargs}
+
+        self.dtype = torch.float32
+        self.fused = fused
+        self.progress_bars = progress_bars
+        self.keep_mean_signal = keep_mean_signal
         self.device = resolve_device(device)
         self.seed = seed
         self.generator = torch.Generator(device=self.device)
@@ -60,7 +102,7 @@ class Simulation:
         self.plans = PlanList(plans)
 
         self.atmosphere = atmosphere
-        self.atmosphere_kwargs = dict(atmosphere_kwargs)
+        self.atmosphere_kwargs = {**DEFAULT_ATMOSPHERE_SIM_KWARGS, **atmosphere_kwargs}
         self.noise = noise
         self.noise_kwargs = {**DEFAULT_NOISE_SIM_KWARGS, **noise_kwargs}
 
@@ -87,7 +129,8 @@ class Simulation:
 
     def program(self, obs_index: int = 0):
         """The observation's TODProgram, built once (a simulation with
-        an atmosphere has one an observation)."""
+        an atmosphere has one an observation, which ``run`` takes unless
+        ``fused=False``)."""
         if self.atmosphere is None:
             raise ValueError("a simulation without an atmosphere has no TODProgram")
         if obs_index not in self._programs:
@@ -122,14 +165,18 @@ class Simulation:
             "region": obs.site.region,
         }
         if self.atmosphere is not None:
+            metadata["pwv"] = float(np.round(obs.atmosphere.weather.pwv, 3))
+            metadata["base_temperature"] = float(np.round(obs.atmosphere.weather.temperature[0], 3))
+        if self.atmosphere is not None and self.fused:
             program = self.program(obs_index)
             fields, pwv_fine = program.fields(generator=self.generator, draws=draws, device=self.device)
             obs.zenith_scaled_pwv = pwv_fine
             gains = program.draw_gains(generator=self.generator, draw=draws.get("gains"), device=self.device)
-            metadata["pwv"] = float(np.round(obs.atmosphere.weather.pwv, 3))
-            metadata["base_temperature"] = float(np.round(obs.atmosphere.weather.temperature[0], 3))
         else:
             fields = {}
+            if self.atmosphere is not None:
+                simulate_atmosphere(obs, generator=self.generator, draws=draws, device=self.device)
+                fields["atmosphere"] = compute_atmospheric_loading(obs)
             if self.cmb is not None:
                 fields["cmb"] = self._compute_cmb_loading(obs)
             if self.map is not None:
@@ -137,7 +184,7 @@ class Simulation:
                     self.map, obs, bilinear=self.map_kwargs["bilinear_sampling"], device=self.device
                 )
             if self.noise:
-                fields["noise"] = self._simulate_noise(obs, draws)
+                fields["noise"] = self._simulate_noise(obs, draws, loading=fields)
             if not fields:
                 raise ValueError("nothing to simulate: no atmosphere, no CMB, no map and no noise")
             gains = gain_errors(dets.gain_error, self.generator, draws.get("gains"), self.device)
@@ -163,20 +210,18 @@ class Simulation:
         the observation's last run()."""
         return compute_cmb_loading(self.cmb, obs, self.device)
 
-    def _simulate_noise(self, obs, draws: dict):
-        """The "noise" field (n_det, n_t) in pW of a scene without an
-        atmosphere: per band, white plus 1/f noise with its spatially
-        correlated part, every row through kernel K1."""
+    def _simulate_noise(self, obs, draws: dict, loading: dict = {}):
+        """The "noise" field (n_det, n_t) in pW outside the program: per
+        band, white plus 1/f noise with its spatially correlated part,
+        every row through kernel K1 (white noise alone for a band without
+        a knee), scaled by the band's NEP plus, with ``NEP_per_loading``,
+        the photon-loading term over the ``loading`` fields."""
         dets = obs.instrument.dets
         noise = torch.zeros(obs.shape, dtype=torch.float32, device=self.device)
         for i, band in enumerate(dets.bands):
             band_idx = np.where(dets.band_name == band.name)[0]
             if len(band_idx) == 0:
                 continue
-            if band.NEP_per_loading:
-                raise NotImplementedError(
-                    "NEP_per_loading (ROADMAP queue 1, item 13.8: the photon-loading noise term)"
-                )
             basis, corr_prop = band_noise_basis(dets.offsets[band_idx], self.noise_kwargs)
             unscaled = generate_noise_with_knee(
                 (len(band_idx), obs.shape[-1]), sample_rate=obs.sample_rate, knee=band.knee, basis=basis,
@@ -184,7 +229,8 @@ class Simulation:
                 white=None if "noise" not in draws else draws["noise"][i],
                 mode_white=None if "modes" not in draws else draws["modes"][i], device=self.device,
             )
-            noise[torch.as_tensor(band_idx, device=self.device)] = float(np.float32(1e12 * band.NEP)) * unscaled
+            rows = torch.as_tensor(band_idx, device=self.device)
+            noise[rows] = band_noise_scale(band, [v[rows] for v in loading.values()]) * unscaled
         return noise
 
     def __repr__(self):

@@ -554,8 +554,15 @@ def test_ar_scenes_run_on_cpu(scenes):
 
 @pytest.mark.parametrize("method", ["fft", "AR"])
 def test_other_methods_raise_naming_their_item(caches, method):
-    with pytest.raises(NotImplementedError, match="item 13"):
+    """The port has both of maria_tpu's methods; any other raises
+    maria_tpu's ValueError with its message."""
+    import maria_tpu.atmosphere
+
+    with pytest.raises(ValueError) as ref:
+        maria_tpu.atmosphere.Atmosphere(model="2d", method=method)
+    with pytest.raises(ValueError, match=f"Invalid method '{method}'") as ours:
         maria_torch.atmosphere.Atmosphere(model="2d", method=method)
+    assert str(ours.value) == str(ref.value)
 
 
 # -- structure-function oracles (tests/test_atmosphere_fidelity.py) ------------------------

@@ -101,10 +101,11 @@ def test_band_parse_bandlist_and_net_cmb():
     assert bands.names == ["m2/f093", "f150"] and bands["f150"] is band and len(bands) == 2
     with pytest.raises(KeyError):
         bands["f999"]
-    with pytest.raises(NotImplementedError, match="item 13.4"):
-        band.NET_CMB
-    with pytest.raises(NotImplementedError, match="item 13.4"):
-        Band(center=150e9, width=30e9, NET_CMB=1e-5)
+    ref_band = maria_tpu.band.Band(center=150e9, width=30e9, NEP=1e-17)
+    assert band.NET_CMB == pytest.approx(ref_band.NET_CMB, rel=1e-10)
+    made = Band(center=150e9, width=30e9, NET_CMB=1e-5)
+    assert made.NET_CMB == pytest.approx(1e-5, rel=1e-12)
+    assert made.NEP == pytest.approx(maria_tpu.band.Band(center=150e9, width=30e9, NET_CMB=1e-5).NEP, rel=1e-10)
     with pytest.raises(ValueError, match="Invalid passband shape"):
         Band(center=150e9, width=30e9, shape="lorentzian", NEP=1e-17)
     with pytest.raises(ValueError, match="not a valid pre-defined band"):

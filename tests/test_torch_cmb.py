@@ -184,8 +184,10 @@ def test_healpix_map_basics(scene):
     np.testing.assert_array_equal(cmb.data.numpy(), np.asarray(ref.data))
     assert cmb.to("uK_CMB").units == "uK_CMB"
     np.testing.assert_allclose(cmb.to("uK_CMB").data.numpy(), 1e6 * cmb.data.numpy(), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cmb.to("K_RJ")
+    rj, ref_rj = cmb.to("K_RJ"), ref.to("K_RJ")
+    assert rj.units == "K_RJ" and rj.weight is None
+    np.testing.assert_allclose(rj.data.numpy(), np.asarray(ref_rj.data), rtol=1e-6,
+                               atol=1e-6 * np.abs(np.asarray(ref_rj.data)).max())
     for fn in (cmb.plot, lambda: cmb.to_hdf("x.h5")):
         with pytest.raises(NotImplementedError, match="item 12"):
             fn()
@@ -259,8 +261,9 @@ def test_initialize_cmb():
     assert sky.nside == 8 and sky.units == "K_CMB"
     with pytest.raises(ValueError, match="Invalid value for cmb"):
         initialize_cmb("nonsense", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        initialize_cmb(sky.to("uK_CMB"), device="cpu")
+    micro = initialize_cmb(sky.to("uK_CMB"), device="cpu")
+    assert micro.units == "K_CMB"
+    np.testing.assert_allclose(micro.data.numpy(), sky.data.numpy(), rtol=1e-6, atol=1e-12)
 
 
 def test_simulation_honours_cmb_kwargs(monkeypatch, scene):

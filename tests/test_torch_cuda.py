@@ -699,3 +699,31 @@ def test_cmb_patch_on_card_matches_cpu(cuda_device):
     assert float((card.signal.cpu() - cpu.signal).abs().max()) <= 1e-5 * scale
     out = scenes.cmb_patch_mapper([card]).fit(epochs=1, steps_per_epoch=5)
     assert out.stokes == "IQU" and out.data.shape[:2] == (3, 2) and bool(torch.isfinite(out.data).all())
+
+
+@pytest.mark.cuda
+def test_dp_dt_cmb_elevation_table_on_card_matches_cpu(cuda_device):
+    """The K_CMB <-> W factor through the atmosphere: the host's float64
+    elevation table of dP/dT_CMB interpolated on the card at 2,000
+    elevations, against the same interpolation on the CPU and the host's
+    float64 evaluation, within 1e-6 relative; and TOD.to's factor of a
+    K_b field on the card against the CPU's."""
+    from maria_torch.band import get_band
+    from maria_torch.calibration import Calibration
+    from maria_torch.spectrum import AtmosphericSpectrum
+
+    spectrum, band = AtmosphericSpectrum("chajnantor"), get_band("act/pa5/f150")
+    el = np.radians(np.linspace(20.0, 85.0, 2000))
+    kw = dict(band=band, spectrum=spectrum, zenith_pwv=1.0, base_temperature=270.0)
+    host = Calibration("K_CMB -> pW", elevation=el, **kw)(1.0)
+    el32 = torch.as_tensor(el, dtype=torch.float32)
+    cpu = Calibration("K_CMB -> pW", elevation=el32, **kw)(1.0)
+    card = Calibration("K_CMB -> pW", elevation=el32.to(cuda_device), **kw)(1.0)
+    assert card.device.type == cuda_device.type and card.dtype == torch.float32
+    np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(card.double().cpu().numpy(), host, rtol=1e-6)
+    T_b = 3.0 + 0.1 * torch.randn((4, 2000), generator=torch.Generator().manual_seed(0))
+    to_pw = Calibration("K_b -> pW", **kw)
+    cpu_p = to_pw(T_b, elevation=el32.expand(4, -1))
+    card_p = to_pw(T_b.to(cuda_device), elevation=el32.expand(4, -1).to(cuda_device))
+    np.testing.assert_allclose(card_p.cpu().numpy(), cpu_p.numpy(), rtol=1e-6)

@@ -162,9 +162,10 @@ def test_map_constructor_channels_and_units():
     np.testing.assert_allclose(milli.data.numpy(), 1e3 * np.asarray(ref.data), rtol=1e-6)
     np.testing.assert_allclose(milli.weight.numpy(), 1e-6 * np.asarray(ref.weight), rtol=1e-6)
     np.testing.assert_allclose(milli.to("K_RJ").data.numpy(), np.asarray(ref.data), rtol=1e-6)
-    for units in ("K_CMB", "Jy/pixel"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            ours.to(units)
+    for units in ("K_CMB", "Jy/pixel"):  # per channel through the calibration graph
+        converted, ref_converted = ours.to(units), ref.to(units)
+        np.testing.assert_allclose(converted.data.numpy(), np.asarray(ref_converted.data), rtol=1e-6,
+                                   atol=1e-6 * np.abs(np.asarray(ref_converted.data)).max())
     replaced = ours._replace(nu=[1e11, 2e11, 3e11])
     assert replaced.center == ours.center and replaced.width == pytest.approx(ours.width, rel=1e-15)
     cube = ProjectionMap(data=data[:1], center=(0, 0), resolution=0.01, v=[-1e3, 1e3])
@@ -575,7 +576,8 @@ def test_bin_mapper_in_power_units(vac_runs):
     the map is maria_tpu's K_RJ map times the band's vacuum pW per K_RJ
     (taken from maria_tpu's two TODs): the hits as there, the binned
     total to 1e-5, 80% of the hit pixels to 1e-5 of the map's largest
-    value. The map converts to nothing outside its quantity."""
+    value. The map converts to K_RJ only with a band (the graph's edge
+    needs one); a map in Jy/pixel is binned in K_RJ and converted."""
     from maria_tpu.mappers import BinMapper as RefBinMapper
 
     ref_tod, tod, _ = vac_runs
@@ -591,10 +593,12 @@ def test_bin_mapper_in_power_units(vac_runs):
     np.testing.assert_allclose((d * w).sum(), (ref_d * ref_w).sum(), rtol=1e-5)
     hit = (w > 0) & (ref_w > 0)
     assert (np.abs(d - ref_d)[hit] <= 1e-5 * np.abs(ref_d).max()).mean() >= 0.8
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(maria_torch.errors.MissingCalibrationKwargsError, match="band"):
         ours.to("K_RJ")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        maria_torch.BinMapper(tod, units="Jy/pixel", **MAPPER_KW)
+    jy = maria_torch.BinMapper(tod, units="Jy/pixel", **MAPPER_KW).run()
+    rj = maria_torch.BinMapper(tod, **MAPPER_KW).run()
+    assert jy.units == "Jy/pixel"
+    np.testing.assert_allclose(jy.data.numpy(), rj.to("Jy/pixel").data.numpy(), rtol=1e-6)
 
 
 def test_bin_mapper_radec_equals_direct_binning(vac_runs):

@@ -190,7 +190,9 @@ def test_import_guard():
                    "healpix/sht.py", "cmb/__init__.py", "cmb/spectra.py", "map/healpix.py", "sim/cmb.py", "ops/sht.py",
                    "utils/signal.py", "tod/processing.py", "mappers/ml_mapper.py", "radiometry.py",
                    "array/generation.py", "plan/patterns.py", "band/__init__.py", "array/__init__.py",
-                   "instrument/__init__.py", "site/__init__.py", "scenes.py"):
+                   "instrument/__init__.py", "site/__init__.py", "scenes.py", "errors.py", "units/__init__.py",
+                   "units/units.py", "units/quantity.py", "units/prefixes.py", "calibration/functions.py",
+                   "sim/params.py", "sim/atmosphere.py", "map/base.py"):
         assert os.path.join(REPO, "maria_torch", *module.split("/")) in paths, module
     for path in paths:
         with open(path) as f:
