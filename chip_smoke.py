@@ -204,12 +204,46 @@ Phases, each of which must pass (any failure exits non-zero):
    NEP times that of the same program without the term on the same draws,
    within 1e-5 relative sample by sample; the knee-free band's noise in
    the program without the term of variance fs NEP^2 within 5% and a PSD
-   flat within 10%; warm time and peak memory.
+   flat within 10%; warm time and peak memory;
+26. slice (t), AtLAST-50k x 600 s streamed (bench.py:844-880's scene:
+   (c)'s scene at 600 s, 1.5e9 samples, uncut): StreamingExecutor(program,
+   obs, block_tc=128).run(group_size=8): every sample in the map (hits
+   summed in float64 equal to n_det x n_t), KC and K2 once a block, the
+   block loop's peak above what init_state holds under 16 (n_det, B)
+   float32 buffers; setup seconds, the warm run (mean of 3), samples/s,
+   the coarse stage's and the loop's peaks, and the stage split (coarse,
+   upsample, noise, binning); at 60 s with noise off the concatenated
+   tod_blocks equal to total_power_fn() on the same draws (1e-6 of its
+   maximum), with noise on the streamed Welch PSD of every band equal to
+   the Welch PSD of the concatenated blocks (1e-3 relative); KC against
+   its plain version (the Toeplitz form) at the block, every band's
+   detector and mode rows in one launch: both held against a float64
+   recurrence on 256 rows over 47 consecutive blocks, KC under 1e-4 of
+   the pink part's std or twice the Toeplitz form's error; timed beside
+   the Toeplitz GEMM alone and the byte bound; K2 at a block's ids;
+27. slice (u), tools/streaming_memory_demo.py's scene (MUSTANG-2, GBT,
+   daisy_5arcmin_60s at 50 Hz, 2-D atmosphere, noise, block_tc 64,
+   group_size 16) at 600 s and 3,600 s: warm times, whole and loop peaks,
+   the loop's peak at 3,600 s within 1.15x of 600 s; a run broken off
+   after two checkpoints and resumed equal to the uninterrupted one (hits
+   exactly, sums within 1e-6 of their maximum), a wrong seed or geometry
+   refused; (g)'s 3-D AR process in four chunks of 128 rows through
+   StreamingExtrusion equal to one long extrusion on the same
+   innovations bit for bit (else within 1e-6 of a screen's std), the AR
+   kernel at the chunk against its plain loop; KC at the block;
+28. slice (v), the streamed ML mapper on tests/test_streaming_ml.py's
+   scene at 600 s (MUSTANG-2 at 20 Hz, an az/el blob, 48 x 48 over 0.2
+   deg), fit(n_epochs=2, n_cg_iters=25): recovery above 0.8 and no worse
+   than the naive map's less 0.02, the fit through K2 against the same
+   fit with the plain P^T within 2e-3 of the map's maximum, K2 as P^T at
+   a block against its float64 plain sums; the fit's warm time, a CG
+   step, K2's launches; at 60 s the batch MaximumLikelihoodMapper on the
+   same TOD, the weighted RMS of the two maps' difference recorded.
 
 Every kernel is timed (CUDA events, in turns) beside its plain version,
 the PyTorch library call that computes the same function where there is
 one (K1 torch.fft.irfft; K2 torch.bincount or index_add_ on ids filtered
-beforehand; K3, the AR kernel, KS1 and KS2 none), and its bound: the larger of its
+beforehand; KC the Toeplitz GEMM w @ LGT; K3, the AR kernel, KS1 and KS2 none), and its bound: the larger of its
 bytes at 3.35 TB/s and its operations at their peak rate (K3: the least
 loop body that meets its contract, K3_LEAST_BODY, for every bin pair at
 the card's issue and pipe rates; the AR kernel: the latency of its chain
@@ -220,7 +254,8 @@ beside them and enters no bound).
 
 The line before the last is the card as nvidia-smi reports it, the one
 before that the kernels' JSON record (K1's launches counted over slices
-(b), (r) and (s), K2's over (b), (p), (q) and (r)); the last line is the
+(b), (r) and (s), K2's over (b), (p), (q), (r), (t) and (v), the AR
+kernel's over (f) and (u)'s chunks, KC's over (t)); the last line is the
 JSON result.
 """
 
@@ -231,6 +266,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -482,7 +518,7 @@ def check_shared_v(device, gen, n_det, m1, c=None, n_extra=0):
     return r
 
 
-def ar_bound(processes, lat) -> dict:
+def ar_bound(processes, lat, steps=None) -> dict:
     """The AR kernel's bound: the larger of its bytes (operators, gather
     offsets and innovations read once, the buffer read and written once)
     at 3.35 TB/s and its latency: each process's chain of n_steps
@@ -492,15 +528,18 @@ def ar_bound(processes, lat) -> dict:
     ceil(log2(n_sample + n_cross)) dependent FMAs) nor than its FMAs at
     the card's float32 peak. ``lat`` holds a dependent FMA's latency and
     a barrier's in a block of one warp (PROBE_THREADS, whatever block the
-    kernel launches), probed on the card in this run."""
+    kernel launches), probed on the card in this run. ``steps`` gives each
+    process's step count where a call runs others than its n_steps (a
+    streamed chunk, on a buffer of steps + n_extrusion rows)."""
     n_bytes, latency_ms = 0, 0.0
-    for p in processes:
+    steps = [p.n_steps for p in processes] if steps is None else steps
+    for p, n_steps in zip(processes, steps):
         n_c, n_s = p.n_cross_section, p.n_sample
         n_fma = n_c * n_s + n_c * (n_c + 1) // 2
         depth_ns = (1 + int(np.ceil(np.log2(n_s + n_c)))) * lat["fma_ns"]
         step_ns = lat["barrier_ns"] + max(depth_ns, 2 * n_fma / F32_OPS * 1e9)
-        latency_ms = max(latency_ms, p.n_steps * step_ns * 1e-6)
-        n_bytes += 4 * (n_fma + n_s + p.n_steps * n_c + 2 * p.n_buffer * n_c)
+        latency_ms = max(latency_ms, n_steps * step_ns * 1e-6)
+        n_bytes += 4 * (n_fma + n_s + n_steps * n_c + 2 * (p.n_extrusion + n_steps) * n_c)
     t_bytes = n_bytes / HBM_BYTES_S * 1e3
     return {"bound_ms": max(t_bytes, latency_ms), "bound_by": "bytes" if t_bytes >= latency_ms else "operations",
             "latency_bound_ms": latency_ms, "bytes_bound_ms": t_bytes}
@@ -2295,6 +2334,587 @@ def run_photon_noise(device, card):
     return launches, summary
 
 
+STREAM_SECONDS = 600.0  # slices (t) and (v)
+STREAM_CHECK_SECONDS = 60.0  # (t)'s equality gates, (v)'s batch comparison
+ML_GATE_SECONDS = 30.0  # (v)'s gates: tests/test_streaming_ml.py's scene as written
+U_SECONDS = (600.0, 3600.0)  # slice (u)
+LOOP_BUFFERS = 16  # (t)'s gate: the block loop's peak above init_state, in (n_det, B) float32 buffers
+KC_BLOCKS = 47  # consecutive blocks KC and its plain version are held against a float64 recurrence
+KC_ROWS = 256  # rows of that recurrence, spread over the launch
+
+
+def cascade_float64(w, state, p, a):
+    """The cascade's recurrence in float64 on the host: (pink, state)."""
+    x = state.astype(np.float64).copy()
+    out = np.empty(w.shape)
+    for t in range(w.shape[1]):
+        x = p * x + w[:, t:t + 1]
+        out[:, t] = (x * a).sum(axis=1)
+    return out, x
+
+
+def check_pink_cascade(device, gen, ex, label):
+    """KC against its plain version (the Toeplitz form) at executor
+    ``ex``'s block: every band's detector and mode rows in one launch, as
+    the block loop makes it. Both are held against a float64 recurrence on
+    KC_ROWS of the rows over KC_BLOCKS consecutive blocks, the state
+    carried: KC's largest error under 1e-4 of the pink part's std, or
+    under twice the Toeplitz form's. Timed beside the Toeplitz GEMM alone
+    (w times the sub-chunk table, the yardstick) and the byte bound."""
+    import torch
+
+    from maria_torch.ops.pink_cascade import CHUNK, pink_cascade, pink_cascade_plain, toeplitz_tables
+
+    cr = ex._casc_rows
+    t = ex._casc_tensors(device)
+    rows, n, K = cr["n"], ex.B, cr["K"]
+    pick = np.unique(np.linspace(0, rows - 1, KC_ROWS).astype(np.int64))
+    tab_np = cr["table_np"][pick]
+    p_np = t["p"].cpu().numpy().astype(np.float64)[tab_np]
+    a_np = t["a"].cpu().numpy().astype(np.float64)[tab_np]
+    # the stationary start of every row's cascade, as init_state draws it
+    state = torch.cat([ex.noise_models[i].cascade.init_state(z - a, gen, device=device)
+                       for (i, _), (a, z) in cr["spans"].items()])
+    s_kc = s_plain = state
+    s64 = state[pick].cpu().numpy()
+    err_kc = err_plain = 0.0
+    stds = []
+    for _ in range(KC_BLOCKS):
+        w = torch.randn((rows, n), generator=gen, device=device)
+        y_kc, s_kc = pink_cascade(w, s_kc, t["p"], t["a"], t["table"])
+        y_plain, s_plain = pink_cascade_plain(w, s_plain, t["p"], t["a"], t["table"])
+        ref, s64 = cascade_float64(w[pick].cpu().numpy(), s64, p_np, a_np)
+        err_kc = max(err_kc, float(np.abs(y_kc[pick].cpu().numpy() - ref).max()))
+        err_plain = max(err_plain, float(np.abs(y_plain[pick].cpu().numpy() - ref).max()))
+        stds.append(float(ref.std()))
+    std = float(np.mean(stds))
+    ok = err_kc <= max(1e-4 * std, 2 * err_plain) and bool(torch.isfinite(y_kc).all())
+    name = f"KC pink_cascade (slice {label}'s block: {rows} rows of {len(ex._casc_bands)} band table(s) x {n}, K {K})"
+    print(f"{name}: largest error against the float64 recurrence over {KC_BLOCKS} blocks, {len(pick)} rows: KC "
+          f"{err_kc:.3e}, Toeplitz form {err_plain:.3e}, pink std {std:.4f} (limit max(1e-4 std, 2 x Toeplitz)) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(name)
+    w = torch.randn((rows, n), generator=gen, device=device)
+    chunk = min(n, CHUNK)
+    LGT = toeplitz_tables(t["p"][0], t["a"][0], chunk, device)[0]
+    gemm_in = w[:, :chunk].contiguous()
+    ms, plain_ms, library_ms = paired_ms(lambda: pink_cascade_plain(w, state, t["p"], t["a"], t["table"]),
+                                         lambda: pink_cascade(w, state, t["p"], t["a"], t["table"]),
+                                         lambda: torch.matmul(gemm_in, LGT))
+    library_ms *= n / chunk
+    r = {"max_abs_err": err_kc, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "shape": [rows, n, K],
+         "toeplitz_err": err_plain, **bound(8.0 * rows * n + 8.0 * rows * K, 4.0 * K * rows * n)}
+    print(timing_line(f"{name} (library: the Toeplitz GEMM w @ LGT alone, TF32 off)", r), flush=True)
+    return r
+
+
+def stream_launches() -> dict:
+    from maria_torch.ops.bin_map import bin_map
+    from maria_torch.ops.pink_cascade import pink_cascade
+
+    return {"pink_cascade": pink_cascade.launches, "bin_map": bin_map.launches}
+
+
+def reset_stream_launches():
+    from maria_torch.ops.ar_extrude import ar_extrude
+    from maria_torch.ops.bin_map import bin_map
+    from maria_torch.ops.pink_cascade import pink_cascade
+
+    pink_cascade.launches = bin_map.launches = ar_extrude.launches = 0
+
+
+def stream_stage_ms(ex, state) -> dict:
+    """The block loop's stages summed over every block, each its own pass
+    ended by a synchronize: upsample (the atmosphere), noise (white draws,
+    KC, the bands' sums), binning (pixel ids and K2)."""
+    import torch
+
+    from maria_torch.ops.bin_map import bin_map
+
+    out = {}
+    for stage in ("upsample", "noise", "binning"):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        st = state
+        for b in range(ex.n_blocks):
+            atm = ex.atmosphere_block(st, b)
+            if stage == "noise":
+                st = dict(st, noise=ex.noise_block(st, b, atm)[0])
+            elif stage == "binning":
+                bin_map(atm[None], ex.pixel_ids(b), ex.n_x * ex.n_y, count=True)
+            del atm
+        torch.cuda.synchronize()
+        out[stage] = (time.perf_counter() - s) * 1e3
+    out["noise"] -= out["upsample"]
+    out["binning"] -= out["upsample"]
+    return out
+
+
+def run_streamed_atlast(device, card, gen):
+    """Slice (t): AtLAST-50k x 600 s streamed (bench.py:844-880's scene):
+    StreamingExecutor(program, obs, block_tc=128).run(group_size=8), every
+    sample in the map, the block loop's peak above init_state under
+    LOOP_BUFFERS (n_det, B) buffers; at 60 s with noise off the
+    concatenated tod_blocks equal to total_power_fn() on the same draws
+    (1e-6 relative), with noise on the streamed Welch PSD equal to the
+    Welch PSD of the concatenated blocks; KC against its plain version."""
+    import copy
+
+    import torch
+
+    from maria_torch.ops.streaming_exec import StreamingExecutor, _generator
+    from maria_torch.scenes import simulation
+
+    s = time.perf_counter()
+    sim = simulation("atlast", STREAM_SECONDS, device)
+    program = sim.program()
+    ex = StreamingExecutor(program, sim.obs_list[0], block_tc=128, device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - s
+    n_samples = ex.n_det * ex.n_t
+    print(f"slice (t) AtLAST-50k {STREAM_SECONDS:.0f} s streamed: host setup {setup_s:.2f} s ({ex.n_det} detectors x "
+          f"{ex.n_t} samples = {n_samples:.3e}; block_tc {ex.block_tc}, B {ex.B}, {ex.n_blocks} blocks; map {ex.n_x} x "
+          f"{ex.n_y}, res {np.degrees(ex.res) * 3600:.2f} arcsec; {ex._casc_rows['n']} cascade rows, K "
+          f"{ex._casc_rows['K']})", flush=True)
+    kc = check_pink_cascade(device, gen, ex, "t")
+    k2 = check_stream_k2(device, gen, ex, "t")["count"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_stream_launches()
+    s = time.perf_counter()
+    state = ex.init_state(0)
+    torch.cuda.synchronize()
+    coarse_s = time.perf_counter() - s
+    coarse_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    s = time.perf_counter()
+    res = ex.run(0, group_size=8, state=state)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - s
+    loop_peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    launches = stream_launches()
+    buffer_gb = ex.n_det * ex.B * 4 / 1e9
+    hits = float(res.map_wgt.astype(np.float64).sum())
+    ok = hits == n_samples and np.isfinite(res.map_sum).all()
+    ok &= launches == {"pink_cascade": ex.n_blocks, "bin_map": ex.n_blocks}
+    ok &= loop_peak < LOOP_BUFFERS * buffer_gb
+    print(f"slice (t): first run: coarse stage (init_state) {coarse_s:.3f} s, peak {coarse_peak:.2f} GB above the "
+          f"program's tables; block loop {loop_s:.3f} s, peak {loop_peak:.3f} GB above init_state's {held / 1e9:.2f} GB "
+          f"(limit {LOOP_BUFFERS} x {buffer_gb:.3f} GB = {LOOP_BUFFERS * buffer_gb:.2f} GB, "
+          f"{loop_peak / buffer_gb:.1f} buffers); main-path launches {launches}; hits {hits:.0f} of {n_samples} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (t) streamed run")
+    del state
+    warm, each = warm_ms(lambda: ex.run(0, group_size=8), reps=3)
+    state = ex.init_state(0)
+    stages = stream_stage_ms(ex, state)
+    del state
+    torch.cuda.synchronize()
+    s = time.perf_counter()
+    ex.init_state(0)
+    torch.cuda.synchronize()
+    stages = {"coarse": (time.perf_counter() - s) * 1e3, **stages}
+    summary = {"setup_s": setup_s, "warm_ms": warm, "warm_each_ms": each, "samples_per_s": n_samples / (warm / 1e3),
+               "coarse_peak_gb": coarse_peak, "loop_peak_gb": loop_peak, "init_state_gb": held / 1e9,
+               "loop_buffers": loop_peak / buffer_gb, "launches": launches, "stage_ms": stages, "B": ex.B,
+               "n_blocks": ex.n_blocks}
+    print(f"slice (t): warm run() {warm:.1f} ms (mean of 3: {each}), {n_samples / (warm / 1e3):.3e} samples/s; "
+          f"stages (ms, each a pass of its own over every block): {json.dumps(stages)}", flush=True)
+    # the wide-array cap of block_tc="auto" (128 cells): the block loop at
+    # 128 and at 256 cells, in turns, with its peak above init_state
+    cap = {}
+    for block_tc in (128, 256, 256, 128):
+        ex_c = ex if block_tc == ex.block_tc else StreamingExecutor(program, sim.obs_list[0], block_tc=block_tc,
+                                                                    device=device)
+        state = ex_c.init_state(0)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        s = time.perf_counter()
+        ex_c.run(0, group_size=8, state=state)
+        torch.cuda.synchronize()
+        cap.setdefault(block_tc, []).append(((time.perf_counter() - s) * 1e3,
+                                             (torch.cuda.max_memory_allocated() - held) / 1e9))
+        del state, ex_c
+    summary["cap"] = {str(k): v for k, v in cap.items()}
+    print(f"slice (t): the block loop (ms, peak GB above init_state) at block_tc 128 {cap[128]} and 256 {cap[256]}",
+          flush=True)
+
+    # the equality gates at 60 s
+    sim60 = simulation("atlast", STREAM_CHECK_SECONDS, device)
+    prog60 = copy.copy(sim60.program())
+    prog60.with_noise = False
+    ex60 = StreamingExecutor(prog60, sim60.obs_list[0], block_tc=128, device=device)
+    key = 3
+    draw_gains = torch.randn((prog60.n_det,), generator=_generator(device, key, 1), device=device)
+    batch = prog60.total_power_fn()(generator=_generator(device, key, 0), draws={"gains": draw_gains}, device=device)
+    stream = torch.cat([blk for _, blk in ex60.tod_blocks(key)], dim=-1)
+    rel = float((stream - batch).abs().max()) / float(batch.abs().max())
+    ok = stream.shape == batch.shape and rel <= 1e-6
+    print(f"slice (t) at {STREAM_CHECK_SECONDS:.0f} s, noise off: streamed TOD {tuple(stream.shape)} against "
+          f"total_power_fn() on the same draws, largest difference {rel:.3e} of its maximum (limit 1e-6) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    del batch, stream
+    if not ok:
+        fail("slice (t) streamed against batch")
+    ex60n = StreamingExecutor(sim60.program(), sim60.obs_list[0], block_tc=128, device=device)
+    res = ex60n.run(key, accumulate_psd=True)
+    tod = torch.cat([blk for _, blk in ex60n.tod_blocks(key)], dim=-1)
+    B, n_full = ex60n.B, ex60n.n_t // ex60n.B
+    hann = torch.hann_window(B, periodic=True, device=device)
+    worst = 0.0
+    for i, band in enumerate(ex60n.program.bands):
+        x = tod[torch.as_tensor(band.det_index, device=device)][:, :n_full * B].reshape(len(band.det_index), n_full, B)
+        x = x - x.mean(dim=-1, keepdim=True)
+        p = (torch.fft.rfft(x * hann, dim=-1).abs() ** 2).mean(dim=(0, 1)).double().cpu().numpy()
+        p *= 2 / (prog60.sample_rate * float((hann**2).sum()))
+        p[0] /= 2
+        if B % 2 == 0:
+            p[-1] /= 2
+        worst = max(worst, float(np.abs(res.psds[i][1:] / p[1:] - 1).max()))
+    ok = worst <= 1e-3
+    print(f"slice (t) at {STREAM_CHECK_SECONDS:.0f} s, noise on: streamed Welch PSD of {len(res.psds)} bands against "
+          f"the Welch PSD of the concatenated blocks, largest relative difference {worst:.3e} (limit 1e-3) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (t) streamed Welch PSD")
+    return kc, k2, launches, summary
+
+
+def loop_peak_run(ex, key=0, group_size=16):
+    """(run seconds, whole peak GB, block loop's peak above init_state GB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    s = time.perf_counter()
+    state = ex.init_state(key)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ex.run(key, group_size=group_size, state=state)
+    torch.cuda.synchronize()
+    loop = torch.cuda.max_memory_allocated() - held
+    return time.perf_counter() - s, max(init_peak, held - base + loop) / 1e9, loop / 1e9
+
+
+def run_streamed_mustang(device, card, program_g, tmp_dir):
+    """Slice (u): tools/streaming_memory_demo.py's scene (MUSTANG-2, GBT,
+    daisy_5arcmin_60s at 50 Hz, 2-D atmosphere, noise; block_tc 64,
+    group_size 16) at 600 s and 3,600 s: the block loop's peak above
+    init_state at 3,600 s within 1.15x of 600 s; a run broken off after two
+    checkpoints and resumed equal to the uninterrupted one; a wrong seed or
+    geometry refused; (g)'s 3-D AR process in chunks through
+    StreamingExtrusion equal to one long extrusion."""
+    import torch
+
+    import maria_torch
+    from maria_torch.atmosphere.streaming import StreamingExtrusion
+    from maria_torch.ops.ar_extrude import ar_extrude
+    from maria_torch.ops.program import build_tod_program
+    from maria_torch.ops.streaming_exec import StreamingExecutor
+
+    out, exs = {}, {}
+    for duration in U_SECONDS:
+        s = time.perf_counter()
+        plan = maria_torch.get_plan("daisy_5arcmin_60s", start_time=1.75e9, scan_center=(150.0, 41.0),
+                                    frame="az/el", duration=duration, sample_rate=50.0)
+        sim = maria_torch.Simulation(instrument="MUSTANG-2", plans=plan, site="GBT", atmosphere="2d", noise=True,
+                                     seed=0, device=device)
+        program = build_tod_program(sim.obs_list[0], noise_kwargs=sim.noise_kwargs, device=device)
+        ex = StreamingExecutor(program, sim.obs_list[0], block_tc=64, device=device)
+        setup_s = time.perf_counter() - s
+        reset_stream_launches()
+        cold_s, peak, loop = loop_peak_run(ex)
+        launches = stream_launches()
+        warm, each = warm_ms(lambda: ex.run(0, group_size=16), reps=3)
+        ok = launches == {"pink_cascade": ex.n_blocks, "bin_map": ex.n_blocks}
+        out[duration] = {"setup_s": setup_s, "cold_s": cold_s, "warm_ms": warm, "warm_each_ms": each,
+                         "peak_gb": peak, "loop_peak_gb": loop, "n_blocks": ex.n_blocks, "launches": launches,
+                         "samples_per_s": ex.n_det * ex.n_t / (warm / 1e3)}
+        print(f"slice (u) MUSTANG-2 {duration:.0f} s streamed ({ex.n_det} x {ex.n_t}, B {ex.B}, {ex.n_blocks} "
+              f"blocks): setup {setup_s:.2f} s, first run {cold_s:.3f} s, warm {warm:.1f} ms ({each}), whole peak "
+              f"{peak:.3f} GB, block loop's peak above init_state {loop * 1e3:.2f} MB; launches {launches} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"slice (u) at {duration:.0f} s")
+        exs[duration] = ex
+    ratio = out[U_SECONDS[1]]["loop_peak_gb"] / out[U_SECONDS[0]]["loop_peak_gb"]
+    ok = ratio <= 1.15
+    print(f"slice (u): the block loop's peak at {U_SECONDS[1]:.0f} s over {U_SECONDS[0]:.0f} s: {ratio:.4f} "
+          f"(limit 1.15) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (u) bounded memory")
+
+    ex = exs[U_SECONDS[0]]
+    path = os.path.join(tmp_dir, "stream_u.ckpt.npz")
+    full = ex.run(5, group_size=2)
+    state = ex.init_state(5)
+    for b, state, _ in ex._blocks(state):  # groups of two blocks, broken off after the second group's checkpoint
+        if b + 1 in (2, 4):
+            ex._save_ckpt(path, state, b + 1, 5)
+        if b + 1 == 4:
+            break
+    resumed = ex.run(5, group_size=2, checkpoint_path=path)
+    err = float(np.abs(resumed.map_sum - full.map_sum).max()) / float(np.abs(full.map_sum).max())
+    refused = []
+    for bad in ((6, ex), (5, StreamingExecutor(ex.program, None, block_tc=64, n_x=64, n_y=64, device=device))):
+        try:
+            bad[1].run(bad[0], group_size=2, checkpoint_path=path)
+            refused.append(False)
+        except ValueError:
+            refused.append(True)
+    ok = np.array_equal(resumed.map_wgt, full.map_wgt) and err <= 1e-6 and all(refused)
+    print(f"slice (u): run broken off after 2 checkpoints (block 4 of {ex.n_blocks}) and resumed: hits equal "
+          f"{np.array_equal(resumed.map_wgt, full.map_wgt)}, sums within {err:.3e} of their maximum (limit 1e-6); a "
+          f"wrong seed / geometry refused {refused} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (u) checkpoint and resume")
+
+    (proc,) = program_g.ar_processes
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    chunk_rows, n_chunks = 128, 4
+    stream = StreamingExtrusion(proc, chunk_rows, device=device)
+    reset_stream_launches()
+    state0 = stream.initial_state(gen)
+    noise = torch.randn((n_chunks * chunk_rows, proc.n_cross_section), generator=gen, device=device)
+    chunks, st = [], state0
+    torch.cuda.synchronize()
+    s = time.perf_counter()
+    for c in range(n_chunks):
+        st, chunk = stream.step(st, noise[c * chunk_rows:(c + 1) * chunk_rows])
+        chunks.append(chunk)
+    torch.cuda.synchronize()
+    chunk_ms = (time.perf_counter() - s) * 1e3 / n_chunks
+    ar_launches = ar_extrude.launches
+    long = torch.cat([torch.zeros((n_chunks * chunk_rows, proc.n_cross_section), device=device), state0])
+    (one,) = ar_extrude([proc], [long], [noise], steps=[n_chunks * chunk_rows], rows=n_chunks * chunk_rows)
+    equal = bool(torch.equal(torch.cat(chunks), one.flip(0)))
+    rel = float((torch.cat(chunks) - one.flip(0)).abs().max()) / float(one.std())
+    ok = (equal or rel <= 1e-6) and ar_launches == n_chunks + 1
+    print(f"slice (u): (g)'s 3-D AR process ({proc.n_extrusion} x {proc.n_cross_section} x {proc.n_sample}) in "
+          f"{n_chunks} chunks of {chunk_rows} rows through StreamingExtrusion ({ar_launches} AR launches with the "
+          f"start's; {chunk_ms:.3f} ms a chunk): equal to one long extrusion bit for bit {equal} (largest difference "
+          f"{rel:.3e} of a screen's std) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (u) chunked AR extrusion")
+    ar_r = check_ar_chunk(device, torch.Generator(device=device), proc, chunk_rows)
+    ar_r.update({"chunk_wall_ms": chunk_ms, "launches": ar_launches})
+    kc = check_pink_cascade(device, torch.Generator(device=device), ex, "u")
+    return out, ar_r, kc
+
+
+def streamed_ml_scene(device, duration):
+    """Slice (v)'s scene: tests/test_streaming_ml.py:15-37 at ``duration``
+    s (MUSTANG-2 at 20 Hz, the injected az/el blob, a mild atmosphere and
+    noise) -> (executor on 48 x 48 pixels over 0.2 deg, obs, blob)."""
+    import maria_torch
+    from maria_torch.map import ProjectionMap
+    from maria_torch.ops.program import build_tod_program
+    from maria_torch.ops.streaming_exec import StreamingExecutor
+
+    n = 48
+    yy, xx = np.mgrid[:n, :n]
+    blob = np.exp(-((xx - n / 2) ** 2 + (yy - n / 2) ** 2) / (2 * (n / 8) ** 2))
+    input_map = ProjectionMap(data=(2e-3 * blob).astype(np.float32)[None, None, None], center=(150.0, 41.0),
+                              width=0.2, frame="az/el", units="K_RJ", degrees=True)
+    plan = maria_torch.get_plan("daisy_5arcmin_60s", start_time=1.75e9, scan_center=(150.0, 41.0), frame="az/el",
+                                duration=duration, sample_rate=20.0)
+    sim = maria_torch.Simulation(instrument="MUSTANG-2", plans=plan, site="GBT", atmosphere="2d", noise=True,
+                                 seed=11, device=device)
+    obs = sim.obs_list[0]
+    program = build_tod_program(obs, noise_kwargs=sim.noise_kwargs, device=device)
+    ex = StreamingExecutor(program, obs, block_tc=16, n_x=n, n_y=n, res=np.radians(0.2) / n, input_map=input_map,
+                           device=device)
+    return ex, obs, blob
+
+
+def blob_recovery(m, hits, blob):
+    mask = hits > np.percentile(hits[hits > 0], 60)
+    a, b = m[mask] - m[mask].mean(), blob[mask] - blob[mask].mean()
+    return float((a * b).sum() / np.sqrt((a**2).sum() * (b**2).sum() + 1e-30))
+
+
+def run_streamed_ml(device, card):
+    """Slice (v): the streamed ML mapper on tests/test_streaming_ml.py's
+    scene, fit(n_epochs=2, n_cg_iters=25). At 600 s: the fit's warm time,
+    a CG step, K2's launches and the recovery of the blob, recorded. At
+    the reference test's own 30 s, the gates: recovery above 0.8 and no
+    worse than the naive map's less 0.02, and the fit with K2 as P^T
+    against the same fit with the plain P^T within 2e-3 of the map's
+    maximum. (Past ~60 s this model's fit no longer recovers the blob, in
+    maria_tpu as in the port: PERF.md, PR 14.) At 60 s the batch
+    MaximumLikelihoodMapper on the same TOD, the weighted RMS of the two
+    maps' difference recorded."""
+    import torch
+
+    from maria_torch.mappers import StreamingMLMapper
+    from maria_torch.mappers.ml_mapper import MaximumLikelihoodMapper
+    from maria_torch.ops.bin_map import bin_map_plain
+    from maria_torch.tod import TOD, Pointing
+
+    s = time.perf_counter()
+    ex, obs, blob = streamed_ml_scene(device, STREAM_SECONDS)
+    setup_s = time.perf_counter() - s
+    mapper = StreamingMLMapper(ex, n_epochs=2, n_cg_iters=25)
+    reset_stream_launches()
+    m = mapper.fit(4)
+    launches = stream_launches()
+    corr, corr_naive = blob_recovery(m, mapper.hits, blob), blob_recovery(mapper.naive_map, mapper.hits, blob)
+    warm, each = warm_ms(lambda: StreamingMLMapper(ex, n_epochs=2, n_cg_iters=25).fit(4), reps=3)
+    A_inv = torch.ones((ex.n_det, ex.B // 2 + 1), device=device)
+    x = torch.randn(ex.n_x * ex.n_y, device=device)
+    step_ms = cuda_ms(lambda: mapper._apply_A(x, A_inv), reps=5)
+    ok = np.isfinite(m).all() and launches["bin_map"] > 0 and launches["pink_cascade"] > 0 and mapper.resident
+    print(f"slice (v) streamed ML, MUSTANG-2 {STREAM_SECONDS:.0f} s at 20 Hz ({ex.n_det} x {ex.n_t}, {ex.n_blocks} "
+          f"blocks of {ex.B}) on 48 x 48 over 0.2 deg: setup {setup_s:.2f} s; fit(2 x 25) warm {warm:.1f} ms ({each}); "
+          f"a CG step (P^T N^-1 P over every block) {step_ms:.3f} ms; main-path launches of the first fit "
+          f"{launches}; a finite map, recovery {corr:.4f} (naive {corr_naive:.4f}; recorded) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail("slice (v) streamed ML at 600 s")
+    r = check_ml_stream_pt(mapper, card)
+
+    ex30, _, _ = streamed_ml_scene(device, ML_GATE_SECONDS)
+    m30 = StreamingMLMapper(ex30, n_epochs=2, n_cg_iters=25)
+    m_k2 = m30.fit(4)
+    corr30, naive30 = blob_recovery(m_k2, m30.hits, blob), blob_recovery(m30.naive_map, m30.hits, blob)
+    plains = []
+    for _ in range(2):  # twice: index_add_ sums with atomics too, so two plain fits differ
+        plain = StreamingMLMapper(ex30, n_epochs=2, n_cg_iters=25)
+        plain._project_T = lambda channels, ids, n_pix=plain.n_pix: bin_map_plain(channels.contiguous(), ids, n_pix)
+        plains.append(plain.fit(4))
+    # the better-covered pixels (recovery's mask): a map-edge pixel of a
+    # few hits is ill-conditioned, and there the float32 sums' order alone
+    # moves two identical fits by up to 14% of the map's maximum (card
+    # runs of PR 14)
+    well = m30.hits > np.percentile(m30.hits[m30.hits > 0], 60)
+    scale = float(np.abs(plains[0][well]).max())
+    diff = float(np.abs(m_k2 - plains[0])[well].max()) / scale
+    spread = float(np.abs(plains[1] - plains[0])[well].max()) / scale
+    diff_all = float(np.abs(m_k2 - plains[0]).max()) / float(np.abs(plains[0]).max())
+    spread_all = float(np.abs(plains[1] - plains[0]).max()) / float(np.abs(plains[0]).max())
+    ok = np.isfinite(m_k2).all() and corr30 > 0.8 and corr30 > naive30 - 0.02 and diff <= max(2e-3, 2 * spread)
+    print(f"slice (v) at {ML_GATE_SECONDS:.0f} s (tests/test_streaming_ml.py's scene as written): recovery "
+          f"{corr30:.4f} (naive {naive30:.4f}; limits 0.8 and naive - 0.02); over the better-covered pixels the fit "
+          f"through K2 against the plain P^T's {diff:.3e} of the map's maximum there (limit 2e-3, or twice the "
+          f"spread of two plain fits, {spread:.3e}); over every pixel {diff_all:.3e}, two plain fits {spread_all:.3e} "
+          f"(printed) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (v) streamed ML gates")
+
+    ex60, obs60, _ = streamed_ml_scene(device, STREAM_CHECK_SECONDS)
+    m60 = StreamingMLMapper(ex60, n_epochs=2, n_cg_iters=25)
+    m_stream = m60.fit(4)
+    tod = torch.cat([blk for _, blk in ex60.tod_blocks(4)], dim=-1)
+    tod_obj = TOD(data={"total": tod}, pointing=Pointing(obs60.boresight, obs60.offsets, obs60.q), units="pW",
+                  dets=obs60.instrument.dets)
+    center = tuple(np.degrees(ex60.center))
+    batch = MaximumLikelihoodMapper([tod_obj], center=center, width=0.2, height=0.2, resolution=0.2 / 48,
+                                    frame="az/el", units="pW", n_epochs=2, n_cg_iters=25).fit()
+    b_map = batch.data[0, 0, 0].double().cpu().numpy()
+    wrms = float("nan")
+    if b_map.shape == m_stream.shape:
+        covered = (m60.hits > 0) & (batch.weight[0, 0, 0].cpu().numpy() > 0)
+        w = m60.hits[covered]
+        b = b_map[covered] - b_map[covered].mean()
+        d = (m_stream[covered] - m_stream[covered].mean()) - b
+        wrms = float(np.sqrt((w * d**2).sum() / (w * b**2).sum()))
+    print(f"slice (v) at {STREAM_CHECK_SECONDS:.0f} s: the streamed ML map against the batch MaximumLikelihoodMapper "
+          f"on the same TOD ({tuple(tod.shape)}; maps {m_stream.shape} and {b_map.shape}): weighted RMS of the "
+          f"difference over covered pixels {wrms:.4f} of the batch map's weighted RMS (recorded, not gated)", flush=True)
+    return r, launches, {"setup_s": setup_s, "fit_warm_ms": warm, "fit_each_ms": each, "cg_step_ms": step_ms,
+                         "recovery_600s": corr, "recovery_naive_600s": corr_naive, "recovery_30s": corr30,
+                         "recovery_naive_30s": naive30, "k2_vs_plain_30s": diff, "plain_spread_30s": spread,
+                         "k2_vs_plain_all_30s": diff_all, "plain_spread_all_30s": spread_all,
+                         "batch_wrms_60s": wrms}
+
+
+def check_ml_stream_pt(mapper, card):
+    """K2 as the streamed ML's P^T at one block's ids against its float64
+    plain sums, timed beside index_add_ and the byte bound."""
+    import torch
+
+    from maria_torch.ops.bin_map import bin_map, bin_map_plain
+
+    ex = mapper.ex
+    ids = mapper._block_ids(0)
+    v = torch.randn((1, ex.n_det, ex.B), device=ids.device)
+    out = bin_map(v, ids, mapper.n_pix)[0]
+    exact = plain_sums64(v[0], ids, mapper.n_pix)
+    err = float((out.double() - exact).abs().max()) / float(exact.abs().max())
+    keep = (ids >= 0).reshape(-1)
+    ids_k, v_k = ids.reshape(-1)[keep].long(), v.reshape(1, -1)[:, keep]
+    lib = torch.zeros((1, mapper.n_pix), device=ids.device)
+    ms, plain_ms, library_ms = paired_ms(lambda: bin_map_plain(v, ids, mapper.n_pix),
+                                         lambda: bin_map(v, ids, mapper.n_pix),
+                                         lambda: lib.zero_().index_add_(1, ids_k, v_k))
+    n = ids.numel()
+    r = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+         "shape": [1, ex.n_det, ex.B, mapper.n_pix], **bound(8.0 * n + 4.0 * mapper.n_pix, n)}
+    ok = err <= 1e-5
+    print(timing_line(f"K2 as the streamed ML P^T (slice v, one block: 1 x {ex.n_det} x {ex.B} into {mapper.n_pix}; "
+                      f"error {err:.2e} of the float64 sums' max, limit 1e-5)", r), flush=True)
+    if not ok:
+        fail("K2 as the streamed ML P^T")
+    return r
+
+
+def check_stream_k2(device, gen, ex, label):
+    """K2 at a streaming block's ids and shape (the sums and the count) of
+    executor ``ex``."""
+    ids = ex.pixel_ids(min(1, ex.n_blocks - 1))
+    return check_bin_map(device, gen, ids, f"slice {label} streaming block ids ({ex.n_det} x {ex.B})",
+                         n_pix=ex.n_x * ex.n_y)
+
+
+def check_ar_chunk(device, gen, proc, chunk_rows):
+    """The AR kernel as a streamed chunk runs it (``chunk_rows`` steps on a
+    buffer of chunk_rows + n_extrusion rows, one launch) against its plain
+    loop on the same draws (1e-4 of the chunk's std), timed beside
+    ``ar_bound`` at those steps."""
+    import torch
+
+    from maria_torch.ops.ar_extrude import ar_extrude, ar_extrude_reference, ar_plan, probe_latencies
+
+    plan = ar_plan([proc], device, steps=[chunk_rows])
+    buffer = torch.randn((chunk_rows + proc.n_extrusion, proc.n_cross_section), generator=gen, device=device)
+    noise = torch.randn((chunk_rows, proc.n_cross_section), generator=gen, device=device)
+    t = proc.tensors(device)
+
+    def kernel():
+        return ar_extrude([proc], [buffer], [noise], plan=plan, steps=[chunk_rows], rows=chunk_rows)[0]
+
+    def plain():
+        return ar_extrude_reference(t["A"], t["B"], buffer, t["ext_idx"], t["cross_idx"], noise)[:chunk_rows]
+
+    out, ref = kernel(), plain()
+    rel = float((out - ref).abs().max()) / float(ref.std())
+    ok = rel <= 1e-4 and bool(torch.isfinite(out).all())
+    name = (f"AR ar_extrude (slice u: a streamed chunk of (g)'s process, {chunk_rows} steps on {chunk_rows} + "
+            f"{proc.n_extrusion} rows, clusters of {plan['groups'][0]['cluster']})")
+    print(f"{name}: max|diff| {rel:.2e} of the chunk's std (limit 1e-4) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("the AR kernel's chunk disagrees with its plain loop")
+    p1, k1 = cuda_ms(plain, reps=2), cuda_ms(kernel)
+    k2, p2 = cuda_ms(kernel), cuda_ms(plain, reps=2)
+    group = plan["groups"][0]
+    lat = probe_latencies(device, cluster=group["cluster"], threads=group["threads"])
+    r = {"max_abs_err": rel * float(ref.std()), "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": None,
+         "shape": [proc.n_extrusion, proc.n_cross_section, proc.n_sample, chunk_rows], "steps": chunk_rows,
+         **ar_bound([proc], lat, steps=[chunk_rows])}
+    print(timing_line(f"{name} ({r['ms'] * 1e3 / chunk_rows:.3f} us a step; no library call)", r), flush=True)
+    return r
+
+
 def main() -> int:
     try:
         import torch
@@ -2367,6 +2987,10 @@ def main() -> int:
     k2_q, launches_q, summary_q = run_act(device, card, gen)
     launches_r, ids_r, n_pix_r, summary_r = run_usage(device, card)
     launches_s, summary_s = run_photon_noise(device, card)
+    kc_t, k2_t, launches_t, summary_t = run_streamed_atlast(device, card, gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        summary_u, ar_u, kc_u = run_streamed_mustang(device, card, program_g, tmp)
+    k2_v, launches_v, summary_v = run_streamed_ml(device, card)
 
     ar = {label: check_ar_extrude(device, gen, f"slice {label}", results[label][3].ar_processes)
           for label in AR_SLICES}
@@ -2398,8 +3022,10 @@ def main() -> int:
     by_slice = {**{label: r[2] for label, r in results.items()}, "c": launches_c, "g": launches_g, "h": launches_h,
                 "i": launches_i, "i, noise on": launches_i_noise, "j": launches_j, "CMB spectra": launches_spectra,
                 "k": launches_k, "l": launches_l, "m": launches_m, "p": launches_p, "q": launches_q, "r": launches_r,
-                "s": launches_s}
-    for name in ("pink_noise", "bin_map", "shared_v", "ar_extrude", "sht_synth", "sht_anal"):
+                "s": launches_s, "t": launches_t, "u 600 s": summary_u[U_SECONDS[0]]["launches"],
+                "u 3600 s": summary_u[U_SECONDS[1]]["launches"], "u chunks": {"ar_extrude": ar_u["launches"]},
+                "v": launches_v}
+    for name in ("pink_noise", "bin_map", "shared_v", "ar_extrude", "sht_synth", "sht_anal", "pink_cascade"):
         print(f"main-path launches of {name} by slice: {({k: v[name] for k, v in by_slice.items() if name in v})}",
               flush=True)
     kernels_line = {"kernels": [
@@ -2409,18 +3035,20 @@ def main() -> int:
          **k1[(217, 30000, 32768)]},
         {"name": "bin_map", "route": "cuda", "source": "maria_torch/csrc/bin_map.cu",
          "replaces": "maria_tpu/ops/pallas_binning.py:119",
-         "launches": launches_b["bin_map"] + launches_p["bin_map"] + launches_q["bin_map"] + launches_r["bin_map"],
-         **k2["b"]["stacked"]},
+         "launches": launches_b["bin_map"] + launches_p["bin_map"] + launches_q["bin_map"] + launches_r["bin_map"]
+         + launches_t["bin_map"] + launches_v["bin_map"], **k2["b"]["stacked"]},
         {"name": "shared_v", "route": "cuda", "source": "maria_torch/csrc/shared_v.cu",
          "replaces": "maria_tpu/ops/pallas_noise.py:427", "launches": launches_c["shared_v"],
          **k3[5556 * ATLAST_BANDS]},
         {"name": "ar_extrude", "route": "cuda", "source": "maria_torch/csrc/ar_extrude.cu",
-         "replaces": "maria_tpu/atmosphere/process.py:34", "launches": results["f"][2]["ar_extrude"],
+         "replaces": "maria_tpu/atmosphere/process.py:34", "launches": results["f"][2]["ar_extrude"] + ar_u["launches"],
          **ar["f"]},
         {"name": "sht_synth", "route": "cuda", "source": "maria_torch/csrc/sht.cu",
          "replaces": "maria_tpu/healpix/sht.py:480", "launches": launches_k["sht_synth"], **ks["synth"]},
         {"name": "sht_anal", "route": "cuda", "source": "maria_torch/csrc/sht.cu",
          "replaces": "maria_tpu/healpix/sht.py:523", "launches": launches_spectra["sht_anal"], **ks["anal"]},
+        {"name": "pink_cascade", "route": "cuda", "source": "maria_torch/csrc/pink_cascade.cu",
+         "replaces": "maria_tpu/noise/streaming.py:168", "launches": launches_t["pink_cascade"], **kc_t},
     ]}
     print(f"K2 summary ML P^T (slice n): {k2_ml['ms']:.4f} ms, library {k2_ml['library_ms']:.4f} ms, bound "
           f"{k2_ml['bound_ms']:.4f} ms ({k2_ml['bound_ms'] / k2_ml['ms']:.1%}), plain {k2_ml['plain_ms']:.4f} ms; "
@@ -2434,8 +3062,21 @@ def main() -> int:
     print(f"slice (r) summary, docs/usage.md's scene ({summary_r['shape'][0]} x {summary_r['shape'][1]}; {card}): "
           f"{json.dumps(summary_r)}", flush=True)
     print(f"slice (s) summary, AtLAST-50k photon noise (50004 x 3000; {card}): {json.dumps(summary_s)}", flush=True)
+    print(f"slice (t) summary, AtLAST-50k x {STREAM_SECONDS:.0f} s streamed ({card}): {json.dumps(summary_t)}",
+          flush=True)
+    print(f"slice (u) summary, MUSTANG-2 streamed at {U_SECONDS} s ({card}): "
+          f"{json.dumps({f'{k:.0f} s': v for k, v in summary_u.items()})}; AR chunk {json.dumps(ar_u)}", flush=True)
+    print(f"slice (v) summary, the streamed ML mapper ({card}): {json.dumps(summary_v)}", flush=True)
+    for key, r in (("KC (t)", kc_t), ("KC (u)", kc_u), ("K2 streaming block (t)", k2_t), ("K2 streamed ML P^T (v)", k2_v),
+                   ("AR chunk (u)", ar_u)):
+        print(f"{key} summary: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bound_ms'] / r['ms']:.1%}), shape {r['shape']}",
+              flush=True)
     print(f"K2's launches in the kernels line: slice (b) {launches_b['bin_map']} + slice (p) {launches_p['bin_map']} + "
-          f"slice (q) {launches_q['bin_map']} + slice (r) {launches_r['bin_map']}; K1's: slice (b) "
+          f"slice (q) {launches_q['bin_map']} + slice (r) {launches_r['bin_map']} + slice (t) {launches_t['bin_map']} "
+          f"+ slice (v) {launches_v['bin_map']}; the AR kernel's: slice (f) {results['f'][2]['ar_extrude']} + slice "
+          f"(u)'s chunks {ar_u['launches']}; KC's: slice (t) {launches_t['pink_cascade']}; K1's: slice (b) "
           f"{launches_b['pink_noise']} + slice (r) {launches_r['pink_noise']} + slice (s) {launches_s['pink_noise']}",
           flush=True)
     for key, r in ks.items():

@@ -10,11 +10,14 @@ Fourier or AR atmosphere, the noise as one matrix product) -> total pW
 -> a map binned over the field; and the observer's map-making,
 ``TOD.process(...)`` and ``BinMapper`` or ``MaximumLikelihoodMapper``
 with ``tod_preprocessing=``, in any unit of maria_tpu's calibration graph
-(``Quantity``, ``Calibration``, ``TOD.to``, ``Map.to``). Per-sample work runs in torch on the
+(``Quantity``, ``Calibration``, ``TOD.to``, ``Map.to``); and long
+observations in bounded memory, ``StreamingExecutor(program, obs).run()``
+(binned maps, Welch spectra, checkpoints) and
+``mappers.StreamingMLMapper(executor).fit()``. Per-sample work runs in torch on the
 card (``device="cpu"`` asks for the CPU; without a card an entry point
 given no device raises); detector noise, the shared-shape noise draw,
-map binning, the AR extrusion and the spherical harmonic transforms'
-recursion run as hand-written CUDA kernels (``maria_torch/csrc``) when
+map binning, the AR extrusion, the spherical harmonic transforms'
+recursion and the streaming pink cascade run as hand-written CUDA kernels (``maria_torch/csrc``) when
 the tensors live on a card, and as their plain torch versions on the
 CPU.
 
@@ -33,6 +36,7 @@ from .site import Site, get_site  # noqa: F401
 from .sim import Simulation  # noqa: F401
 from .tod import TOD  # noqa: F401
 from .mappers import BinMapper, MaximumLikelihoodMapper, compute_residual_map  # noqa: F401
+from .ops.streaming_exec import StreamingExecutor  # noqa: F401
 from .units import Quantity  # noqa: F401
 from .calibration import Calibration  # noqa: F401
 from . import map  # noqa: F401, A004  (maria_torch.map.get, as maria_tpu.map.get)
@@ -50,6 +54,7 @@ __all__ = [
     "Quantity",
     "Simulation",
     "Site",
+    "StreamingExecutor",
     "TOD",
     "compute_residual_map",
     "default_device",

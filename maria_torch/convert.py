@@ -11,7 +11,9 @@ ids kernel K2 takes; ``ar_process_from_arrays`` builds the port's
 lookback indices; ``ml_state_from_arrays`` puts a maria_tpu ML mapper's
 blocks (ids, Stokes weights, data, and optionally its noise model) into
 the port's mapper; ``array_from_columns`` makes the port's ``Array`` of a
-maria_tpu detector table's columns (its uuid-named arrays included). Nothing here imports maria_tpu: the caller extracts
+maria_tpu detector table's columns (its uuid-named arrays included);
+``stream_state_from_arrays`` turns a maria_tpu ``StreamingExecutor``'s
+state (its ``init_state`` or a checkpoint's leaves) into the port's. Nothing here imports maria_tpu: the caller extracts
 the arrays (the tests do).
 
 ``tables`` keys: offsets (n_det, 2), bs_az_coarse, bs_el_coarse,
@@ -43,7 +45,7 @@ from .ops.program import BandBlock, TODProgram
 from .plan import Plan
 
 __all__ = ["ar_process_from_arrays", "array_from_columns", "healpix_map_from_arrays", "map_from_arrays", "ml_state_from_arrays",
-           "plan_from_arrays", "program_from_tables", "pixel_ids_from_tables"]
+           "plan_from_arrays", "program_from_tables", "pixel_ids_from_tables", "stream_state_from_arrays"]
 
 
 def plan_from_arrays(time, phi, theta, frame: str, site=None, roll: float = 0.0) -> Plan:
@@ -235,3 +237,32 @@ def array_from_columns(columns: dict, bands, name: str = None) -> Array:
     array = Array(name or "+".join(names), dets, [parse_band(b) for b in bands])
     array.dets["array_name"] = dets["array_name"]
     return array
+
+
+STREAM_STATE_KEYS = ("lc_pad", "lc_last", "gains", "map_sum", "map_wgt", "psd_blocks", "bin_lost", "pwv_pad2",
+                     "pwv_last", "el_pad2", "el_last")
+
+
+def stream_state_from_arrays(executor, arrays, key: int = 0, base: dict = None) -> dict:
+    """The port's ``StreamingExecutor`` state from maria_tpu's, as numpy:
+    either the leaves of maria_tpu's ``init_state(key)`` as a dict (its
+    keys of STREAM_STATE_KEYS, "noise" as a list a band of tuples of
+    cascade states, "psd_sum" a list a band; its PRNG keys and sky fields
+    are not taken: the port's executor keeps its sky itself), or the
+    mutable leaves of a maria_tpu checkpoint (a list, ``leaf_i`` in order)
+    laid over ``base``, the port's ``init_state``. ``key`` is the seed the
+    port's generators use for any draw the caller does not hand in."""
+    dev = executor.device
+
+    def t(x):
+        return torch.as_tensor(np.array(x, dtype=np.float32), device=dev)
+
+    if not isinstance(arrays, dict):
+        if base is None:
+            raise ValueError("checkpoint leaves need the base state they are laid over (base=)")
+        return executor.set_mutable_leaves(base, list(arrays))
+    state = {k: t(arrays[k]) for k in STREAM_STATE_KEYS if k in arrays}
+    state["key"] = int(key)
+    state["noise"] = [tuple(t(x) for x in band) for band in arrays["noise"]]
+    state["psd_sum"] = [t(x) for x in arrays["psd_sum"]]
+    return state

@@ -1,5 +1,6 @@
-"""The map-makers (maria_tpu/mappers): ``BinMapper`` and
-``MaximumLikelihoodMapper``, and ``compute_residual_map``."""
+"""The map-makers (maria_tpu/mappers): ``BinMapper``,
+``MaximumLikelihoodMapper``, ``StreamingMLMapper`` (over a
+``StreamingExecutor``'s blocks) and ``compute_residual_map``."""
 
 from __future__ import annotations
 
@@ -8,8 +9,9 @@ import torch
 
 from .bin_mapper import BinMapper  # noqa: F401
 from .ml_mapper import MaximumLikelihoodMapper  # noqa: F401
+from .streaming_ml import StreamingMLMapper  # noqa: F401
 
-__all__ = ["BinMapper", "MaximumLikelihoodMapper", "compute_residual_map"]
+__all__ = ["BinMapper", "MaximumLikelihoodMapper", "StreamingMLMapper", "compute_residual_map"]
 
 
 def compute_residual_map(input_map, output_map):

@@ -126,7 +126,7 @@ def ar_cluster_size(n_cross: int, n_sample: int, smem_limit: int, sizes=CLUSTER_
     return 0
 
 
-def ar_plan(processes, device, smem_limit: int = None, sizes=CLUSTER_SIZES) -> dict:
+def ar_plan(processes, device, smem_limit: int = None, sizes=CLUSTER_SIZES, steps=None) -> dict:
     """The kernel's static inputs for ``processes`` on ``device``:
     ``cluster`` (each process's cluster size, 0 for the through-L2 form)
     and ``groups``, one launch each: the processes of one cluster size
@@ -134,8 +134,11 @@ def ar_plan(processes, device, smem_limit: int = None, sizes=CLUSTER_SIZES) -> d
     the block size, the shared memory and rows a block, and the element
     offsets of each process's buffer. ``smem_limit`` is the shared memory
     a block may take, by default what the card allows; ``sizes`` as in
-    ``ar_cluster_size``."""
+    ``ar_cluster_size``. ``steps`` gives each process's step count, by
+    default its ``n_steps`` (a chunk of a streamed extrusion takes fewer
+    or more, on a buffer of steps + n_extrusion rows)."""
     device = torch.device(device)
+    steps = [p.n_steps for p in processes] if steps is None else [int(s) for s in steps]
     if smem_limit is None:
         lib = kernels.load()
         smem_limit = lib.maria_max_dynamic_smem(
@@ -152,19 +155,19 @@ def ar_plan(processes, device, smem_limit: int = None, sizes=CLUSTER_SIZES) -> d
             p = processes[k]
             n_cross, n_sample = p.n_cross_section, p.n_sample
             tab = ar_tables(p.extrusion_sample_index, p.cross_section_sample_index, n_cross)
-            if int(tab["goff"].max()) >= (p.n_buffer - p.n_steps + 1) * n_cross:
+            if int(tab["goff"].max()) >= (p.n_extrusion + 1) * n_cross:
                 raise ValueError("a lookback index lies outside the buffer")
             smem = max(smem, ar_smem_bytes(n_cross, n_sample, clusters[k]))
             rows.append(-(-n_cross // size))
-            desc.append([a_off, b_off, tab_off, buf_off, noise_off, n_cross, n_sample, p.n_steps,
+            desc.append([a_off, b_off, tab_off, buf_off, noise_off, n_cross, n_sample, steps[k],
                          int(clusters[k] > 0), len(tab["old"])])
             tables += [tab["goff"], tab["old"], tab["new_start"], tab["new_slot"]]
             buf_offsets.append(buf_off)
             a_off += n_cross * n_sample
             b_off += n_cross * n_cross
             tab_off += 2 * n_sample + n_cross + 1
-            buf_off += p.n_buffer * n_cross
-            noise_off += p.n_steps * n_cross
+            buf_off += (p.n_extrusion + steps[k]) * n_cross
+            noise_off += steps[k] * n_cross
         if max(a_off, buf_off, noise_off) >= 2**31:
             raise ValueError("the processes' arrays exceed the kernel's 32-bit offsets")
         if smem > smem_limit:
@@ -183,18 +186,20 @@ def ar_plan(processes, device, smem_limit: int = None, sizes=CLUSTER_SIZES) -> d
             "rows": rows,
             "buf_offsets": buf_offsets,
         })
-    return {"cluster": clusters, "groups": groups}
+    return {"cluster": clusters, "groups": groups, "steps": steps}
 
 
-def _check(processes, buffers, noises):
-    if not (len(processes) == len(buffers) == len(noises)) or not processes:
+def _check(processes, buffers, noises, steps):
+    if not (len(processes) == len(buffers) == len(noises) == len(steps)) or not processes:
         raise ValueError("ar_extrude takes one buffer and one noise array per process, and at least one process")
     device = buffers[0].device
-    for p, buf, eps in zip(processes, buffers, noises):
-        if tuple(buf.shape) != (p.n_buffer, p.n_cross_section) or tuple(eps.shape) != (p.n_steps, p.n_cross_section):
+    for p, buf, eps, n in zip(processes, buffers, noises, steps):
+        n_buffer = p.n_extrusion + n
+        if n < 1 or tuple(buf.shape) != (n_buffer, p.n_cross_section) or tuple(eps.shape) != (n, p.n_cross_section):
             raise ValueError(
-                f"a process of {p.n_extrusion} x {p.n_cross_section} takes a ({p.n_buffer}, {p.n_cross_section}) "
-                f"buffer and ({p.n_steps}, {p.n_cross_section}) noise, got {tuple(buf.shape)} and {tuple(eps.shape)}"
+                f"a process of {p.n_extrusion} x {p.n_cross_section} run for {n} steps takes a ({n_buffer}, "
+                f"{p.n_cross_section}) buffer and ({n}, {p.n_cross_section}) noise, got {tuple(buf.shape)} and "
+                f"{tuple(eps.shape)}"
             )
         if buf.dtype != torch.float32 or eps.dtype != torch.float32:
             raise ValueError(f"buffer and noise must be float32, got {buf.dtype} and {eps.dtype}")
@@ -203,25 +208,35 @@ def _check(processes, buffers, noises):
     return device
 
 
-def ar_extrude(processes, buffers, noises, plan=None) -> list:
+def ar_extrude(processes, buffers, noises, plan=None, steps=None, rows=None) -> list:
     """Each process's (n_extrusion, n_cross) float32 screen: the first
     n_extrusion rows of its extruded buffer. ``buffers`` and ``noises``
     give each process's (n_buffer, n_cross) initial buffer and
     (n_steps, n_cross) innovations (``AutoregressiveProcess.draw``), all
     on one device; they are not changed. On a CUDA device one kernel
     launch runs every process of one cluster size (``plan``: ``ar_plan``
-    of the processes on that device, built here when not given)."""
-    device = _check(processes, buffers, noises)
+    of the processes on that device, built here when not given).
+
+    A streamed extrusion (``atmosphere/streaming.py``) runs a chunk:
+    ``steps`` gives each process's step count (buffers of steps +
+    n_extrusion rows, noise of steps rows; ``plan`` built with the same
+    ``steps``), and ``rows`` how many of the extruded buffer's first rows
+    come back (default n_extrusion). Without them a call is as before."""
+    steps = [p.n_steps for p in processes] if steps is None else [int(s) for s in steps]
+    device = _check(processes, buffers, noises, steps)
     if device.type == "cpu":
         out = []
         for p, buf, eps in zip(processes, buffers, noises):
             t = p.tensors(device)
-            out.append(ar_extrude_reference(t["A"], t["B"], buf, t["ext_idx"], t["cross_idx"], eps)[: p.n_extrusion])
+            n_rows = p.n_extrusion if rows is None else rows
+            out.append(ar_extrude_reference(t["A"], t["B"], buf, t["ext_idx"], t["cross_idx"], eps)[:n_rows])
         return out
     if device.type != "cuda":
         raise ValueError(f"ar_extrude runs on cpu or cuda tensors, not {device.type}")
     if plan is None:
-        plan = ar_plan(processes, device)
+        plan = ar_plan(processes, device, steps=steps)
+    elif plan.get("steps", [p.n_steps for p in processes]) != steps:
+        raise ValueError(f"the plan was made for {plan.get('steps')} steps, the call runs {steps}")
     lib = kernels.load()
     stream = torch.cuda.current_stream(device).cuda_stream
     out = [None] * len(processes)
@@ -236,7 +251,8 @@ def ar_extrude(processes, buffers, noises, plan=None) -> list:
         ar_extrude.launches += 1
         for k, off in zip(g["index"], g["buf_offsets"]):
             p = processes[k]
-            out[k] = buffer[off: off + p.n_extrusion * p.n_cross_section].view(p.n_extrusion, p.n_cross_section)
+            n_rows = p.n_extrusion if rows is None else rows
+            out[k] = buffer[off: off + n_rows * p.n_cross_section].view(n_rows, p.n_cross_section)
     return out
 
 

@@ -23,7 +23,7 @@ __all__ = ["load", "build", "library_path"]
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PACKAGE_DIR, "csrc")
-SOURCES = ("pink_noise.cu", "bin_map.cu", "shared_v.cu", "ar_extrude.cu", "sht.cu")
+SOURCES = ("pink_noise.cu", "bin_map.cu", "shared_v.cu", "ar_extrude.cu", "sht.cu", "pink_cascade.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
@@ -106,6 +106,8 @@ def load() -> ctypes.CDLL:
     lib.maria_sht_anal.restype = i
     lib.maria_sht_max_rings.argtypes = []
     lib.maria_sht_max_rings.restype = i
+    lib.maria_pink_cascade.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+    lib.maria_pink_cascade.restype = i
     lib.maria_max_dynamic_smem.argtypes = [i]
     lib.maria_max_dynamic_smem.restype = i
     lib.maria_cuda_error_string.argtypes = [i]

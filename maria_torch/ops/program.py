@@ -187,7 +187,10 @@ class TODProgram:
         (a program holds Fourier screens and groups or AR processes,
         never both: the atmosphere's method applies to all its layers).
         ``upto`` stops early: "pwv" ->
-        {"pwv": coarse pwv}, "atmosphere" -> {"atmosphere": the upsampled
+        {"pwv": coarse pwv}, "coarse" -> the streaming executor's
+        whole-observation stage at the coarse rate, {"loading_c": the
+        atmospheric loading, "pwv_c", "el_c": the clipped elevation} (each
+        (n_det, n_tc)), "atmosphere" -> {"atmosphere": the upsampled
         atmospheric loading}, "signal" -> every field but the noise (the
         atmosphere and, with a CMB or an input map, "cmb" and "map").
         """
@@ -211,6 +214,8 @@ class TODProgram:
             idx = tabs["det_index"][i]
             p = tabs["power"][i](pwv[idx], el_clip[idx])
             loading_c[idx] = tabs["mueller_I"][idx, None] * p
+        if upto == "coarse":
+            return {"loading_c": loading_c, "pwv_c": pwv, "el_c": el_clip}
         fields = {"atmosphere": self._upsample(loading_c, "cubic")}
         if upto == "atmosphere":
             return fields

@@ -15,7 +15,9 @@ family of sky over its field, so that "upto signal" less "upto
 atmosphere" is the map stage. Scene "sky": MUSTANG-2 on the Planner's
 ra/dec daisy over ``big_cluster`` (``scenes.sky_simulation``), mapped in
 ra/dec on the input map's 512 x 512 grid.
-Each is host-timed around a synchronize; then a ``torch.profiler``
+Each is host-timed around a synchronize, with the peak device memory
+so far (the program's tables and, after the binning, the pixel ids
+included); then a ``torch.profiler``
 table of device time by kernel over one realization and its map, with
 the device's busy share of that window. ``--trace`` also writes the
 Chrome trace. Needs a card: it fails without one.
@@ -93,10 +95,12 @@ def main(argv=None) -> int:
     if atlast:
         fn = program.total_power_fn()
         obs = sim.obs_list[0]
-        ids, n_pix = field_pixel_ids(obs.boresight, obs.offsets, 128, 128, device=device)
+        field = {}
 
         def run_map():
-            return bin_total(fn(generator=gen, device=device), ids, n_pix)
+            if not field:  # made at the first binning, after the program's stages have run
+                field["ids"], field["n_pix"] = field_pixel_ids(obs.boresight, obs.offsets, 128, 128, device=device)
+            return bin_total(fn(generator=gen, device=device), field["ids"], field["n_pix"])
 
         def realization():
             run_map()
@@ -130,8 +134,11 @@ def main(argv=None) -> int:
             "run() (+ K_RJ)": lambda: sim.run(),
             "BinMapper(...).run()": run_map,
         }
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for name, stage in stages.items():
-        print(f"{name:32s} {_wall_ms(stage, args.reps):9.3f} ms (cumulative, warm, {args.reps} reps)")
+        print(f"{name:32s} {_wall_ms(stage, args.reps):9.3f} ms (cumulative, warm, {args.reps} reps); peak device "
+              f"memory so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
 
     window_ms, device_ms, prof = profiled(realization)
     print(f"profiled window (one realization and its map): {window_ms:.3f} ms wall, {device_ms:.3f} ms device "

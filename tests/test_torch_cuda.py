@@ -4,7 +4,8 @@ jax, so it runs where only torch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-(``-k pink`` for K1 alone, ``-k ar_`` for the AR extrusion kernel.)
+(``-k pink`` for K1 alone, ``-k ar_`` for the AR extrusion kernel,
+``-k "cascade or streamed"`` for KC and the streaming slice.)
 """
 
 import numpy as np
@@ -727,3 +728,123 @@ def test_dp_dt_cmb_elevation_table_on_card_matches_cpu(cuda_device):
     cpu_p = to_pw(T_b, elevation=el32.expand(4, -1))
     card_p = to_pw(T_b.to(cuda_device), elevation=el32.expand(4, -1).to(cuda_device))
     np.testing.assert_allclose(card_p.cpu().numpy(), cpu_p.numpy(), rtol=1e-6)
+
+
+# -- the streaming slice: KC, the chunked AR extrusion, a streamed run --------------------------------------------
+
+
+def _cascade_float64(w, state, p, a):
+    """The cascade's recurrence in float64 on the host."""
+    x = state.astype(np.float64).copy()
+    out = np.empty(w.shape)
+    p64, a64 = p.astype(np.float64), a.astype(np.float64)
+    for t in range(w.shape[1]):
+        x = p64 * x + w[:, t:t + 1]
+        out[:, t] = x @ a64
+    return out, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,K,tables", [(1, 1, 3, 1), (37, 95, 3, 1), (130, 640, 14, 9), (65, 1000, 17, 2),
+                                             (222, 3136, 14, 1), (7, 33, 32, 3)])
+def test_pink_cascade_kernel_matches_plain(cuda_device, rows, n, K, tables):
+    """KC against its plain version (the Toeplitz form) and a float64
+    recurrence: odd row counts, K = 3..32 (the kernel's three register
+    counts), n not a multiple of the tile, several tables a launch."""
+    from maria_torch.noise.streaming import _fit_cascade
+    from maria_torch.ops.pink_cascade import pink_cascade, pink_cascade_plain
+
+    rng = np.random.default_rng(rows + n + K)
+    p = np.stack([np.exp(-2 * np.pi * np.geomspace(1e-5, 20.0, K) / 50.0)] * tables).astype(np.float32)
+    a = (rng.standard_normal((tables, K)) * 0.3).astype(np.float32)
+    if K == 14:  # a real cascade's poles and amplitudes
+        fits = [_fit_cascade(50.0, knee, 1.0, 4096.0, 2.0) for knee in np.geomspace(0.05, 2.0, tables)]
+        p, a = np.stack([f[0] for f in fits]), np.stack([f[1] for f in fits])
+    table = rng.integers(0, tables, rows).astype(np.int32)
+    w = rng.standard_normal((rows, n)).astype(np.float32)
+    s0 = rng.standard_normal((rows, K)).astype(np.float32)
+    args = [torch.as_tensor(x, device=cuda_device) for x in (w, s0, p, a)]
+    tab = torch.as_tensor(table, device=cuda_device) if tables > 1 else None
+    before = pink_cascade.launches
+    pink, state = pink_cascade(*args, tab)
+    assert pink_cascade.launches == before + (cuda_device.type == "cuda")
+    plain, plain_state = pink_cascade_plain(*args, tab)
+    ref = np.empty((rows, n))
+    ref_state = np.empty((rows, K))
+    for t in range(tables):
+        m = table == t if tables > 1 else np.ones(rows, bool)
+        ref[m], ref_state[m] = _cascade_float64(w[m], s0[m], p[t], a[t])
+    scale = max(float(ref.std()), 1e-6)
+    err = float(np.abs(pink.cpu().numpy() - ref).max())
+    err_plain = float(np.abs(plain.cpu().numpy() - ref).max())
+    assert err <= max(1e-4 * scale, 2 * err_plain), (err, err_plain, scale)
+    np.testing.assert_allclose(state.cpu().numpy(), ref_state, rtol=1e-4, atol=1e-4 * np.abs(ref_state).max())
+
+
+@pytest.mark.cuda
+def test_streamed_ar_chunks_on_card(cuda_device):
+    """The chunked AR extrusion on the card: the chunks concatenate into
+    one long extrusion on the same innovations, bit for bit, and match the
+    CPU's chunks."""
+    from maria_torch.atmosphere.streaming import StreamingExtrusion
+
+    x, z = np.meshgrid(np.linspace(0, 200, 24), np.linspace(0, 60, 4))
+    proc = AutoregressiveProcess(np.c_[x.ravel(), z.ravel()], np.arange(0, 300, 10.0),
+                                 callback_kwargs={"nu": 1 / 3, "r0": 100.0})
+    stream = StreamingExtrusion(proc, chunk_rows=17, device=cuda_device)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(5)
+    state = stream.initial_state(g)
+    noise = torch.randn((4 * 17, proc.n_cross_section), generator=g, device=cuda_device)
+    chunks, s = [], state
+    for c in range(4):
+        s, chunk = stream.step(s, noise[c * 17:(c + 1) * 17])
+        chunks.append(chunk)
+    long = torch.cat([torch.zeros((4 * 17, proc.n_cross_section), device=cuda_device), state])
+    (one,) = ar_extrude([proc], [long], [noise], steps=[4 * 17], rows=4 * 17)
+    torch.testing.assert_close(torch.cat(chunks), one.flip(0), rtol=0, atol=0)
+    cpu = StreamingExtrusion(proc, chunk_rows=17, device="cpu")
+    s_cpu, chunk_cpu = cpu.step(state.cpu(), noise[:17].cpu())
+    np.testing.assert_allclose(chunks[0].cpu().numpy(), chunk_cpu.numpy(), atol=1e-4 * float(chunk_cpu.std()))
+
+
+@pytest.mark.cuda
+def test_streamed_run_on_card_matches_cpu(cuda_device):
+    """A small streamed run on the card against the same run on the CPU
+    (the same draws: the CPU's state and block normals handed over): TOD
+    blocks, map and hits; KC and K2 each launch once a block."""
+    import maria_torch
+    from maria_torch.ops.bin_map import bin_map as k2
+    from maria_torch.ops.pink_cascade import pink_cascade
+    from maria_torch.ops.program import build_tod_program
+    from maria_torch.ops.streaming_exec import StreamingExecutor
+
+    plan = maria_torch.get_plan("daisy_5arcmin_60s", start_time=1.75e9, scan_center=(150.0, 41.0), frame="az/el",
+                                duration=20.0, sample_rate=50.0)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        sim = maria_torch.Simulation(instrument="MUSTANG-2", plans=plan, site="GBT", atmosphere="2d", noise=True,
+                                     seed=0, device=dev)
+        program = build_tod_program(sim.obs_list[0], noise_kwargs=sim.noise_kwargs, device=dev)
+        out[str(dev)] = StreamingExecutor(program, sim.obs_list[0], block_tc=16, device=dev)
+    ex_cpu, ex = out["cpu"], out[str(cuda_device)]
+    state_cpu = ex_cpu.init_state(3)
+    gen = torch.Generator()
+    gen.manual_seed(9)
+    blocks = [[m.draw(len(b.det_index), ex.B, gen) for b, m in zip(ex.program.bands, ex.noise_models)]
+              for _ in range(ex.n_blocks)]
+    state = {k: ([tuple(x.to(cuda_device) for x in s) for s in v] if k == "noise" else
+                 [x.to(cuda_device) for x in v] if isinstance(v, list) else
+                 v.to(cuda_device) if isinstance(v, torch.Tensor) else v) for k, v in state_cpu.items()}
+    before = (pink_cascade.launches, k2.launches)
+    res = ex.run(3, state=state, draws={"blocks": blocks})
+    assert (pink_cascade.launches - before[0], k2.launches - before[1]) == (ex.n_blocks, ex.n_blocks)
+    ref = ex_cpu.run(3, state=state_cpu, draws={"blocks": blocks})
+    # the card's pointing differs from the CPU's by float32 ulps, so a few
+    # samples on a pixel's edge land in its neighbour
+    assert res.map_wgt.sum() == ref.map_wgt.sum() == ex.n_det * ex.n_t
+    assert np.abs(res.map_wgt - ref.map_wgt).sum() <= 1e-2 * ref.map_wgt.sum()
+    np.testing.assert_allclose(res.map_sum.sum(), ref.map_sum.sum(), rtol=1e-5)
+    tod = torch.cat([t.cpu() for _, t in ex.tod_blocks(3, state=state, draws={"blocks": blocks})], dim=-1)
+    tod_cpu = torch.cat([t for _, t in ex_cpu.tod_blocks(3, state=state_cpu, draws={"blocks": blocks})], dim=-1)
+    assert float((tod - tod_cpu).abs().max()) <= 1e-5 * float(tod_cpu.std())

@@ -192,7 +192,8 @@ def test_import_guard():
                    "array/generation.py", "plan/patterns.py", "band/__init__.py", "array/__init__.py",
                    "instrument/__init__.py", "site/__init__.py", "scenes.py", "errors.py", "units/__init__.py",
                    "units/units.py", "units/quantity.py", "units/prefixes.py", "calibration/functions.py",
-                   "sim/params.py", "sim/atmosphere.py", "map/base.py"):
+                   "sim/params.py", "sim/atmosphere.py", "map/base.py", "noise/streaming.py", "ops/streaming_exec.py",
+                   "atmosphere/streaming.py", "mappers/streaming_ml.py", "ops/pink_cascade.py"):
         assert os.path.join(REPO, "maria_torch", *module.split("/")) in paths, module
     for path in paths:
         with open(path) as f:
