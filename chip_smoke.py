@@ -220,7 +220,11 @@ Phases, each of which must pass (any failure exits non-zero):
    detector and mode rows in one launch: both held against a float64
    recurrence on 256 rows over 47 consecutive blocks, KC under 1e-4 of
    the pink part's std or twice the Toeplitz form's error; timed beside
-   the Toeplitz GEMM alone and the byte bound; K2 at a block's ids;
+   the Toeplitz GEMM alone, the byte bound, the split's latency bound
+   (ops.pink_cascade.lane_fmas issued one a cycle) and the earlier
+   one-thread-a-row kernel's recorded time, with the split (G lanes a row,
+   S samples a lane) the launch took, and from a CUDA graph; K2 at a
+   block's ids;
 27. slice (u), tools/streaming_memory_demo.py's scene (MUSTANG-2, GBT,
    daisy_5arcmin_60s at 50 Hz, 2-D atmosphere, noise, block_tc 64,
    group_size 16) at 600 s and 3,600 s: warm times, whole and loop peaks,
@@ -238,7 +242,8 @@ Phases, each of which must pass (any failure exits non-zero):
    fit with the plain P^T within 2e-3 of the map's maximum, K2 as P^T at
    a block against its float64 plain sums; the fit's warm time, a CG
    step, K2's launches; at 60 s the batch MaximumLikelihoodMapper on the
-   same TOD, the weighted RMS of the two maps' difference recorded.
+   same TOD, the weighted RMS of the two maps' difference recorded; KC at
+   the block as at (t) and (u).
 
 Every kernel is timed (CUDA events, in turns) beside its plain version,
 the PyTorch library call that computes the same function where there is
@@ -327,6 +332,31 @@ def cuda_ms(fn, reps: int = 20, warm: bool = True) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """The device's ms a call: ``reps`` calls captured in one CUDA graph
+    and replayed between CUDA events, so no host time sits between the
+    launches (back-to-back calls of a short kernel time the host)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -2341,6 +2371,10 @@ U_SECONDS = (600.0, 3600.0)  # slice (u)
 LOOP_BUFFERS = 16  # (t)'s gate: the block loop's peak above init_state, in (n_det, B) float32 buffers
 KC_BLOCKS = 47  # consecutive blocks KC and its plain version are held against a float64 recurrence
 KC_ROWS = 256  # rows of that recurrence, spread over the launch
+# the earlier form of KC (a thread a row, no split, no ring) at the streamed
+# blocks, for reference: PERF.md section 6, by chip_smoke at (t) and (u) and
+# by profile_cascade --parent at (v) (NVIDIA H100 80GB HBM3, 700.00 W)
+EARLIER_KC_MS = {"t": 0.2117, "u": 0.3912, "v": 0.0425}
 
 
 def cascade_float64(w, state, p, a):
@@ -2360,10 +2394,12 @@ def check_pink_cascade(device, gen, ex, label):
     KC_ROWS of the rows over KC_BLOCKS consecutive blocks, the state
     carried: KC's largest error under 1e-4 of the pink part's std, or
     under twice the Toeplitz form's. Timed beside the Toeplitz GEMM alone
-    (w times the sub-chunk table, the yardstick) and the byte bound."""
+    (w times the sub-chunk table, the yardstick), the byte bound and the
+    latency bound of the split the launch takes."""
     import torch
 
-    from maria_torch.ops.pink_cascade import CHUNK, pink_cascade, pink_cascade_plain, toeplitz_tables
+    from maria_torch.ops.pink_cascade import (CHUNK, cascade_plan, lane_fmas, pink_cascade, pink_cascade_plain,
+                                              toeplitz_tables)
 
     cr = ex._casc_rows
     t = ex._casc_tensors(device)
@@ -2403,9 +2439,20 @@ def check_pink_cascade(device, gen, ex, label):
                                          lambda: pink_cascade(w, state, t["p"], t["a"], t["table"]),
                                          lambda: torch.matmul(gemm_in, LGT))
     library_ms *= n / chunk
+    # the device's time a launch, the calls replayed from a CUDA graph:
+    # back-to-back calls of a short kernel time the host
+    graph = graph_ms(lambda: pink_cascade(w, state, t["p"], t["a"], t["table"]))
+    library_graph = graph_ms(lambda: torch.matmul(gemm_in, LGT)) * n / chunk
+    # the split's latency bound: its longest lane's FMAs, one a cycle
+    G, S = cascade_plan(rows, n)
+    lat = lane_fmas(n, K, G, S) / (LANE_INSTRUCTIONS_S / (132 * 4 * 32)) * 1e3
     r = {"max_abs_err": err_kc, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "shape": [rows, n, K],
-         "toeplitz_err": err_plain, **bound(8.0 * rows * n + 8.0 * rows * K, 4.0 * K * rows * n)}
-    print(timing_line(f"{name} (library: the Toeplitz GEMM w @ LGT alone, TF32 off)", r), flush=True)
+         "toeplitz_err": err_plain, **bound(8.0 * rows * n + 8.0 * rows * K, 4.0 * K * rows * n), "graph_ms": graph}
+    earlier = EARLIER_KC_MS[label]
+    print(timing_line(f"{name} (library: the Toeplitz GEMM w @ LGT alone, TF32 off)", r)
+          + f"; from a CUDA graph (the device's time) kernel {graph:.4f} ms, library {library_graph:.4f} ms, kernel "
+          + f"at {r['bound_ms'] / graph:.1%} of the bound; split G {G}, S {S}: latency bound {lat:.4f} ms, kernel "
+          + f"at {lat / graph:.1%} of it; the earlier one-thread-a-row kernel {earlier:.4f} ms (recorded)", flush=True)
     return r
 
 
@@ -2782,6 +2829,7 @@ def run_streamed_ml(device, card):
     if not ok:
         fail("slice (v) streamed ML at 600 s")
     r = check_ml_stream_pt(mapper, card)
+    kc = check_pink_cascade(device, torch.Generator(device=device), ex, "v")
 
     ex30, _, _ = streamed_ml_scene(device, ML_GATE_SECONDS)
     m30 = StreamingMLMapper(ex30, n_epochs=2, n_cg_iters=25)
@@ -2831,7 +2879,7 @@ def run_streamed_ml(device, card):
     print(f"slice (v) at {STREAM_CHECK_SECONDS:.0f} s: the streamed ML map against the batch MaximumLikelihoodMapper "
           f"on the same TOD ({tuple(tod.shape)}; maps {m_stream.shape} and {b_map.shape}): weighted RMS of the "
           f"difference over covered pixels {wrms:.4f} of the batch map's weighted RMS (recorded, not gated)", flush=True)
-    return r, launches, {"setup_s": setup_s, "fit_warm_ms": warm, "fit_each_ms": each, "cg_step_ms": step_ms,
+    return r, kc, launches, {"setup_s": setup_s, "fit_warm_ms": warm, "fit_each_ms": each, "cg_step_ms": step_ms,
                          "recovery_600s": corr, "recovery_naive_600s": corr_naive, "recovery_30s": corr30,
                          "recovery_naive_30s": naive30, "k2_vs_plain_30s": diff, "plain_spread_30s": spread,
                          "k2_vs_plain_all_30s": diff_all, "plain_spread_all_30s": spread_all,
@@ -2990,7 +3038,7 @@ def main() -> int:
     kc_t, k2_t, launches_t, summary_t = run_streamed_atlast(device, card, gen)
     with tempfile.TemporaryDirectory() as tmp:
         summary_u, ar_u, kc_u = run_streamed_mustang(device, card, program_g, tmp)
-    k2_v, launches_v, summary_v = run_streamed_ml(device, card)
+    k2_v, kc_v, launches_v, summary_v = run_streamed_ml(device, card)
 
     ar = {label: check_ar_extrude(device, gen, f"slice {label}", results[label][3].ar_processes)
           for label in AR_SLICES}
@@ -3067,8 +3115,8 @@ def main() -> int:
     print(f"slice (u) summary, MUSTANG-2 streamed at {U_SECONDS} s ({card}): "
           f"{json.dumps({f'{k:.0f} s': v for k, v in summary_u.items()})}; AR chunk {json.dumps(ar_u)}", flush=True)
     print(f"slice (v) summary, the streamed ML mapper ({card}): {json.dumps(summary_v)}", flush=True)
-    for key, r in (("KC (t)", kc_t), ("KC (u)", kc_u), ("K2 streaming block (t)", k2_t), ("K2 streamed ML P^T (v)", k2_v),
-                   ("AR chunk (u)", ar_u)):
+    for key, r in (("KC (t)", kc_t), ("KC (u)", kc_u), ("KC (v)", kc_v), ("K2 streaming block (t)", k2_t),
+                   ("K2 streamed ML P^T (v)", k2_v), ("AR chunk (u)", ar_u)):
         print(f"{key} summary: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
               f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bound_ms'] / r['ms']:.1%}), shape {r['shape']}",
@@ -3076,7 +3124,9 @@ def main() -> int:
     print(f"K2's launches in the kernels line: slice (b) {launches_b['bin_map']} + slice (p) {launches_p['bin_map']} + "
           f"slice (q) {launches_q['bin_map']} + slice (r) {launches_r['bin_map']} + slice (t) {launches_t['bin_map']} "
           f"+ slice (v) {launches_v['bin_map']}; the AR kernel's: slice (f) {results['f'][2]['ar_extrude']} + slice "
-          f"(u)'s chunks {ar_u['launches']}; KC's: slice (t) {launches_t['pink_cascade']}; K1's: slice (b) "
+          f"(u)'s chunks {ar_u['launches']}; KC's: slice (t) {launches_t['pink_cascade']} (besides: (u) at 3,600 s "
+          f"{summary_u[U_SECONDS[1]]['launches']['pink_cascade']}, (v)'s first fit {launches_v['pink_cascade']}); "
+          f"K1's: slice (b) "
           f"{launches_b['pink_noise']} + slice (r) {launches_r['pink_noise']} + slice (s) {launches_s['pink_noise']}",
           flush=True)
     for key, r in ks.items():

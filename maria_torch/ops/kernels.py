@@ -106,7 +106,7 @@ def load() -> ctypes.CDLL:
     lib.maria_sht_anal.restype = i
     lib.maria_sht_max_rings.argtypes = []
     lib.maria_sht_max_rings.restype = i
-    lib.maria_pink_cascade.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+    lib.maria_pink_cascade.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.maria_pink_cascade.restype = i
     lib.maria_max_dynamic_smem.argtypes = [i]
     lib.maria_max_dynamic_smem.restype = i

@@ -744,27 +744,40 @@ def _cascade_float64(w, state, p, a):
     return out, x
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows,n,K,tables", [(1, 1, 3, 1), (37, 95, 3, 1), (130, 640, 14, 9), (65, 1000, 17, 2),
-                                             (222, 3136, 14, 1), (7, 33, 32, 3)])
-def test_pink_cascade_kernel_matches_plain(cuda_device, rows, n, K, tables):
-    """KC against its plain version (the Toeplitz form) and a float64
-    recurrence: odd row counts, K = 3..32 (the kernel's three register
-    counts), n not a multiple of the tile, several tables a launch."""
+def _cascade_inputs(device, rows, n, K, tables):
+    """(w, state, p, a, row_table) tensors and the numpy arrays behind them:
+    at K = 14 real cascades' poles and amplitudes, else log-spaced poles."""
     from maria_torch.noise.streaming import _fit_cascade
-    from maria_torch.ops.pink_cascade import pink_cascade, pink_cascade_plain
 
     rng = np.random.default_rng(rows + n + K)
     p = np.stack([np.exp(-2 * np.pi * np.geomspace(1e-5, 20.0, K) / 50.0)] * tables).astype(np.float32)
     a = (rng.standard_normal((tables, K)) * 0.3).astype(np.float32)
-    if K == 14:  # a real cascade's poles and amplitudes
+    if K == 14:
         fits = [_fit_cascade(50.0, knee, 1.0, 4096.0, 2.0) for knee in np.geomspace(0.05, 2.0, tables)]
         p, a = np.stack([f[0] for f in fits]), np.stack([f[1] for f in fits])
     table = rng.integers(0, tables, rows).astype(np.int32)
     w = rng.standard_normal((rows, n)).astype(np.float32)
     s0 = rng.standard_normal((rows, K)).astype(np.float32)
-    args = [torch.as_tensor(x, device=cuda_device) for x in (w, s0, p, a)]
-    tab = torch.as_tensor(table, device=cuda_device) if tables > 1 else None
+    args = [torch.as_tensor(x, device=device) for x in (w, s0, p, a)]
+    tab = torch.as_tensor(table, device=device) if tables > 1 else None
+    return args, tab, (w, s0, p, a, table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,K,tables", [(1, 1, 3, 1), (37, 95, 3, 1), (130, 640, 14, 9), (65, 1000, 17, 2),
+                                             (222, 3136, 14, 1), (7, 33, 32, 3), (222, 320, 14, 1),
+                                             (5, 40000, 14, 1), (12671, 1000, 14, 9), (12672, 1000, 14, 9)])
+def test_pink_cascade_kernel_matches_plain(cuda_device, rows, n, K, tables):
+    """KC against its plain version (the Toeplitz form) and a float64
+    recurrence: odd row counts, K = 3..32 (the kernel's three register
+    counts), n not a multiple of the tile or of four, several tables a
+    launch; slice (u)'s and (v)'s blocks (222 x 3,136 and 222 x 320: G 128
+    and 64), 65 x 1,000 (G 128 at K 17), 5 x 40,000 (eight warps a row,
+    five chunks through the ring) and both sides of the split's boundary
+    (12,671 rows: a warp a row; 12,672: a thread a row)."""
+    from maria_torch.ops.pink_cascade import pink_cascade, pink_cascade_plain
+
+    args, tab, (w, s0, p, a, table) = _cascade_inputs(cuda_device, rows, n, K, tables)
     before = pink_cascade.launches
     pink, state = pink_cascade(*args, tab)
     assert pink_cascade.launches == before + (cuda_device.type == "cuda")
@@ -779,6 +792,19 @@ def test_pink_cascade_kernel_matches_plain(cuda_device, rows, n, K, tables):
     err_plain = float(np.abs(plain.cpu().numpy() - ref).max())
     assert err <= max(1e-4 * scale, 2 * err_plain), (err, err_plain, scale)
     np.testing.assert_allclose(state.cpu().numpy(), ref_state, rtol=1e-4, atol=1e-4 * np.abs(ref_state).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,tables", [(222, 3136, 1), (5, 40000, 1), (12671, 1000, 9), (12672, 1000, 9)])
+def test_pink_cascade_kernel_repeats_bit_for_bit(cuda_device, rows, n, tables):
+    """Two launches on the same inputs give the same bits (no atomics; the
+    order of every sum is fixed by the shape), in every form of the split."""
+    from maria_torch.ops.pink_cascade import pink_cascade
+
+    args, tab, _ = _cascade_inputs(cuda_device, rows, n, 14, tables)
+    pink_a, state_a = pink_cascade(*args, tab)
+    pink_b, state_b = pink_cascade(*args, tab)
+    assert torch.equal(pink_a, pink_b) and torch.equal(state_a, state_b)
 
 
 @pytest.mark.cuda

@@ -153,46 +153,173 @@ def test_cascade_block_equals_maria_tpu(rows, n):
         assert float(np.abs(y.numpy() - y_ref).max()) <= 1e-4 * float(y_ref.std())
 
 
+def fmaf(x, y, z):
+    """An fmaf emulated as the float64 product-sum rounded once to float32
+    (the product of two float32 is exact in float64)."""
+    return (np.asarray(x, np.float64) * np.asarray(y, np.float64) + np.asarray(z, np.float64)).astype(np.float32)
+
+
 def cascade_emulation(w, state, p, a):
-    """KC's arithmetic in numpy (csrc/pink_cascade.cu): each state update
-    one fmaf, then the pink sum by fmaf over k from 0; an fmaf is emulated
-    as the float64 product-sum rounded once to float32 (the product of two
-    float32 is exact in float64)."""
+    """KC's arithmetic in numpy where G = 1 (csrc/pink_cascade.cu): each
+    state update one fmaf, then the pink sum by fmaf over k from 0."""
     x = state.astype(np.float32).copy()
     out = np.empty(w.shape, np.float32)
-    p64, a64 = p.astype(np.float32).astype(np.float64), a.astype(np.float32).astype(np.float64)
     for t in range(w.shape[1]):
-        x = (p64 * x + w[:, t:t + 1]).astype(np.float32)
+        x = fmaf(p, x, w[:, t:t + 1])
         y = np.zeros(w.shape[0], np.float32)
         for k in range(len(p)):
-            y = (a64[k] * x[:, k] + y).astype(np.float32)
+            y = fmaf(a[k], x[:, k], y)
         out[:, t] = y
     return out, x
 
 
-def test_kernel_emulation_against_float64():
-    """KC's order of operations, over 12 blocks with the state carried,
-    against a float64 recurrence: under 1e-4 of the pink std (the poles
-    lie within 1.5e-6 of 1 and the states grow to ~600)."""
+def cascade_split_emulation(w, state, p, a, G, S, tables=None):
+    """KC's arithmetic in numpy where a row's time is split
+    (csrc/pink_cascade.cu, G > 1): chunks of G x S samples, each cut into G
+    segments of S. Pass A walks every segment from zero (the G = 1 step);
+    the scan composes the segments' end states in groups of 32 lanes
+    (Kogge-Stone, b_j <- E[d-1] b_{j-d} + b_j for d = 1, 2, 4, ...), the
+    groups' totals in order (C <- E[31] C + T), each segment's end
+    E[j] C + b_j and start the previous end; pass B adds D[k, m] s_k over k
+    from 0 to the local pink; the last segment's end Z[len-1] s + e carries.
+    ``tables`` (D, Z, E) default to ``split_tables_np``'s float64-built ones."""
+    from maria_torch.ops.pink_cascade import POWERS, split_tables_np
+
+    if G == 1:
+        return cascade_emulation(w, state, p, a)
+    if tables is None:
+        t = split_tables_np(p, a, S)[0]
+        Sp = (t.shape[-1] - POWERS) // 2
+        tables = t[:, :S], t[:, Sp:Sp + S], t[:, 2 * Sp:]
+    D, Z, E = tables
+    rows, n = w.shape
+    K = len(p)
+    out = np.empty(w.shape, np.float32)
+    x = state.astype(np.float32).copy()
+    for c0 in range(0, n, G * S):
+        clen = min(G * S, n - c0)
+        lens = np.clip(clen - np.arange(G) * S, 0, S)
+        seg = np.zeros((rows, G * S), np.float32)
+        seg[:, :clen] = w[:, c0:c0 + clen]
+        seg = seg.reshape(rows, G, S)
+        e = np.zeros((rows, G, K), np.float32)
+        for m in range(S):  # pass A
+            live = (m < lens)[None, :, None]
+            e = np.where(live, fmaf(p, e, seg[:, :, m:m + 1]), e)
+            y = np.zeros((rows, G), np.float32)
+            for k in range(K):
+                y = fmaf(a[k], e[:, :, k], y)
+            seg[:, :, m] = y
+        start = np.empty_like(e)
+        C = x.copy()
+        for w0 in range(0, G, 32):  # the scan, a warp of lanes at a time
+            b = e[:, w0:w0 + 32].copy()
+            width = b.shape[1]
+            d = 1
+            while d < width:
+                b[:, d:] = fmaf(E[:, d - 1], b[:, :-d], b[:, d:])
+                d *= 2
+            end = fmaf(E[:, :width].T, C[:, None, :], b)
+            start[:, w0], start[:, w0 + 1:w0 + width] = C, end[:, :-1]
+            if w0 + 32 < G:
+                C = fmaf(E[:, 31], C, b[:, 31])
+        for m in range(S):  # pass B
+            y = seg[:, :, m]
+            for k in range(K):
+                y = fmaf(D[k, m], start[:, :, k], y)
+            seg[:, :, m] = y
+        out[:, c0:c0 + clen] = seg.reshape(rows, G * S)[:, :clen]
+        last = -(-clen // S) - 1
+        x = fmaf(Z[:, lens[last] - 1], start[:, last], e[:, last])
+    return out, x
+
+
+def float32_power_tables(p, a, S):
+    """(D, Z, E) as a kernel computing the powers in float32 by repeated
+    multiplication would hold them."""
+    Z = np.empty((len(p), S), np.float32)
+    z = np.ones(len(p), np.float32)
+    for m in range(S):
+        z = z * p
+        Z[:, m] = z
+    E = np.empty((len(p), 32), np.float32)
+    z = np.ones(len(p), np.float32)
+    for j in range(32):
+        z = z * Z[:, -1]
+        E[:, j] = z
+    return a[:, None] * Z, Z, E
+
+
+def split_emulation_error(G, S, rows, n, blocks, tables=None):
+    """The largest error of ``cascade_split_emulation`` against a float64
+    recurrence over ``blocks`` blocks with the state carried, over the pink
+    std, on a real cascade (the poles within 1.5e-6 of 1, states ~600)."""
     from maria_torch.noise.streaming import PinkCascade
 
     c = PinkCascade(50.0, 0.5, T_ref=4096.0)
+    tables = None if tables is None else tables(c.p, c.a, S)
     rng = np.random.default_rng(0)
-    rows, n = 16, 640
     s_emu = c.init_state(rows, z=rng.standard_normal((rows, c.K)).astype(np.float32), device="cpu").numpy()
     s64 = s_emu.astype(np.float64)
     p64, a64 = c.p.astype(np.float64), c.a.astype(np.float64)
     worst, stds = 0.0, []
-    for _ in range(12):
+    for _ in range(blocks):
         w = rng.standard_normal((rows, n)).astype(np.float32)
-        y_emu, s_emu = cascade_emulation(w, s_emu, c.p, c.a)
+        y_emu, s_emu = cascade_split_emulation(w, s_emu, c.p, c.a, G, S, tables)
         y64 = np.empty((rows, n))
         for t in range(n):
             s64 = p64 * s64 + w[:, t:t + 1]
             y64[:, t] = s64 @ a64
         worst = max(worst, float(np.abs(y_emu - y64).max()))
         stds.append(float(y64.std()))
-    assert worst < 1e-4 * np.mean(stds), (worst, np.mean(stds))
+    return worst / np.mean(stds)
+
+
+@pytest.mark.parametrize("G,S", [(1, None), (7, 41), (32, 21), (49, 13)])
+def test_kernel_emulation_against_float64(G, S):
+    """KC's order of operations, over 12 blocks of 640 with the state
+    carried, against a float64 recurrence: under 1e-4 of the pink std. G = 1
+    is the walk a thread a row; G = 7 runs 2.2 chunks of 287 a block, G = 32
+    one chunk of 31 segments, G = 49 two warps of lanes (n a multiple of no S)."""
+    assert split_emulation_error(G, S, 16, 640, 12) < 1e-4
+
+
+def test_split_tables_need_float64():
+    """Why the split's powers are built in float64: with the same order and
+    inputs, p^S and its powers by repeated float32 multiplication drift past
+    1e-4 of the pink std over chip_smoke's 47 blocks of (u)'s 3,136 samples
+    (G 32, S 99: 1.5e-4), where the float64-built tables stay a hundred times
+    under it (1.1e-6)."""
+    assert split_emulation_error(32, 99, 16, 3136, 47) < 1e-5
+    assert split_emulation_error(32, 99, 16, 3136, 47, tables=float32_power_tables) > 1e-4
+
+
+@pytest.mark.parametrize("rows,n", [(222, 3136), (222, 320), (50049, 640), (5, 40000), (12671, 1000),
+                                    (12672, 1000), (37, 95), (1, 1)])
+def test_cascade_plan(rows, n):
+    """The split the wrapper picks from the shape: G = 1 from SPLIT_BELOW
+    rows or where a warp a row would leave a lane under MIN_SEGMENT samples,
+    else a power of two from 32 to 256 whose segments (S odd, at least
+    MIN_SEGMENT) cover n in chunks a ring stage holds."""
+    from maria_torch.ops.pink_cascade import (FILL_LANES, MAX_LANES, MAX_SEGMENT, MIN_LANES, MIN_SEGMENT, ROW_TILE,
+                                              SPLIT_BELOW, STAGE_FLOATS, cascade_plan, split_tables_np)
+
+    G, S = cascade_plan(rows, n)
+    if G == 1:
+        assert S == ROW_TILE and (rows >= SPLIT_BELOW or n < MIN_LANES * MIN_SEGMENT)
+        return
+    assert MIN_LANES <= G <= MAX_LANES and G & (G - 1) == 0 and S % 2 == 1
+    assert S * G <= STAGE_FLOATS and MIN_SEGMENT <= S <= MAX_SEGMENT
+    assert G == MAX_LANES or rows * G >= FILL_LANES or n < 4 * G * MIN_SEGMENT
+    t = split_tables_np(np.float32([[0.999, 0.99]]), np.float32([[1.0, -2.0]]), S)
+    Sp = -(-S // 4) * 4
+    assert t.shape == (1, 2, 2 * Sp + 32) and t.dtype == np.float32
+    np.testing.assert_allclose(t[0, 1, Sp + S - 1], np.float32(0.99) ** S, rtol=1e-6)
+    np.testing.assert_array_equal(t[0, :, S:Sp], 0.0)
+    np.testing.assert_allclose(t[0, 0, 2 * Sp:], np.float64(np.float32(0.999)) ** (S * np.arange(1, 33.0)), rtol=1e-6)
+    expect = {(222, 3136): (128, 25), (222, 320): (64, 5), (5, 40000): (256, 35), (12671, 1000): (32, 33),
+              (12672, 1000): (1, 32), (50049, 640): (1, 32), (37, 95): (1, 32)}
+    assert (G, S) == expect.get((rows, n), (G, S))
 
 
 def test_cascade_psd_matches_fft_generator():
