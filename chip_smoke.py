@@ -234,7 +234,10 @@ Phases, each of which must pass (any failure exits non-zero):
    refused; (g)'s 3-D AR process in four chunks of 128 rows through
    StreamingExtrusion equal to one long extrusion on the same
    innovations bit for bit (else within 1e-6 of a screen's std), the AR
-   kernel at the chunk against its plain loop; KC at the block;
+   kernel at the chunk against its plain loop; KC at the block; block 1
+   with a fresh executor and no cached split tables inside
+   torch.inference_mode (KC launched, its split's tables keyed by value)
+   equal to the block outside bit for bit;
 28. slice (v), the streamed ML mapper on tests/test_streaming_ml.py's
    scene at 600 s (MUSTANG-2 at 20 Hz, an az/el blob, 48 x 48 over 0.2
    deg), fit(n_epochs=2, n_cg_iters=25): recovery above 0.8 and no worse
@@ -243,7 +246,40 @@ Phases, each of which must pass (any failure exits non-zero):
    a block against its float64 plain sums; the fit's warm time, a CG
    step, K2's launches; at 60 s the batch MaximumLikelihoodMapper on the
    same TOD, the weighted RMS of the two maps' difference recorded; KC at
-   the block as at (t) and (u).
+   the block as at (t) and (u);
+29. slice (w), docs/tutorials.md:94-127's transfer functions as written
+   (the Planner given a start time): the cluster2 product made by
+   io.fetch in a private cache, map.load at 150 and 270 GHz 20 arcmin
+   wide, map.concatenate along nu; TolTEC's array-1 and array-3 (5,184
+   detectors, toltec/f150 and f270) from get_instrument_config and
+   Instrument.from_config; the Planner at llano_de_chajnantor above 60
+   deg, a 360 s daisy of 6.5 arcmin (miss_factor 0.3) at its 20 Hz;
+   Simulation(map=maps, atmosphere="2d").run() -> BinMapper(units=
+   "uK_RJ", stokes="I", resolution=maps.resolution, one mode and a 60 s
+   spline with the elevation gradient removed).run() ->
+   transfer_function(window=True) and the tutorial's three windows ->
+   to_fits read back by map.load: finite fields atmosphere, map and noise
+   of 5,184 x 7,200, K1 launched by run() and K2 by the map, the map read
+   back equal element for element; the output map on the card: the
+   input's sampled_onto its grid within 1e-5 of the map's maximum of a
+   float64 gather at the card's own offsets, and every curve of the
+   tutorial's transfer functions equal to maria_tpu's estimator in
+   float64 numpy on the host on the same two maps (the same bins, 1e-6
+   relative in every bin); the curves between the beams and the map's
+   width printed beside the same flow without atmosphere and noise (not
+   held); K1 and K2 at its band's shape; warm run(), BinMapper and
+   transfer_function ms and peak memory;
+30. slice (x), slice (a)'s TOD (217 x 3,000 at 50 Hz) through
+   tod.to_fits(format="MUSTANG-2") and maria_torch.tod.load: the FNU
+   column read back equal to the K_RJ signal bit for bit, DX/DY within
+   2e-6 rad of the port's det_radec in float32; BinMapper(frame="ra/dec")
+   on the reloaded TOD (K2 launched): total hits equal to the in-memory
+   TOD's map's and to n_det x n_t, the summed signal within 1e-5 of it
+   (the maps' correlation printed: the reader rebuilds the offsets from
+   the first sample, so pixels may move); the write and read seconds.
+
+A line says that HDF5 files and plotting are not driven on the card
+(the CPU tests hold them), with whether h5py and matplotlib are found.
 
 Every kernel is timed (CUDA events, in turns) beside its plain version,
 the PyTorch library call that computes the same function where there is
@@ -259,7 +295,8 @@ beside them and enters no bound).
 
 The line before the last is the card as nvidia-smi reports it, the one
 before that the kernels' JSON record (K1's launches counted over slices
-(b), (r) and (s), K2's over (b), (p), (q), (r), (t) and (v), the AR
+(b), (r), (s) and (w), K2's over (b), (p), (q), (r), (t), (v), (w) and
+(x), the AR
 kernel's over (f) and (u)'s chunks, KC's over (t)); the last line is the
 JSON result.
 """
@@ -267,6 +304,7 @@ JSON result.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -926,7 +964,7 @@ def slice_pixel_ids(tod, mapper_map, n_map=N_MAP):
     the mapper's width."""
     from maria_torch.mappers.bin_mapper import azel_pixel_ids
 
-    res = mapper_map.resolution * N_MAP / n_map
+    res = mapper_map.x_res * N_MAP / n_map
     return azel_pixel_ids(tod.pointing, mapper_map.center, res, n_map, n_map, device=tod.device).contiguous()
 
 
@@ -2668,7 +2706,7 @@ def run_streamed_mustang(device, card, program_g, tmp_dir):
     from maria_torch.ops.program import build_tod_program
     from maria_torch.ops.streaming_exec import StreamingExecutor
 
-    out, exs = {}, {}
+    out, exs, obs_by = {}, {}, {}
     for duration in U_SECONDS:
         s = time.perf_counter()
         plan = maria_torch.get_plan("daisy_5arcmin_60s", start_time=1.75e9, scan_center=(150.0, 41.0),
@@ -2692,7 +2730,7 @@ def run_streamed_mustang(device, card, program_g, tmp_dir):
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"slice (u) at {duration:.0f} s")
-        exs[duration] = ex
+        exs[duration], obs_by[duration] = ex, sim.obs_list[0]
     ratio = out[U_SECONDS[1]]["loop_peak_gb"] / out[U_SECONDS[0]]["loop_peak_gb"]
     ok = ratio <= 1.15
     print(f"slice (u): the block loop's peak at {U_SECONDS[1]:.0f} s over {U_SECONDS[0]:.0f} s: {ratio:.4f} "
@@ -2701,6 +2739,7 @@ def run_streamed_mustang(device, card, program_g, tmp_dir):
         fail("slice (u) bounded memory")
 
     ex = exs[U_SECONDS[0]]
+    check_inference_mode_block(ex.program, obs_by[U_SECONDS[0]], device)
     path = os.path.join(tmp_dir, "stream_u.ckpt.npz")
     full = ex.run(5, group_size=2)
     state = ex.init_state(5)
@@ -2963,6 +3002,365 @@ def check_ar_chunk(device, gen, proc, chunk_rows):
     return r
 
 
+W_START = 1.75e9  # the Planner's start: June 2025, the Sun far from (150.5, -29.5) deg
+W_PREPROCESSING = {"remove_modes": {"modes_to_remove": 1},
+                   "remove_spline": {"knot_spacing": 60, "remove_el_gradient": True}}  # docs/tutorials.md:117-118
+W_WINDOWS = (dict(window="tukey", taper=0.1), dict(window="hann"), dict(window=False))  # docs/tutorials.md:125
+
+
+def transfer_tutorial_sim(duration=360.0, atmosphere="2d", noise=True):
+    """docs/tutorials.md:94-115 as written (the Planner given a start
+    time): the cluster2 product fetched, loaded at 150 and 270 GHz 20
+    arcmin wide and joined along nu; TolTEC's array-1 and array-3 (5,184
+    detectors); the Planner at llano_de_chajnantor above 60 deg, a
+    ``duration`` s daisy of 6.5 arcmin at its 20 Hz; the Simulation on
+    the card, the default. Returns (maps, sim)."""
+    import maria_torch as maria
+    from maria_torch.instrument import Instrument, get_instrument_config
+
+    p = maria.io.fetch("maps/cluster2.fits")
+    m1 = maria.map.load(filename=p, nu=150e9, width=20 / 60)
+    m2 = maria.map.load(filename=p, nu=270e9, width=20 / 60)
+    maps = maria.map.concatenate([m1, m2], dim="nu")
+    config = get_instrument_config("TolTEC")
+    config["arrays"] = {k: config["arrays"][k] for k in ["array-1", "array-3"]}
+    instrument = Instrument.from_config(config)
+    plans = maria.Planner(target=maps, site="llano_de_chajnantor", constraints={"el": (60, 90)},
+                          start_time=W_START).generate_plans(
+        total_duration=duration, scan_options={"radius": 6.5 / 60, "miss_factor": 0.3})
+    return maps, maria.Simulation(instrument, plans=plans, site="llano_de_chajnantor", map=maps,
+                                  atmosphere=atmosphere, noise=noise)
+
+
+def transfer_tutorial_map(tods, maps):
+    """docs/tutorials.md:116-120: the BinMapper in uK_RJ, Stokes I, at the
+    input maps' resolution, after one mode and a 60 s spline with the
+    elevation gradient are removed."""
+    import copy
+
+    from maria_torch.mappers import BinMapper
+
+    return BinMapper(tods=tods, units="uK_RJ", stokes="I", resolution=maps.resolution,
+                     tod_preprocessing=copy.deepcopy(W_PREPROCESSING)).run()
+
+
+def transfer_function_float64(d_in, d_out, w_out, y_res, x_res, window="hann", taper=0.1, n_bins=20,
+                              pad_factor=1.0):
+    """maria_tpu/map/transfer.py's estimator on one plane in float64 numpy
+    on the host: (bin centres, tf) of the non-empty bins."""
+    import scipy.signal
+
+    window = "hann" if window is True else "boxcar" if window in (False, None) else window
+    d_in, d_out = np.asarray(d_in, dtype=float), np.nan_to_num(np.asarray(d_out, dtype=float))
+    ny, nx = d_in.shape
+    spec = (window, taper) if window == "tukey" else window
+    valid = np.asarray(w_out) > 0
+    w2d = np.outer(scipy.signal.get_window(spec, ny), scipy.signal.get_window(spec, nx)) * valid
+    d_in = (d_in - d_in[valid].mean() if valid.any() else d_in) * w2d
+    d_out = d_out * w2d
+    if pad_factor > 1:
+        py, px = int(ny * (pad_factor - 1) / 2), int(nx * (pad_factor - 1) / 2)
+        d_in, d_out = np.pad(d_in, ((py, py), (px, px))), np.pad(d_out, ((py, py), (px, px)))
+        ny, nx = d_in.shape
+    F_in, F_out = np.fft.rfft2(d_in), np.fft.rfft2(d_out)
+    k = np.sqrt(np.fft.fftfreq(ny, d=y_res)[:, None] ** 2 + np.fft.rfftfreq(nx, d=x_res)[None, :] ** 2)
+    cross, auto = np.real(np.conj(F_in) * F_out).ravel(), (np.abs(F_in) ** 2).ravel()
+    bins = np.geomspace(k[k > 0].min(), k.max(), n_bins + 1)
+    idx = np.digitize(k.ravel(), bins) - 1
+    tf = np.full(n_bins, np.nan)
+    for i in range(n_bins):
+        denom = auto[idx == i].sum()
+        if denom > 0:
+            tf[i] = cross[idx == i].sum() / denom
+    good = np.isfinite(tf)
+    return np.sqrt(bins[:-1] * bins[1:])[good], tf[good]
+
+
+def bilinear_float64(field, x, y, x_side, y_side):
+    """The bilinear sample of a (ny, nx) field on the uniform grid of
+    pixel centres (x_side, y_side) at the points (x, y), in float64 numpy;
+    zero beyond the outermost centres (ops.interp.interp_bilinear_grid's
+    contract)."""
+    field, x, y = np.asarray(field, dtype=float), np.asarray(x, dtype=float), np.asarray(y, dtype=float)
+    ny, nx = field.shape
+    fx = (x - x_side[0]) / (x_side[1] - x_side[0])
+    fy = (y - y_side[0]) / (y_side[1] - y_side[0])
+    ix, iy = np.clip(np.floor(fx).astype(int), 0, nx - 2), np.clip(np.floor(fy).astype(int), 0, ny - 2)
+    wx, wy = fx - ix, fy - iy
+    out = (field[iy, ix] * (1 - wy) * (1 - wx) + field[iy, ix + 1] * (1 - wy) * wx
+           + field[iy + 1, ix] * wy * (1 - wx) + field[iy + 1, ix + 1] * wy * wx)
+    inside = (x >= x_side[0]) & (x <= x_side[-1]) & (y >= y_side[0]) & (y <= y_side[-1])
+    return np.where(inside, out, 0.0)
+
+
+def check_sampled_onto(maps, out_map, device):
+    """maps.sampled_onto(out_map) on the card against a float64 bilinear
+    gather on the host at the card's own float32 offsets (the output's
+    pixel centres carried through the sphere onto the input's centre, as
+    sampled_onto carries them): within 1e-5 of the map's maximum."""
+    import torch
+
+    from maria_torch.coords import offsets_to_phi_theta, phi_theta_to_offsets
+
+    on_card = maps.sampled_onto(out_map, device=device)
+    torch.cuda.synchronize()
+    X, Y = np.meshgrid(out_map.x_side, out_map.y_side)
+    pts = np.stack([X, Y], axis=-1)
+    if not np.allclose(maps.center, out_map.center):
+        pts = phi_theta_to_offsets(offsets_to_phi_theta(pts, *out_map.center), *maps.center)
+    dx, dy = (np.asarray(pts[..., i], dtype=np.float32) for i in (0, 1))
+    data = maps.data.cpu().numpy()
+    ref = np.stack([bilinear_float64(data[0, j, 0], dx, dy, maps.x_side, maps.y_side) for j in range(maps.n_nu)])
+    scale = float(np.abs(data).max())
+    err = float(np.abs(on_card[0, :, 0].cpu().numpy() - ref).max())
+    ok = on_card.device.type == "cuda" and tuple(on_card.shape) == (1, maps.n_nu, 1, out_map.n_y, out_map.n_x)
+    ok &= err <= 1e-5 * scale
+    print(f"slice (w): sampled_onto of the input maps onto the output's {out_map.n_y} x {out_map.n_x} grid on the card "
+          f"against a float64 gather at its own offsets: {err / scale:.3e} of the map's maximum (limit 1e-5) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (w) sampled_onto")
+    return on_card
+
+
+def check_transfer_on_card(maps, output_map, device):
+    """The output map and its transfer functions on the card (the
+    tutorial's window=True over both channels and its three windows on
+    the first): each channel's curve against transfer_function_float64 of
+    the same two maps (the input sampled onto the output's grid on the
+    card, in its units) on the host, the same bins and tf to 1e-6
+    relative in every bin. Returns (the card's map, its warm ms)."""
+    import torch
+
+    card_out = output_map._replace(data=output_map.data.to(device), weight=output_map.weight.to(device))
+    card_out._input_map, card_out._beam_fwhm = output_map._input_map, output_map._beam_fwhm
+    sampled = check_sampled_onto(maps, card_out, device)
+    aligned = card_out._replace(data=sampled, weight=torch.ones_like(sampled), stokes=maps.stokes, nu=maps.nu,
+                                units=maps.units).to(card_out.units)
+    d_in, d_out, w_out = (x.cpu().numpy() for x in (aligned.data, card_out.data, card_out.weight))
+    worst, n_curves = 0.0, 0
+    for kw in (dict(window=True),) + W_WINDOWS:
+        slices = None if kw.get("window") is True else dict(nu=[0])
+        tf = card_out.transfer_function(slices=slices, **kw)
+        torch.cuda.synchronize()
+        for i, j in enumerate([0, 1] if slices is None else [0]):
+            k64, tf64 = transfer_function_float64(d_in[0, j, 0], d_out[0, j, 0], w_out[0, j, 0], card_out.y_res,
+                                                  card_out.x_res, window=kw["window"], taper=kw.get("taper", 0.1))
+            same_bins = len(k64) == len(tf.k) and np.allclose(k64, tf.k, rtol=1e-12)
+            rel = float(np.abs(tf.T[i] / tf64 - 1).max()) if same_bins else np.inf
+            worst, n_curves = max(worst, rel), n_curves + 1
+            if not same_bins or rel > 1e-6:
+                print(f"slice (w): transfer function {kw} channel {j}: bins {len(tf.k)} / {len(k64)}, worst relative "
+                      f"difference {rel:.3e} FAIL", flush=True)
+                fail("slice (w) transfer function on the card")
+    ms, each = warm_ms(lambda: card_out.transfer_function(window=True), reps=3)
+    print(f"slice (w): the transfer functions on the card (window=True on both channels, the tutorial's three windows "
+          f"on the first: {n_curves} curves) against float64 numpy on the host: the same bins, worst relative "
+          f"difference {worst:.3e} (limit 1e-6) ok; warm transfer_function(window=True) {ms:.2f} ms ({each})",
+          flush=True)
+    return card_out, ms
+
+
+def run_transfer_tutorial(device, card, gen):
+    """Slice (w): docs/tutorials.md:94-127 on the card. Returns (main-path
+    launches, K1 and K2 records at its shapes, summary)."""
+    import copy
+
+    import torch
+
+    import maria_torch
+    from maria_torch.atmosphere.fourier import good_fft_size
+    from maria_torch.mappers.bin_mapper import radec_pixel_ids
+    from maria_torch.ops.bin_map import bin_map
+    from maria_torch.ops.pink_noise import pink_noise
+
+    old_cache = maria_torch.io._cache_state["base"]
+    with tempfile.TemporaryDirectory() as cache:
+        maria_torch.set_cache_dir(cache)
+        try:
+            s = time.perf_counter()
+            maps, sim = transfer_tutorial_sim()
+            setup_s = time.perf_counter() - s
+            pink_noise.launches = bin_map.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            s = time.perf_counter()
+            tods = sim.run()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - s
+            run_peak = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            s = time.perf_counter()
+            output_map = transfer_tutorial_map(tods, maps)
+            torch.cuda.synchronize()
+            map_s = time.perf_counter() - s
+            map_peak = torch.cuda.max_memory_allocated() / 1e9
+            launches = {"pink_noise": pink_noise.launches, "bin_map": bin_map.launches}
+            s = time.perf_counter()
+            tf = output_map.transfer_function(window=True)  # on the mapper's map, which lives on the host
+            host_tf_ms = (time.perf_counter() - s) * 1e3
+            windows = [output_map.transfer_function(slices=dict(nu=[0]), **kw) for kw in W_WINDOWS]
+            path = os.path.join(cache, "output.fits")
+            output_map.to_fits(path)
+            back = maria_torch.map.load(path)
+            # printed, not held: the same map without atmosphere and noise
+            clean = transfer_tutorial_map(transfer_tutorial_sim(atmosphere=None, noise=False)[1].run(), maps)
+        finally:
+            maria_torch.set_cache_dir(old_cache)
+
+    tod = tods[0]
+    n_t = 360 * 20  # the tutorial's 360 s at the Planner's 20 Hz
+    ok = len(tods) == 1 and tod.shape == (5184, n_t) and tod.device.type == "cuda"
+    ok &= set(tod.fields) == {"atmosphere", "map", "noise"} and all(bool(torch.isfinite(v).all()) for v in tod.data.values())
+    ok &= launches["pink_noise"] > 0 and launches["bin_map"] > 0
+    ok &= tuple(output_map.data.shape[:3]) == (1, 2, 1) and bool(torch.isfinite(output_map.data).all())
+    ok &= float(output_map.weight.sum()) > 0 and output_map.units == "uK_RJ"
+    ok &= tf.T.shape[0] == 2 and bool(np.isfinite(tf.T).all()) and all(w.T.shape[0] == 1 for w in windows)
+    print(f"slice (w), the transfer-function tutorial: TolTEC {tod.shape} ({', '.join(tod.dets.bands.names)}) "
+          f"{tod.fields}, setup {setup_s:.2f} s, first run() {run_s:.3f} s, first BinMapper.run() {map_s:.3f} s, "
+          f"output map {tuple(output_map.data.shape)} at {output_map.resolution.arcsec:.2f} arcsec; main-path "
+          f"launches {launches} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (w) output check")
+    same = bool(torch.equal(back.data, output_map.data)) and np.array_equal(back.nu, output_map.nu)
+    print(f"slice (w): output_map.to_fits and map.load: equal element for element {same} "
+          f"{'ok' if same else 'FAIL'}", flush=True)
+    if not same:
+        fail("slice (w) FITS round trip")
+
+    card_out, card_tf_ms = check_transfer_on_card(maps, output_map, device)
+
+    # what is printed, not held: the curves between the beams and the map's width, beside the run without
+    # atmosphere and noise
+    tf_clean = clean.transfer_function(window=True)
+    width = float(output_map.width.rad)
+    for name, curve in (("atmosphere and noise", tf), ("no atmosphere, no noise", tf_clean)):
+        sel = (1 / curve.k > min(curve.beam_fwhm)) & (1 / curve.k < width)
+        print(f"slice (w), transfer function ({name}) at angular scales 1/k between the beams "
+              f"{np.round(np.degrees(curve.beam_fwhm) * 3600, 2).tolist()} arcsec and the map's width "
+              f"{np.degrees(width) * 60:.2f} arcmin: scales {np.round(np.degrees(1 / curve.k[sel]) * 60, 3).tolist()} "
+              f"arcmin, T {np.round(curve.T[:, sel], 4).tolist()}", flush=True)
+
+    run_ms, run_each = warm_ms(lambda: sim.run(), reps=3)
+    map_ms, map_each = warm_ms(lambda: transfer_tutorial_map(tods, maps), reps=3)
+    ops_ms = {op: warm_ms(lambda op=op: tod.process(**copy.deepcopy({op: W_PREPROCESSING[op]})), reps=3)[0]
+              for op in W_PREPROCESSING}
+    bands = tod.dets.bands
+    rows = [np.where(tod.dets.band_name == b.name)[0] for b in bands]
+    big = int(np.argmax([len(r) for r in rows]))
+    k1 = check_pink_noise(device, gen, len(rows[big]), n_t, good_fft_size(n_t))
+    mapper_res = card_out.x_res
+    ids = radec_pixel_ids(tod.pointing, card_out.center, mapper_res, card_out.n_x, card_out.n_y, device=device)
+    ids = ids[torch.as_tensor(rows[big], device=device)].contiguous()
+    k2 = check_bin_map(device, gen, ids, f"slice w ra/dec ids, band {bands[big].name}",
+                       n_pix=card_out.n_x * card_out.n_y)["stacked"]
+    summary = {"shape": list(tod.shape), "setup_s": setup_s, "run_ms": run_ms, "run_each_ms": run_each,
+               "map_ms": map_ms, "map_each_ms": map_each, "preprocessing_ms": ops_ms, "tf_card_ms": card_tf_ms,
+               "tf_host_ms": host_tf_ms,
+               "run_peak_gb": run_peak, "map_peak_gb": map_peak, "launches": launches,
+               "map_shape": list(output_map.data.shape), "k1_shape": k1["shape"], "k2_shape": k2["shape"]}
+    print(f"slice (w): warm run() {run_ms:.2f} ms ({run_each}), warm BinMapper.run() {map_ms:.2f} ms ({map_each}; "
+          f"its preprocessing alone, an op at a time on the TOD: {({k: round(v, 2) for k, v in ops_ms.items()})} ms), "
+          f"transfer_function on the card {card_tf_ms:.2f} ms and on the host's map {host_tf_ms:.2f} ms; peak device "
+          f"memory run() {run_peak:.2f} GB, BinMapper {map_peak:.2f} GB ({card})", flush=True)
+    return launches, k1, k2, summary
+
+
+def run_mustang_fits(device, card, tod):
+    """Slice (x): slice (a)'s TOD through a MUSTANG-2 FITS file and back,
+    then BinMapper(frame="ra/dec") on the reloaded TOD. Returns (main-path
+    launches, summary)."""
+    import torch
+
+    import maria_torch
+    from maria_torch.io.fits import read_fits
+    from maria_torch.ops.bin_map import bin_map
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "slice_a.fits")
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        tod.to_fits(path, format="MUSTANG-2")
+        write_s = time.perf_counter() - s
+        s = time.perf_counter()
+        back = maria_torch.tod.load(path)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - s
+        size_mb = os.path.getsize(path) / 1e6
+        _, table = read_fits(path)[1]
+    n_det, n_t = tod.shape
+    fnu_equal = back.device.type == "cuda" and bool(torch.equal(back.signal, tod.to("K_RJ").signal))
+    ra, dec = tod.pointing.det_radec(device=device)
+    dx_err = max(float(np.abs(table[c].reshape(n_det, n_t) - x.cpu().numpy()).max()) for c, x in (("DX", ra), ("DY", dec)))
+    ok = fnu_equal and dx_err <= 2e-6 and back.shape == tod.shape
+    print(f"slice (x): slice (a)'s TOD {tod.shape} to MUSTANG-2 FITS ({size_mb:.1f} MB) in {write_s:.3f} s, read back "
+          f"by maria_torch.tod.load in {read_s:.3f} s: FNU equal to the K_RJ signal bit for bit {fnu_equal}; DX/DY "
+          f"against det_radec in float32 {dx_err:.3e} rad (limit 2e-6) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (x) FITS round trip")
+
+    center = tuple(np.degrees(tod.boresight.center(frame="ra/dec")))
+    kw = dict(center=center, width=0.5, resolution=MAP_WIDTH_DEG / N_MAP, frame="ra/dec",
+              map_postprocessing={"keep_mean": True})
+    original = maria_torch.BinMapper(tod, **kw).run()
+    bin_map.launches = 0
+    reloaded = maria_torch.BinMapper(back, **kw).run()
+    launches = {"bin_map": bin_map.launches}
+    hits = [float(m.weight.double().sum()) for m in (original, reloaded)]
+    sums = [float((m.data.double() * m.weight.double()).sum()) for m in (original, reloaded)]
+    scale = float((original.data.double() * original.weight.double()).abs().sum())
+    both = (original.weight > 0) & (reloaded.weight > 0)
+    corr = float(np.corrcoef(original.data[both].numpy(), reloaded.data[both].numpy())[0, 1])
+    ok = launches["bin_map"] > 0 and hits[0] == hits[1] == n_det * n_t and abs(sums[0] - sums[1]) <= 1e-5 * scale
+    print(f"slice (x): BinMapper(frame='ra/dec') on the reloaded TOD ({tuple(reloaded.data.shape)}): total hits "
+          f"{hits[1]:.0f} against the in-memory TOD's {hits[0]:.0f} (n_det x n_t {n_det * n_t}), summed signal "
+          f"{sums[1]:.6e} against {sums[0]:.6e} ({abs(sums[0] - sums[1]) / scale:.2e} of the summed |signal|, limit "
+          f"1e-5); the maps' correlation over {int(both.sum())} pixels hit in both {corr:.5f} (printed: maria_tpu's "
+          f"reader rebuilds the offsets from the first sample, so pixels may move); main-path launches {launches} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (x) map of the reloaded TOD")
+    return launches, {"write_s": write_s, "read_s": read_s, "file_mb": size_mb, "shape": list(tod.shape),
+                      "correlation": corr, "launches": launches}
+
+
+def check_inference_mode_block(program, obs, device):
+    """F1 on the card: slice (u)'s block 1 with a fresh executor and no
+    cached split tables, inside torch.inference_mode and outside: KC
+    launched; the TOD and every state entry equal bit for bit but the
+    map's sums, which K2's float atomics add in any order (within 1e-6
+    of their maximum)."""
+    import torch
+
+    from maria_torch.ops import pink_cascade as kc
+    from maria_torch.ops.streaming_exec import StreamingExecutor
+
+    def block():
+        kc._SPLIT_TABLES.clear()
+        ex = StreamingExecutor(program, obs, block_tc=64, device=device)
+        return ex.block(ex.init_state(3), 1), kc.cascade_plan(ex._casc_rows["n"], ex.B)
+
+    (state_out, tod_out), plan = block()
+    with torch.inference_mode():
+        before = kc.pink_cascade.launches
+        (state_in, tod_in), _ = block()
+        launched = kc.pink_cascade.launches - before
+    entries = {"tod": (tod_out, tod_in), **{k: (state_out[k], state_in[k]) for k in state_out if k != "map_sum"}}
+    unequal = []
+    for name, (a, b) in entries.items():
+        flat_a, flat_b = (torch.utils._pytree.tree_flatten(x)[0] for x in (a, b))
+        if len(flat_a) != len(flat_b) or not all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+                                                 for x, y in zip(flat_a, flat_b)):
+            unequal.append(name)
+    map_err = float((state_out["map_sum"] - state_in["map_sum"]).abs().max() / state_out["map_sum"].abs().max())
+    ok = not unequal and map_err <= 1e-6 and launched == 1
+    print(f"slice (u): block 1 inside torch.inference_mode (a fresh executor, KC's split G {plan[0]}, S {plan[1]}, no "
+          f"cached tables): KC launched {launched}; the TOD and the state's {sorted(k for k in entries if k != 'tod')} "
+          f"equal to the block outside bit for bit {not unequal}{f' (not: {unequal})' if unequal else ''}, the map's "
+          f"sums within {map_err:.2e} of their maximum (limit 1e-6: K2's atomics) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("slice (u) under inference_mode")
+
+
 def main() -> int:
     try:
         import torch
@@ -3057,7 +3455,7 @@ def main() -> int:
     k2["512"] = check_bin_map(device, gen, slice_pixel_ids(tod_d, map_d, n_map=512), "slice d ids, 512 x 512",
                               n_pix=512 * 512)
     sky = sim_h.map
-    ids_h = radec_pixel_ids(tod_h.pointing, sky.center, sky.resolution, sky.n_x, sky.n_y, device=device).contiguous()
+    ids_h = radec_pixel_ids(tod_h.pointing, sky.center, sky.x_res, sky.n_x, sky.n_y, device=device).contiguous()
     k2["h"] = check_bin_map(device, gen, ids_h, "slice h ra/dec ids, 512 x 512", n_pix=sky.n_x * sky.n_y)
     k2["r"] = check_bin_map(device, gen, ids_r, "slice r ra/dec ids, the three maps' shape", n_pix=n_pix_r)
     del ids_r
@@ -3066,25 +3464,33 @@ def main() -> int:
             print(f"K2 summary {key} {form}: {x['ms']:.4f} ms, library {x['library_ms']:.4f} ms, bound "
                   f"{x['bound_ms']:.4f} ms ({x['bound_ms'] / x['ms']:.1%}), plain {x['plain_ms']:.4f} ms", flush=True)
 
+    launches_w, k1_w, k2_w, summary_w = run_transfer_tutorial(device, card, gen)
+    launches_x, summary_x = run_mustang_fits(device, card, results["a"][0])
+    print(f"not driven on the card: HDF5 files and plotting (held by the CPU tests); on this machine h5py "
+          f"{'found' if importlib.util.find_spec('h5py') else 'not found'}, matplotlib "
+          f"{'found' if importlib.util.find_spec('matplotlib') else 'not found'}", flush=True)
+
     launches_b = results["b"][2]
     by_slice = {**{label: r[2] for label, r in results.items()}, "c": launches_c, "g": launches_g, "h": launches_h,
                 "i": launches_i, "i, noise on": launches_i_noise, "j": launches_j, "CMB spectra": launches_spectra,
                 "k": launches_k, "l": launches_l, "m": launches_m, "p": launches_p, "q": launches_q, "r": launches_r,
                 "s": launches_s, "t": launches_t, "u 600 s": summary_u[U_SECONDS[0]]["launches"],
                 "u 3600 s": summary_u[U_SECONDS[1]]["launches"], "u chunks": {"ar_extrude": ar_u["launches"]},
-                "v": launches_v}
+                "v": launches_v, "w": launches_w, "x": launches_x}
     for name in ("pink_noise", "bin_map", "shared_v", "ar_extrude", "sht_synth", "sht_anal", "pink_cascade"):
         print(f"main-path launches of {name} by slice: {({k: v[name] for k, v in by_slice.items() if name in v})}",
               flush=True)
     kernels_line = {"kernels": [
         {"name": "pink_noise", "route": "cuda", "source": "maria_torch/csrc/pink_noise.cu",
          "replaces": "maria_tpu/ops/pallas_noise.py:269",
-         "launches": launches_b["pink_noise"] + launches_r["pink_noise"] + launches_s["pink_noise"],
+         "launches": launches_b["pink_noise"] + launches_r["pink_noise"] + launches_s["pink_noise"]
+         + launches_w["pink_noise"],
          **k1[(217, 30000, 32768)]},
         {"name": "bin_map", "route": "cuda", "source": "maria_torch/csrc/bin_map.cu",
          "replaces": "maria_tpu/ops/pallas_binning.py:119",
          "launches": launches_b["bin_map"] + launches_p["bin_map"] + launches_q["bin_map"] + launches_r["bin_map"]
-         + launches_t["bin_map"] + launches_v["bin_map"], **k2["b"]["stacked"]},
+         + launches_t["bin_map"] + launches_v["bin_map"] + launches_w["bin_map"] + launches_x["bin_map"],
+         **k2["b"]["stacked"]},
         {"name": "shared_v", "route": "cuda", "source": "maria_torch/csrc/shared_v.cu",
          "replaces": "maria_tpu/ops/pallas_noise.py:427", "launches": launches_c["shared_v"],
          **k3[5556 * ATLAST_BANDS]},
@@ -3115,6 +3521,12 @@ def main() -> int:
     print(f"slice (u) summary, MUSTANG-2 streamed at {U_SECONDS} s ({card}): "
           f"{json.dumps({f'{k:.0f} s': v for k, v in summary_u.items()})}; AR chunk {json.dumps(ar_u)}", flush=True)
     print(f"slice (v) summary, the streamed ML mapper ({card}): {json.dumps(summary_v)}", flush=True)
+    print(f"slice (w) summary, the transfer-function tutorial ({card}): {json.dumps(summary_w)}", flush=True)
+    print(f"slice (x) summary, a MUSTANG-2 TOD through a FITS file ({card}): {json.dumps(summary_x)}", flush=True)
+    for key, r in (("K1 at slice (w)'s band", k1_w), ("K2 at slice (w)'s band", k2_w)):
+        print(f"{key} summary: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bound_ms'] / r['ms']:.1%}), shape {r['shape']}",
+              flush=True)
     for key, r in (("KC (t)", kc_t), ("KC (u)", kc_u), ("KC (v)", kc_v), ("K2 streaming block (t)", k2_t),
                    ("K2 streamed ML P^T (v)", k2_v), ("AR chunk (u)", ar_u)):
         print(f"{key} summary: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
@@ -3123,11 +3535,13 @@ def main() -> int:
               flush=True)
     print(f"K2's launches in the kernels line: slice (b) {launches_b['bin_map']} + slice (p) {launches_p['bin_map']} + "
           f"slice (q) {launches_q['bin_map']} + slice (r) {launches_r['bin_map']} + slice (t) {launches_t['bin_map']} "
-          f"+ slice (v) {launches_v['bin_map']}; the AR kernel's: slice (f) {results['f'][2]['ar_extrude']} + slice "
+          f"+ slice (v) {launches_v['bin_map']} + slice (w) {launches_w['bin_map']} + slice (x) "
+          f"{launches_x['bin_map']}; the AR kernel's: slice (f) {results['f'][2]['ar_extrude']} + slice "
           f"(u)'s chunks {ar_u['launches']}; KC's: slice (t) {launches_t['pink_cascade']} (besides: (u) at 3,600 s "
           f"{summary_u[U_SECONDS[1]]['launches']['pink_cascade']}, (v)'s first fit {launches_v['pink_cascade']}); "
           f"K1's: slice (b) "
-          f"{launches_b['pink_noise']} + slice (r) {launches_r['pink_noise']} + slice (s) {launches_s['pink_noise']}",
+          f"{launches_b['pink_noise']} + slice (r) {launches_r['pink_noise']} + slice (s) {launches_s['pink_noise']} "
+          f"+ slice (w) {launches_w['pink_noise']}",
           flush=True)
     for key, r in ks.items():
         print(f"KS summary {key}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "

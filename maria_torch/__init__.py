@@ -24,12 +24,19 @@ CPU.
 The package imports neither jax nor maria_tpu: it carries its own numpy
 scene layer, with every band, array, instrument, site, region and plan of
 maria_tpu's registries, polarized arrays included.
+
+The observer's products are here too: TOD and map files (HDF5, and FITS
+with numpy alone, MUSTANG-2's TOD format among them), the offline
+``fetch`` of the named maps' files, map operations (indexing, padding,
+regridding, ``sampled_onto``), transfer functions and residuals on
+another grid, and plots (matplotlib, imported where a plot is made).
 """
 
 from __future__ import annotations
 
 from .device import default_device  # noqa: F401  (sets the f32/TF32 policy)
-from .io import get_cache_dir, set_cache_dir  # noqa: F401
+from .io import fetch, get_cache_dir, set_cache_dir  # noqa: F401
+from .band import Band, get_band  # noqa: F401
 from .instrument import Instrument, get_instrument  # noqa: F401
 from .plan import Plan, PlanList, Planner, get_plan  # noqa: F401
 from .site import Site, get_site  # noqa: F401
@@ -40,10 +47,13 @@ from .ops.streaming_exec import StreamingExecutor  # noqa: F401
 from .units import Quantity  # noqa: F401
 from .calibration import Calibration  # noqa: F401
 from . import map  # noqa: F401, A004  (maria_torch.map.get, as maria_tpu.map.get)
+from .map import all_maps  # noqa: F401
+from .map.transfer import TransferFunction, compute_transfer_function, plot_transfer_function  # noqa: F401
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "Band",
     "BinMapper",
     "Calibration",
     "Instrument",
@@ -56,11 +66,17 @@ __all__ = [
     "Site",
     "StreamingExecutor",
     "TOD",
+    "TransferFunction",
+    "all_maps",
     "compute_residual_map",
+    "compute_transfer_function",
     "default_device",
+    "fetch",
+    "get_band",
     "get_cache_dir",
     "get_instrument",
     "get_plan",
     "get_site",
+    "plot_transfer_function",
     "set_cache_dir",
 ]

@@ -169,6 +169,21 @@ class Band:
             logger.warning(f"No noise level specified for band {self.name}; assuming 50 uK_RJ√s.")
             self.NET_RJ = 50e-6
 
+    def to_config(self) -> dict:
+        """The keywords that make this band again: ``Band(**band.to_config())``
+        keeps its passband and its noise and readout parameters."""
+        return {
+            "name": self.name,
+            "nu": np.asarray(self.nu, dtype=float).tolist(),
+            "tau": np.asarray(self.tau, dtype=float).tolist(),
+            "efficiency": float(self.efficiency),
+            "NEP": float(self.NEP),
+            "NEP_per_loading": float(self.NEP_per_loading),
+            "gain_error": float(self.gain_error),
+            "knee": float(self.knee),
+            "time_constant": float(self.time_constant),
+        }
+
     def _rj_kernel(self) -> float:
         """W per K_RJ of an unpolarized detector, as the NET_RJ of
         maria_tpu's ``Calibration("K_RJ -> W")`` takes it."""

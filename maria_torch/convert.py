@@ -13,7 +13,9 @@ blocks (ids, Stokes weights, data, and optionally its noise model) into
 the port's mapper; ``array_from_columns`` makes the port's ``Array`` of a
 maria_tpu detector table's columns (its uuid-named arrays included);
 ``stream_state_from_arrays`` turns a maria_tpu ``StreamingExecutor``'s
-state (its ``init_state`` or a checkpoint's leaves) into the port's. Nothing here imports maria_tpu: the caller extracts
+state (its ``init_state`` or a checkpoint's leaves) into the port's;
+``tod_from_arrays`` makes the port's ``TOD`` of a maria_tpu TOD's fields,
+weights, factorized pointing and detector columns. Nothing here imports maria_tpu: the caller extracts
 the arrays (the tests do).
 
 ``tables`` keys: offsets (n_det, 2), bs_az_coarse, bs_el_coarse,
@@ -45,7 +47,8 @@ from .ops.program import BandBlock, TODProgram
 from .plan import Plan
 
 __all__ = ["ar_process_from_arrays", "array_from_columns", "healpix_map_from_arrays", "map_from_arrays", "ml_state_from_arrays",
-           "plan_from_arrays", "program_from_tables", "pixel_ids_from_tables", "stream_state_from_arrays"]
+           "plan_from_arrays", "program_from_tables", "pixel_ids_from_tables", "stream_state_from_arrays",
+           "tod_from_arrays"]
 
 
 def plan_from_arrays(time, phi, theta, frame: str, site=None, roll: float = 0.0) -> Plan:
@@ -266,3 +269,30 @@ def stream_state_from_arrays(executor, arrays, key: int = 0, base: dict = None) 
     state["noise"] = [tuple(t(x) for x in band) for band in arrays["noise"]]
     state["psd_sum"] = [t(x) for x in arrays["psd_sum"]]
     return state
+
+
+def tod_from_arrays(data: dict, weight, phi, theta, t, offsets, q, columns: dict, bands, frame: str = "az/el",
+                    earth_location=None, units: str = "K_RJ", metadata: dict = None, device="cpu"):
+    """The port's TOD of a maria_tpu TOD's numpy arrays: the fields
+    ``data`` (name -> (n_det, n_t)) and ``weight`` on ``device``; the
+    boresight (``phi``, ``theta`` in ``frame``, unix ``t``) at
+    ``earth_location`` (an ``EarthLocation``, or (lat_deg, lon_deg,
+    height_m)); the detector ``offsets`` (n_det, 2) and the frame-rotation
+    angle ``q`` (n_t,); the detector ``columns`` and ``bands``, through
+    ``array_from_columns``."""
+    from .coords import Coordinates, EarthLocation
+    from .device import resolve_device
+    from .tod import TOD, Pointing
+
+    device = resolve_device(device)
+    if earth_location is not None and not isinstance(earth_location, EarthLocation):
+        earth_location = EarthLocation(*(float(x) for x in earth_location))
+    location = {} if earth_location is None else {"earth_location": earth_location}
+    boresight = Coordinates(np.asarray(phi, dtype=np.float64), np.asarray(theta, dtype=np.float64),
+                            np.asarray(t, dtype=np.float64), frame=frame, **location)
+    pointing = Pointing(boresight, np.asarray(offsets, dtype=np.float64),
+                        None if q is None else np.asarray(q, dtype=np.float64))
+    f32 = dict(dtype=torch.float32, device=device)
+    return TOD(data={k: torch.as_tensor(np.array(v), **f32) for k, v in data.items()},
+               pointing=pointing, weight=None if weight is None else torch.as_tensor(np.array(weight), **f32),
+               units=units, dets=array_from_columns(columns, bands), metadata=dict(metadata or {}))

@@ -1,9 +1,12 @@
-"""Config registry and the on-disk data cache.
+"""Config registry, the on-disk data cache and file formats.
 
 Configs are JSON files under ``maria_torch/configs``, converted from
 maria_tpu's YAML registries (tests hold them equal). Generated data
-(atmospheric spectra) is cached under ``$MARIA_TORCH_CACHE_DIR``, default
-``<tmp>/maria-torch-data``, or wherever ``set_cache_dir`` points.
+(atmospheric spectra, the named maps' files) is cached under
+``$MARIA_TORCH_CACHE_DIR``, default ``<tmp>/maria-torch-data``, or
+wherever ``set_cache_dir`` points; ``fetch`` resolves a data product's
+path there, made by its offline generator (``caching``). ``fits`` reads
+and writes FITS images and binary tables with numpy alone.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import os
 import tempfile
 from functools import cache
 
-HERE = os.path.dirname(os.path.abspath(__file__))
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG_DIR = os.path.join(HERE, "configs")
 
 _cache_state = {"base": None}
@@ -71,3 +74,6 @@ def atomic_save_npz(path: str, **arrays):
         if os.path.exists(tmp):
             os.remove(tmp)
         raise
+
+
+from .caching import fetch, register_generator  # noqa: E402,F401

@@ -1,9 +1,14 @@
-"""Sky maps (maria_tpu/map): ``ProjectionMap`` and the named input maps.
+"""Sky maps (maria_tpu/map): ``ProjectionMap``, ``HEALPixMap``, the named
+input maps and map files.
 
-``get`` synthesizes a named map directly with numpy, seeded by the
-family's name; it fetches nothing and writes no file. Every family of
-maria_tpu's is here: ``polarized_source`` in Stokes IQUV and
-``spectral_line_cube`` on a velocity axis among them.
+``get`` synthesizes a named map with numpy, seeded by the family's name.
+Every family of maria_tpu's is here: ``polarized_source`` in Stokes IQUV
+and ``spectral_line_cube`` on a velocity axis among them. The named
+products' files ("maps/cluster2.fits", "maps/M1.h5") are made offline by
+the generator registered with ``io.fetch``: it writes the synthetic
+stand-in in the file's format, as maria_tpu does without a network.
+``get(name, fetch_first=True)`` loads that file; the default synthesizes
+directly, without a file. ``load`` reads a map from FITS or HDF5 (h5py).
 """
 
 from __future__ import annotations
@@ -13,10 +18,13 @@ import zlib
 
 import numpy as np
 
+from ..io.caching import register_generator
+from .base import SLICE_DIMS, Map, concatenate  # noqa: F401
 from .healpix import HEALPixMap  # noqa: F401
 from .projection import ProjectionMap  # noqa: F401
 
-__all__ = ["EXAMPLE_MAPS", "HEALPixMap", "MAP_ALIASES", "REFERENCE_MAP_CENTERS", "ProjectionMap", "get"]
+__all__ = ["EXAMPLE_MAPS", "HEALPixMap", "MAP_ALIASES", "REFERENCE_MAP_CENTERS", "REFERENCE_MAP_FILES", "SLICE_DIMS",
+           "Map", "ProjectionMap", "all_maps", "concatenate", "get", "load", "read_hdf_map"]
 
 EXAMPLE_MAPS = {
     "cluster": {
@@ -274,19 +282,124 @@ REFERENCE_MAP_CENTERS = {
 }
 
 
-def get(name: str, **kwargs) -> ProjectionMap:
+# the named products' files (maria_tpu/map/maps.txt), made offline by
+# ``_generate_map_file``
+REFERENCE_MAP_FILES = {
+    "12CO(2-1)": "maps/12CO(2-1).fits",
+    "30dor": "maps/30dor.fits",
+    "M1": "maps/M1.h5",
+    "M51HA": "maps/M51HA.fits",
+    "circinus_galaxy": "maps/circinus_galaxy.h5",
+    "cluster": "maps/cluster1.fits",
+    "cluster1": "maps/cluster1.fits",
+    "cluster2": "maps/cluster2.fits",
+    "cluster3": "maps/cluster3.fits",
+    "crab_nebula": "maps/crab_nebula.fits",
+    "dust": "maps/dust.fits",
+    "einstein": "maps/einstein.h5",
+    "maria": "maps/maria.h5",
+    "monoceros_R2": "maps/monoceros_R2.h5",
+    "orion_A": "maps/orion_A.h5",
+    "protoplanetary_disk": "maps/protoplanetary_disk.fits",
+    "quasar": "maps/quasar_3C_286.h5",
+    "quasar_3C_286": "maps/quasar_3C_286.h5",
+    "radio_galaxy_3C_288": "maps/radio_galaxy_3C_288.fits",
+    "time_evolving_source": "maps/time_evolving_sun.fits",
+    "time_evolving_sun": "maps/time_evolving_sun.fits",
+}
+all_maps = sorted(set(REFERENCE_MAP_FILES.values()))
+
+
+def _generate_map_file(source_path: str, destination: str):
+    """Write the synthetic stand-in of the product ``source_path`` to
+    ``destination`` in the format its extension names."""
+    stem = os.path.splitext(os.path.basename(source_path))[0]
+    name = "time_evolving_sun" if stem == "sun" else stem
+    family = MAP_ALIASES.get(name, name)
+    if family not in EXAMPLE_MAPS:
+        raise FileNotFoundError(f"No synthetic family for map product '{source_path}'.")
+    kwargs = {"center": REFERENCE_MAP_CENTERS[name]} if name in REFERENCE_MAP_CENTERS else {}
+    m = _synthesize_example(family, **kwargs)
+    if destination.endswith((".h5", ".hdf5")):
+        m.to_hdf(destination)
+    else:
+        m.to_fits(destination)
+
+
+register_generator("maps/", _generate_map_file)
+
+
+def __getattr__(name):
+    if name == "cmb_cmap":  # maria_tpu.map.cmb_cmap, made when asked (needs matplotlib)
+        from ..plotting.map import cmb_cmap
+
+        return cmb_cmap
+    raise AttributeError(name)
+
+
+def get(name: str, fetch_first: bool = False, **kwargs) -> ProjectionMap:
     """The named input map: a family of EXAMPLE_MAPS, one of its
     aliases, or the path form of either ("maps/M1.h5"). ``kwargs`` go to
     the generator: center (degrees), t, and overrides of the family's
-    configuration."""
+    configuration. With ``fetch_first`` a named product is loaded from its
+    file in the cache (``io.fetch`` makes it), ``kwargs`` but n
+    overriding the file's metadata, as maria_tpu's ``get`` does."""
     stem = os.path.splitext(os.path.basename(name))[0]
     if name not in EXAMPLE_MAPS and name not in MAP_ALIASES and (stem in EXAMPLE_MAPS or stem in MAP_ALIASES):
         name = stem
     if name == "sun":  # "maps/sun.h5" is the time-evolving sun
         name = "time_evolving_sun"
+    if fetch_first and name in REFERENCE_MAP_FILES:
+        from ..io.caching import fetch
+
+        return load(fetch(REFERENCE_MAP_FILES[name]), **{k: v for k, v in kwargs.items() if k != "n"})
     family = MAP_ALIASES.get(name, name)
     if family not in EXAMPLE_MAPS:
+        if os.path.exists(name):
+            return load(name, **kwargs)
         raise ValueError(f"'{name}' is not a known map (known: {sorted({*EXAMPLE_MAPS, *MAP_ALIASES})}).")
     if name in REFERENCE_MAP_CENTERS:
         kwargs.setdefault("center", REFERENCE_MAP_CENTERS[name])
     return _synthesize_example(family, **kwargs)
+
+
+def load(path: str = None, filename: str = None, **kwargs) -> Map:
+    """The map in a FITS (``io.fits.read_fits_map``) or HDF5 file
+    (``read_hdf_map``), on the host; ``filename`` is another name for
+    ``path``, and keywords override the file's metadata."""
+    path = path if path is not None else filename
+    if path.endswith((".h5", ".hdf5")):
+        return read_hdf_map(path, **kwargs)
+    if path.endswith((".fits", ".fits.gz")):
+        from ..io.fits import read_fits_map
+
+        return read_fits_map(path, **kwargs)
+    raise ValueError(f"Cannot infer map format from '{path}'.")
+
+
+def read_hdf_map(path: str, **overrides) -> Map:
+    """The map of an HDF5 file in maria_tpu's layout (needs h5py): a
+    ProjectionMap where the file gives a resolution, else a HEALPixMap;
+    ``overrides`` replace what the file gives (width or height replaces
+    its resolution)."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        data = f["data"][:]
+        attrs = dict(f.attrs)
+        nu = f["nu"][:] if "nu" in f else None
+        t = f["t"][:] if "t" in f else None
+        weight = f["weight"][:] if "weight" in f else None
+    axis3 = {str(attrs.get("axis3_label", "t")): t}
+    if "resolution_deg" in attrs:
+        kw = dict(data=data, weight=weight, center=attrs["center_deg"], resolution=attrs["resolution_deg"],
+                  frame=attrs.get("frame", "ra/dec"), stokes=attrs.get("stokes"), nu=nu,
+                  units=attrs.get("units", "K_RJ"), degrees=True, **axis3)
+        if "width" in overrides or "height" in overrides:
+            kw.pop("resolution")
+        kw.update(overrides)
+        return ProjectionMap(**kw)
+    kw = dict(data=data, frame=attrs.get("frame", "galactic"), stokes=attrs.get("stokes"), nu=nu,
+              units=attrs.get("units", "K_CMB"), weight=weight, t=t)
+    kw.update(overrides)
+    return HEALPixMap(**kw)

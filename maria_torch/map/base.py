@@ -1,9 +1,13 @@
-"""The map base (maria_tpu/map/base.py): units and their conversion.
+"""The map base (maria_tpu/map/base.py): units and their conversion, and
+the slice dimensions.
 
 A map's units name one of ``VALID_MAP_QUANTITIES``: the temperatures,
 the flux densities, the spectral radiance, compton y, and (for the
 mappers' maps of TODs in pW) power. ``to`` converts through the
-calibration graph, one call per frequency channel.
+calibration graph, one call per frequency channel. Every map carries its
+three slice dimensions (stokes, nu and one labelled t, z or v) whatever
+their size: ``squeeze``, ``unsqueeze``, ``dims``, ``apply_parity`` and
+``concatenate`` work on them as maria_tpu's do.
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ import torch
 
 from ..units import parse_units
 
-__all__ = ["Map", "VALID_MAP_QUANTITIES", "check_map_units"]
+__all__ = ["Map", "SLICE_DIMS", "VALID_MAP_QUANTITIES", "check_map_units", "concatenate"]
 
 VALID_MAP_QUANTITIES = [
     "rayleigh_jeans_temperature",
@@ -27,6 +31,18 @@ VALID_MAP_QUANTITIES = [
 ]
 
 
+# the leading (non-map) dims: dtype and default of each; the third slot
+# carries one labelled axis, time t, redshift z or velocity v
+SLICE_DIMS = {
+    "stokes": {"dtype": str, "default": "I"},
+    "nu": {"dtype": float, "default": 150e9},
+    "t": {"dtype": float, "default": 0.0},
+    "z": {"dtype": float, "default": 0.0},
+    "v": {"dtype": float, "default": 0.0},
+}
+_SLICE_AXIS = {"stokes": 0, "nu": 1, "t": 2, "z": 2, "v": 2}
+
+
 def check_map_units(units: str) -> str:
     u = parse_units(units)
     if u.quantity not in VALID_MAP_QUANTITIES:
@@ -37,6 +53,9 @@ def check_map_units(units: str) -> str:
 class Map:
     """What the map classes share: ``data`` and ``weight`` tensors of
     shape (stokes, nu, t, *map dims), ``nu`` in Hz and ``units``."""
+
+    map_dims: tuple = ()
+    axis3_label = "t"
 
     def _calibration_kwargs(self) -> dict:
         return {}
@@ -78,3 +97,73 @@ class Map:
             weight=None if weight is None else torch.stack(new_weight, dim=1),
             units=units,
         )
+
+    # -- slice dimensions ---------------------------------------------------------------
+    def squeeze(self, dim: str) -> "Map":
+        """The map itself: every slice dim is always carried, so squeezing
+        one of size 1 changes nothing (a larger one raises)."""
+        axis = _SLICE_AXIS[dim]
+        if self.data.shape[axis] != 1:
+            raise ValueError(f"Cannot squeeze dim '{dim}' of size {self.data.shape[axis]}.")
+        return self
+
+    def unsqueeze(self, dim: str, value=None) -> "Map":
+        """The map with the coordinate ``value`` given to its dim ``dim`` of
+        size 1 (``m.unsqueeze("nu", 150e9)`` tags a map with its
+        frequency); the map itself without a value. Only the default third
+        axis (t = [0]) may be relabelled z or v."""
+        if value is None:
+            return self
+        axis = _SLICE_AXIS[dim]
+        if self.data.shape[axis] != 1:
+            raise ValueError(f"Cannot assign a single {dim}={value} to a {dim} axis of size {self.data.shape[axis]}.")
+        if dim == "nu":
+            return self._replace(nu=np.atleast_1d(float(value)))
+        if dim == "stokes":
+            return self._replace(stokes=str(value))
+        if dim != self.axis3_label and not (self.axis3_label == "t" and len(self.t) == 1 and self.t[0] == 0.0):
+            raise ValueError(f"Cannot relabel axis '{self.axis3_label}' as '{dim}'.")
+        return self._replace(**{dim: np.atleast_1d(float(value))})
+
+    @property
+    def dims(self) -> dict:
+        """The size of every dim by name, the slice dims first."""
+        return {"stokes": len(self.stokes), "nu": len(self.nu), self.axis3_label: len(self.t),
+                **dict(zip(self.map_dims, self.data.shape[3:]))}
+
+    def apply_parity(self, **signs) -> "Map":
+        """Flip the map dims given a sign of -1 (``apply_parity(xi=-1)``),
+        data and weight, in place; the map itself, for chaining."""
+        flips = [3 + i for i, dim in enumerate(self.map_dims) if signs.get(dim, 1) == -1]
+        if flips:
+            self.data = torch.flip(self.data, dims=flips)
+            if self.weight is not None:
+                self.weight = torch.flip(self.weight, dims=flips)
+        return self
+
+    @classmethod
+    def concatenate(cls, maps: list, dim: str = "t") -> "Map":
+        """The maps joined along the slice dim ``dim``, on the first map's
+        device, with the first map's geometry and units."""
+        axis = _SLICE_AXIS[dim]
+        first = maps[0]
+        device = first.data.device
+        data = torch.cat([m.data.to(device) for m in maps], dim=axis)
+        weights = [m.weight for m in maps]
+        weight = (None if any(w is None for w in weights)
+                  else torch.cat([w.to(device) for w in weights], dim=axis))
+        kwargs = {}
+        if dim == "nu":
+            kwargs["nu"] = np.concatenate([m.nu for m in maps])
+        elif axis == 2:
+            if any(m.axis3_label != dim for m in maps):
+                raise ValueError(f"Not every map's third axis is labeled '{dim}'.")
+            kwargs[dim] = np.concatenate([m.t for m in maps])
+        else:
+            kwargs["stokes"] = "".join(m.stokes for m in maps)
+        return first._replace(data=data, weight=weight, **kwargs)
+
+
+def concatenate(maps: list, dim: str = "t") -> Map:
+    """The maps joined along the slice dim ``dim`` (``Map.concatenate``)."""
+    return type(maps[0]).concatenate(maps, dim=dim)

@@ -4,8 +4,8 @@ Data are float32 tensors of shape (stokes, nu, t, npix), in RING order.
 Sampling along a line of sight is ``ang2pix_ring`` and a gather, on the
 device of the pointing it is asked for; ``smooth`` runs the spherical
 harmonic transforms (``maria_torch.healpix``) on the card unless told
-otherwise. Plotting and HDF files are not ported (ROADMAP queue 1, item
-12).
+otherwise. ``plot`` (matplotlib) draws a Mollweide view and ``to_hdf``
+(h5py) writes maria_tpu's layout, both on the host.
 """
 
 from __future__ import annotations
@@ -26,6 +26,8 @@ __all__ = ["HEALPixMap"]
 class HEALPixMap(Map):
     """An all-sky map in ``frame`` ("galactic" or "ra/dec"). A tensor's
     data stay on their device; anything else lands on the host."""
+
+    map_dims = ("pixel",)
 
     def __init__(self, data, frame: str = "galactic", stokes: str = None, nu=None, t=None, units: str = "K_CMB",
                  weight=None):
@@ -146,11 +148,30 @@ class HEALPixMap(Map):
             new_data[iu] = Us.reshape(self.n_nu, len(self.t), -1)
         return self._replace(data=new_data)
 
-    def plot(self, *args, **kwargs):
-        raise NotImplementedError("HEALPixMap.plot (ROADMAP queue 1, item 12: plotting and map files)")
-
     def to_hdf(self, path: str):
-        raise NotImplementedError("HEALPixMap.to_hdf (ROADMAP queue 1, item 12: plotting and map files)")
+        """The map as HDF5 in maria_tpu's layout (needs h5py)."""
+        import h5py
+
+        with h5py.File(path, "w") as f:
+            f.create_dataset("data", data=self.data.detach().cpu().numpy())
+            f.attrs["stokes"] = self.stokes
+            f.attrs["units"] = self.units
+            f.attrs["frame"] = self.frame
+            f.attrs["axis3_label"] = self.axis3_label
+            f.create_dataset("nu", data=self.nu)
+            f.create_dataset("t", data=self.t)
+
+    def plot(self, slices=None, **kwargs):
+        """A Mollweide view of one slice (``plotting.healpix``), or with
+        ``slices`` ("all" or a dict, as ``ProjectionMap.plot``) a grid of
+        them (needs matplotlib)."""
+        if slices is not None:
+            from ..plotting.map import plot_map_slices
+
+            return plot_map_slices(self, slices=slices, **kwargs)
+        from ..plotting.healpix import plot_healpix_map
+
+        return plot_healpix_map(self, **kwargs)
 
     def __repr__(self):
         return (f"{type(self).__name__}(shape={self.shape}, stokes='{self.stokes}', "

@@ -17,14 +17,16 @@ __all__ = ["BinMapper", "MaximumLikelihoodMapper", "StreamingMLMapper", "compute
 def compute_residual_map(input_map, output_map):
     """The recovered map less the input sky where the output has weight,
     zero elsewhere, on the output's grid and device; leading (stokes, nu,
-    t) axes cut to those both maps have."""
-    if tuple(input_map.data.shape[-2:]) != tuple(output_map.data.shape[-2:]) or not np.allclose(
-            input_map.center, output_map.center):
-        raise NotImplementedError("compute_residual_map on another grid: Map.sampled_onto (ROADMAP queue 1, item 12b)")
-    ns, nn, nt = (min(a, b) for a, b in zip(input_map.data.shape[:3], output_map.data.shape[:3]))
+    t) axes cut to those both maps have. An input on another grid is
+    sampled bilinearly onto the output's pixel centres first
+    (``ProjectionMap.sampled_onto``)."""
+    same_grid = tuple(input_map.data.shape[-2:]) == tuple(output_map.data.shape[-2:]) and np.allclose(
+        input_map.center, output_map.center)
+    device = output_map.data.device
+    data_in = input_map.data.to(device) if same_grid else input_map.sampled_onto(output_map, device=device)
+    ns, nn, nt = (min(a, b) for a, b in zip(data_in.shape[:3], output_map.data.shape[:3]))
     data_out = output_map.data[:ns, :nn, :nt]
-    data_in = input_map.data[:ns, :nn, :nt].to(data_out.device)
     w = output_map.weight[:ns, :nn, :nt]
-    resid = torch.where(w > 0, data_out - data_in, 0.0)
+    resid = torch.where(w > 0, data_out - data_in[:ns, :nn, :nt], 0.0)
     return output_map._replace(data=resid, weight=w, stokes=output_map.stokes[:ns], nu=output_map.nu[:nn],
                                **{output_map.axis3_label: output_map.t[:nt]})

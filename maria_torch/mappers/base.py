@@ -20,14 +20,14 @@ class BaseProjectionMapper:
     def __init__(self, tods, center=None, width=None, height=None, resolution=None,
                  frame: str = "ra/dec", units: str = "K_RJ", degrees: bool = True,
                  tod_preprocessing: dict = {}, map_postprocessing: dict = {}, t_bins: int = 1,
-                 stokes: str = None, target=None):
+                 timestep: float = None, stokes: str = None, target=None):
         if target is not None:
             # copy the geometry of a target map: BinMapper(tod, target=input_map)
             scale = 180 / np.pi if degrees else 1.0
             center = center if center is not None else tuple(scale * c for c in target.center)
-            width = width if width is not None else scale * target.width
-            height = height if height is not None else scale * target.height
-            resolution = resolution if resolution is not None else scale * target.resolution
+            width = width if width is not None else target.width
+            height = height if height is not None else target.height
+            resolution = resolution if resolution is not None else target.resolution
             frame = target.frame
         # angle Quantities convert to the caller's angular convention
         def number(x):
@@ -65,6 +65,8 @@ class BaseProjectionMapper:
 
         t_min = min(float(tod.time.min()) for tod in self.tods)
         t_max = max(float(tod.time.max()) for tod in self.tods) + 1e-6
+        if timestep is not None:  # seconds a time bin, in place of t_bins
+            self.t_bins = t_bins = max(int(np.ceil((t_max - t_min) / float(timestep))), 1)
         self.t_edges = np.linspace(t_min, t_max, t_bins + 1)
         self.t_centers = 0.5 * (self.t_edges[1:] + self.t_edges[:-1])
 
@@ -128,4 +130,13 @@ class BaseProjectionMapper:
             t=self.t_centers,
             units=self.tod_units,
         )
-        return out if self.units == self.tod_units else out.to(self.units)
+        out = out if self.units == self.tod_units else out.to(self.units)
+        # what the map's transfer function reads: the sky the TODs were
+        # simulated from and each band's mean beam FWHM (radians)
+        out._input_map = self.input_map
+        out._beam_fwhm = [
+            float(np.nanmean([np.nanmean(tod.dets.angular_fwhm(np.inf)[tod.dets.band_name == band.name])
+                              for tod in self.tods if (tod.dets.band_name == band.name).any()]))
+            for band in self.bands
+        ]
+        return out

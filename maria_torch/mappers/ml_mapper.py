@@ -302,7 +302,27 @@ class MaximumLikelihoodMapper(BaseProjectionMapper):
         return self.make_map(data.cpu().numpy(), weight.cpu().numpy())
 
     def plot_noise_model(self, epoch: int = -1, ax=None):
-        raise NotImplementedError("plot_noise_model (ROADMAP queue 1, item 12b: plotting)")
+        """The noise model of ``epoch``: each TOD's median detector PSD and,
+        with k > 0, its modes' spectra (needs matplotlib). Returns the
+        axes."""
+        import matplotlib.pyplot as plt
+
+        if not self.noise_model_history:
+            raise RuntimeError("No noise model yet: call fit() first.")
+        if ax is None:
+            _, ax = plt.subplots(figsize=(6, 4), constrained_layout=True)
+        for i, diag in enumerate(self.noise_model_history[epoch]):
+            f = diag["f"][1:]
+            ax.loglog(f, diag["median_psd"][1:], label=f"TOD {i} median PSD")
+            if diag["mode_psd"] is not None:
+                for j, mode in enumerate(diag["mode_psd"]):
+                    ax.loglog(f, mode[1:], ls="--", lw=0.8, alpha=0.6, label=f"TOD {i} mode {j}" if j < 3 else None)
+        n_epochs = len(self.noise_model_history)
+        ax.set_title(f"noise model, epoch {epoch % n_epochs + 1}/{n_epochs}")
+        ax.set_xlabel("frequency [Hz]")
+        ax.set_ylabel(f"PSD [{self.tod_units}^2 / Hz]")
+        ax.legend(fontsize=7)
+        return ax
 
     def fit(self, method: str = "conjugate_gradient", epochs: int = None, steps_per_epoch: int = None,
             max_steps_per_epoch: int = None, plot: bool = False, plot_kwargs: dict = {}, fused: bool = True):
@@ -311,12 +331,12 @@ class MaximumLikelihoodMapper(BaseProjectionMapper):
         ``steps_per_epoch`` steps (alias ``max_steps_per_epoch``; the
         constructor's n_cg_iters), by ``method`` "conjugate_gradient" or
         "gradient_descent". The pixel weights are the last epoch's
-        white-noise diagonal. ``fused`` is the TPU's single-dispatch epoch
-        and changes nothing here."""
+        white-noise diagonal. With ``plot`` each epoch's map is plotted
+        (``ProjectionMap.plot(**plot_kwargs)``; needs matplotlib).
+        ``fused`` is the TPU's single-dispatch epoch and changes nothing
+        here."""
         if method not in ("conjugate_gradient", "gradient_descent"):
             raise ValueError(f"Unknown solver '{method}'.")
-        if plot:
-            raise NotImplementedError("fit(plot=True) (ROADMAP queue 1, item 12b: plotting)")
         n_epochs = epochs if epochs is not None else self.n_epochs
         n_steps = steps_per_epoch or max_steps_per_epoch or self.n_cg_iters
         if self.init == "random":
@@ -336,6 +356,8 @@ class MaximumLikelihoodMapper(BaseProjectionMapper):
             else:
                 m = self._solve_gd(rhs, m, n_steps)
             logger.info(f"ML mapper epoch {epoch + 1}/{n_epochs} done.")
+            if plot:
+                self._grid_to_map(m, self._white_diag()).plot(**plot_kwargs)
         self.m = m
         self.map = self._grid_to_map(m, diag if diag is not None else self._white_diag())
         return self.map

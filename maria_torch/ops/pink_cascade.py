@@ -158,8 +158,14 @@ def split_tables(p, a, S: int, device):
     kept once per (p, a, S, device). The key is the tensors' storage and
     version, so a block loop calling with the same p and a reads no device
     value; the entry holds p and a, so their storage is not reused while
-    it is kept."""
-    key = (p.data_ptr(), p._version, a.data_ptr(), a._version, tuple(p.shape), int(S), str(device))
+    it is kept. Inference tensors track no version, so where p or a is
+    one the key is their host bytes, as ``toeplitz_tables`` keys."""
+    if p.is_inference() or a.is_inference():
+        p_np = np.ascontiguousarray(p.detach().cpu().numpy(), dtype=np.float32)
+        a_np = np.ascontiguousarray(a.detach().cpu().numpy(), dtype=np.float32)
+        key = (p_np.tobytes(), a_np.tobytes(), tuple(p.shape), int(S), str(device))
+    else:
+        key = (p.data_ptr(), p._version, a.data_ptr(), a._version, tuple(p.shape), int(S), str(device))
     if key not in _SPLIT_TABLES:
         if len(_SPLIT_TABLES) >= 32:
             _SPLIT_TABLES.clear()

@@ -121,6 +121,37 @@ class Plan:
             roll=self.roll, frame=self.frame.name, site=self.site,
         )
 
+    def plot(self, frames=None, ax_size: float = 4.0, **kwargs):
+        """The boresight's track in a panel a frame (az/el and ra/dec by
+        default; "galactic", "glon/glat"), tangent-plane offsets in
+        degrees (needs matplotlib). Returns the axes."""
+        import matplotlib.pyplot as plt
+
+        frames = ["az/el", "ra/dec"] if frames is None else [frames] if isinstance(frames, str) else list(frames)
+        alias = {"glon/glat": "galactic", "gal": "galactic"}
+        _, axes = plt.subplots(1, len(frames), figsize=(ax_size * len(frames) * 1.15, ax_size),
+                               constrained_layout=True, squeeze=False)
+        for ax, frame in zip(axes[0], frames):
+            offs = np.degrees(np.asarray(self.coords.offsets(frame=alias.get(frame, frame))))
+            ax.plot(offs[..., 0], offs[..., 1], lw=0.5, **kwargs)
+            ax.set_xlabel(r"$\Delta x$ [deg]")
+            ax.set_ylabel(r"$\Delta y$ [deg]")
+            ax.set_title(frame)
+            ax.set_aspect("equal", adjustable="datalim")
+        return axes[0]
+
+    def plot_hits(self, instrument=None, x_bins: int = 100, y_bins: int = 100):
+        """A 2-D histogram of the boresight's offsets in the plan's frame
+        (needs matplotlib). Returns the axes."""
+        import matplotlib.pyplot as plt
+
+        offsets = np.degrees(self.offsets())
+        _, ax = plt.subplots(1, 1)
+        ax.hist2d(offsets[..., 0].ravel(), offsets[..., 1].ravel(), bins=(x_bins, y_bins))
+        ax.set_xlabel("dx [deg]")
+        ax.set_ylabel("dy [deg]")
+        return ax
+
     def __repr__(self):
         cphi, ctheta = np.degrees(self.coords.center())
         return (f"Plan({self.description or 'custom'}: {self.frame.name}, centre ({cphi:.2f}, {ctheta:.2f}) deg, "

@@ -98,8 +98,8 @@ def sky_mapper(tods, input_map, mapper=None, **kwargs):
     import maria_torch
 
     return (mapper or maria_torch.BinMapper)(
-        tods, center=tuple(np.degrees(input_map.center)), width=float(np.degrees(input_map.width)),
-        resolution=float(np.degrees(input_map.resolution)), frame=input_map.frame, **kwargs,
+        tods, center=tuple(np.degrees(input_map.center)), width=float(input_map.width.deg),
+        resolution=float(input_map.resolution.deg), frame=input_map.frame, **kwargs,
     )
 
 

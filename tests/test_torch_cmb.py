@@ -177,7 +177,7 @@ def test_get_cmb_is_the_seeded_stand_in(monkeypatch):
 # -- HEALPixMap ------------------------------------------------------------------------------------
 
 
-def test_healpix_map_basics(scene):
+def test_healpix_map_basics(scene, tmp_path):
     cmb, ref = scene["cmb"], scene["ref_cmb"]
     assert cmb.nside == ref.nside == 32 and cmb.npix == ref.npix and cmb.resolution == ref.resolution
     assert cmb.stokes == "IQU" and cmb.frame == "galactic" and isinstance(cmb, maria_torch.cmb.CMB)
@@ -188,9 +188,19 @@ def test_healpix_map_basics(scene):
     assert rj.units == "K_RJ" and rj.weight is None
     np.testing.assert_allclose(rj.data.numpy(), np.asarray(ref_rj.data), rtol=1e-6,
                                atol=1e-6 * np.abs(np.asarray(ref_rj.data)).max())
-    for fn in (cmb.plot, lambda: cmb.to_hdf("x.h5")):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn()
+    matplotlib = pytest.importorskip("matplotlib")
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    ax = cmb.plot(n_grid=40)
+    assert ax.name == "mollweide" and len(ax.collections) == 1
+    plt.close("all")
+    pytest.importorskip("h5py")
+    path = str(tmp_path / "cmb.h5")
+    cmb.to_hdf(path)
+    back = maria_torch.map.load(path)
+    np.testing.assert_array_equal(back.data.numpy(), cmb.data.numpy())
+    assert back.stokes == cmb.stokes and back.frame == cmb.frame and back.units == cmb.units
     with pytest.raises(ValueError, match="not a valid HEALPix"):
         HEALPixMap(np.zeros(100))
     rng = np.random.default_rng(0)

@@ -381,8 +381,8 @@ def test_radec_pixel_ids_on_card_match_cpu(cuda_device):
     sim = sky_simulation(60.0, "cpu", atmosphere=None, noise=False)
     obs, sky = sim.obs_list[0], sim.map
     pointing = Pointing(obs.boresight, obs.offsets, obs.q)
-    on_cpu = radec_pixel_ids(pointing, sky.center, sky.resolution, sky.n_x, sky.n_y, device="cpu")
-    on_card = radec_pixel_ids(pointing, sky.center, sky.resolution, sky.n_x, sky.n_y, device=cuda_device)
+    on_cpu = radec_pixel_ids(pointing, sky.center, sky.x_res, sky.n_x, sky.n_y, device="cpu")
+    on_card = radec_pixel_ids(pointing, sky.center, sky.x_res, sky.n_x, sky.n_y, device=cuda_device)
     assert on_card.device.type == "cuda" and on_card.dtype == torch.int32 and int(on_cpu.min()) >= 0
     a, b = on_cpu.long(), on_card.cpu().long()
     moved = a != b
@@ -874,3 +874,44 @@ def test_streamed_run_on_card_matches_cpu(cuda_device):
     tod = torch.cat([t.cpu() for _, t in ex.tod_blocks(3, state=state, draws={"blocks": blocks})], dim=-1)
     tod_cpu = torch.cat([t for _, t in ex_cpu.tod_blocks(3, state=state_cpu, draws={"blocks": blocks})], dim=-1)
     assert float((tod - tod_cpu).abs().max()) <= 1e-5 * float(tod_cpu.std())
+
+
+@pytest.mark.cuda
+def test_streamed_block_under_inference_mode_on_card(cuda_device):
+    """Slice (u)'s block (MUSTANG-2, 600 s at 50 Hz, block_tc 64: 222 cascade rows x
+    3,136, KC's split G 128) with a fresh cascade and no cached tables,
+    inside torch.inference_mode (whose tensors track no version): it runs,
+    and its TOD and state equal the same block's outside bit for bit, but
+    the map's sums, which K2's float atomics add in any order (1e-6 of
+    their maximum)."""
+    import maria_torch
+    from maria_torch.ops import pink_cascade as kc
+    from maria_torch.ops.program import build_tod_program
+    from maria_torch.ops.streaming_exec import StreamingExecutor
+
+    plan = maria_torch.get_plan("daisy_5arcmin_60s", start_time=1.75e9, scan_center=(150.0, 41.0), frame="az/el",
+                                duration=600.0, sample_rate=50.0)
+    sim = maria_torch.Simulation(instrument="MUSTANG-2", plans=plan, site="GBT", atmosphere="2d", noise=True, seed=0,
+                                 device=cuda_device)
+    program = build_tod_program(sim.obs_list[0], noise_kwargs=sim.noise_kwargs, device=cuda_device)
+
+    def block():
+        kc._SPLIT_TABLES.clear()
+        ex = StreamingExecutor(program, sim.obs_list[0], block_tc=64, device=cuda_device)
+        assert kc.cascade_plan(ex._casc_rows["n"], ex.B)[0] == 128
+        return ex.block(ex.init_state(3), 1)
+
+    (state_out, tod_out) = block()
+    with torch.inference_mode():
+        before = kc.pink_cascade.launches
+        (state_in, tod_in) = block()
+        assert kc.pink_cascade.launches == before + 1
+    assert torch.equal(tod_out, tod_in)
+    for key in state_out:
+        if key == "map_sum":  # K2's float atomics add a pixel's samples in any order
+            torch.testing.assert_close(state_in[key], state_out[key], rtol=0,
+                                       atol=1e-6 * float(state_out[key].abs().max()))
+            continue
+        flat_out, flat_in = (torch.utils._pytree.tree_flatten(x)[0] for x in (state_out[key], state_in[key]))
+        assert len(flat_out) == len(flat_in)
+        assert all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b for a, b in zip(flat_out, flat_in)), key

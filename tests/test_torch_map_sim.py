@@ -207,7 +207,7 @@ def test_sample_in_and_off_the_map(family, bilinear, tol):
                                     bilinear=bilinear))
     ours = our_map.sample(torch.as_tensor(dx), torch.as_tensor(dy), stokes_weight=torch.as_tensor(sw),
                           bilinear=bilinear).numpy()
-    off = (np.abs(dx) > our_map.width / 2 + our_map.x_res) | (np.abs(dy) > our_map.height / 2 + our_map.y_res)
+    off = (np.abs(dx) > our_map.width.rad / 2 + our_map.x_res) | (np.abs(dy) > our_map.height.rad / 2 + our_map.y_res)
     assert 0.2 < off.mean() < 0.8 and (ours[off] == 0).all() and (ours[~off] != 0).any()
     close = np.abs(ours - ref) <= tol * np.abs(ref).max()
     assert close.all() if bilinear else close.mean() >= 0.999

@@ -271,8 +271,9 @@ def test_overflow_buckets_keep_the_operator_symmetric(scene):
 def test_fit_keywords_and_history(scene, caplog):
     """epochs / steps_per_epoch / max_steps_per_epoch override the
     constructor's, run is fit, init="random" starts from a draw of the
-    naive map's scale; the TPU keywords are taken; mesh=, plots, unknown
-    solvers and inits raise; bilinear/prior warn."""
+    naive map's scale; the TPU keywords are taken; fit(plot=True) plots
+    each epoch's map and plot_noise_model the median PSD and the k modes;
+    mesh=, unknown solvers and inits raise; bilinear/prior warn."""
     tod = scene["tod"]
     kw = grid_kw("on")
     mapper = maria_torch.MaximumLikelihoodMapper([tod], n_epochs=3, n_cg_iters=2, mxu_pointing=True, **kw)
@@ -286,10 +287,16 @@ def test_fit_keywords_and_history(scene, caplog):
     assert bool(torch.isfinite(rand.fit().data).all())
     with pytest.raises(ValueError, match="Unknown solver"):
         mapper.fit(method="newton")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        mapper.fit(plot=True)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        mapper.plot_noise_model()
+    matplotlib = pytest.importorskip("matplotlib")
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    n_figs = len(plt.get_fignums())
+    mapper.fit(epochs=2, steps_per_epoch=1, plot=True)  # a map plot an epoch
+    assert len(plt.get_fignums()) == n_figs + 2 and len(mapper.noise_model_history) == 6
+    ax = mapper.plot_noise_model()
+    assert len(ax.get_lines()) == 1 + mapper.k and ax.get_title() == "noise model, epoch 6/6"
+    plt.close("all")
     with pytest.raises(NotImplementedError, match="item 11"):
         maria_torch.MaximumLikelihoodMapper([tod], mesh=object(), **kw)
     with pytest.raises(ValueError, match="init"):
@@ -313,7 +320,7 @@ def test_ml_state_from_arrays_checks(scene):
 def test_compute_residual_map(scene):
     """On the same grid: the output less the input where the output has
     weight, as maria_tpu's (1e-5 of the output map's maximum, the two
-    fits' own distance); another grid raises, naming item 12b."""
+    fits' own distance), and on another grid through sampled_onto."""
     from maria_tpu.mappers import compute_residual_map as ref_residual
 
     from maria_torch.convert import map_from_arrays
@@ -328,8 +335,13 @@ def test_compute_residual_map(scene):
     scale = float(out.data.abs().max())
     assert np.abs(resid.data.numpy() - np.asarray(ref_resid.data)).max() <= 1e-5 * scale
     np.testing.assert_array_equal(resid.weight.numpy(), out.weight.numpy())
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        maria_torch.compute_residual_map(maria_torch.map.get("big_cluster", center=CENTER), out)
+    # another grid (big_cluster's 512 x 512 over the same 0.5 deg): the
+    # input sampled onto the output's pixels, as maria_tpu's
+    full, ref_full = maria_torch.map.get("big_cluster", center=CENTER), maria_tpu.map.get(
+        "big_cluster", center=CENTER, fetch_first=False)
+    resid, ref_resid = maria_torch.compute_residual_map(full, out), ref_residual(ref_full, out_ref)
+    assert resid.shape == (1, 1, 1, 64, 64)
+    assert np.abs(resid.data.numpy() - np.asarray(ref_resid.data)).max() <= 1e-5 * scale
 
 
 # -- the port alone, on its own scenes ---------------------------------------------------------
