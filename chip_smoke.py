@@ -276,7 +276,36 @@ Phases, each of which must pass (any failure exits non-zero):
    on the reloaded TOD (K2 launched): total hits equal to the in-memory
    TOD's map's and to n_det x n_t, the summed signal within 1e-5 of it
    (the maps' correlation printed: the reader rebuilds the offsets from
-   the first sample, so pixels may move); the write and read seconds.
+   the first sample, so pixels may move); the write and read seconds;
+31. phase (y), the (det, time) mesh (maria_torch.parallel) over a gloo
+   world of two ranks started by torch.multiprocessing (spawn) that share
+   the one card (NCCL refuses two ranks on one device), each holding only
+   its rows, held against this process's one-process runs: (y1) slice
+   (c)'s AtLAST-50k x 60 s, each rank its 25,002 detectors through
+   process_detector_range and host_local_shard, total_power_fn(rows=)
+   with K3 at its row0, K2 on its rows and one all_reduce (hits exact,
+   sums within 1e-5 of the float64 sums' maximum, each rank's TOD rows
+   within 1e-5 of the rows' std; peak memory and warm time a rank beside
+   the one-process run's); (y2) slice (a)'s TOD through BinMapper.run(mesh)
+   (within atol 1e-5 of the map's maximum and rtol 1e-4), and over a
+   one-rank NCCL world in this process (the same tolerance, its
+   bit-equality printed: K2's atomics order a pixel's adds anyhow); (y3)
+   slice (n)'s TOD
+   after the tutorial's chain, the k=3 ML fit with mesh= (1e-3 of the
+   map's maximum); (y4) slice (u)'s MUSTANG-2 600 s streamed with
+   run(mesh=) (hits exact and equal to n_real_det x n_t, sums within rtol
+   1e-5 and atol 1e-3); (y5) slice (g)'s AR process through
+   extrude_time_sharded (bit for bit against StreamingExtrusion's chunks
+   on the same innovations); (y6) slice (a)'s MUSTANG-2 program, each
+   rank its rows of every field through fields(rows=), the noise by K1 on
+   those rows (the noise within 2e-4 of the rows' std, K1's gate, the
+   other fields within 1e-5, K1 launched as often as in one process);
+   K1 at (y6)'s row count and K3 at row0 25,002 against their plain
+   versions, K3 also against the rows of a row0 = 0 launch; the times of all_reduce and
+   send/recv (gloo on one card, staged through the host: not NCCL across
+   cards) and each phase's warm time a rank beside the one-process run's.
+   A rank that fails, or a world that outlives its join timeout, fails the
+   run.
 
 A line says that HDF5 files and plotting are not driven on the card
 (the CPU tests hold them), with whether h5py and matplotlib are found.
@@ -295,10 +324,11 @@ beside them and enters no bound).
 
 The line before the last is the card as nvidia-smi reports it, the one
 before that the kernels' JSON record (K1's launches counted over slices
-(b), (r), (s) and (w), K2's over (b), (p), (q), (r), (t), (v), (w) and
-(x), the AR
-kernel's over (f) and (u)'s chunks, KC's over (t)); the last line is the
-JSON result.
+(b), (r), (s) and (w), K2's over (b), (p), (q), (r), (t), (v), (w), (x)
+and (y), K3's over (c) and (y), the AR kernel's over (f), (u)'s chunks
+and (y), KC's over (t) and (y); a phase (y) launch counts in its rank's
+process, and both ranks' counts are summed); the last line is the JSON
+result.
 """
 
 from __future__ import annotations
@@ -539,13 +569,15 @@ def bf16_ulp(x):
     return torch.ldexp(torch.ones_like(x), e - 8)
 
 
-def check_shared_v(device, gen, n_det, m1, c=None, n_extra=0):
+def check_shared_v(device, gen, n_det, m1, c=None, n_extra=0, row0=0):
     """K3 against its plain version. With ``n_extra``, it writes V into a
     (1, n_det, 2 m1 + n_extra) buffer, as the noise matrix product's left
-    operand, whose last ``n_extra`` columns must keep their sentinel. Its
-    bound: the bytes of V written, or K3's least loop body for every bin
-    pair at the card's issue and pipe rates. No library call draws these
-    bits."""
+    operand, whose last ``n_extra`` columns must keep their sentinel. With
+    ``row0`` (a rank's first detector), it draws rows row0 .. row0 + n_det
+    - 1, which must also equal those rows of a row0 = 0 launch bit for
+    bit. Its bound: the bytes of V written, or K3's least loop body for
+    every bin pair at the card's issue and pipe rates. No library call
+    draws these bits."""
     import torch
 
     from maria_torch.noise import band_half_spectrum
@@ -553,21 +585,26 @@ def check_shared_v(device, gen, n_det, m1, c=None, n_extra=0):
 
     if c is None:
         c = band_half_spectrum(50.0, 0.5, 1.0, 2 * (m1 - 1), corr_prop=0.5)
-    name = f"K3 shared_v ({n_det}, m+1 {m1}{f', row stride {2 * m1 + n_extra}' if n_extra else ''})"
+    name = (f"K3 shared_v ({n_det}, m+1 {m1}{f', row stride {2 * m1 + n_extra}' if n_extra else ''}"
+            f"{f', row0 {row0}' if row0 else ''})")
     key = draw_key(gen, device)
     sentinel = -12288.0
     buf = torch.full((1, n_det, 2 * m1 + n_extra), sentinel, dtype=torch.bfloat16, device=device)
-    V = shared_v(key, c, n_det, out=buf)[0].float()
-    ref = shared_v_plain(key, c, n_det)[0].float()
+    V = shared_v(key, c, n_det, out=buf, row0=row0)[0].float()
+    ref = shared_v_plain(key, c, n_det, row0=row0)[0].float()
     torch.cuda.synchronize()
+    rows_equal = True
+    if row0:
+        rows_equal = bool(torch.equal(shared_v(key, c, row0 + n_det)[0, row0:].float(), V))
     diff = (V - ref).abs()
     err = float(diff.max())
     within = bool((diff <= bf16_ulp(torch.maximum(V.abs(), ref.abs()))).all())
     exact = float((V == ref).float().mean())
     untouched = bool((buf[0, :, 2 * m1:] == sentinel).all())
-    ok = V.shape == (n_det, 2 * m1) and bool(torch.isfinite(V).all()) and within and untouched
+    ok = V.shape == (n_det, 2 * m1) and bool(torch.isfinite(V).all()) and within and untouched and rows_equal
     line = (f"{name}: max|diff| {err:.3e}, all within one bf16 ulp {within}, "
-            f"exact-equal share {exact:.6f}, other columns untouched {untouched}")
+            f"exact-equal share {exact:.6f}, other columns untouched {untouched}"
+            f"{f', equal to rows {row0}.. of a row0 = 0 launch bit for bit {rows_equal}' if row0 else ''}")
     if n_det >= 1000:
         x = V.double() / torch.as_tensor(np.concatenate([c, c]), device=device)
         mean_z = float((x.mean(dim=0).abs() * np.sqrt(n_det)).max())
@@ -577,8 +614,8 @@ def check_shared_v(device, gen, n_det, m1, c=None, n_extra=0):
     print(f"{line} {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         fail(f"{name} disagrees with its plain version")
-    ms, plain_ms, _ = paired_ms(lambda: shared_v_plain(key, c, n_det, out=buf),
-                                lambda: shared_v(key, c, n_det, out=buf))
+    ms, plain_ms, _ = paired_ms(lambda: shared_v_plain(key, c, n_det, out=buf, row0=row0),
+                                lambda: shared_v(key, c, n_det, out=buf, row0=row0))
     r = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None, "shape": [n_det, 2 * m1],
          "exact_share": exact,
          **bound(2 * n_det * 2 * m1 + 4 * m1, k3_least_cycles() * n_det * ((m1 + 1) // 2), LANE_INSTRUCTIONS_S)}
@@ -950,13 +987,13 @@ def check_cmb_only(sim, tod, out_map, device):
         fail("slice (l) does not recover the CMB")
 
 
-def map_tod(tod):
+def map_tod(tod, mesh=None):
     import maria_torch
 
     center = np.degrees(tod.boresight.center())
     return maria_torch.BinMapper(
         tod, center=center, width=MAP_WIDTH_DEG, resolution=MAP_WIDTH_DEG / N_MAP, frame="az/el",
-    ).run()
+    ).run(mesh=mesh)
 
 
 def slice_pixel_ids(tod, mapper_map, n_map=N_MAP):
@@ -3361,6 +3398,480 @@ def check_inference_mode_block(program, obs, device):
         fail("slice (u) under inference_mode")
 
 
+# -- phase (y): the (det, time) mesh on torch.distributed --------------------------------------------------------
+
+MESH_WORLD = 2  # ranks of the gloo world that shares the one card
+MESH_SEED = 17
+MESH_JOIN_S = 600.0  # the world's join timeout, past which its ranks are killed
+MESH_CHUNK_ROWS = 128  # (y5)'s AR chunk, as (u)'s
+MESH_STREAM_SECONDS = 600.0  # (y4): (u)'s scene at 600 s
+MESH_REPS = 3  # warm repetitions a timing
+
+
+def seeded(device, seed=MESH_SEED):
+    import torch
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
+def tod_arrays(tod) -> dict:
+    """The arguments of maria_torch.convert.tod_from_arrays that rebuild
+    ``tod`` in another process (numpy, band names, the signal alone)."""
+    from maria_torch.convert import ARRAY_COLUMNS
+
+    b = tod.pointing.boresight
+    loc = b.earth_location
+    return dict(data={"signal": tod.signal.cpu().numpy()}, weight=tod.weight.cpu().numpy(), phi=b._phi,
+                theta=b._theta, t=b.t, offsets=tod.pointing.offsets, q=tod.pointing.q,
+                columns={k: tod.dets.dets[k] for k in ARRAY_COLUMNS}, bands=[band.name for band in tod.dets.bands],
+                frame=b.frame.name, earth_location=(loc.lat_deg, loc.lon_deg, loc.height_m), units=tod.units)
+
+
+def mesh_stream_executor(device, duration=MESH_STREAM_SECONDS):
+    """(u)'s streamed scene: MUSTANG-2 at the GBT, daisy_5arcmin_60s at 50 Hz,
+    the 2-D atmosphere and noise, block_tc 64."""
+    import maria_torch
+    from maria_torch.ops.program import build_tod_program
+    from maria_torch.ops.streaming_exec import StreamingExecutor
+
+    plan = maria_torch.get_plan("daisy_5arcmin_60s", start_time=1.75e9, scan_center=(150.0, 41.0), frame="az/el",
+                                duration=duration, sample_rate=50.0)
+    sim = maria_torch.Simulation(instrument="MUSTANG-2", plans=plan, site="GBT", atmosphere="2d", noise=True, seed=0,
+                                 device=device)
+    program = build_tod_program(sim.obs_list[0], noise_kwargs=sim.noise_kwargs, device=device)
+    return StreamingExecutor(program, sim.obs_list[0], block_tc=64, device=device)
+
+
+def mesh_launches() -> dict:
+    from maria_torch.ops.ar_extrude import ar_extrude
+    from maria_torch.ops.bin_map import bin_map
+    from maria_torch.ops.pink_cascade import pink_cascade
+    from maria_torch.ops.pink_noise import pink_noise
+    from maria_torch.ops.shared_v import shared_v
+
+    return {"bin_map": bin_map.launches, "shared_v": shared_v.launches, "pink_cascade": pink_cascade.launches,
+            "ar_extrude": ar_extrude.launches, "pink_noise": pink_noise.launches}
+
+
+def reset_mesh_launches():
+    from maria_torch.ops.ar_extrude import ar_extrude
+    from maria_torch.ops.bin_map import bin_map
+    from maria_torch.ops.pink_cascade import pink_cascade
+    from maria_torch.ops.pink_noise import pink_noise
+    from maria_torch.ops.shared_v import shared_v
+
+    bin_map.launches = shared_v.launches = pink_cascade.launches = ar_extrude.launches = pink_noise.launches = 0
+
+
+def device_sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def mesh_warm_ms(mesh, fn, reps: int = MESH_REPS) -> tuple:
+    """(mean ms, list of ms) of ``reps`` calls of ``fn`` on every rank, each
+    started together (a barrier) and ended by a synchronize."""
+    ms = []
+    for _ in range(reps):
+        mesh.barrier()
+        device_sync(mesh.device)
+        s = time.perf_counter()
+        fn()
+        device_sync(mesh.device)
+        ms.append((time.perf_counter() - s) * 1e3)
+    return float(np.mean(ms)), [round(x, 2) for x in ms]
+
+
+def collective_ms(mesh, fn, reps: int = 10) -> float:
+    """The median ms of ``reps`` calls of the collective ``fn``, timed as
+    ``mesh_warm_ms`` times them."""
+    return float(np.median(mesh_warm_ms(mesh, fn, reps)[1]))
+
+
+def mesh_rank(rank, world, tmp, device):
+    """One rank of (y)'s gloo world on ``device`` (the card): (y1)-(y5),
+    their numbers to rank<i>.json. Any error ends the rank, and the run,
+    non-zero."""
+    sys.path.insert(0, HERE)
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    import maria_torch
+    from maria_torch.ops import kernels
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        device = torch.device("cuda", device.index or 0)
+        torch.cuda.set_device(device)
+        kernels.load()
+    maria_torch.set_cache_dir(os.path.join(tmp, f"cache{rank}"))
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous", rank=rank, world_size=world,
+                            timeout=timedelta(seconds=300))
+    try:
+        out = mesh_rank_phases(device, tmp)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_rank_phases(device, tmp) -> dict:
+    import pickle
+
+    import torch
+
+    from maria_torch.atmosphere.streaming import extrude_time_sharded
+    from maria_torch.convert import ar_process_from_arrays, tod_from_arrays
+    from maria_torch.mappers.ml_mapper import MaximumLikelihoodMapper
+    from maria_torch.parallel import create_mesh
+    from maria_torch.parallel.binning import bin_sharded
+    from maria_torch.parallel.multihost import host_local_shard, process_detector_range
+    from maria_torch.scenes import simulation
+
+    det = create_mesh(axis_names=("det",), device=device)
+    grid = create_mesh(device=device)
+    ring = create_mesh(axis_names=("time",), device=device)
+    out = {"rank": det.rank, "coords": list(grid.coords)}
+
+    # (y1) the AtLAST-50k total, each rank its detector range
+    s = time.perf_counter()
+    sim = simulation("atlast", 60.0, device)
+    program = sim.program()
+    fn = program.total_power_fn()
+    n_det, n_t = program.n_det, program.n_t
+    start, stop = process_detector_range(n_det, det)
+    ids = torch.as_tensor(np.array(np.load(os.path.join(tmp, "y1_ids.npy"), mmap_mode="r")[start:stop]), device=device)
+    n_pix = N_MAP * N_MAP
+    device_sync(device)
+    setup_s = time.perf_counter() - s
+
+    def y1():
+        total = host_local_shard(det, (n_det, n_t), lambda index: fn(
+            generator=seeded(device), device=device, rows=(index[0].start, index[0].stop)))
+        return total, bin_sharded(total, ids, n_pix, det, count=True)
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_mesh_launches()
+    total, binned = y1()
+    device_sync(device)
+    launches = mesh_launches()
+    peak = torch.cuda.max_memory_allocated(device) / 1e9 if cuda else float("nan")
+    rows = np.load(os.path.join(tmp, "y1_total.npy"), mmap_mode="r")[start:stop]
+    tod_err = float(np.abs(total.cpu().numpy() - rows).max() / rows.std())
+    sums64 = np.load(os.path.join(tmp, "y1_sums64.npy"))
+    hits_exact = bool(np.array_equal(binned[1].cpu().numpy(), np.load(os.path.join(tmp, "y1_hits.npy"))))
+    sums_err = float(np.abs(binned[0].cpu().numpy().astype(np.float64) - sums64).max() / np.abs(sums64).max())
+    del total, binned
+    warm, each = mesh_warm_ms(det, y1)
+    x = torch.zeros((2, n_pix), dtype=torch.float32, device=device)
+    out["y1"] = {"rows": [start, stop], "setup_s": setup_s, "launches": launches, "peak_gb": peak,
+                 "tod_err_std": tod_err, "hits_exact": hits_exact, "sums_err": sums_err, "warm_ms": warm,
+                 "warm_each_ms": each, "all_reduce_ms": collective_ms(det, lambda: det.all_reduce(x)),
+                 "all_reduce_bytes": x.numel() * 4, "n_local": stop - start}
+    del sim, program, fn, ids
+
+    # (y2) MUSTANG-2 (a): BinMapper.run(mesh) on the (det, time) grid
+    with open(os.path.join(tmp, "y2_tod.pkl"), "rb") as f:
+        tod = tod_from_arrays(**pickle.load(f), device=device)
+    reset_mesh_launches()
+    out_map = map_tod(tod, mesh=grid)
+    device_sync(device)
+    launches = mesh_launches()
+    ref = np.load(os.path.join(tmp, "y2_map.npy"))
+    data = out_map.data.cpu().numpy().astype(np.float64)
+    # tests/test_mappers.py:144-148's tolerance: atol 1e-5 of the map's max, rtol 1e-4
+    out["y2"] = {"launches": launches, "map_err": float(np.abs(data - ref).max() / np.abs(ref).max()),
+                 "map_close": bool(np.allclose(data, ref, atol=1e-5 * np.abs(ref).max(), rtol=1e-4)),
+                 "weight_err": float(np.abs(out_map.weight.cpu().numpy() - np.load(os.path.join(tmp, "y2_weight.npy"))).max()),
+                 "warm_ms": mesh_warm_ms(grid, lambda: map_tod(tod, mesh=grid))[0]}
+
+    # (y3) (n)'s scene: a k=3 ML fit, each rank its detector rows
+    with open(os.path.join(tmp, "y3_tod.pkl"), "rb") as f:
+        tod = tod_from_arrays(**pickle.load(f), device=device)
+    reset_mesh_launches()
+    mapper = MaximumLikelihoodMapper(tod, mesh=det, n_epochs=ML_EPOCHS, n_cg_iters=ML_CG_ITERS, k=ML_K, **ML_KW)
+    fit = mapper.fit()
+    device_sync(device)
+    launches = mesh_launches()
+    ref = np.load(os.path.join(tmp, "y3_map.npy"))
+    v = torch.zeros(mapper.n_m, dtype=torch.float32, device=device)
+    out["y3"] = {"launches": launches, "rows": [mapper.blocks[0]["row0"], mapper.blocks[0]["n_real"],
+                                                mapper.blocks[0]["data"].shape[0]],
+                 "map_err": float(np.abs(fit.data.cpu().numpy() - ref).max() / np.abs(ref).max()),
+                 "warm_ms": mesh_warm_ms(det, mapper.fit)[0],
+                 "all_reduce_ms": collective_ms(det, lambda: det.all_reduce(v)), "all_reduce_bytes": v.numel() * 4}
+    del mapper, fit, tod
+
+    # (y4) (u)'s MUSTANG-2 at 600 s, streamed over the det ranks
+    ex = mesh_stream_executor(device)
+    reset_mesh_launches()
+    res = ex.run(MESH_SEED, group_size=16, mesh=det)
+    device_sync(device)
+    launches = mesh_launches()
+    ref = np.load(os.path.join(tmp, "y4.npz"))
+    out["y4"] = {"launches": launches, "n_blocks": ex.n_blocks,
+                 "hits_exact": bool(np.array_equal(res.map_wgt, ref["map_wgt"])),
+                 "hits": float(res.map_wgt.astype(np.float64).sum()), "n_real_samples": ex.n_real_det * ex.n_t,
+                 "sums_close": bool(np.allclose(res.map_sum, ref["map_sum"], rtol=1e-5, atol=1e-3)),
+                 "sums_err": float(np.abs(res.map_sum - ref["map_sum"]).max() / np.abs(ref["map_sum"]).max()),
+                 "warm_ms": mesh_warm_ms(det, lambda: ex.run(MESH_SEED, group_size=16, mesh=det))[0]}
+    del ex
+
+    # (y5) (g)'s AR process, extruded a chunk a rank around the halo ring
+    with open(os.path.join(tmp, "y5_process.pkl"), "rb") as f:
+        proc = ar_process_from_arrays(*pickle.load(f))
+    reset_mesh_launches()
+    stream = extrude_time_sharded(proc, MESH_SEED, MESH_CHUNK_ROWS, ring)
+    device_sync(device)
+    launches = mesh_launches()
+    ref = np.load(os.path.join(tmp, "y5_chunks.npy"))
+    buf = torch.zeros((proc.n_extrusion, proc.n_cross_section), dtype=torch.float32, device=device)
+
+    def ping():  # one halo hand-over each way
+        if ring.axis_index("time") == 0:
+            ring.send(buf, ring.neighbour("time", 1))
+            ring.recv(buf, ring.neighbour("time", 1))
+        else:
+            ring.recv(buf, ring.neighbour("time", -1))
+            ring.send(buf, ring.neighbour("time", -1))
+
+    out["y5"] = {"launches": launches, "shape": list(stream.shape),
+                 "bit_equal": bool(np.array_equal(stream.cpu().numpy(), ref)),
+                 "largest_diff_std": float(np.abs(stream.cpu().numpy() - ref).max() / ref.std()),
+                 "send_recv_ms": collective_ms(ring, ping) / 2, "send_recv_bytes": buf.numel() * 4}
+    del stream, proc, buf
+
+    # (y6) slice (a)'s MUSTANG-2 program: each rank's rows of every field, the noise through K1
+    program = simulation("mustang2", 60.0, device).program()
+    start, stop = process_detector_range(program.n_det, det)
+
+    def y6():
+        return program.fields(generator=seeded(device), device=device, rows=(start, stop))[0]
+
+    reset_mesh_launches()
+    fields = y6()
+    device_sync(device)
+    launches = mesh_launches()
+    ref = np.load(os.path.join(tmp, "y6_fields.npz"))
+    err = {}
+    for name, v in fields.items():
+        rows = ref[name][start:stop]
+        err[name] = float(np.abs(v.cpu().numpy() - rows).max() / rows.std())
+    out["y6"] = {"rows": [start, stop], "launches": launches, "err_std": err, "fields": sorted(fields),
+                 "warm_ms": mesh_warm_ms(det, y6)[0]}
+    return out
+
+
+def run_mesh(device, card, tod_a, sim_h, program_g):
+    """Phase (y): the (det, time) mesh over a gloo world of two ranks on the
+    one card, each holding its rows, held against this process's
+    one-process runs (module docstring), and a one-rank NCCL world."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from maria_torch.atmosphere.streaming import StreamingExtrusion
+    from maria_torch.convert import tod_from_arrays
+    from maria_torch.mappers.bin_mapper import bin_total, field_pixel_ids
+    from maria_torch.mappers.ml_mapper import MaximumLikelihoodMapper
+    from maria_torch.parallel import block_range, create_mesh
+    from maria_torch.scenes import simulation
+
+    # K3 at (y1)'s second rank: rows 25,002.. of the AtLAST-50k draw; K1 at (y6)'s first rank's rows
+    k3_row0 = check_shared_v(device, seeded(device), 5556 * ATLAST_BANDS // 2, 1537, row0=5556 * ATLAST_BANDS // 2)
+    k1_rows = check_pink_noise(device, seeded(device), int(np.diff(block_range(217, MESH_WORLD, 0))[0]), 3000, 3072)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as tmp:
+        # the one-process runs the ranks are held against
+        sim = simulation("atlast", 60.0, device)
+        program = sim.program()
+        fn = program.total_power_fn()
+        obs = sim.obs_list[0]
+        ids, n_pix = field_pixel_ids(obs.boresight, obs.offsets, N_MAP, N_MAP, device=device)
+        np.save(os.path.join(tmp, "y1_ids.npy"), ids.cpu().numpy())
+        torch.cuda.reset_peak_memory_stats()
+        total = fn(generator=seeded(device), device=device)
+        sums, hits = bin_total(total, ids, n_pix)
+        torch.cuda.synchronize()
+        one_peak = torch.cuda.max_memory_allocated() / 1e9
+        np.save(os.path.join(tmp, "y1_total.npy"), total.cpu().numpy())
+        np.save(os.path.join(tmp, "y1_hits.npy"), hits.cpu().numpy())
+        np.save(os.path.join(tmp, "y1_sums64.npy"), plain_sums64(total, ids, n_pix).cpu().numpy())
+        del total, sums, hits
+        one_warm = warm_ms(lambda: bin_total(fn(generator=seeded(device), device=device), ids, n_pix),
+                           reps=MESH_REPS)[0]
+        del sim, program, fn, ids
+
+        args_a = tod_arrays(tod_a)
+        with open(os.path.join(tmp, "y2_tod.pkl"), "wb") as f:
+            pickle.dump(args_a, f)
+        tod_y2 = tod_from_arrays(**args_a, device=device)
+        map_y2 = map_tod(tod_y2)
+        np.save(os.path.join(tmp, "y2_map.npy"), map_y2.data.cpu().numpy().astype(np.float64))
+        np.save(os.path.join(tmp, "y2_weight.npy"), map_y2.weight.cpu().numpy())
+        y2_one_ms = warm_ms(lambda: map_tod(tod_y2), reps=MESH_REPS)[0]
+
+        args_n = tod_arrays(sim_h.run()[0].process(**TUTORIAL_CHAIN))
+        with open(os.path.join(tmp, "y3_tod.pkl"), "wb") as f:
+            pickle.dump(args_n, f)
+        tod = tod_from_arrays(**args_n, device=device)
+        mapper = MaximumLikelihoodMapper(tod, n_epochs=ML_EPOCHS, n_cg_iters=ML_CG_ITERS, k=ML_K, **ML_KW)
+        np.save(os.path.join(tmp, "y3_map.npy"), mapper.fit().data.cpu().numpy())
+        y3_one_ms = warm_ms(mapper.fit, reps=MESH_REPS)[0]
+        del mapper, tod, args_n
+
+        ex = mesh_stream_executor(device)
+        res = ex.run(MESH_SEED, group_size=16)
+        np.savez(os.path.join(tmp, "y4.npz"), map_sum=res.map_sum, map_wgt=res.map_wgt)
+        y4_one_ms = warm_ms(lambda: ex.run(MESH_SEED, group_size=16), reps=MESH_REPS)[0]
+        del ex
+
+        (proc,) = program_g.ar_processes
+        with open(os.path.join(tmp, "y5_process.pkl"), "wb") as f:
+            pickle.dump((proc.A, proc.B, proc.extrusion_sample_index, proc.cross_section_sample_index), f)
+        chunks = StreamingExtrusion(proc, MESH_CHUNK_ROWS, device=device).run_chunks(MESH_WORLD, seeded(device))
+        np.save(os.path.join(tmp, "y5_chunks.npy"), torch.cat(chunks).cpu().numpy())
+
+        program_a = simulation("mustang2", 60.0, device).program()
+        reset_mesh_launches()
+        fields_a = program_a.fields(generator=seeded(device), device=device)[0]
+        torch.cuda.synchronize()
+        y6_one_k1 = mesh_launches()["pink_noise"]
+        np.savez(os.path.join(tmp, "y6_fields.npz"), **{k: v.cpu().numpy() for k, v in fields_a.items()})
+        y6_one_ms = warm_ms(lambda: program_a.fields(generator=seeded(device), device=device), reps=MESH_REPS)[0]
+        del program_a, fields_a
+        torch.cuda.synchronize()
+
+        # the world: two gloo ranks sharing the card (NCCL refuses two ranks on one device)
+        import torch.multiprocessing as mp
+        from torch.multiprocessing.spawn import ProcessException
+
+        s = time.perf_counter()
+        ctx = mp.start_processes(mesh_rank, args=(MESH_WORLD, tmp, str(device)), nprocs=MESH_WORLD, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=max(s + MESH_JOIN_S - time.perf_counter(), 0.1)):
+                if time.perf_counter() - s >= MESH_JOIN_S:
+                    for p in ctx.processes:
+                        p.kill()
+                        p.join()
+                    fail(f"phase (y): the {MESH_WORLD}-rank world did not end within {MESH_JOIN_S:.0f} s")
+        except ProcessException as e:
+            fail(f"phase (y): a rank failed: {e}")
+        world_s = time.perf_counter() - s
+        ranks = []
+        for r in range(MESH_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+
+        # a one-rank NCCL world in this process: (y2)'s map. K2's float
+        # atomics add a pixel's samples in any order, so two one-process
+        # maps may differ in their last bits: the NCCL map is held as the
+        # two-rank one is, and its bit-equality printed beside theirs
+        again = map_tod(tod_y2)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl", rank=0, world_size=1)
+        try:
+            mesh = create_mesh(device=device)
+            nccl_map = map_tod(tod_y2, mesh=mesh)
+            torch.cuda.synchronize()
+            x = torch.zeros((2, N_MAP * N_MAP), dtype=torch.float32, device=device)
+            nccl_ms = collective_ms(mesh, lambda: dist.all_reduce(x))
+        finally:
+            dist.destroy_process_group()
+        ref = map_y2.data.double()
+        nccl = {"close": bool(torch.allclose(nccl_map.data.double(), ref, atol=1e-5 * float(ref.abs().max()), rtol=1e-4)),
+                "err": float((nccl_map.data.double() - ref).abs().max() / ref.abs().max()),
+                "bit_equal": bool(torch.equal(nccl_map.data, map_y2.data)),
+                "one_process_bit_equal": bool(torch.equal(again.data, map_y2.data)),
+                "weights_equal": bool(torch.equal(nccl_map.weight, map_y2.weight))}
+
+    gates = []
+    y = {k: [r[k] for r in ranks] for k in ("y1", "y2", "y3", "y4", "y5", "y6")}
+    for r, y1 in zip(ranks, y["y1"]):
+        ok = y1["launches"]["shared_v"] == 1 and y1["launches"]["bin_map"] == 1 and y1["launches"]["pink_noise"] == 0
+        ok &= y1["hits_exact"] and y1["sums_err"] <= 1e-5 and y1["tod_err_std"] <= 1e-5
+        gates.append(ok)
+        print(f"phase (y1) rank {r['rank']}: AtLAST-50k x 60 s rows {y1['rows']} ({y1['n_local']} detectors; setup "
+              f"{y1['setup_s']:.2f} s): total_power_fn(rows=) with K3 at row0 {y1['rows'][0]}, K2 on its rows and one "
+              f"all_reduce; launches {y1['launches']}; its TOD rows within {y1['tod_err_std']:.2e} of the rows' std of "
+              f"the one-process run (limit 1e-5), hits exact {y1['hits_exact']}, sums within {y1['sums_err']:.2e} of "
+              f"the float64 sums' max (limit 1e-5); peak {y1['peak_gb']:.2f} GB (one process {one_peak:.2f} GB), warm "
+              f"{y1['warm_ms']:.2f} ms ({y1['warm_each_ms']}; one process {one_warm:.2f} ms) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+    for r, y2 in zip(ranks, y["y2"]):
+        ok = y2["map_close"] and y2["launches"]["bin_map"] >= 1
+        gates.append(ok)
+        print(f"phase (y2) rank {r['rank']}: slice (a)'s TOD, BinMapper.run(mesh) on the {r['coords']} cell of the "
+              f"(det {MESH_WORLD}, time 1) grid: map within atol 1e-5 of its max and rtol 1e-4 {y2['map_close']} "
+              f"(max |diff| {y2['map_err']:.2e} of its max), weights within "
+              f"{y2['weight_err']:.2e}, K2 launches {y2['launches']['bin_map']}; warm {y2['warm_ms']:.2f} ms (one "
+              f"process {y2_one_ms:.2f} ms) {'ok' if ok else 'FAIL'}", flush=True)
+    gates.append(nccl["close"])
+    print(f"phase (y2) one-rank NCCL world: the map within atol 1e-5 of its max and rtol 1e-4 of the one-process map "
+          f"{nccl['close']} (max |diff| {nccl['err']:.2e} of its max; bit for bit {nccl['bit_equal']}, weights "
+          f"{nccl['weights_equal']}; two one-process maps bit for bit {nccl['one_process_bit_equal']}: K2's atomics) "
+          f"{'ok' if nccl['close'] else 'FAIL'}", flush=True)
+    expected_ml = ml_launches(1, "conjugate_gradient", ML_EPOCHS, ML_CG_ITERS) + 2
+    for r, y3 in zip(ranks, y["y3"]):
+        ok = y3["map_err"] <= 1e-3 and y3["launches"]["bin_map"] == expected_ml
+        gates.append(ok)
+        print(f"phase (y3) rank {r['rank']}: (n)'s TOD after the tutorial's chain, MaximumLikelihoodMapper(mesh=, "
+              f"k={ML_K}).fit() on rows {y3['rows'][0]}..+{y3['rows'][1]} (padded to {y3['rows'][2]}): within "
+              f"{y3['map_err']:.2e} of the one-process fit's max (limit 1e-3), K2 launches {y3['launches']['bin_map']} "
+              f"(expected {expected_ml}); warm fit {y3['warm_ms']:.2f} ms (one process {y3_one_ms:.2f} ms) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+    for r, y4 in zip(ranks, y["y4"]):
+        ok = y4["hits_exact"] and y4["sums_close"] and y4["hits"] == y4["n_real_samples"]
+        ok &= y4["launches"]["pink_cascade"] == y4["n_blocks"] and y4["launches"]["bin_map"] == y4["n_blocks"]
+        gates.append(ok)
+        print(f"phase (y4) rank {r['rank']}: (u)'s MUSTANG-2 {MESH_STREAM_SECONDS:.0f} s streamed with run(mesh=): "
+              f"hits exact {y4['hits_exact']}, {y4['hits']:.0f} = n_real_det x n_t {y4['n_real_samples']}, sums within "
+              f"rtol 1e-5 / atol 1e-3 {y4['sums_close']} (max |diff| {y4['sums_err']:.2e} of max), launches "
+              f"{y4['launches']} ({y4['n_blocks']} blocks); warm {y4['warm_ms']:.2f} ms (one process {y4_one_ms:.2f} "
+              f"ms) {'ok' if ok else 'FAIL'}", flush=True)
+    for r, y5 in zip(ranks, y["y5"]):
+        ok = y5["bit_equal"] and y5["launches"]["ar_extrude"] == (2 if r["coords"][0] == 0 else 1)
+        gates.append(ok)
+        print(f"phase (y5) rank {r['rank']}: (g)'s AR process through extrude_time_sharded ({MESH_WORLD} chunks of "
+              f"{MESH_CHUNK_ROWS} rows, the halo by send/recv): {y5['shape']} equal to StreamingExtrusion's chunks bit "
+              f"for bit {y5['bit_equal']} (largest difference {y5['largest_diff_std']:.3e} of the screen's std), AR "
+              f"launches {y5['launches']['ar_extrude']} {'ok' if ok else 'FAIL'}", flush=True)
+    for r, y6 in zip(ranks, y["y6"]):
+        ok = y6["launches"]["pink_noise"] == y6_one_k1 > 0 and "noise" in y6["err_std"]
+        ok &= all(e <= (2e-4 if name == "noise" else 1e-5) for name, e in y6["err_std"].items())
+        gates.append(ok)
+        print(f"phase (y6) rank {r['rank']}: slice (a)'s MUSTANG-2 60 s program, fields(rows=) on rows {y6['rows']}: "
+              f"each field's rows within {json.dumps(y6['err_std'])} of the rows' std of the one-process fields "
+              f"(limits: noise 2e-4, K1's gate; the others 1e-5), K1 launches {y6['launches']['pink_noise']} (one "
+              f"process {y6_one_k1}); warm {y6['warm_ms']:.2f} ms (one process {y6_one_ms:.2f} ms) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+    times = {"all_reduce_ms": {f"{y['y1'][0]['all_reduce_bytes']} B (y1 map)": [x["all_reduce_ms"] for x in y["y1"]],
+                               f"{y['y3'][0]['all_reduce_bytes']} B (y3 P^T)": [x["all_reduce_ms"] for x in y["y3"]]},
+             "send_recv_ms": {f"{y['y5'][0]['send_recv_bytes']} B (y5 halo)": [x["send_recv_ms"] for x in y["y5"]]},
+             "nccl_one_rank_all_reduce_ms": nccl_ms, "world_s": world_s}
+    print(f"phase (y) collectives, gloo between two ranks on one card (host-staged; not NCCL across cards): "
+          f"{json.dumps(times)} ({card})", flush=True)
+    if not all(gates):
+        fail("phase (y): a sharded run disagrees with its one-process run")
+    launches = {name: sum(r[p]["launches"][name] for r in ranks for p in ("y1", "y2", "y3", "y4", "y5", "y6"))
+                for name in ("bin_map", "shared_v", "pink_cascade", "ar_extrude", "pink_noise")}
+    summary = {"y1": {"peak_gb": [x["peak_gb"] for x in y["y1"]], "one_process_peak_gb": one_peak,
+                      "warm_ms": [x["warm_ms"] for x in y["y1"]], "one_process_warm_ms": one_warm},
+               "y2_warm_ms": [x["warm_ms"] for x in y["y2"]], "y2_one_process_ms": y2_one_ms,
+               "y3_warm_ms": [x["warm_ms"] for x in y["y3"]], "y3_one_process_ms": y3_one_ms,
+               "y4_warm_ms": [x["warm_ms"] for x in y["y4"]], "y4_one_process_ms": y4_one_ms,
+               "y6_warm_ms": [x["warm_ms"] for x in y["y6"]], "y6_one_process_ms": y6_one_ms, **times}
+    return launches, k3_row0, k1_rows, summary
+
+
 def main() -> int:
     try:
         import torch
@@ -3466,6 +3977,7 @@ def main() -> int:
 
     launches_w, k1_w, k2_w, summary_w = run_transfer_tutorial(device, card, gen)
     launches_x, summary_x = run_mustang_fits(device, card, results["a"][0])
+    launches_y, k3_y, k1_y, summary_y = run_mesh(device, card, results["a"][0], sim_h, program_g)
     print(f"not driven on the card: HDF5 files and plotting (held by the CPU tests); on this machine h5py "
           f"{'found' if importlib.util.find_spec('h5py') else 'not found'}, matplotlib "
           f"{'found' if importlib.util.find_spec('matplotlib') else 'not found'}", flush=True)
@@ -3476,7 +3988,7 @@ def main() -> int:
                 "k": launches_k, "l": launches_l, "m": launches_m, "p": launches_p, "q": launches_q, "r": launches_r,
                 "s": launches_s, "t": launches_t, "u 600 s": summary_u[U_SECONDS[0]]["launches"],
                 "u 3600 s": summary_u[U_SECONDS[1]]["launches"], "u chunks": {"ar_extrude": ar_u["launches"]},
-                "v": launches_v, "w": launches_w, "x": launches_x}
+                "v": launches_v, "w": launches_w, "x": launches_x, "y (both ranks)": launches_y}
     for name in ("pink_noise", "bin_map", "shared_v", "ar_extrude", "sht_synth", "sht_anal", "pink_cascade"):
         print(f"main-path launches of {name} by slice: {({k: v[name] for k, v in by_slice.items() if name in v})}",
               flush=True)
@@ -3484,25 +3996,27 @@ def main() -> int:
         {"name": "pink_noise", "route": "cuda", "source": "maria_torch/csrc/pink_noise.cu",
          "replaces": "maria_tpu/ops/pallas_noise.py:269",
          "launches": launches_b["pink_noise"] + launches_r["pink_noise"] + launches_s["pink_noise"]
-         + launches_w["pink_noise"],
+         + launches_w["pink_noise"] + launches_y["pink_noise"],
          **k1[(217, 30000, 32768)]},
         {"name": "bin_map", "route": "cuda", "source": "maria_torch/csrc/bin_map.cu",
          "replaces": "maria_tpu/ops/pallas_binning.py:119",
          "launches": launches_b["bin_map"] + launches_p["bin_map"] + launches_q["bin_map"] + launches_r["bin_map"]
-         + launches_t["bin_map"] + launches_v["bin_map"] + launches_w["bin_map"] + launches_x["bin_map"],
+         + launches_t["bin_map"] + launches_v["bin_map"] + launches_w["bin_map"] + launches_x["bin_map"]
+         + launches_y["bin_map"],
          **k2["b"]["stacked"]},
         {"name": "shared_v", "route": "cuda", "source": "maria_torch/csrc/shared_v.cu",
-         "replaces": "maria_tpu/ops/pallas_noise.py:427", "launches": launches_c["shared_v"],
+         "replaces": "maria_tpu/ops/pallas_noise.py:427", "launches": launches_c["shared_v"] + launches_y["shared_v"],
          **k3[5556 * ATLAST_BANDS]},
         {"name": "ar_extrude", "route": "cuda", "source": "maria_torch/csrc/ar_extrude.cu",
-         "replaces": "maria_tpu/atmosphere/process.py:34", "launches": results["f"][2]["ar_extrude"] + ar_u["launches"],
-         **ar["f"]},
+         "replaces": "maria_tpu/atmosphere/process.py:34",
+         "launches": results["f"][2]["ar_extrude"] + ar_u["launches"] + launches_y["ar_extrude"], **ar["f"]},
         {"name": "sht_synth", "route": "cuda", "source": "maria_torch/csrc/sht.cu",
          "replaces": "maria_tpu/healpix/sht.py:480", "launches": launches_k["sht_synth"], **ks["synth"]},
         {"name": "sht_anal", "route": "cuda", "source": "maria_torch/csrc/sht.cu",
          "replaces": "maria_tpu/healpix/sht.py:523", "launches": launches_spectra["sht_anal"], **ks["anal"]},
         {"name": "pink_cascade", "route": "cuda", "source": "maria_torch/csrc/pink_cascade.cu",
-         "replaces": "maria_tpu/noise/streaming.py:168", "launches": launches_t["pink_cascade"], **kc_t},
+         "replaces": "maria_tpu/noise/streaming.py:168",
+         "launches": launches_t["pink_cascade"] + launches_y["pink_cascade"], **kc_t},
     ]}
     print(f"K2 summary ML P^T (slice n): {k2_ml['ms']:.4f} ms, library {k2_ml['library_ms']:.4f} ms, bound "
           f"{k2_ml['bound_ms']:.4f} ms ({k2_ml['bound_ms'] / k2_ml['ms']:.1%}), plain {k2_ml['plain_ms']:.4f} ms; "
@@ -3523,11 +4037,14 @@ def main() -> int:
     print(f"slice (v) summary, the streamed ML mapper ({card}): {json.dumps(summary_v)}", flush=True)
     print(f"slice (w) summary, the transfer-function tutorial ({card}): {json.dumps(summary_w)}", flush=True)
     print(f"slice (x) summary, a MUSTANG-2 TOD through a FITS file ({card}): {json.dumps(summary_x)}", flush=True)
-    for key, r in (("K1 at slice (w)'s band", k1_w), ("K2 at slice (w)'s band", k2_w)):
+    print(f"phase (y) summary, the mesh over two gloo ranks sharing the card ({card}): {json.dumps(summary_y)}",
+          flush=True)
+    for key, r in (("K1 at slice (w)'s band", k1_w), ("K2 at slice (w)'s band", k2_w), ("K1 at (y6)'s rows", k1_y)):
         print(f"{key} summary: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bound_ms'] / r['ms']:.1%}), shape {r['shape']}",
               flush=True)
-    for key, r in (("KC (t)", kc_t), ("KC (u)", kc_u), ("KC (v)", kc_v), ("K2 streaming block (t)", k2_t),
+    for key, r in (("KC (t)", kc_t), ("KC (u)", kc_u), ("KC (v)", kc_v), ("K3 at row0 25002 (y1)", k3_y),
+                   ("K2 streaming block (t)", k2_t),
                    ("K2 streamed ML P^T (v)", k2_v), ("AR chunk (u)", ar_u)):
         print(f"{key} summary: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
               f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, bound "
@@ -3536,12 +4053,14 @@ def main() -> int:
     print(f"K2's launches in the kernels line: slice (b) {launches_b['bin_map']} + slice (p) {launches_p['bin_map']} + "
           f"slice (q) {launches_q['bin_map']} + slice (r) {launches_r['bin_map']} + slice (t) {launches_t['bin_map']} "
           f"+ slice (v) {launches_v['bin_map']} + slice (w) {launches_w['bin_map']} + slice (x) "
-          f"{launches_x['bin_map']}; the AR kernel's: slice (f) {results['f'][2]['ar_extrude']} + slice "
-          f"(u)'s chunks {ar_u['launches']}; KC's: slice (t) {launches_t['pink_cascade']} (besides: (u) at 3,600 s "
+          f"{launches_x['bin_map']} + phase (y) {launches_y['bin_map']}; K3's: slice (c) {launches_c['shared_v']} + "
+          f"phase (y) {launches_y['shared_v']}; the AR kernel's: slice (f) {results['f'][2]['ar_extrude']} + slice "
+          f"(u)'s chunks {ar_u['launches']} + phase (y) {launches_y['ar_extrude']}; KC's: slice (t) "
+          f"{launches_t['pink_cascade']} + phase (y) {launches_y['pink_cascade']} (besides: (u) at 3,600 s "
           f"{summary_u[U_SECONDS[1]]['launches']['pink_cascade']}, (v)'s first fit {launches_v['pink_cascade']}); "
           f"K1's: slice (b) "
           f"{launches_b['pink_noise']} + slice (r) {launches_r['pink_noise']} + slice (s) {launches_s['pink_noise']} "
-          f"+ slice (w) {launches_w['pink_noise']}",
+          f"+ slice (w) {launches_w['pink_noise']} + phase (y) {launches_y['pink_noise']}",
           flush=True)
     for key, r in ks.items():
         print(f"KS summary {key}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "

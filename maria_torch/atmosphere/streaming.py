@@ -7,9 +7,14 @@ condition on) from chunk to chunk, so memory stays O(chunk) for any
 duration. A chunk is one call of the AR kernel (``ops/ar_extrude.py``,
 its plain loop on the CPU) for ``chunk_rows`` steps on a buffer of
 ``chunk_rows + n_extrusion`` rows; given the same innovations, the
-chunks concatenate into the screen of one long extrusion. The
-time-sharded pipeline of maria_tpu (``extrude_time_sharded``) needs
-several cards: ROADMAP item 11.
+chunks concatenate into the screen of one long extrusion.
+
+``extrude_time_sharded`` lays the same stream over a mesh's time axis as
+a pipeline, maria_tpu's halo ring: rank i receives rank i-1's standing
+buffer (``recv``), extrudes its chunk with the AR kernel, and sends its
+own buffer on (``send``); the chunks are all-gathered, so every rank
+returns the whole stream, bit-equal to ``StreamingExtrusion``'s chunks
+on the same innovations.
 """
 
 from __future__ import annotations
@@ -84,7 +89,41 @@ class StreamingExtrusion:
         return chunks
 
 
-def extrude_time_sharded(process, key=None, chunk_rows: int = None, mesh=None, axis_name: str = "time"):
-    """maria_tpu's time-sharded extrusion over a device mesh: not ported."""
-    raise NotImplementedError("extrude_time_sharded: a time-sharded pipeline over several cards is ROADMAP item 11 "
-                              "(multi-GPU), not ported yet; StreamingExtrusion runs the same stream on one")
+def extrude_time_sharded(process, key, chunk_rows: int, mesh, axis_name: str = "time", draws=None):
+    """The stream of ``StreamingExtrusion(process, chunk_rows).run_chunks(n,
+    generator)``, n the ranks along ``axis_name``, extruded a chunk a rank:
+    (n * chunk_rows, n_cross) in stream order on every rank, on its device.
+
+    ``key`` is a ``torch.Generator`` on the rank's device or an int seed
+    of one; every rank consumes it as ``run_chunks`` does (the start's
+    buffer and burn-in normals, then every chunk's innovations) and keeps
+    its chunk's innovations. ``draws`` optionally supplies them instead:
+    (buffer (3 n_extrusion, n_cross), burn-in (2 n_extrusion, n_live_edge),
+    [n innovations (chunk_rows, n_live_edge)]). Rank 0 burns the standing
+    buffer in; rank i > 0 receives it from rank i-1, and every rank but
+    the last sends its own on after its chunk."""
+    n_shards, index = mesh.axis_size(axis_name), mesh.axis_index(axis_name)
+    stream = StreamingExtrusion(process, chunk_rows, device=mesh.device)
+    p = process
+    f32 = dict(dtype=torch.float32, device=mesh.device)
+    if draws is None:
+        gen = key
+        if not isinstance(key, torch.Generator):
+            gen = torch.Generator(device=mesh.device)
+            gen.manual_seed(int(key))
+        buffer = torch.randn((3 * p.n_extrusion, p.n_cross_section), generator=gen, **f32)
+        burn = torch.randn((2 * p.n_extrusion, p.n_live_edge), generator=gen, **f32)
+        noises = [torch.randn((stream.chunk_rows, p.n_live_edge), generator=gen, **f32) for _ in range(n_shards)]
+    else:
+        buffer, burn, noises = draws
+        if len(noises) != n_shards:
+            raise ValueError(f"{len(noises)} chunks of innovations for {n_shards} ranks along '{axis_name}'")
+    if index == 0:
+        state = stream.initial_state(buffer=buffer, noise=burn)
+    else:
+        state = mesh.recv(torch.empty((p.n_extrusion, p.n_cross_section), **f32), mesh.neighbour(axis_name, -1))
+    state, chunk = stream.step(state, noises[index])
+    downstream = mesh.neighbour(axis_name, 1)
+    if downstream is not None:
+        mesh.send(state.contiguous(), downstream)
+    return torch.cat(mesh.all_gather(chunk.contiguous(), axis_name))

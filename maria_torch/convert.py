@@ -127,6 +127,8 @@ def program_from_tables(tables: dict) -> TODProgram:
         with_noise=bool(tables.get("with_noise", True)),
         gain_error=None if gain_error is None else np.asarray(gain_error, dtype=np.float32),
     )
+    if tables.get("n_real_det") is not None:  # a program padded by pad_detectors: rows past it stay off maps
+        program.n_real_det = int(tables["n_real_det"])
     nm = tables.get("noise_matmul")
     if nm is not None:
         specs = [NoiseBandSpec(**{k: sp.get(k) for k in _SPEC_FIELDS}) for sp in nm["specs"]]
@@ -183,8 +185,9 @@ def ml_state_from_arrays(mapper, blocks: list):
     block is a dict of numpy arrays: ``pix`` (n_det, n_t) channel-offset
     ids in [0, mapper.n_cpix), ``sw`` (n_det, n_s), ``data`` (n_det, n_t),
     the sample rate ``fs``, and optionally the noise model ``A_inv``
-    (n_det, n_f), ``U`` (n_det, k) and ``core`` (n_f, k, k). Returns the
-    mapper."""
+    (n_det, n_f), ``U`` (n_det, k) and ``core`` (n_f, k, k). A mapper
+    sharded over a mesh (``mesh=``) takes its rank's rows of each whole
+    block, zero-padded as its own blocks are. Returns the mapper."""
     if len(blocks) != len(mapper.blocks):
         raise ValueError(f"{len(blocks)} blocks for a mapper of {len(mapper.blocks)} TODs")
     carried = []
@@ -197,11 +200,24 @@ def ml_state_from_arrays(mapper, blocks: list):
         def f32(x):
             return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
 
-        new = {"pix": torch.as_tensor(pix.astype(np.int32), device=device), "sw": f32(block["sw"]),
-               "data": f32(block["data"]), "fs": float(block["fs"]), "U": None}
-        for key in ("A_inv", "U", "core"):
+        n_det = pix.shape[0]
+        start, n_real = own.get("row0", 0), own.get("n_real", n_det)
+        pad = own["data"].shape[0] - n_real
+
+        def rows(x, fill=0):
+            x = np.asarray(x)[start:start + n_real]
+            return np.concatenate([x, np.full((pad, *x.shape[1:]), fill, dtype=x.dtype)]) if pad else x
+
+        new = {"pix": torch.as_tensor(rows(pix.astype(np.int32), mapper.n_pix), device=device),
+               "sw": f32(rows(block["sw"])), "data": f32(rows(block["data"])), "fs": float(block["fs"]), "U": None,
+               "n_det": n_det, "row0": start, "n_real": n_real}
+        if n_det != own.get("n_det", n_det):
+            raise ValueError(f"a block of {n_det} rows for a TOD of {own['n_det']}")
+        for key in ("A_inv", "U"):
             if block.get(key) is not None:
-                new[key] = f32(block[key])
+                new[key] = f32(rows(block[key]))
+        if block.get("core") is not None:
+            new["core"] = f32(block["core"])
         if (new["U"] is None) != (new.get("core") is None):
             raise ValueError("U and core come together")
         carried.append(new)

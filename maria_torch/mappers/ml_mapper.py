@@ -30,6 +30,29 @@ int32, samples off the map at their frame's bucket; the Stokes weights
 The TPU's MXU pointing plans and fused epoch are not ported: their
 keywords, ``mxu_pointing=`` and ``fit(fused=)``, are taken and change
 nothing.
+
+``mesh=`` shards every block over the mesh's "det" axis
+(``maria_torch.parallel``): a rank holds ceil(n_det / n_ranks) rows of
+each TOD, the last rank's padded with zero-weight rows (ids at an
+overflow bucket, Stokes weights and data 0, noise weight 0), as
+maria_tpu pads them. P and the noise filters are row-local. What couples
+detectors crosses the ranks of the "det" group:
+
+- P^T: K2 on the rank's rows, then one ``all_reduce`` of the (n_m,)
+  float32 vector an operator application (rhs, P^T N^-1 P, the
+  diagonal, the hit and naive maps). The CG state is then the same on
+  every rank, so its dots and its stop rule need no collective and read
+  nothing back to the host.
+- The Woodbury U^T x: an ``all_reduce`` of (k, n_f, 2) float32 a block
+  and application of N^-1.
+- The Gram G = sum_d A_inv U U^T: an ``all_reduce`` of (n_f, k, k) a
+  block and epoch.
+- The common-mode ``decompose``: its float64 Gram is n_det x n_det, so
+  the windowed residuals are gathered (``all_gather`` of (n_det, n_t)
+  float32 a block and epoch) and every rank decomposes the whole block
+  (the same modes as one process) and keeps its rows of U.
+- The median PSD of the noise model's history: the smoothed spectra are
+  gathered ((n_det, n_f) float32 a block and epoch).
 """
 
 from __future__ import annotations
@@ -43,6 +66,7 @@ import torch
 from ..ops.bin_map import bin_map
 from ..utils.signal import decompose, median
 from .base import BaseProjectionMapper
+from ..tod import Pointing
 from .bin_mapper import azel_pixel_ids, radec_pixel_ids
 
 __all__ = ["MaximumLikelihoodMapper", "conjugate_gradient", "smooth_spectrum"]
@@ -99,11 +123,11 @@ def _tukey(n: int, device, alpha: float = 0.25):
 
 
 class MaximumLikelihoodMapper(BaseProjectionMapper):
+    mesh = None  # the "det" shards' mesh (maria_torch.parallel), None in one process
+
     def __init__(self, *args, n_epochs: int = 2, n_cg_iters: int = 50, spectrum_smoothing: float = 8.0, k: int = 0,
                  init: str = "bin", bilinear: bool = False, prior: bool = False, mesh=None, mxu_pointing: bool = None,
                  **kwargs):
-        if mesh is not None:
-            raise NotImplementedError("mesh= (ROADMAP queue 1, item 11: multi-GPU)")
         if init not in ("bin", "random"):
             raise ValueError(f"init must be 'bin' or 'random', not '{init}'.")
         super().__init__(*args, **kwargs)
@@ -112,6 +136,7 @@ class MaximumLikelihoodMapper(BaseProjectionMapper):
         self.spectrum_smoothing = spectrum_smoothing
         self.k = k
         self.init = init
+        self.mesh = mesh
         if bilinear:
             logger.warning("bilinear=True: the ML mapper samples nearest-pixel; ignoring.")
         if prior:
@@ -125,6 +150,29 @@ class MaximumLikelihoodMapper(BaseProjectionMapper):
     @property
     def device(self):
         return self.blocks[0]["data"].device
+
+    # -- the det shards -----------------------------------------------------------------------
+
+    def _reduce(self, x):
+        """Sum ``x`` over the mesh's "det" ranks (nothing without a mesh)."""
+        return x if self.mesh is None else self.mesh.all_reduce(x, "det")
+
+    def _gather_rows(self, x, block):
+        """The block's whole (n_det, ...) rows of a per-row tensor, on
+        every rank (``x`` itself without a mesh)."""
+        if self.mesh is None:
+            return x
+        return torch.cat(self.mesh.all_gather(x.contiguous(), "det"))[: block["n_det"]]
+
+    def _local_rows(self, x, block):
+        """This rank's rows of a whole (n_det, ...) tensor, zero-padded to
+        the block's rows."""
+        if self.mesh is None:
+            return x
+        start = block["row0"]
+        out = torch.zeros((block["data"].shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
+        out[: block["n_real"]] = x[start:start + block["n_real"]]
+        return out
 
     def _prepare(self):
         """A block a TOD: channel- and time-bin-offset pixel ids, Stokes
@@ -140,20 +188,36 @@ class MaximumLikelihoodMapper(BaseProjectionMapper):
         frame_ids = radec_pixel_ids if self.frame.name == "ra/dec" else azel_pixel_ids
         self.blocks = []
         for tod in self.tods:
-            device = tod.device
-            ids = frame_ids(tod.pointing, self.center, self.res, self.n_x, self.n_y, device=device)
+            n_det = tod.signal.shape[0]
+            if self.mesh is None:
+                device, (start, stop), n_rows = tod.device, (0, n_det), n_det
+                pointing = tod.pointing
+            else:
+                device, (start, stop) = self.mesh.device, self.mesh.block(n_det, "det")
+                n_rows = -(-n_det // self.mesh.axis_size("det"))
+                p = tod.pointing
+                pointing = Pointing(p.boresight, p.offsets[start:stop], p.q)
+            ids = frame_ids(pointing, self.center, self.res, self.n_x, self.n_y, device=device)
             pix = torch.where(ids < 0, self.n_pix, ids)
-            chan = np.array([band_channel[b] for b in tod.dets.band_name], dtype=np.int32)
+            chan = np.array([band_channel[b] for b in tod.dets.band_name[start:stop]], dtype=np.int32)
             tbin = np.clip(np.digitize(np.asarray(tod.time), self.t_edges) - 1, 0, self.t_bins - 1).astype(np.int32)
             frame = (torch.as_tensor(chan, device=device)[:, None] * self.t_bins
                      + torch.as_tensor(tbin, device=device)[None, :])
-            sw = np.asarray(tod.dets.stokes_weight(), dtype=np.float32)[:, stokes_cols]
-            self.blocks.append({
+            sw = np.asarray(tod.dets.stokes_weight(), dtype=np.float32)[start:stop, stokes_cols]
+            block = {
                 "pix": (pix + frame * self.n_pix1).to(torch.int32).contiguous(),
                 "sw": torch.as_tensor(sw, device=device),
-                "data": tod.signal.to(torch.float32).contiguous(),
-                "fs": tod.fs,
-            })
+                "data": tod.signal[start:stop].to(device=device, dtype=torch.float32).contiguous(),
+                "fs": tod.fs, "n_det": n_det, "row0": start, "n_real": stop - start,
+            }
+            pad = n_rows - (stop - start)
+            if pad:
+                # zero-weight rows: ids at the first frame's bucket, weights and data 0
+                block["pix"] = torch.cat([block["pix"], torch.full((pad, block["pix"].shape[1]), self.n_pix,
+                                                                   dtype=torch.int32, device=device)])
+                block["sw"] = torch.cat([block["sw"], block["sw"].new_zeros((pad, self.n_s))])
+                block["data"] = torch.cat([block["data"], block["data"].new_zeros((pad, block["data"].shape[1]))])
+            self.blocks.append(block)
         self._set_overflow_mask()
 
     def _set_overflow_mask(self):
@@ -197,8 +261,9 @@ class MaximumLikelihoodMapper(BaseProjectionMapper):
             wd = resid * win
             w2 = (win**2).sum()
             smoothing = int(self.spectrum_smoothing)
-            if self.k > 0 and wd.shape[0] > self.k:
-                U, modes = decompose(wd, k=self.k)
+            if self.k > 0 and block["n_det"] > self.k:
+                U, modes = decompose(self._gather_rows(wd, block), k=self.k)
+                U = self._local_rows(U, block)
                 noise = wd - U @ modes
                 lam = torch.fft.rfft(modes, dim=-1).abs() ** 2 / w2
                 lam = torch.clamp(smooth_spectrum(lam, smoothing), min=1e-30)
@@ -206,13 +271,15 @@ class MaximumLikelihoodMapper(BaseProjectionMapper):
                 U, lam, noise = None, None, wd
             spec = smooth_spectrum(torch.fft.rfft(noise, dim=-1).abs() ** 2 / w2, smoothing)
             block["A_inv"] = 1.0 / torch.clamp(spec, min=1e-30)
+            if block["n_real"] < wd.shape[0]:
+                block["A_inv"][block["n_real"]:] = 0.0  # padded rows carry no weight
             block["U"] = U
             if U is not None:
-                G = torch.einsum("df,dk,dl->fkl", block["A_inv"], U, U)
+                G = self._reduce(torch.einsum("df,dk,dl->fkl", block["A_inv"], U, U))
                 block["core"] = torch.linalg.inv_ex(torch.diag_embed((1.0 / lam).T) + G)[0]
             epoch_diag.append({
                 "f": np.fft.rfftfreq(n, d=1 / block["fs"]),
-                "median_psd": median(spec, dim=0).cpu().numpy(),
+                "median_psd": median(self._gather_rows(spec, block), dim=0).cpu().numpy(),
                 "mode_psd": lam.cpu().numpy() if lam is not None else None,
             })
         self.noise_model_history.append(epoch_diag)
@@ -224,7 +291,7 @@ class MaximumLikelihoodMapper(BaseProjectionMapper):
             return x
         U = block["U"]
         xr = torch.view_as_real(x)  # (n_det, n_f, 2)
-        y = torch.einsum("dk,dfc->kfc", U, xr)
+        y = self._reduce(torch.einsum("dk,dfc->kfc", U, xr))
         z = torch.einsum("fkl,lfc->kfc", block["core"], y)
         return torch.view_as_complex((xr - block["A_inv"][..., None] * torch.einsum("dk,kfc->dfc", U, z)).contiguous())
 
@@ -239,7 +306,7 @@ class MaximumLikelihoodMapper(BaseProjectionMapper):
         rhs = torch.zeros(self.n_m, dtype=torch.float32, device=self.device)
         for block in self.blocks:
             rhs = rhs + self._project_T(self._apply_inverse_N(block, block["data"]), block)
-        return rhs
+        return self._reduce(rhs)
 
     def _apply_PNP(self, m_flat):
         """P^T N^-1 P m, with the overflow buckets' rows the identity (P
@@ -248,6 +315,7 @@ class MaximumLikelihoodMapper(BaseProjectionMapper):
         out = torch.zeros(self.n_m, dtype=torch.float32, device=self.device)
         for block in self.blocks:
             out = out + self._project_T(self._apply_inverse_N(block, self._project(m_flat, block)), block)
+        out = self._reduce(out)
         mask = self._overflow_mask
         return out * mask + m_flat * (1 - mask)
 
@@ -258,7 +326,7 @@ class MaximumLikelihoodMapper(BaseProjectionMapper):
         for block in self.blocks:
             white = block["A_inv"].mean(dim=-1, keepdim=True).expand_as(block["data"])
             diag = diag + self._project_T(white, block, sw=block["sw"] ** 2)
-        return diag
+        return self._reduce(diag)
 
     def _compute_naive_map(self):
         """The binned starting map and the hit map (weighted by |sw|, so
@@ -268,6 +336,7 @@ class MaximumLikelihoodMapper(BaseProjectionMapper):
         for block in self.blocks:
             hits = hits + self._project_T(torch.ones_like(block["data"]), block, sw=block["sw"].abs())
             raw = raw + self._project_T(block["data"], block)
+        hits, raw = self._reduce(hits), self._reduce(raw)
         self.hits = hits
         self.naive_map = torch.where(hits > 0, raw / torch.clamp(hits, min=1e-8), 0.0)
 

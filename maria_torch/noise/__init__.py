@@ -64,7 +64,7 @@ def _draw(shape, generator, device, given, what):
 
 def generate_noise_with_knee(shape: tuple, sample_rate: float = 1.0, knee: float = 0.0,
                              beta: float = 1.0, basis=None, corr_prop: float = 0.0,
-                             generator=None, white=None, mode_white=None, device=None):
+                             generator=None, white=None, mode_white=None, device=None, rows=None):
     """Unit-NEP noise of shape (n_det, n_time).
 
     The white part has variance ``sample_rate`` per sample (times an NEP
@@ -80,20 +80,27 @@ def generate_noise_with_knee(shape: tuple, sample_rate: float = 1.0, knee: float
     sqrt(sample_rate) N(0, 1), and has no correlated part, as in
     maria_tpu: ``white`` is then the (n_det, n) time-domain draw itself,
     and no kernel runs (maria_tpu draws it with ``jax.random.normal``).
+
+    ``rows`` (a slice of the detector axis) returns only those rows, equal
+    to the same rows of the call without it: ``shape``, ``basis`` and any
+    handed-in draws stay whole, and every draw is made at its whole shape
+    in the order above before the rows are kept. The one-process call is
+    ``rows=None``, the whole axis.
     """
     n_det, n = shape
+    rows = slice(None) if rows is None else rows
     device = white.device if device is None and white is not None else device
     if knee <= 0:
-        return float(np.sqrt(sample_rate)) * _draw((n_det, n), generator, device, white, "white")
+        return float(np.sqrt(sample_rate)) * _draw((n_det, n), generator, device, white, "white")[rows]
 
     n_fft = good_fft_size(n)
     n_f = n_fft // 2 + 1
     w = _pink_weights_np(n_fft, sample_rate, knee, beta)
     cp = corr_prop if basis is not None else 0.0
     c = np.sqrt(sample_rate + (1.0 - cp) * w**2) * _spectral_white_scale_np(n_fft)
-    noise = pink_noise(c, _draw((n_det, n_f, 2), generator, device, white, "white"), n, n_fft)
+    noise = pink_noise(c, _draw((n_det, n_f, 2), generator, device, white, "white")[rows], n, n_fft)
     if cp > 0:
-        basis = torch.as_tensor(basis, dtype=torch.float32, device=noise.device)
+        basis = torch.as_tensor(basis, dtype=torch.float32, device=noise.device)[rows]
         k = basis.shape[-1]
         c_modes = w * _spectral_white_scale_np(n_fft)
         mode_noise = pink_noise(c_modes, _draw((k, n_f, 2), generator, noise.device, mode_white, "mode"), n, n_fft)

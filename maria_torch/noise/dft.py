@@ -106,7 +106,7 @@ def _gemm(V, B):
 
 
 def noise_total_matmul(A, specs, n: int, n_fft: int, corr_cols=None, shared_c=None, row_scale=None,
-                       generator=None, z=None, mode_z=None, basis_dtype=torch.bfloat16, device=None):
+                       generator=None, z=None, mode_z=None, basis_dtype=torch.bfloat16, device=None, rows=None):
     """total = A + banded noise, (n_det, n) float32 (module docstring).
 
     ``A`` is the gained signal sum, (n_det, n) float32 or a scalar;
@@ -124,10 +124,19 @@ def noise_total_matmul(A, specs, n: int, n_fft: int, corr_cols=None, shared_c=No
     when the shape is not shared), and ``mode_z`` a list indexed by
     ``key_index`` of (k, 2, m+1) mode normals. It computes on ``device``,
     else on ``A``'s device when ``A`` is a tensor, else on the card.
+
+    ``rows`` (start, stop) computes only those detector rows of the
+    unsharded total, bit for bit in every draw: ``A``, ``corr_cols`` and
+    ``row_scale`` then hold those rows, ``specs`` and ``z`` stay global.
+    The generator is consumed as the unsharded call consumes it: the
+    modes are drawn whole (every rank needs them), V by kernel K3 at
+    ``row0 = start`` (no other row is drawn), and a band of its own
+    shape draws its whole (n_band, 2, m+1) white block and keeps its rows.
     """
     device = A.device if device is None and torch.is_tensor(A) else resolve_device(device)
     m1 = n_fft // 2 + 1
-    n_det = specs[-1].stop
+    row0, row1 = (0, specs[-1].stop) if rows is None else (int(rows[0]), int(rows[1]))
+    n_det = row1 - row0
     cs, cs_bf16 = _basis_tensors(n_fft, n, str(device))
 
     mode_rows = []
@@ -142,15 +151,20 @@ def noise_total_matmul(A, specs, n: int, n_fft: int, corr_cols=None, shared_c=No
     V = torch.empty((n_det, 2 * m1 + K), dtype=basis_dtype, device=device)
     if shared_c is not None and basis_dtype == torch.bfloat16:
         if z is None:
-            shared_v(draw_key(generator, device), shared_c, n_det, out=V[None])
+            shared_v(draw_key(generator, device), shared_c, n_det, out=V[None], row0=row0)
         else:
-            shared_v_plain(c=shared_c, out=V[None], z=z.to(device))
+            shared_v_plain(c=shared_c, out=V[None], z=z[row0:row1].to(device))
     else:
-        blocks = [(0, n_det, shared_c)] if shared_c is not None else [(sp.start, sp.stop, sp.c) for sp in specs]
+        blocks = ([(0, specs[-1].stop, shared_c)] if shared_c is not None
+                  else [(sp.start, sp.stop, sp.c) for sp in specs])
         for start, stop, c in blocks:
             zb = (torch.randn((stop - start, 2, m1), generator=generator, device=device) if z is None
                   else z[start:stop].to(device=device, dtype=torch.float32))
-            V[start:stop, : 2 * m1] = (zb * _f32(c, device)).reshape(stop - start, 2 * m1).to(basis_dtype)
+            lo, hi = max(start, row0), min(stop, row1)
+            if lo >= hi:
+                continue
+            zb = zb[lo - start:hi - start]
+            V[lo - row0:hi - row0, : 2 * m1] = (zb * _f32(c, device)).reshape(hi - lo, 2 * m1).to(basis_dtype)
 
     B = cs if basis_dtype == torch.float32 else cs_bf16
     if mode_rows:

@@ -192,15 +192,16 @@ class StreamingBandNoise:
         w = torch.randn((n_det, n), **f32)
         return white, w, (torch.randn((self.n_modes, n), **f32) if self.n_modes else None)
 
-    def combine(self, white, pink, mode_pink):
+    def combine(self, white, pink, mode_pink, rows=None):
         """Unit-NEP noise of one block from its white draw and its
         cascades' outputs: sqrt(fs) white + sqrt(cp) basis @ mode_pink +
-        sqrt(1 - cp) pink (the pink alone without modes)."""
+        sqrt(1 - cp) pink (the pink alone without modes); ``rows`` (a
+        slice of the band) when the draws hold only those detectors."""
         noise = float(np.sqrt(np.float32(self.sample_rate))) * white
         if pink is None:
             return noise
         if mode_pink is not None:
-            basis = self.basis_tensor(mode_pink.device)
+            basis = self.basis_tensor(mode_pink.device)[slice(None) if rows is None else rows]
             pink = (float(np.sqrt(np.float32(self.corr_prop))) * basis) @ mode_pink + float(
                 np.sqrt(np.float32(1 - self.corr_prop))) * pink
         return noise + pink

@@ -94,7 +94,7 @@ def load() -> ctypes.CDLL:
     lib.maria_pink_noise.restype = i
     lib.maria_bin_map.argtypes = [p, p, p, ll, i, i, i, i, i, i, i, i, ll, i, ll, p]
     lib.maria_bin_map.restype = i
-    lib.maria_shared_v.argtypes = [p, p, p, i, i, i, ll, i, p]
+    lib.maria_shared_v.argtypes = [p, p, p, i, i, i, ll, ctypes.c_uint, i, p]
     lib.maria_shared_v.restype = i
     lib.maria_ar_extrude.argtypes = [p, i, p, p, p, p, p, i, i, i, p]
     lib.maria_ar_extrude.restype = i

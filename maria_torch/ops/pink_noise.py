@@ -139,6 +139,8 @@ def _device_tables(n_fft: int, c_bytes: bytes, device: str):
 
 def pink_noise_plain(c, spectrum, n: int, n_fft: int = None):
     """Plain torch version: irfft(c * S, n_fft)[..., :n]."""
+    if spectrum.numel() == 0:  # no rows (a rank holding none of a band's); MKL's irfft refuses them
+        return spectrum.new_zeros((*spectrum.shape[:-2], n))
     m1 = spectrum.shape[-2]
     n_fft = 2 * (m1 - 1) if n_fft is None else int(n_fft)
     c = torch.as_tensor(np.asarray(c, dtype=np.float32), device=spectrum.device)

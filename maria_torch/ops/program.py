@@ -10,7 +10,15 @@ the signal times the gains plus the noise, with the whole banded noise
 stage as one matrix product (``noise/dft.py``, kernel K3) whenever the
 bands partition the detector axis. The port keeps these contracts and
 drops the TPU devices around them (jit-argument tables, the no-gather
-band slicing, detector padding and permutation).
+band slicing, detector permutation).
+
+A rank of a detector mesh computes one range of rows: ``fields``,
+``draw_gains`` and ``total_power_fn()``'s function take ``rows=(start,
+stop)`` and build only that range's per-detector tables. Every draw is
+consumed in the unsharded order at its global shape and the rank keeps
+its rows (K3 draws only its own through ``row0``), so a rank's rows
+equal the unsharded run's rows for the same seed. ``pad_detectors``
+pads the detector axis to a multiple of the ranks, as maria_tpu does.
 """
 
 from __future__ import annotations
@@ -87,6 +95,8 @@ class TODProgram:
             self.upsample_ratio = None
         self._device_cache = {}
         self._noise_specs_cache = None
+        if getattr(self, "n_real_det", None) is None:
+            self.n_real_det = len(self.offsets)  # rows past this are padding (pad_detectors)
 
         # band_order: the bands sorted by first row when they partition
         # the detector axis into contiguous slices, else None
@@ -118,6 +128,63 @@ class TODProgram:
     def n_t(self) -> int:
         return len(self.t_fine)
 
+    def pad_detectors(self, multiple: int) -> int:
+        """Pad the detector axis to a multiple of ``multiple`` (the ranks of
+        a detector mesh) and return the number of rows added. The padded
+        rows replicate the last detector (its band, pointing, tables and
+        noise basis); ``n_real_det`` keeps the real count, and consumers
+        keep rows from it on out of every map (the streaming executor
+        bins them at id -1). The draws' shapes grow with the rows, so a
+        padded program is another realization than the unpadded one for
+        the same seed: compare sharded and unsharded runs of the same
+        padded program."""
+        n_det = len(self.offsets)
+        pad = -n_det % int(multiple)
+        if not pad:
+            return 0
+        self.offsets = np.pad(np.asarray(self.offsets), ((0, pad), (0, 0)), mode="edge")
+        self.mueller_I = np.pad(np.asarray(self.mueller_I), (0, pad), mode="edge")
+        if self.gain_error is not None:
+            self.gain_error = np.pad(np.asarray(self.gain_error), (0, pad), mode="edge")
+        band = max(self.bands, key=lambda b: b.det_index[-1] if len(b.det_index) else -1)
+        band.det_index = np.concatenate([band.det_index, n_det + np.arange(pad)]).astype(band.det_index.dtype)
+
+        def pad_rows(a):
+            if a is None:
+                return None
+            if torch.is_tensor(a):
+                return torch.cat([a, a[-1:].expand(pad, *a.shape[1:])])
+            return np.pad(np.asarray(a), ((0, pad), (0, 0)), mode="edge")
+
+        band.noise_basis = pad_rows(band.noise_basis)
+        band.cmb_samples = pad_rows(band.cmb_samples)
+        if band.map_stages:
+            band.map_stages = [(table, pad_rows(samples)) for table, samples in band.map_stages]
+        self.__post_init__()  # band contiguity, caches
+        return pad
+
+    def check_rows(self, rows):
+        """``rows`` as a (start, stop) pair inside the detector axis, or None."""
+        if rows is None:
+            return None
+        start, stop = int(rows[0]), int(rows[1])
+        if not 0 <= start <= stop <= self.n_det:
+            raise ValueError(f"rows ({start}, {stop}) lie outside the {self.n_det} detectors")
+        return start, stop
+
+    def band_row_slices(self, rows) -> list:
+        """For each band, the slice of its ``det_index`` entries that lie in
+        ``rows`` = (start, stop): a rank keeps these positions of a band's
+        global draw."""
+        start, stop = rows
+        out = []
+        for b in self.bands:
+            idx = np.asarray(b.det_index)
+            if np.any(np.diff(idx) <= 0):
+                raise ValueError(f"band {b.name}'s detector rows are not in increasing order")
+            out.append(slice(int(np.searchsorted(idx, start)), int(np.searchsorted(idx, stop))))
+        return out
+
     def band_bounds(self):
         """Contiguous (start, stop) detector slices in band_order, or None
         when the bands do not partition the detector axis."""
@@ -125,17 +192,24 @@ class TODProgram:
             return None
         return [(int(self.bands[i].det_index[0]), int(self.bands[i].det_index[-1] + 1)) for i in self.band_order]
 
-    def _tensors(self, device):
-        """The static tables as tensors on ``device`` (built once per device)."""
-        key = str(device)
+    def _tensors(self, device, rows=None):
+        """The static tables as tensors on ``device`` (built once per device),
+        the per-detector ones only for ``rows`` = (start, stop) when given:
+        "det_index" then holds each band's rows among them, counted from
+        start, and "band_sel" the positions of those rows in the band."""
+        key = str(device) if rows is None else (str(device), rows)
         if key not in self._device_cache:
             f32 = dict(dtype=torch.float32, device=device)
+            r0, r1 = (0, self.n_det) if rows is None else rows
+            sel = [slice(None)] * len(self.bands) if rows is None else self.band_row_slices(rows)
+            det_index = [np.asarray(b.det_index)[s] - r0 for b, s in zip(self.bands, sel)]
             self._device_cache[key] = {
-                "offsets": torch.tensor(np.asarray(self.offsets, dtype=np.float32), **f32),
+                "band_sel": sel,
+                "offsets": torch.tensor(np.asarray(self.offsets[r0:r1], dtype=np.float32), **f32),
                 "bs_az": torch.tensor(np.asarray(self.bs_az_coarse, dtype=np.float32), **f32),
                 "bs_el": torch.tensor(np.asarray(self.bs_el_coarse, dtype=np.float32), **f32),
                 "t_c": torch.tensor(np.asarray(self.t_coarse, dtype=np.float32), **f32),
-                "mueller_I": torch.tensor(np.asarray(self.mueller_I, dtype=np.float32), **f32),
+                "mueller_I": torch.tensor(np.asarray(self.mueller_I[r0:r1], dtype=np.float32), **f32),
                 "W": [None if s.W is None else torch.tensor(s.W, **f32) for s in self.screens],
                 "blur": [
                     None if s.W is not None or not s.beam_sigma else torch.as_tensor(gaussian_blur_weights(
@@ -150,17 +224,17 @@ class TODProgram:
                     None if b.cmb_samples is None else (
                         TableEval(b.pwv_side, b.el_side, b.cmb_P0_table, device=device),
                         TableEval(b.pwv_side, b.el_side, b.cmb_dPdT_table, device=device),
-                        b.cmb_samples.to(device),
+                        b.cmb_samples[s].to(device),
                     )
-                    for b in self.bands
+                    for b, s in zip(self.bands, sel)
                 ],
                 "map": [
-                    [(TableEval(b.pwv_side, b.el_side, table, device=device), samples.to(device))
+                    [(TableEval(b.pwv_side, b.el_side, table, device=device), samples[s].to(device))
                      for table, samples in b.map_stages or []]
-                    for b in self.bands
+                    for b, s in zip(self.bands, sel)
                 ],
-                "det_index": [torch.tensor(b.det_index, dtype=torch.int64, device=device) for b in self.bands],
-                "basis": [
+                "det_index": [torch.tensor(d, dtype=torch.int64, device=device) for d in det_index],
+                "basis": [  # whole bands: generate_noise_with_knee keeps "band_sel"'s rows
                     None if b.noise_basis is None else torch.tensor(np.asarray(b.noise_basis), **f32)
                     for b in self.bands
                 ],
@@ -172,7 +246,7 @@ class TODProgram:
             return upsample_time_phases(values, self.upsample_ratio, self.n_t, kind=kind)
         return upsample_time(values, self.t_coarse, self.t_fine, kind=kind)
 
-    def fields(self, generator=None, draws: dict = None, device=None, upto: str = None):
+    def fields(self, generator=None, draws: dict = None, device=None, upto: str = None, rows=None):
         """One realization: ({field: (n_det, n_t) pW}, pwv_fine).
 
         Gains are not applied here (see ``draw_gains`` and
@@ -193,10 +267,14 @@ class TODProgram:
         (n_det, n_tc)), "atmosphere" -> {"atmosphere": the upsampled
         atmospheric loading}, "signal" -> every field but the noise (the
         atmosphere and, with a CMB or an input map, "cmb" and "map").
+        ``rows`` = (start, stop) computes only those detectors' rows of
+        every field, from the same draws (handed-in draws stay global).
         """
         device = resolve_device(device)
         draws = draws or {}
-        tabs = self._tensors(device)
+        rows = self.check_rows(rows)
+        tabs = self._tensors(device, rows)
+        n_rows = self.n_det if rows is None else rows[1] - rows[0]
 
         _, el_clip, px, py = line_of_sight(tabs["offsets"], tabs["bs_az"], tabs["bs_el"])
         pwv = accumulate_pwv(
@@ -227,24 +305,24 @@ class TODProgram:
         if any(b.cmb_samples is not None or b.map_stages for b in self.bands):
             pwv_f, el_f = self._upsample(pwv, "linear"), self._upsample(el_clip, "cubic")
         if any(b.cmb_samples is not None for b in self.bands):
-            cmb_field = torch.zeros((self.n_det, self.n_t), dtype=torch.float32, device=device)
+            cmb_field = torch.zeros((n_rows, self.n_t), dtype=torch.float32, device=device)
             for i in range(len(self.bands)):
                 if tabs["cmb"][i] is None:
                     continue
-                rows = tabs["det_index"][i]
+                idx = tabs["det_index"][i]
                 P0, dPdT, samples = tabs["cmb"][i]
-                pwv_b, el_b = pwv_f[rows], el_f[rows]
-                cmb_field[rows] = P0(pwv_b, el_b) * tabs["mueller_I"][rows, None] + dPdT(pwv_b, el_b) * samples
+                pwv_b, el_b = pwv_f[idx], el_f[idx]
+                cmb_field[idx] = P0(pwv_b, el_b) * tabs["mueller_I"][idx, None] + dPdT(pwv_b, el_b) * samples
             fields["cmb"] = cmb_field
         # the map's integration kernel comes after its calibration
         if any(b.map_stages for b in self.bands):
-            map_field = torch.zeros((self.n_det, self.n_t), dtype=torch.float32, device=device)
+            map_field = torch.zeros((n_rows, self.n_t), dtype=torch.float32, device=device)
             for i in range(len(self.bands)):
                 if not tabs["map"][i]:
                     continue
-                rows = tabs["det_index"][i]
-                pwv_b, el_b = pwv_f[rows], el_f[rows]
-                map_field[rows] = sum(cal(pwv_b, el_b) * samples for cal, samples in tabs["map"][i])
+                idx = tabs["det_index"][i]
+                pwv_b, el_b = pwv_f[idx], el_f[idx]
+                map_field[idx] = sum(cal(pwv_b, el_b) * samples for cal, samples in tabs["map"][i])
             fields["map"] = apply_integration_kernel(map_field)
             del map_field
         del el_f
@@ -252,25 +330,29 @@ class TODProgram:
             return fields
 
         if self.with_noise:
-            noise = torch.empty((self.n_det, self.n_t), dtype=torch.float32, device=device)
+            noise = torch.empty((n_rows, self.n_t), dtype=torch.float32, device=device)
             for i, band in enumerate(self.bands):
-                rows = tabs["det_index"][i]
+                idx = tabs["det_index"][i]
                 unscaled = generate_noise_with_knee(
                     (len(band.det_index), self.n_t), sample_rate=self.sample_rate, knee=band.knee,
                     basis=tabs["basis"][i], corr_prop=band.corr_prop, generator=generator,
                     white=None if "noise" not in draws else draws["noise"][i],
                     mode_white=None if "modes" not in draws else draws["modes"][i],
-                    device=device,
+                    device=device, rows=tabs["band_sel"][i],
                 )
-                noise[rows] = band_noise_scale(band, [v[rows] for v in fields.values()]) * unscaled
+                noise[idx] = band_noise_scale(band, [v[idx] for v in fields.values()]) * unscaled
             fields["noise"] = noise
         return fields, pwv_f if pwv_f is not None else self._upsample(pwv, "linear")
 
-    def draw_gains(self, generator=None, draw=None, device=None):
+    def draw_gains(self, generator=None, draw=None, device=None, rows=None):
         """(n_det, 1) multiplicative gain errors exp(gain_error * N(0, 1)),
         or None when the program carries none; ``draw`` optionally
-        supplies the (n_det,) normals."""
-        return None if self.gain_error is None else gain_errors(self.gain_error, generator, draw, device)
+        supplies the (n_det,) normals. With ``rows`` = (start, stop) the
+        normals are drawn whole and those rows returned."""
+        if self.gain_error is None:
+            return None
+        rows = self.check_rows(rows)
+        return gain_errors(self.gain_error, generator, draw, device, rows=None if rows is None else slice(*rows))
 
     def use_noise_matmul(self) -> bool:
         """Whether ``total_power_fn`` runs the noise stage as one matrix
@@ -328,8 +410,10 @@ class TODProgram:
         return self._noise_specs_cache
 
     def total_power_fn(self):
-        """fn(generator=None, draws=None, device=None) -> (n_det, n_t)
-        float32 total pW, gain errors included.
+        """fn(generator=None, draws=None, device=None, rows=None) -> (n_det,
+        n_t) float32 total pW, gain errors included (only the detectors
+        ``rows`` = (start, stop) when given, equal to those rows of the
+        unsharded total).
 
         With ``use_noise_matmul()`` the noise stage is one matrix product
         whose epilogue adds the gained signal (``noise_total_matmul``); V
@@ -343,10 +427,10 @@ class TODProgram:
         ``fields`` takes them.
         """
         if not self.use_noise_matmul():
-            def fields_total(generator=None, draws=None, device=None):
+            def fields_total(generator=None, draws=None, device=None, rows=None):
                 draws = draws or {}
-                fields, _ = self.fields(generator=generator, draws=draws, device=device)
-                gains = self.draw_gains(generator=generator, draw=draws.get("gains"), device=device)
+                fields, _ = self.fields(generator=generator, draws=draws, device=device, rows=rows)
+                gains = self.draw_gains(generator=generator, draw=draws.get("gains"), device=device, rows=rows)
                 total = 0.0
                 for name, v in fields.items():
                     total = total + (v if name == "noise" or gains is None else v * gains)
@@ -358,26 +442,28 @@ class TODProgram:
 
         specs, corr_cols, n_fft, shared_c, row_scale = self._noise_matmul_specs()
 
-        def matmul_total(generator=None, draws=None, device=None):
+        def matmul_total(generator=None, draws=None, device=None, rows=None):
             device = resolve_device(device)
             draws = draws or {}
-            tabs = self._tensors(device)
+            rows = self.check_rows(rows)
+            tabs = self._tensors(device, rows)
             if "noise_cols" not in tabs:
                 f32 = dict(dtype=torch.float32, device=device)
-                tabs["noise_cols"] = None if corr_cols is None else torch.as_tensor(corr_cols, **f32)
-                tabs["row_scale"] = None if row_scale is None else torch.as_tensor(row_scale, **f32)
-            signal = self.fields(generator=generator, draws=draws, device=device, upto="signal")
+                r0, r1 = (0, self.n_det) if rows is None else rows
+                tabs["noise_cols"] = None if corr_cols is None else torch.as_tensor(corr_cols[r0:r1], **f32)
+                tabs["row_scale"] = None if row_scale is None else torch.as_tensor(row_scale[r0:r1], **f32)
+            signal = self.fields(generator=generator, draws=draws, device=device, upto="signal", rows=rows)
             A = signal.pop("atmosphere")
             for v in signal.values():
                 A += v
             del signal
-            gains = self.draw_gains(generator=generator, draw=draws.get("gains"), device=device)
+            gains = self.draw_gains(generator=generator, draw=draws.get("gains"), device=device, rows=rows)
             if gains is not None:
                 A = gains * A
             return noise_total_matmul(
                 A, specs, n=self.n_t, n_fft=n_fft, corr_cols=tabs["noise_cols"], shared_c=shared_c,
                 row_scale=tabs["row_scale"], generator=generator, z=draws.get("v"), mode_z=draws.get("modes"),
-                device=device,
+                device=device, rows=rows,
             )
 
         return matmul_total
@@ -452,17 +538,20 @@ def band_noise_scale(band, loadings):
     return 1e12 * (band.NEP + band.NEP_per_loading * loading_W)
 
 
-def gain_errors(gain_error, generator=None, draw=None, device=None):
+def gain_errors(gain_error, generator=None, draw=None, device=None, rows=None):
     """(n_det, 1) multiplicative gain errors exp(gain_error * N(0, 1))
-    on ``device``; ``draw`` optionally supplies the (n_det,) normals."""
+    on ``device``; ``draw`` optionally supplies the (n_det,) normals.
+    ``rows`` (a slice of the detectors) keeps those rows of the whole
+    draw, so they equal the same rows of the call without it."""
     device = resolve_device(device)
+    rows = slice(None) if rows is None else rows
     n_det = len(gain_error)
     if draw is None:
         draw = torch.randn((n_det,), generator=generator, device=device, dtype=torch.float32)
     elif tuple(draw.shape) != (n_det,):
         raise ValueError(f"gain draw must have shape ({n_det},), got {tuple(draw.shape)}")
-    g = torch.as_tensor(np.asarray(gain_error, dtype=np.float32), device=device)
-    return torch.exp(g * draw.to(device=device, dtype=torch.float32))[:, None]
+    g = torch.as_tensor(np.asarray(gain_error, dtype=np.float32)[rows], device=device)
+    return torch.exp(g * draw[rows].to(device=device, dtype=torch.float32))[:, None]
 
 
 def band_noise_basis(band_offsets, noise_kwargs: dict):

@@ -5,7 +5,9 @@
 (row, bin), the left operand of the noise matmul (``noise/dft.py``). The
 bits come from a counter-based Philox4x32-10 keyed by ``key``, two
 32-bit words in an int64 tensor (``draw_key``); the counter layout is
-written out in ``csrc/shared_v.cu``. On a CUDA tensor it launches that
+written out in ``csrc/shared_v.cu``. ``row0`` is the global index of the
+first row: a rank holding detectors [row0, row0 + n_det) of a sharded
+array draws exactly those rows of the unsharded V. On a CUDA tensor it launches that
 kernel (which replaces maria_tpu's ``shared_v_pallas``); on a CPU tensor
 it runs the plain version, the same Philox and Box-Muller in torch
 integer and float ops.
@@ -97,7 +99,7 @@ def _out_buffer(out, batch: int, n_det: int, m1: int, device):
     return out
 
 
-def shared_v_plain(key=None, c=None, n_det: int = None, batch: int = 1, out=None, z=None):
+def shared_v_plain(key=None, c=None, n_det: int = None, batch: int = 1, out=None, z=None, row0: int = 0):
     """Plain torch version of ``shared_v``. ``z`` optionally injects the
     draw, (n_det, 2, m+1) float32 normals [re, im] (batch 1): V is then
     bf16(c * z) in the same column order, with no Philox. Returns
@@ -114,7 +116,7 @@ def shared_v_plain(key=None, c=None, n_det: int = None, batch: int = 1, out=None
         n_pairs = (m1 + 1) // 2
         i64 = dict(dtype=torch.int64, device=device)
         p = torch.arange(n_pairs, **i64)[None, None, :]
-        row = torch.arange(n_det, **i64)[None, :, None]
+        row = torch.arange(row0, row0 + n_det, **i64)[None, :, None]
         b = torch.arange(batch, **i64)[:, None, None]
         k0, k1 = (int(v) for v in key.tolist())
         x0, x1, x2, x3 = philox4x32_10((p, row, b, torch.zeros((), **i64)), (k0, k1))
@@ -134,14 +136,17 @@ def shared_v_plain(key=None, c=None, n_det: int = None, batch: int = 1, out=None
     return buf[..., : 2 * m1]
 
 
-def shared_v(key, c, n_det: int, batch: int = 1, out=None):
+def shared_v(key, c, n_det: int, batch: int = 1, out=None, row0: int = 0):
     """(batch, n_det, 2(m+1)) bfloat16 V for realizations 0..batch-1 of
-    ``key`` (an int64 tensor of two 32-bit words, ``draw_key``). ``out``
+    ``key`` (an int64 tensor of two 32-bit words, ``draw_key``): rows
+    row0 .. row0 + n_det - 1 of the unsharded draw. ``out``
     optionally gives the buffer, (batch, n_det, ld >= 2(m+1)) contiguous
     bfloat16, whose first 2(m+1) columns are written; the returned
     tensor is a view of it."""
+    if row0 < 0 or row0 + n_det > 1 << 32:
+        raise ValueError(f"rows [{row0}, {row0 + n_det}) lie outside the counter's 32-bit row word")
     if key.device.type == "cpu":
-        return shared_v_plain(key, c, n_det, batch=batch, out=out)
+        return shared_v_plain(key, c, n_det, batch=batch, out=out, row0=row0)
     if key.device.type != "cuda":
         raise ValueError(f"shared_v runs on cpu or cuda tensors, not {key.device.type}")
     if key.dtype != torch.int64 or tuple(key.shape) != (2,) or not key.is_contiguous():
@@ -157,7 +162,7 @@ def shared_v(key, c, n_det: int, batch: int = 1, out=None):
     n_blocks = int(min(-(-n_rows // ROWS_A_BLOCK), BLOCKS_PER_SM * N_SM))
     stream = torch.cuda.current_stream(key.device).cuda_stream
     code = lib.maria_shared_v(
-        key.data_ptr(), c_dev.data_ptr(), buf.data_ptr(), batch, n_det, m1, buf.shape[2], n_blocks, stream,
+        key.data_ptr(), c_dev.data_ptr(), buf.data_ptr(), batch, n_det, m1, buf.shape[2], row0, n_blocks, stream,
     )
     kernels.check(lib, code, "shared_v kernel launch")
     shared_v.launches += 1

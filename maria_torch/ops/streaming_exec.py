@@ -31,11 +31,25 @@ cascade, not the batch FFT: the two match in PSD, not sample by sample.
 What maria_tpu adds for the TPU is not ported: the windowed MXU binning
 and its run plans, the fixed-shape phantom tail groups and the jit cache
 (``mxu_binning=`` and ``use_runs=`` are taken and change nothing; the
-binning is K2). A detector mesh is ROADMAP item 11.
+binning is K2).
+
+``run(mesh=)`` lays the carried state out over the mesh's "det" axis
+(``maria_torch.parallel``), as maria_tpu's ``_shard_state`` does: a rank
+holds its block of the detector-major leaves (the coarse loading, the
+gains, its rows of every band's cascade state) and runs every block on
+its rows alone (the upsample, the sky, the noise with KC on its rows, the
+pixel ids and K2). Every draw is made at its global shape and the rank
+keeps its rows, so the rank's TOD rows are the single-process run's. The
+mode cascades are replicated. Each rank accumulates its part of the map
+and the Welch sums; they are reduced (``all_reduce`` over "det") at the
+end and before each checkpoint. A checkpoint holds the unsharded layout
+(the cascades' states gathered to the global rows), is written by rank 0
+alone, and resumes a run of any number of ranks.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 from dataclasses import dataclass
 
@@ -63,7 +77,6 @@ LIVE_BUFFERS = 8  # (n_det, B) float32 buffers that working set counts
 WIDE_ARRAY = 4096  # detectors above which "auto" caps a block at 128 coarse cells
 WIDE_BLOCK_TC = 128
 PIXEL_ROWS = 8192  # detector rows of one pass of the pixel ids (bounds its temporaries)
-MESH_MESSAGE = "a detector mesh is ROADMAP item 11 (multi-GPU), not ported yet"
 
 
 def pad_coarse_for_blocks(values, block_tc: int, n_blocks: int):
@@ -164,6 +177,18 @@ def _generator(device, key: int, *path: int):
     return g
 
 
+def _normals(generator, shape, sel, given, device, out=None):
+    """Rows ``sel`` of a ``shape`` draw of unit normals: of ``given`` (the
+    whole draw) when handed in, else drawn whole from ``generator``;
+    written into ``out`` when given (drawn in place when ``sel`` keeps
+    every row, as in one process)."""
+    if given is None and out is not None and out.shape[0] == shape[0]:
+        return torch.randn(shape, generator=generator, dtype=torch.float32, device=device, out=out)
+    x = (torch.randn(shape, generator=generator, dtype=torch.float32, device=device) if given is None
+         else _as_f32(given, device))[sel]
+    return x if out is None else out.copy_(x)
+
+
 class StreamingExecutor:
     """Time-blocked executor over a TODProgram (see the module docstring).
 
@@ -206,7 +231,13 @@ class StreamingExecutor:
         self.n_t = len(program.t_fine)
         self.n_c = len(program.t_coarse)
         self.n_det = len(program.offsets)
-        self.n_real_det = self.n_det
+        self.n_det_global = self.n_det
+        self.n_real_det = program.n_real_det  # rows past it are padding, kept out of the map
+        # a rank's detector rows (start, stop) and, per band, the positions
+        # of those rows in the band; the whole array in one process
+        self.mesh = None
+        self.rows = None
+        self._band_sel = [slice(0, len(b.det_index)) for b in program.bands]
         self.n_blocks = -(-self.n_t // self.B)
         duration = float(program.t_fine[-1] - program.t_fine[0]) + 1.0
         T_ref = T_ref or max(4096.0, 2.0 * duration)
@@ -303,7 +334,7 @@ class StreamingExecutor:
             raise ValueError(f"the bands' cascades have different pole counts {sorted(Ks)}")
         spans, r0 = {}, 0
         for i in casc:
-            n = len(self.program.bands[i].det_index)
+            n = self._band_sel[i].stop - self._band_sel[i].start
             spans[(i, 0)] = (r0, r0 + n)
             r0 += n
         for i in casc:
@@ -330,15 +361,35 @@ class StreamingExecutor:
         return self._casc_t[key]
 
     def _rows(self, i):
-        """Band i's detector rows: a slice when they are contiguous."""
+        """Band i's detector rows among this executor's rows: a slice when
+        they are contiguous."""
         if self._band_rows is None:
             self._band_rows = []
-            for band in self.program.bands:
-                idx = np.asarray(band.det_index)
+            r0 = 0 if self.rows is None else self.rows[0]
+            for band, sel in zip(self.program.bands, self._band_sel):
+                idx = np.asarray(band.det_index)[sel] - r0
                 contiguous = len(idx) and np.array_equal(idx, np.arange(idx[0], idx[-1] + 1))
                 self._band_rows.append(slice(int(idx[0]), int(idx[-1]) + 1) if contiguous else
                                        torch.as_tensor(idx, dtype=torch.int64, device=self.device))
         return self._band_rows[i]
+
+    def shard(self, mesh) -> "StreamingExecutor":
+        """This executor restricted to ``mesh``'s rank: its block of the
+        detector rows along "det" (module docstring)."""
+        if mesh.device != self.device:
+            raise ValueError(f"the mesh's rank lies on {mesh.device}, the executor on {self.device}")
+        ex = copy.copy(self)
+        ex.mesh = mesh
+        ex.rows = mesh.block(self.n_det_global, "det")
+        ex.n_det = ex.rows[1] - ex.rows[0]
+        ex._band_sel = self.program.band_row_slices(ex.rows)
+        ex._band_rows = None
+        ex._setup_cascade_rows()
+        return ex
+
+    def _reduce(self, x):
+        """A copy of ``x`` summed over the "det" ranks (``x`` in one process)."""
+        return x if self.mesh is None else self.mesh.all_reduce(x.clone(), "det")
 
     def _build_sky(self, obs, cmb, input_map, map_kwargs: dict):
         """Setup of the per-block sky stages: the same calibration tables
@@ -427,14 +478,17 @@ class StreamingExecutor:
         (k, K) normals of its start)."""
         draws = draws or {}
         p, dev = self.program, self.device
-        coarse = p.fields(generator=_generator(dev, key, 0), draws=draws.get("coarse"), device=dev, upto="coarse")
-        gains = p.draw_gains(generator=_generator(dev, key, 1), draw=draws.get("gains"), device=dev)
+        coarse = p.fields(generator=_generator(dev, key, 0), draws=draws.get("coarse"), device=dev, upto="coarse",
+                          rows=self.rows)
+        gains = p.draw_gains(generator=_generator(dev, key, 1), draw=draws.get("gains"), device=dev, rows=self.rows)
         if gains is None:
             gains = torch.ones((self.n_det, 1), dtype=torch.float32, device=dev)
         noise = []
         for i, (band, model) in enumerate(zip(p.bands, self.noise_models)):
             z = draws["noise_init"][i] if "noise_init" in draws else None
-            noise.append(model.init_state(len(band.det_index), _generator(dev, key, 2, i), z=z, device=dev))
+            band_state = model.init_state(len(band.det_index), _generator(dev, key, 2, i), z=z, device=dev)
+            # the whole band's start drawn, this executor's rows kept
+            noise.append(tuple(x[self._band_sel[i]] if j == 0 else x for j, x in enumerate(band_state)))
         lc = coarse["loading_c"]
         state = {
             "key": int(key),
@@ -464,10 +518,11 @@ class StreamingExecutor:
         off the map and past n_t; a slab of PIXEL_ROWS detectors at a time."""
         tr = self._device_tracks()
         sl = slice(b * self.B, (b + 1) * self.B)
-        offsets = self.program._tensors(self.device)["offsets"]
+        offsets = self.program._tensors(self.device, self.rows)["offsets"]
         ids = torch.empty((self.n_det, self.B), dtype=torch.int32, device=self.device)
         x0, y0 = -(self.n_x - 1) / 2 * self.res, -(self.n_y - 1) / 2 * self.res
         live = (b * self.B + torch.arange(self.B, device=self.device)) < self.n_t
+        row0 = 0 if self.rows is None else self.rows[0]
         for r0 in range(0, self.n_det, PIXEL_ROWS):
             o = offsets[r0:r0 + PIXEL_ROWS]
             if self.frame == "ra/dec":
@@ -481,6 +536,9 @@ class StreamingExecutor:
             ix = torch.round((offs[..., 0] - x0) / self.res).to(torch.int32)
             iy = torch.round((offs[..., 1] - y0) / self.res).to(torch.int32)
             inside = (ix >= 0) & (ix < self.n_x) & (iy >= 0) & (iy < self.n_y) & live
+            if row0 + r0 + len(o) > self.n_real_det:  # padded detectors stay off the map
+                real = row0 + r0 + torch.arange(len(o), device=self.device) < self.n_real_det
+                inside &= real[:, None]
             ids[r0:r0 + PIXEL_ROWS] = torch.where(inside, iy * self.n_x + ix, torch.full_like(ix, -1))
         return ids
 
@@ -493,7 +551,7 @@ class StreamingExecutor:
         """The ungained CMB and map loading of block b (n_det, B) pW: the
         batch program's cmb and map stages on the block."""
         p, sky, r, B = self.program, self.sky, self.r, self.B
-        tabs = p._tensors(self.device)
+        tabs = p._tensors(self.device, self.rows)
         offsets, mueller_I = tabs["offsets"], tabs["mueller_I"]
         c0 = b * self.block_tc
         pwv_ext = upsample_block_ext(state["pwv_pad2"], c0, self.block_tc, r, self.n_c, state["pwv_last"],
@@ -514,7 +572,7 @@ class StreamingExecutor:
                 rot = torch.stack([cq * x - sq * y, sq * x + cq * y], dim=-1)
                 pt = offsets_to_phi_theta(rot, ext["ra"][interior], ext["dec"][interior])
                 pix = cmb.radec_pixels(pt[..., 0], pt[..., 1])
-                sw = entry["sw"]
+                sw = entry["sw"][self._band_sel[i]]
                 sample = 0.0
                 for s in range(cmb.n_stokes):
                     sample = sample + sw[:, s][:, None] * fields[s][pix]
@@ -543,8 +601,9 @@ class StreamingExecutor:
                 piece = 0.0
                 for st in entry["map_stages"]:
                     cmap = st["map"]
+                    sw = entry["sw"][self._band_sel[i]]
                     if mp["n_frames"] == 1:
-                        samples = cmap.sample(dx, dy, stokes_weight=entry["sw"], nu_index=st["channel"],
+                        samples = cmap.sample(dx, dy, stokes_weight=sw, nu_index=st["channel"],
                                               bilinear=mp["bilinear"])
                     else:
                         fi, whi = ext["fi"], ext["whi"]
@@ -552,7 +611,7 @@ class StreamingExecutor:
                         for f in range(mp["n_frames"]):
                             w_f = torch.where(fi == f, 1 - whi, 0.0) + torch.where(fi + 1 == f, whi, 0.0)
                             samples = samples + w_f[None, :] * cmap.sample(
-                                dx, dy, stokes_weight=entry["sw"], nu_index=st["channel"], t_index=f,
+                                dx, dy, stokes_weight=sw, nu_index=st["channel"], t_index=f,
                                 bilinear=mp["bilinear"])
                     piece = piece + st["cal"](pwv_b, el_b) * samples
                 # the integration kernel on the haloed product, clamped at
@@ -575,25 +634,17 @@ class StreamingExecutor:
         cr = self._casc_rows
         w_all = torch.empty((cr["n"], B), dtype=torch.float32, device=dev) if cr else None
         for i, (band, model) in enumerate(zip(p.bands, self.noise_models)):
-            n_band = len(band.det_index)
-            if draws is not None:
-                wh, w, wm = draws[i]
-                white[i] = _as_f32(wh, dev)
-                if model.cascade is not None:
-                    a, z = cr["spans"][(i, 0)]
-                    w_all[a:z] = _as_f32(w, dev)
-                    if model.n_modes:
-                        a, z = cr["spans"][(i, 1)]
-                        w_all[a:z] = _as_f32(wm, dev)
-                continue
-            g = _generator(dev, key, 3, i, b)
-            white[i] = torch.randn((n_band, B), generator=g, dtype=torch.float32, device=dev)
+            # the band's whole draws in StreamingBandNoise.draw's order, this executor's rows kept
+            g = None if draws is not None else _generator(dev, key, 3, i, b)
+            given = (None, None, None) if draws is None else draws[i]
+            sel, n_band = self._band_sel[i], len(band.det_index)
+            white[i] = _normals(g, (n_band, B), sel, given[0], dev)
             if model.cascade is not None:
                 a, z = cr["spans"][(i, 0)]
-                torch.randn((n_band, B), generator=g, dtype=torch.float32, device=dev, out=w_all[a:z])
+                _normals(g, (n_band, B), sel, given[1], dev, out=w_all[a:z])
                 if model.n_modes:
                     a, z = cr["spans"][(i, 1)]
-                    torch.randn((model.n_modes, B), generator=g, dtype=torch.float32, device=dev, out=w_all[a:z])
+                    _normals(g, (model.n_modes, B), slice(None), given[2], dev, out=w_all[a:z])
         new_noise = list(state["noise"])
         pink_all = None
         if cr:
@@ -616,7 +667,7 @@ class StreamingExecutor:
                     a, z = cr["spans"][(i, 1)]
                     mode_pink = pink_all[a:z]
             rows = self._rows(i)
-            unscaled = model.combine(white[i], pink, mode_pink)
+            unscaled = model.combine(white[i], pink, mode_pink, rows=self._band_sel[i])
             white[i] = None
             noise[rows] = band_noise_scale(band, [fields_sum[rows]] if band.NEP_per_loading else []) * unscaled
         return new_noise, noise
@@ -662,7 +713,9 @@ class StreamingExecutor:
             x = tod[self._rows(i)]
             x = x - x.mean(dim=-1, keepdim=True)
             spec = torch.fft.rfft(x * hann, dim=-1).abs() ** 2
-            psd_sum.append(state["psd_sum"][i] + full * norm * spec.mean(dim=0))
+            # a rank adds its rows' share of the band's mean; the shares are summed across ranks
+            mean = spec.mean(dim=0) if self.rows is None else spec.sum(dim=0) / len(self.program.bands[i].det_index)
+            psd_sum.append(state["psd_sum"][i] + full * norm * mean)
         return {"psd_sum": psd_sum, "psd_blocks": state["psd_blocks"] + full}
 
     # -- checkpoint / resume -------------------------------------------------------
@@ -679,7 +732,8 @@ class StreamingExecutor:
 
     def set_mutable_leaves(self, state, leaves) -> dict:
         """``state`` with its mutable leaves replaced, in ``mutable_leaves``' order."""
-        leaves = [torch.as_tensor(np.array(x, dtype=np.float32), device=self.device) for x in leaves]
+        leaves = [x.to(device=self.device, dtype=torch.float32) if torch.is_tensor(x)
+                  else torch.as_tensor(np.array(x, dtype=np.float32), device=self.device) for x in leaves]
         cur = self.mutable_leaves(state)
         if len(leaves) != len(cur):
             raise ValueError(f"{len(leaves)} leaves given, the state has {len(cur)}")
@@ -695,11 +749,64 @@ class StreamingExecutor:
         return state
 
     def _fingerprint(self) -> str:
-        return (f"v3:scatter:{self.n_t}:{self.n_blocks}:{self.B}:{self.n_det}:{self.n_x}:{self.n_y}:"
+        return (f"v3:scatter:{self.n_t}:{self.n_blocks}:{self.B}:{self.n_det_global}:{self.n_x}:{self.n_y}:"
                 f"{self.res:.9g}:{self.center[0]:.9g}:{self.center[1]:.9g}:{self.frame}")
 
+    DET_MAJOR_KEYS = ("lc_pad", "lc_last", "gains", "pwv_pad2", "pwv_last", "el_pad2", "el_last")
+
+    def global_leaves(self, state) -> list:
+        """The mutable leaves in the single-process layout: on a mesh, the
+        accumulators summed over the "det" ranks and every band's cascade
+        state gathered to the band's whole rows (a collective)."""
+        if self.mesh is None:
+            return self.mutable_leaves(state)
+        leaves = [self._reduce(state[k]) for k in ("bin_lost", "map_sum", "map_wgt")]
+        for i, band_state in enumerate(state["noise"]):
+            for j, x in enumerate(band_state):
+                if j == 0:  # detector rows; the mode cascades are replicated
+                    whole = x.new_zeros((len(self.program.bands[i].det_index), *x.shape[1:]))
+                    whole[self._band_sel[i]] = x
+                    x = self.mesh.all_reduce(whole, "det")
+                leaves.append(x)
+        return leaves + [state["psd_blocks"], *[self._reduce(x) for x in state["psd_sum"]]]
+
+    def local_leaves(self, state, leaves) -> list:
+        """This rank's part of single-process-layout ``leaves`` laid over
+        ``state``'s structure: its rows of the cascades' states, and the
+        accumulators on the first "det" rank alone (the others add to zero)."""
+        if self.mesh is None:
+            return list(leaves)
+        first = self.mesh.axis_index("det") == 0
+        it = iter(_as_f32(x, self.device) for x in leaves)
+
+        def acc(x):
+            return x if first else torch.zeros_like(x)
+
+        out = [acc(next(it)) for _ in range(3)]
+        for i, band_state in enumerate(state["noise"]):
+            out += [x[self._band_sel[i]] if j == 0 else x for j, x in zip(range(len(band_state)), it)]
+        out.append(next(it))
+        return out + [acc(x) for x in it]
+
+    def shard_state(self, state) -> dict:
+        """This rank's part of a single-process ``state`` (an
+        ``init_state``, or one carried from maria_tpu): its rows of the
+        detector-major leaves and of the cascades' states."""
+        if self.mesh is None:
+            return state
+        r0, r1 = self.rows
+        out = {k: (v[r0:r1] if k in self.DET_MAJOR_KEYS else v) for k, v in state.items()}
+        out["noise"] = [tuple(x[self._band_sel[i]] if j == 0 else x for j, x in enumerate(band_state))
+                        for i, band_state in enumerate(state["noise"])]
+        if self.mesh.axis_index("det") != 0:  # the accumulators count once, on the first rank
+            out.update({k: torch.zeros_like(state[k]) for k in ("bin_lost", "map_sum", "map_wgt")})
+            out["psd_sum"] = [torch.zeros_like(x) for x in state["psd_sum"]]
+        return out
+
     def _save_ckpt(self, path, state, next_block: int, key: int):
-        payload = {f"leaf_{i}": x.detach().cpu().numpy() for i, x in enumerate(self.mutable_leaves(state))}
+        payload = {f"leaf_{i}": x.detach().cpu().numpy() for i, x in enumerate(self.global_leaves(state))}
+        if self.mesh is not None and self.mesh.rank != 0:
+            return  # rank 0 writes the checkpoint
         tmp = f"{path}.tmp"
         np.savez(tmp, next_block=np.int64(next_block), fingerprint=np.str_(self._fingerprint()),
                  key_data=np.asarray([key], dtype=np.int64), **payload)
@@ -715,7 +822,8 @@ class StreamingExecutor:
             if not np.array_equal(z["key_data"], np.asarray([key], dtype=np.int64)):
                 raise ValueError(f"checkpoint {path} was written with a different seed")
             n = len(self.mutable_leaves(state))
-            return self.set_mutable_leaves(state, [z[f"leaf_{i}"] for i in range(n)]), int(z["next_block"])
+            leaves = self.local_leaves(state, [z[f"leaf_{i}"] for i in range(n)])
+            return self.set_mutable_leaves(state, leaves), int(z["next_block"])
 
     # -- runs ----------------------------------------------------------------------
     def _blocks(self, state, start_block: int = 0, with_map: bool = True, with_psd: bool = False,
@@ -740,9 +848,14 @@ class StreamingExecutor:
         ``init_state``; and "blocks": a block's per-band draws, see
         ``noise_block``) or ``state`` (an ``init_state``, e.g. carried
         from maria_tpu by ``convert.stream_state_from_arrays``) replace the
-        generators. ``mxu_binning`` is maria_tpu's and changes nothing."""
+        generators; both are global. With a ("det", ...) ``mesh`` every rank
+        runs its detector rows and returns the same reduced result (module
+        docstring). ``mxu_binning`` is maria_tpu's and changes nothing."""
         if mesh is not None:
-            raise NotImplementedError(f"StreamingExecutor.run(mesh=): {MESH_MESSAGE}")
+            ex = self.shard(mesh)
+            return ex.run(key, group_size=group_size, accumulate_psd=accumulate_psd, checkpoint_path=checkpoint_path,
+                          checkpoint_every=checkpoint_every, draws=draws,
+                          state=None if state is None else ex.shard_state(state))
         key = 0 if key is None else int(key)
         state = self.init_state(key, draws) if state is None else state
         start_block = 0
@@ -762,17 +875,16 @@ class StreamingExecutor:
         if accumulate_psd:
             n_blocks = max(float(state["psd_blocks"]), 1.0)
             psd_freqs = np.fft.rfftfreq(self.B, d=1.0 / self.program.sample_rate)
-            psds = [s.cpu().numpy() / n_blocks for s in state["psd_sum"]]
+            psds = [self._reduce(s).cpu().numpy() / n_blocks for s in state["psd_sum"]]
         return StreamingResult(
-            map_sum=state["map_sum"].reshape(self.n_y, self.n_x).cpu().numpy(),
-            map_wgt=state["map_wgt"].reshape(self.n_y, self.n_x).cpu().numpy(),
+            map_sum=self._reduce(state["map_sum"]).reshape(self.n_y, self.n_x).cpu().numpy(),
+            map_wgt=self._reduce(state["map_wgt"]).reshape(self.n_y, self.n_x).cpu().numpy(),
             n_samples=self.n_real_det * self.n_t, n_x=self.n_x, n_y=self.n_y, center=self.center, res=self.res,
             psd_freqs=psd_freqs, psds=psds,
         )
 
-    @staticmethod
-    def _check_lost(state):
-        lost = float(state["bin_lost"])
+    def _check_lost(self, state):
+        lost = float(self._reduce(state["bin_lost"]))
         if lost:
             raise RuntimeError(f"the binning dropped {lost:.0f} in-map samples")
 

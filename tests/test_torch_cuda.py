@@ -160,6 +160,21 @@ def test_shared_v_kernel_matches_plain(cuda_device, n_det, m1):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("row0,n_det", [(25002, 25002), (3, 4099), (1, 5)])
+def test_shared_v_kernel_at_row0(cuda_device, row0, n_det):
+    """K3 at a rank's first row: within one bf16 ulp of the plain version
+    at that row0, and equal bit for bit to those rows of a row0 = 0 launch."""
+    c = band_half_spectrum(50.0, 0.5, 1.0, 2 * 1536, corr_prop=0.5)
+    key = draw_key(torch.Generator(device=cuda_device).manual_seed(2), cuda_device)
+    V = shared_v(key, c, n_det, row0=row0)[0]
+    ref = shared_v_plain(key, c, n_det, row0=row0)[0].float()
+    whole = shared_v(key, c, row0 + n_det)[0]
+    torch.cuda.synchronize()
+    assert bool(((V.float() - ref).abs() <= _bf16_ulp(torch.maximum(V.float().abs(), ref.abs()))).all())
+    assert torch.equal(V, whole[row0:])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m1,gap", [(1537, 0), (1537, 1), (1536, 1), (257, 7)])
 def test_shared_v_kernel_into_strided_operand(cuda_device, m1, gap):
     """K3 written into a wider operand of row stride 2 m1 + gap (even and

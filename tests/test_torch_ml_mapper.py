@@ -268,12 +268,14 @@ def test_overflow_buckets_keep_the_operator_symmetric(scene):
     assert float(ref_r @ ref_r) > float(ref_b @ ref_b)
 
 
-def test_fit_keywords_and_history(scene, caplog):
+def test_fit_keywords_and_history(scene, caplog, tmp_path):
     """epochs / steps_per_epoch / max_steps_per_epoch override the
     constructor's, run is fit, init="random" starts from a draw of the
     naive map's scale; the TPU keywords are taken; fit(plot=True) plots
     each epoch's map and plot_noise_model the median PSD and the k modes;
-    mesh=, unknown solvers and inits raise; bilinear/prior warn."""
+    mesh= runs (a one-rank gloo world here: the fit equals the fit without
+    a mesh; tests/test_torch_parallel.py shards it over four ranks);
+    unknown solvers and inits raise; bilinear/prior warn."""
     tod = scene["tod"]
     kw = grid_kw("on")
     mapper = maria_torch.MaximumLikelihoodMapper([tod], n_epochs=3, n_cg_iters=2, mxu_pointing=True, **kw)
@@ -297,8 +299,18 @@ def test_fit_keywords_and_history(scene, caplog):
     ax = mapper.plot_noise_model()
     assert len(ax.get_lines()) == 1 + mapper.k and ax.get_title() == "noise model, epoch 6/6"
     plt.close("all")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        maria_torch.MaximumLikelihoodMapper([tod], mesh=object(), **kw)
+    import torch.distributed as dist
+
+    from maria_torch.parallel import create_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0, world_size=1)
+    try:
+        mesh = create_mesh(axis_names=("det",), device="cpu")
+        sharded = maria_torch.MaximumLikelihoodMapper([tod], mesh=mesh, n_epochs=1, n_cg_iters=3, k=1, **kw).fit()
+    finally:
+        dist.destroy_process_group()
+    single = maria_torch.MaximumLikelihoodMapper([tod], n_epochs=1, n_cg_iters=3, k=1, **kw).fit()
+    torch.testing.assert_close(sharded.data, single.data, rtol=0, atol=0)
     with pytest.raises(ValueError, match="init"):
         maria_torch.MaximumLikelihoodMapper([tod], init="zeros", **kw)
     with caplog.at_level(logging.WARNING, logger="maria_torch"):

@@ -500,15 +500,38 @@ def test_welch_psd_equals_whole_tod(scene):
     np.testing.assert_allclose(res.psds[0], p_ref.mean(axis=0), rtol=2e-4)
 
 
-def test_mesh_and_time_sharding_name_item_11(scene):
-    from maria_torch.atmosphere.streaming import extrude_time_sharded
+def test_mesh_and_time_sharding_name_item_11(scene, tmp_path):
+    """ROADMAP item 11's two paths run: run(mesh=) on a one-rank gloo world
+    equals the run without a mesh (the map bit for bit, the Welch PSD
+    within 1e-6), and extrude_time_sharded over a one-rank time axis equals
+    StreamingExtrusion's chunk bit for bit (tests/test_torch_parallel.py
+    runs both over four ranks)."""
+    import torch.distributed as dist
+
+    from maria_torch.atmosphere.streaming import StreamingExtrusion, extrude_time_sharded
     from maria_torch.ops.streaming_exec import StreamingExecutor
+    from maria_torch.parallel import create_mesh
 
     ex = StreamingExecutor(scene["program"], scene["obs"], block_tc=BLOCK_TC, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ex.run(0, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        extrude_time_sharded(None)
+    proc = scene["program"].ar_processes[0] if scene["program"].ar_processes else None
+    if proc is None:
+        from maria_torch.atmosphere.process import AutoregressiveProcess
+
+        proc = AutoregressiveProcess(np.stack([10.0 * np.arange(12), np.full(12, 500.0)], axis=-1),
+                                     10.0 * np.arange(24), callback_kwargs={"nu": 5 / 6, "r0": 300.0})
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0, world_size=1)
+    try:
+        sharded = ex.run(0, group_size=4, mesh=create_mesh(axis_names=("det",), device="cpu"), accumulate_psd=True)
+        chunks = extrude_time_sharded(proc, 3, 16, create_mesh(axis_names=("time",), device="cpu"))
+    finally:
+        dist.destroy_process_group()
+    single = ex.run(0, group_size=4, accumulate_psd=True)
+    np.testing.assert_array_equal(sharded.map_wgt, single.map_wgt)
+    np.testing.assert_array_equal(sharded.map_sum, single.map_sum)
+    np.testing.assert_allclose(np.stack(sharded.psds), np.stack(single.psds), rtol=1e-6)
+    g = torch.Generator()
+    g.manual_seed(3)
+    torch.testing.assert_close(chunks, StreamingExtrusion(proc, 16, device="cpu").run_chunks(1, g)[0], rtol=0, atol=0)
 
 
 # -- the sky stages a block at a time ----------------------------------------------------------------------------
