@@ -307,6 +307,25 @@ Phases, each of which must pass (any failure exits non-zero):
    A rank that fails, or a world that outlives its join timeout, fails the
    run.
 
+32. phase (z), the program as a function of the pointing under autograd:
+   (z1) slice (a)'s MUSTANG-2 program with noise (total_power_fn() through
+   the matrix product, V from K3): 16 detectors spread over the array,
+   each given a 2-arcminute error along eta, recovered together by
+   maria_tpu's normalized, backtracking descent (tests/test_autodiff.py:
+   126-137) on each detector's own row against the observed TOD of the
+   true offsets on one seed: every detector's loss under 0.3 of its
+   start and its error under 0.5 of its start, K3 launched once a
+   forward, two same-seed forwards and one inside enable_grad bit-equal;
+   (z2) slice (c)'s AtLAST-50k x 60 s total_power_fn() forward and
+   backward() in all 50,004 detectors' offsets: warm forward and backward
+   ms, the peak beside the forward's alone, a finite gradient, the
+   directional derivative of the mean square mismatch at 0.3 arcmin from
+   the true offsets within 10% of its central difference; (z3) slice (a)
+   with NEP_per_loading (the NEP over the band's mean loading) on the
+   fields route: the noise field, which moves only through its scale,
+   its mean square's directional derivative within 10% of its central
+   difference, K1 twice a forward, total_power_fn()'s backward finite.
+
 A line says that HDF5 files and plotting are not driven on the card
 (the CPU tests hold them), with whether h5py and matplotlib are found.
 
@@ -324,8 +343,8 @@ beside them and enters no bound).
 
 The line before the last is the card as nvidia-smi reports it, the one
 before that the kernels' JSON record (K1's launches counted over slices
-(b), (r), (s) and (w), K2's over (b), (p), (q), (r), (t), (v), (w), (x)
-and (y), K3's over (c) and (y), the AR kernel's over (f), (u)'s chunks
+(b), (r), (s), (w), (y) and (z), K2's over (b), (p), (q), (r), (t), (v),
+(w), (x) and (y), K3's over (c), (y) and (z), the AR kernel's over (f), (u)'s chunks
 and (y), KC's over (t) and (y); a phase (y) launch counts in its rank's
 process, and both ranks' counts are summed); the last line is the JSON
 result.
@@ -3872,6 +3891,260 @@ def run_mesh(device, card, tod_a, sim_h, program_g):
     return launches, k3_row0, k1_rows, summary
 
 
+Z_SEED = 18  # phase (z)'s realization
+Z_DETECTORS = 16  # (z1): detectors calibrated together, spread over the array
+Z_ERROR_ARCMIN = 2.0  # (z1): the error injected along eta (dy), as tests/test_autodiff.py:110-114
+Z_STEPS = 30  # (z1): descent steps, as tests/test_autodiff.py:127
+Z_PERTURB_ARCMIN = 0.3  # (z2), (z3): the operating point's rms distance from the true offsets (test_autodiff.py:77-79)
+Z_EPS_TOTAL = 3.0  # (z2): the step, in units of z_eps
+Z_EPS_NOISE = 10.0  # (z3): the step, in units of z_eps
+
+
+def z_eps(n_coords: int, scale: float) -> float:
+    """The central difference's step along a unit direction over
+    ``n_coords`` coordinates: ``scale`` times the step at which each
+    coordinate moves as far as in tests/test_autodiff.py:85-89 (eps 2e-5
+    over test/1deg's 120 x 2 coordinates). The step must sit above the
+    float32 floor of the loss, where the difference wanders, and far
+    inside the screens' cells: at scale 1 the noise field's mean square,
+    which moves only through the noise scale, changes by ~1e-6 of itself,
+    a few float32 ulps of each sample.
+    """
+    return scale * 2e-5 * float(np.sqrt(n_coords / 240))
+
+
+def z_operating_point(offsets, seed=Z_SEED):
+    """(x, v): the offsets moved by Z_PERTURB_ARCMIN rms and a unit
+    direction, both drawn from ``seed`` on the offsets' device."""
+    import torch
+
+    g = torch.Generator(device=offsets.device)
+    g.manual_seed(seed)
+    x = offsets + float(np.radians(Z_PERTURB_ARCMIN / 60)) * torch.randn(offsets.shape, generator=g,
+                                                                          device=offsets.device)
+    v = torch.randn(offsets.shape, generator=g, device=offsets.device)
+    return x, v / v.norm()
+
+
+def directional_check(loss, x, v, eps) -> tuple:
+    """(autograd's directional derivative of ``loss`` at ``x`` along ``v``,
+    the central difference's, the gradient); the difference is divided by
+    the float64 distance of the two float32 points along v."""
+    import torch
+
+    xr = x.detach().requires_grad_(True)
+    (g,) = torch.autograd.grad(loss(xr), xr)
+    analytic = float((g.double() * v.double()).sum())
+    with torch.no_grad():
+        xp, xm = x + eps * v, x - eps * v
+        fd = (float(loss(xp)) - float(loss(xm))) / float(((xp.double() - xm.double()) * v.double()).sum())
+    return analytic, fd, g
+
+
+def mean_square64(x):
+    """mean(x^2), the squares summed in float64."""
+    import torch
+
+    return x.square().sum(dtype=torch.float64) / x.numel()
+
+
+def run_calibration(device, card, program) -> dict:
+    """(z1): Z_DETECTORS of slice (a)'s detectors, each with Z_ERROR_ARCMIN
+    injected along eta, recovered together by maria_tpu's normalized,
+    backtracking step (tests/test_autodiff.py:126-137) on each detector's
+    own row of total_power_fn() against the observed TOD of the true
+    offsets on one seed; one forward (and its backward) serves every
+    detector, since a row depends only on its own offsets."""
+    import torch
+
+    from maria_torch.ops.pink_noise import pink_noise
+    from maria_torch.ops.shared_v import shared_v
+
+    fn = program.total_power_fn()
+    seed, offsets_true, bs_az, bs_el = program.example_args(Z_SEED, device)
+    pink_noise.launches = shared_v.launches = 0
+    with torch.no_grad():
+        observed = fn(seed=seed, device=device)
+        again = fn(seed=seed, offsets=offsets_true, bs_az=bs_az, bs_el=bs_el, device=device)
+    with torch.enable_grad():
+        inside = fn(seed=seed, offsets=offsets_true.clone().requires_grad_(True), device=device)
+    bit_equal = bool(torch.equal(observed, again)) and bool(torch.equal(observed, inside.detach()))
+    del again, inside
+    rows = torch.as_tensor(np.linspace(0, program.n_det - 1, Z_DETECTORS).round().astype(np.int64), device=device)
+    err = float(np.radians(Z_ERROR_ARCMIN / 60))
+    p_true = offsets_true[rows]
+    p0 = p_true + torch.tensor([0.0, -err], device=device)
+
+    def row_losses(p):
+        tod = fn(seed=seed, offsets=offsets_true.index_put((rows,), p), device=device)
+        return (tod[rows] - observed[rows]).double().square().mean(dim=1)
+
+    forwards = 3
+    device_sync(device)
+    s = time.perf_counter()
+    with torch.no_grad():
+        l0 = row_losses(p0)
+    forwards += 1
+    p, eta = p0.clone(), torch.full((Z_DETECTORS,), 0.3 * err, dtype=torch.float32, device=device)
+    for _ in range(Z_STEPS):
+        pr = p.detach().requires_grad_(True)
+        losses = row_losses(pr)
+        (g,) = torch.autograd.grad(losses.sum(), pr)
+        trial = p - eta[:, None] * g / g.norm(dim=1, keepdim=True).clamp_min(1e-30)
+        with torch.no_grad():
+            better = row_losses(trial) < losses.detach()
+        p = torch.where(better[:, None], trial, p)
+        eta = torch.where(better, eta * 1.3, eta * 0.5)
+        forwards += 2
+    with torch.no_grad():
+        l_end = row_losses(p)
+    forwards += 1
+    device_sync(device)
+    descent_s = time.perf_counter() - s
+    err0 = (p0 - p_true).double().norm(dim=1)
+    err1 = (p - p_true).double().norm(dim=1)
+    passed = (l_end < 0.3 * l0) & (err1 < 0.5 * err0)
+    launches = {"shared_v": shared_v.launches, "pink_noise": pink_noise.launches}
+    n_pass = int(passed.sum())
+    ok = bit_equal and n_pass == Z_DETECTORS and fn.__name__ == "matmul_total"
+    ok &= launches == {"shared_v": forwards, "pink_noise": 0}
+    print(f"phase (z1) pointing calibration, slice (a)'s MUSTANG-2 {program.n_det} x {program.n_t} with noise through "
+          f"{fn.__name__} (K3): {Z_DETECTORS} detectors {rows.tolist()} each {Z_ERROR_ARCMIN} arcmin off along eta, "
+          f"{Z_STEPS} steps in {descent_s:.2f} s ({forwards} forwards, {Z_STEPS} backwards); loss end/start "
+          f"{[round(x, 4) for x in (l_end / l0).tolist()]} (gate < 0.3), error end/start "
+          f"{[round(x, 4) for x in (err1 / err0).tolist()]} (gate < 0.5): {n_pass} of {Z_DETECTORS} pass; "
+          f"same-seed forwards bit-equal (no grad twice, and inside enable_grad) {bit_equal}; launches {launches} "
+          f"(K3 once a forward: {forwards}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("phase (z1) pointing calibration")
+    return {"launches": launches, "passed": n_pass, "descent_s": round(descent_s, 3),
+            "ms_a_step": round(descent_s * 1e3 / Z_STEPS, 2)}
+
+
+def run_atlast_backward(device, card, program) -> dict:
+    """(z2): slice (c)'s AtLAST-50k x 60 s total_power_fn() forward and
+    backward() with respect to every detector's offsets: warm times, the
+    peak beside the forward's alone, a finite gradient, and the
+    directional derivative of the mean square mismatch against the
+    observed TOD of the true offsets (summed in float64) within 10% of
+    its central difference."""
+    import torch
+
+    from maria_torch.ops.pink_noise import pink_noise
+    from maria_torch.ops.shared_v import shared_v
+
+    fn = program.total_power_fn()
+    seed, offsets_true, _, _ = program.example_args(Z_SEED, device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pink_noise.launches = shared_v.launches = 0
+    with torch.no_grad():
+        observed = fn(seed=seed, device=device)
+    device_sync(device)
+    forward_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    x, v = z_operating_point(offsets_true)
+
+    def loss(offsets):
+        return mean_square64(fn(seed=seed, offsets=offsets, device=device) - observed)
+
+    fwd, bwd = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(1 + WARM_REPS):
+        xr = x.detach().requires_grad_(True)
+        device_sync(device)
+        s = time.perf_counter()
+        value = loss(xr)
+        device_sync(device)
+        m = time.perf_counter()
+        value.backward()
+        device_sync(device)
+        fwd.append((m - s) * 1e3)
+        bwd.append((time.perf_counter() - m) * 1e3)
+    grad_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    finite = bool(torch.isfinite(xr.grad).all()) and float(xr.grad.abs().max()) > 0
+    del xr, value
+    eps = z_eps(x.numel(), Z_EPS_TOTAL)
+    analytic, fd, _ = directional_check(loss, x, v, eps)
+    launches = {"shared_v": shared_v.launches, "pink_noise": pink_noise.launches}
+    forwards = 1 + (1 + WARM_REPS) + 3
+    rel = abs(analytic - fd) / max(abs(analytic), abs(fd), 1e-300)
+    ok = finite and rel <= 0.1 and launches == {"shared_v": forwards, "pink_noise": 0}
+    f_ms, b_ms = float(np.mean(fwd[1:])), float(np.mean(bwd[1:]))
+    print(f"phase (z2) AtLAST-50k x {program.n_t / program.sample_rate:.0f} s ({program.n_det} x {program.n_t}), "
+          f"total_power_fn() forward and backward() in all {x.numel()} offset coordinates: warm forward {f_ms:.2f} ms, "
+          f"backward {b_ms:.2f} ms, together {f_ms + b_ms:.2f} ms (means of {WARM_REPS}; first {fwd[0]:.1f} + "
+          f"{bwd[0]:.1f} ms; {[round(a, 2) for a in fwd[1:]]}, {[round(b, 2) for b in bwd[1:]]}); peak device memory "
+          f"above the program's tables {grad_peak:.2f} GB, the forward alone {forward_peak:.2f} GB ({card}); gradient "
+          f"finite and nonzero {finite}; directional derivative of the mean square mismatch at {Z_PERTURB_ARCMIN} "
+          f"arcmin rms from the true offsets {analytic:.6e}, central difference (eps {eps:.3e}) {fd:.6e}: "
+          f"{rel:.2e} apart (limit 0.1); launches {launches} (K3 once a forward: {forwards}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("phase (z2) AtLAST-50k backward")
+    return {"launches": launches, "forward_ms": round(f_ms, 2), "backward_ms": round(b_ms, 2),
+            "peak_gb": round(grad_peak, 2), "forward_peak_gb": round(forward_peak, 2),
+            "directional": [analytic, fd]}
+
+
+def run_photon_gradient(device, card, program) -> dict:
+    """(z3): slice (a)'s program with NEP_per_loading set to the NEP over
+    the band's mean loading (slice (s)'s rule) takes the fields route, its
+    noise by K1: the noise field depends on the pointing only through its
+    scale 1e12 (NEP + NEP_per_loading P), and the directional derivative of
+    its mean square (fields_fn(), summed in float64) is held within 10% of
+    its central difference; total_power_fn()'s backward is finite."""
+    import torch
+
+    from maria_torch.ops.pink_noise import pink_noise
+    from maria_torch.ops.shared_v import shared_v
+
+    band = program.bands[0]
+    seed, offsets, _, _ = program.example_args(Z_SEED, device)
+    with torch.no_grad():
+        signal = program.fields(seed=seed, device=device, upto="signal")
+        mean_W = 1e-12 * float(sum(signal.values()).double().mean())
+    del signal
+    before = band.NEP_per_loading
+    band.NEP_per_loading = band.NEP / mean_W
+    try:
+        fn, fields_of = program.total_power_fn(), program.fields_fn()
+        pink_noise.launches = shared_v.launches = 0
+        x, v = z_operating_point(offsets)
+        eps = z_eps(x.numel(), Z_EPS_NOISE)
+        analytic, fd, _ = directional_check(
+            lambda off: mean_square64(fields_of(seed, offsets=off, device=device)[0]["noise"]), x, v, eps)
+        xr = x.detach().requires_grad_(True)
+        total = fn(seed=seed, offsets=xr, device=device)
+        total.square().mean().backward()
+        finite = bool(torch.isfinite(xr.grad).all()) and float(xr.grad.abs().max()) > 0
+        launches = {"pink_noise": pink_noise.launches, "shared_v": shared_v.launches}
+        route = fn.__name__
+    finally:
+        band.NEP_per_loading = before
+    rel = abs(analytic - fd) / max(abs(analytic), abs(fd), 1e-300)
+    ok = route == "fields_total" and finite and rel <= 0.1 and launches == {"pink_noise": 2 * 4, "shared_v": 0}
+    print(f"phase (z3) NEP_per_loading on slice (a)'s MUSTANG-2 ({band.name}: NEP_per_loading {band.NEP / mean_W:.4e} "
+          f"= NEP / mean loading {1e12 * mean_W:.3f} pW) through {route}: directional derivative of the noise field's "
+          f"mean square, which moves only through the noise scale, {analytic:.6e}, central difference (eps "
+          f"{eps:.3e}) {fd:.6e}: {rel:.2e} apart (limit 0.1); total_power_fn()'s backward finite {finite}; launches "
+          f"{launches} (K1 twice a forward, the rows and the modes: four forwards) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail("phase (z3) NEP_per_loading gradient")
+    return {"launches": launches, "directional": [analytic, fd]}
+
+
+def run_autodiff(device, card, program_a, program_c) -> tuple:
+    """Phase (z): (z1), (z2), (z3). Returns (launches summed, summary)."""
+    z1 = run_calibration(device, card, program_a)
+    z2 = run_atlast_backward(device, card, program_c)
+    z3 = run_photon_gradient(device, card, program_a)
+    launches = {k: z1["launches"].get(k, 0) + z2["launches"].get(k, 0) + z3["launches"].get(k, 0)
+                for k in ("shared_v", "pink_noise")}
+    return launches, {"z1": z1, "z2": z2, "z3": z3}
+
+
 def main() -> int:
     try:
         import torch
@@ -3978,6 +4251,7 @@ def main() -> int:
     launches_w, k1_w, k2_w, summary_w = run_transfer_tutorial(device, card, gen)
     launches_x, summary_x = run_mustang_fits(device, card, results["a"][0])
     launches_y, k3_y, k1_y, summary_y = run_mesh(device, card, results["a"][0], sim_h, program_g)
+    launches_z, summary_z = run_autodiff(device, card, results["a"][3], program_c)
     print(f"not driven on the card: HDF5 files and plotting (held by the CPU tests); on this machine h5py "
           f"{'found' if importlib.util.find_spec('h5py') else 'not found'}, matplotlib "
           f"{'found' if importlib.util.find_spec('matplotlib') else 'not found'}", flush=True)
@@ -3988,7 +4262,7 @@ def main() -> int:
                 "k": launches_k, "l": launches_l, "m": launches_m, "p": launches_p, "q": launches_q, "r": launches_r,
                 "s": launches_s, "t": launches_t, "u 600 s": summary_u[U_SECONDS[0]]["launches"],
                 "u 3600 s": summary_u[U_SECONDS[1]]["launches"], "u chunks": {"ar_extrude": ar_u["launches"]},
-                "v": launches_v, "w": launches_w, "x": launches_x, "y (both ranks)": launches_y}
+                "v": launches_v, "w": launches_w, "x": launches_x, "y (both ranks)": launches_y, "z": launches_z}
     for name in ("pink_noise", "bin_map", "shared_v", "ar_extrude", "sht_synth", "sht_anal", "pink_cascade"):
         print(f"main-path launches of {name} by slice: {({k: v[name] for k, v in by_slice.items() if name in v})}",
               flush=True)
@@ -3996,7 +4270,7 @@ def main() -> int:
         {"name": "pink_noise", "route": "cuda", "source": "maria_torch/csrc/pink_noise.cu",
          "replaces": "maria_tpu/ops/pallas_noise.py:269",
          "launches": launches_b["pink_noise"] + launches_r["pink_noise"] + launches_s["pink_noise"]
-         + launches_w["pink_noise"] + launches_y["pink_noise"],
+         + launches_w["pink_noise"] + launches_y["pink_noise"] + launches_z["pink_noise"],
          **k1[(217, 30000, 32768)]},
         {"name": "bin_map", "route": "cuda", "source": "maria_torch/csrc/bin_map.cu",
          "replaces": "maria_tpu/ops/pallas_binning.py:119",
@@ -4005,7 +4279,8 @@ def main() -> int:
          + launches_y["bin_map"],
          **k2["b"]["stacked"]},
         {"name": "shared_v", "route": "cuda", "source": "maria_torch/csrc/shared_v.cu",
-         "replaces": "maria_tpu/ops/pallas_noise.py:427", "launches": launches_c["shared_v"] + launches_y["shared_v"],
+         "replaces": "maria_tpu/ops/pallas_noise.py:427",
+         "launches": launches_c["shared_v"] + launches_y["shared_v"] + launches_z["shared_v"],
          **k3[5556 * ATLAST_BANDS]},
         {"name": "ar_extrude", "route": "cuda", "source": "maria_torch/csrc/ar_extrude.cu",
          "replaces": "maria_tpu/atmosphere/process.py:34",
@@ -4039,6 +4314,7 @@ def main() -> int:
     print(f"slice (x) summary, a MUSTANG-2 TOD through a FITS file ({card}): {json.dumps(summary_x)}", flush=True)
     print(f"phase (y) summary, the mesh over two gloo ranks sharing the card ({card}): {json.dumps(summary_y)}",
           flush=True)
+    print(f"phase (z) summary, autograd through the program ({card}): {json.dumps(summary_z)}", flush=True)
     for key, r in (("K1 at slice (w)'s band", k1_w), ("K2 at slice (w)'s band", k2_w), ("K1 at (y6)'s rows", k1_y)):
         print(f"{key} summary: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bound_ms'] / r['ms']:.1%}), shape {r['shape']}",
@@ -4054,13 +4330,15 @@ def main() -> int:
           f"slice (q) {launches_q['bin_map']} + slice (r) {launches_r['bin_map']} + slice (t) {launches_t['bin_map']} "
           f"+ slice (v) {launches_v['bin_map']} + slice (w) {launches_w['bin_map']} + slice (x) "
           f"{launches_x['bin_map']} + phase (y) {launches_y['bin_map']}; K3's: slice (c) {launches_c['shared_v']} + "
-          f"phase (y) {launches_y['shared_v']}; the AR kernel's: slice (f) {results['f'][2]['ar_extrude']} + slice "
+          f"phase (y) {launches_y['shared_v']} + phase (z) {launches_z['shared_v']}; the AR kernel's: slice (f) "
+          f"{results['f'][2]['ar_extrude']} + slice "
           f"(u)'s chunks {ar_u['launches']} + phase (y) {launches_y['ar_extrude']}; KC's: slice (t) "
           f"{launches_t['pink_cascade']} + phase (y) {launches_y['pink_cascade']} (besides: (u) at 3,600 s "
           f"{summary_u[U_SECONDS[1]]['launches']['pink_cascade']}, (v)'s first fit {launches_v['pink_cascade']}); "
           f"K1's: slice (b) "
           f"{launches_b['pink_noise']} + slice (r) {launches_r['pink_noise']} + slice (s) {launches_s['pink_noise']} "
-          f"+ slice (w) {launches_w['pink_noise']} + phase (y) {launches_y['pink_noise']}",
+          f"+ slice (w) {launches_w['pink_noise']} + phase (y) {launches_y['pink_noise']} + phase (z) "
+          f"{launches_z['pink_noise']}",
           flush=True)
     for key, r in ks.items():
         print(f"KS summary {key}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "

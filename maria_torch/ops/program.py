@@ -12,6 +12,20 @@ bands partition the detector axis. The port keeps these contracts and
 drops the TPU devices around them (jit-argument tables, the no-gather
 band slicing, detector permutation).
 
+Both routes are differentiable in the pointing: ``fields`` and
+``total_power_fn()``'s function take the detector ``offsets`` and the
+coarse boresight track (``bs_az``, ``bs_el``) as optional tensors, and
+``seed`` as the realization's handle, from which every call seeds its
+own generator on the device, so one seed is one realization, inside
+``torch.enable_grad()`` or out of it (``fields_fn``, ``example_args``:
+maria_tpu's ``(key, offsets, bs_az_c, bs_el_c)`` functions). The
+gradient flows through the line of sight, the bilinear samplers'
+fractional weights, the band tables and, with ``NEP_per_loading``, the
+noise scale; the screens, the tables, the static sky samples and the
+noise draws are constants. The in-place assemblies (the per-band index
+writes into fresh buffers, the signal's sum, the noise product's
+epilogue) overwrite no tensor that autograd saved for the backward.
+
 A rank of a detector mesh computes one range of rows: ``fields``,
 ``draw_gains`` and ``total_power_fn()``'s function take ``rows=(start,
 stop)`` and build only that range's per-detector tables. Every draw is
@@ -241,12 +255,32 @@ class TODProgram:
             }
         return self._device_cache[key]
 
+    def _pointing(self, tabs, device, rows, offsets=None, bs_az=None, bs_el=None):
+        """(offsets, bs_az, bs_el) of one call on ``device``: each handed-in
+        tensor as float32 (``offsets`` at its global (n_det, 2) shape, the
+        ``rows`` kept), else the program's own from ``tabs``."""
+        def given(x, shape, name):
+            if tuple(x.shape) != shape:
+                raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
+            return torch.as_tensor(x).to(device=device, dtype=torch.float32)
+
+        n_tc = len(self.t_coarse)
+        if offsets is not None:
+            offsets = given(offsets, (self.n_det, 2), "offsets")
+            offsets = offsets if rows is None else offsets[rows[0]:rows[1]]
+        return (
+            tabs["offsets"] if offsets is None else offsets,
+            tabs["bs_az"] if bs_az is None else given(bs_az, (n_tc,), "bs_az"),
+            tabs["bs_el"] if bs_el is None else given(bs_el, (n_tc,), "bs_el"),
+        )
+
     def _upsample(self, values, kind):
         if self.upsample_ratio is not None:
             return upsample_time_phases(values, self.upsample_ratio, self.n_t, kind=kind)
         return upsample_time(values, self.t_coarse, self.t_fine, kind=kind)
 
-    def fields(self, generator=None, draws: dict = None, device=None, upto: str = None, rows=None):
+    def fields(self, generator=None, draws: dict = None, device=None, upto: str = None, rows=None, offsets=None,
+               bs_az=None, bs_el=None, seed: int = None):
         """One realization: ({field: (n_det, n_t) pW}, pwv_fine).
 
         Gains are not applied here (see ``draw_gains`` and
@@ -269,14 +303,21 @@ class TODProgram:
         atmosphere and, with a CMB or an input map, "cmb" and "map").
         ``rows`` = (start, stop) computes only those detectors' rows of
         every field, from the same draws (handed-in draws stay global).
+
+        ``offsets`` (n_det, 2) and ``bs_az``, ``bs_el`` (n_tc,) optionally
+        replace the program's detector offsets and coarse boresight track
+        (tensors, through which autograd differentiates; ``offsets`` stays
+        global with ``rows``). ``seed`` draws the realization from a
+        generator seeded with it on ``device`` in place of ``generator``.
         """
         device = resolve_device(device)
+        generator = seeded(generator, seed, device)
         draws = draws or {}
         rows = self.check_rows(rows)
         tabs = self._tensors(device, rows)
         n_rows = self.n_det if rows is None else rows[1] - rows[0]
 
-        _, el_clip, px, py = line_of_sight(tabs["offsets"], tabs["bs_az"], tabs["bs_el"])
+        _, el_clip, px, py = line_of_sight(*self._pointing(tabs, device, rows, offsets, bs_az, bs_el))
         pwv = accumulate_pwv(
             self.mean_pwv, self.screens, px, py, tabs["t_c"], W=tabs["W"],
             generator=generator, draws=draws.get("screens"),
@@ -410,10 +451,12 @@ class TODProgram:
         return self._noise_specs_cache
 
     def total_power_fn(self):
-        """fn(generator=None, draws=None, device=None, rows=None) -> (n_det,
-        n_t) float32 total pW, gain errors included (only the detectors
-        ``rows`` = (start, stop) when given, equal to those rows of the
-        unsharded total).
+        """fn(generator=None, draws=None, device=None, rows=None, offsets=None,
+        bs_az=None, bs_el=None, seed=None) -> (n_det, n_t) float32 total
+        pW, gain errors included (only the detectors ``rows`` = (start,
+        stop) when given, equal to those rows of the unsharded total).
+        ``offsets``, ``bs_az``, ``bs_el`` and ``seed`` are as ``fields``
+        takes them: the total is differentiable in the pointing.
 
         With ``use_noise_matmul()`` the noise stage is one matrix product
         whose epilogue adds the gained signal (``noise_total_matmul``); V
@@ -427,9 +470,13 @@ class TODProgram:
         ``fields`` takes them.
         """
         if not self.use_noise_matmul():
-            def fields_total(generator=None, draws=None, device=None, rows=None):
+            def fields_total(generator=None, draws=None, device=None, rows=None, offsets=None, bs_az=None,
+                             bs_el=None, seed=None):
+                device = resolve_device(device)
+                generator = seeded(generator, seed, device)
                 draws = draws or {}
-                fields, _ = self.fields(generator=generator, draws=draws, device=device, rows=rows)
+                fields, _ = self.fields(generator=generator, draws=draws, device=device, rows=rows, offsets=offsets,
+                                        bs_az=bs_az, bs_el=bs_el)
                 gains = self.draw_gains(generator=generator, draw=draws.get("gains"), device=device, rows=rows)
                 total = 0.0
                 for name, v in fields.items():
@@ -442,8 +489,10 @@ class TODProgram:
 
         specs, corr_cols, n_fft, shared_c, row_scale = self._noise_matmul_specs()
 
-        def matmul_total(generator=None, draws=None, device=None, rows=None):
+        def matmul_total(generator=None, draws=None, device=None, rows=None, offsets=None, bs_az=None, bs_el=None,
+                         seed=None):
             device = resolve_device(device)
+            generator = seeded(generator, seed, device)
             draws = draws or {}
             rows = self.check_rows(rows)
             tabs = self._tensors(device, rows)
@@ -452,7 +501,8 @@ class TODProgram:
                 r0, r1 = (0, self.n_det) if rows is None else rows
                 tabs["noise_cols"] = None if corr_cols is None else torch.as_tensor(corr_cols[r0:r1], **f32)
                 tabs["row_scale"] = None if row_scale is None else torch.as_tensor(row_scale[r0:r1], **f32)
-            signal = self.fields(generator=generator, draws=draws, device=device, upto="signal", rows=rows)
+            signal = self.fields(generator=generator, draws=draws, device=device, upto="signal", rows=rows,
+                                 offsets=offsets, bs_az=bs_az, bs_el=bs_el)
             A = signal.pop("atmosphere")
             for v in signal.values():
                 A += v
@@ -467,6 +517,31 @@ class TODProgram:
             )
 
         return matmul_total
+
+    def fields_fn(self):
+        """fn(seed, offsets=None, bs_az=None, bs_el=None, device=None,
+        draws=None, rows=None) -> (fields, pwv_fine): ``fields`` of the
+        realization ``seed`` as a function of the pointing (maria_tpu's
+        ``fields_fn``)."""
+        def fields_of(seed, offsets=None, bs_az=None, bs_el=None, device=None, draws=None, rows=None):
+            return self.fields(seed=seed, draws=draws, device=device, rows=rows, offsets=offsets, bs_az=bs_az,
+                               bs_el=bs_el)
+
+        return fields_of
+
+    def example_args(self, seed: int = 0, device=None) -> tuple:
+        """(seed, offsets, bs_az, bs_el): the arguments that give the
+        program's own realization ``seed``, the pointing as new float32
+        tensors on ``device`` (the card unless another is named), ready
+        for ``requires_grad_()``."""
+        device = resolve_device(device)
+        f32 = dict(dtype=torch.float32, device=device)
+        return (
+            int(seed),
+            torch.tensor(np.asarray(self.offsets, dtype=np.float32), **f32),
+            torch.tensor(np.asarray(self.bs_az_coarse, dtype=np.float32), **f32),
+            torch.tensor(np.asarray(self.bs_el_coarse, dtype=np.float32), **f32),
+        )
 
 
 def _crop_table(x_side, y_side, table, x_lo, x_hi, y_lo, y_hi):
@@ -485,11 +560,24 @@ def _crop_table(x_side, y_side, table, x_lo, x_hi, y_lo, y_hi):
     return x[i0:i1], y[j0:j1], np.asarray(table)[i0:i1, j0:j1]
 
 
+def seeded(generator, seed, device):
+    """``generator``, or with ``seed`` a new generator on ``device`` seeded
+    with it: one seed, one realization, in every call."""
+    if seed is None:
+        return generator
+    if generator is not None:
+        raise ValueError("pass a generator or a seed, not both")
+    g = torch.Generator(device=device)
+    g.manual_seed(int(seed))
+    return g
+
+
 def line_of_sight(offsets, bs_az, bs_el):
     """(det_el, el_clip, px, py), each (n_det, n_t): the detectors'
     elevation at the boresight's steps, clamped to [5, 90] deg, and the
     unit-height line-of-sight projection (x east, y north) of the
-    offsets (n_det, 2) about the boresight (n_t,) tensors."""
+    offsets (n_det, 2) about the boresight (n_t,) tensors. The clamp, as
+    maria_tpu's ``jnp.clip``, passes no gradient where it clips."""
     pt = offsets_to_phi_theta(offsets[:, None, :], bs_az, bs_el)
     det_az, det_el = pt[..., 0], pt[..., 1]
     el_clip = torch.clamp(det_el, float(np.float32(np.radians(5.0))), float(np.float32(np.pi / 2)))

@@ -930,3 +930,69 @@ def test_streamed_block_under_inference_mode_on_card(cuda_device):
         flat_out, flat_in = (torch.utils._pytree.tree_flatten(x)[0] for x in (state_out[key], state_in[key]))
         assert len(flat_out) == len(flat_in)
         assert all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b for a, b in zip(flat_out, flat_in)), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["matmul_total", "fields_total"])
+def test_same_seed_forwards_bit_equal_under_autograd(cuda_device, route):
+    """MUSTANG-2 over 10 s with noise: the matrix product's route (V from
+    K3) and, with NEP_per_loading, the fields route (K1). Two forwards on
+    one seed, one without a gradient and one with the offsets requiring
+    it, are bit-equal, each launching its kernel; the backward is finite."""
+    from maria_torch.ops.pink_noise import pink_noise
+    from maria_torch.ops.shared_v import shared_v
+    from maria_torch.scenes import simulation
+
+    program = simulation("mustang2", 10.0, cuda_device).program()
+    band = program.bands[0]
+    band.NEP_per_loading = band.NEP / 3e-12 if route == "fields_total" else 0.0
+    try:
+        fn = program.total_power_fn()
+        assert fn.__name__ == route
+        kernel = shared_v if route == "matmul_total" else pink_noise
+        seed, offsets, bs_az, bs_el = program.example_args(6, device=cuda_device)
+        before = kernel.launches
+        with torch.no_grad():
+            plain = fn(seed=seed, device=cuda_device)
+        offsets.requires_grad_(True)
+        total = fn(seed=seed, offsets=offsets, bs_az=bs_az, bs_el=bs_el, device=cuda_device)
+        per_forward = 1 if route == "matmul_total" else 2  # K1: the band's rows and its correlated modes
+        assert kernel.launches == before + 2 * per_forward
+        assert torch.equal(total.detach(), plain)
+        total.square().mean().backward()
+    finally:
+        band.NEP_per_loading = 0.0
+    assert bool(torch.isfinite(offsets.grad).all()) and float(offsets.grad.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_backward_on_card_matches_central_difference(cuda_device):
+    """MUSTANG-2 over 10 s with noise on the card: the directional
+    derivative of the mean square mismatch (summed in float64) against the
+    observed TOD of the true offsets, at 0.3 arcmin rms from them, within
+    10% of its central difference (the step as chip_smoke's phase (z2))."""
+    from maria_torch.scenes import simulation
+
+    program = simulation("mustang2", 10.0, cuda_device).program()
+    fn = program.total_power_fn()
+    seed, offsets, _, _ = program.example_args(7, device=cuda_device)
+    with torch.no_grad():
+        observed = fn(seed=seed, device=cuda_device)
+
+    def loss(x):
+        d = fn(seed=seed, offsets=x, device=cuda_device) - observed
+        return d.square().sum(dtype=torch.float64) / d.numel()
+
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = offsets + float(np.radians(0.3 / 60)) * torch.randn(offsets.shape, generator=g, device=cuda_device)
+    v = torch.randn(offsets.shape, generator=g, device=cuda_device)
+    v = v / v.norm()
+    xr = x.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad(loss(xr), xr)
+    analytic = float((grad.double() * v.double()).sum())
+    eps = 3 * 2e-5 * float(np.sqrt(x.numel() / 240))
+    with torch.no_grad():
+        xp, xm = x + eps * v, x - eps * v
+        fd = (float(loss(xp)) - float(loss(xm))) / float(((xp.double() - xm.double()) * v.double()).sum())
+    assert bool(torch.isfinite(grad).all())
+    assert abs(analytic - fd) <= 0.1 * max(abs(analytic), abs(fd)), (analytic, fd)

@@ -20,6 +20,7 @@ Tolerances are f32: each comparison states its own.
 import ast
 import json
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +34,9 @@ torch.set_num_threads(1)
 import maria_torch  # noqa: E402
 import maria_tpu  # noqa: E402
 from maria_tpu.io import caching as tpu_caching  # noqa: E402
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_jax_stream import jax_draws, to_torch  # noqa: E402, F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = 0
@@ -62,49 +66,6 @@ def scene(tmp_path_factory):
     finally:
         maria_tpu.set_cache_dir(old_tpu)
         maria_torch.set_cache_dir(old_torch)
-
-
-def jax_draws(ref_program, seed=SEED):
-    """maria_tpu's normals for one Simulation.run() with ``seed``: the
-    program key is the simulation key's first split
-    (sim/simulation.py:126-128,168); inside it, ops/program.py:297,318
-    split atmosphere/noise/gain streams, atmosphere/sampling.py:106 one
-    key per screen, ops/program.py:445 + noise/__init__.py:77 the band's
-    detector and mode draws; the gains come from the next split
-    (sim/simulation.py:207-209)."""
-    from maria_tpu.atmosphere.fourier import good_fft_size
-
-    key = jax.random.key(seed)
-    key, prog_key = jax.random.split(key)
-    key_atm, key_noise, _ = jax.random.split(prog_key, 3)
-    key_scr, _ = jax.random.split(key_atm)
-    keys = jax.random.split(key_scr, max(len(ref_program.screens), 1))
-    draws = {"screens": [
-        np.asarray(jax.random.normal(keys[i], (s.ny, s.nx // 2 + 1, 2), dtype=jnp.float32))
-        for i, s in enumerate(ref_program.screens)
-    ], "noise": [], "modes": []}
-    n_f = good_fft_size(len(ref_program.t_fine)) // 2 + 1
-    for i, band in enumerate(ref_program.bands):
-        _, key_pink, key_modes = jax.random.split(jax.random.fold_in(key_noise, i), 3)
-        draws["noise"].append(np.asarray(jax.random.normal(key_pink, (len(band.det_index), n_f, 2), dtype=jnp.float32)))
-        k = np.asarray(band.noise_basis).shape[-1] if band.noise_basis is not None and band.corr_prop > 0 else None
-        draws["modes"].append(
-            None if k is None else np.asarray(jax.random.normal(key_modes, (k, n_f, 2), dtype=jnp.float32))
-        )
-    _, gain_key = jax.random.split(key)
-    draws["gains"] = np.asarray(jax.random.normal(gain_key, (len(ref_program.offsets),)))
-    return draws
-
-
-def to_torch(draws):
-    def conv(x):
-        if x is None:
-            return None
-        if isinstance(x, list):
-            return [conv(v) for v in x]
-        return torch.as_tensor(np.array(x))
-
-    return {k: conv(v) for k, v in draws.items()}
 
 
 def program_tables(p):
