@@ -13,7 +13,8 @@ Phases, each of which must pass (any failure exits non-zero):
    part 3, two passes) and a small one-pass case, |diff| <= 2e-4 x std;
 4. K3 shared_v against its plain torch version (the same Philox and
    Box-Muller in torch ops) at the AtLAST shape (50,004 rows, m+1 =
-   1537), at a small odd one, and as slice (c) launches it, with its
+   1537), at a small odd one, at phase (z1)'s MUSTANG-2 shape (217 rows,
+   m+1 = 1537), and as slice (c) launches it, with its
    spectrum into the matrix product's wider left operand: every element
    within one bf16 ulp, the operand's other columns untouched, and at
    the large shapes every column of V / c with mean and variance within
@@ -325,6 +326,28 @@ Phases, each of which must pass (any failure exits non-zero):
    fields route: the noise field, which moves only through its scale,
    its mean square's directional derivative within 10% of its central
    difference, K1 twice a forward, total_power_fn()'s backward finite.
+33. phase (aa), the front doors that complete maria_tpu's surface, at full
+   width: (aa1) slice (a)'s scene through get_plan("daisy", ...) with
+   slice (a)'s keywords and Array.from_kwargs of MUSTANG-2's
+   array, Simulation.run_obs(obs) on two seeds, one BinMapper made with
+   the first TOD and given the second by add_tod: the plan's pointing and
+   each TOD bit-equal to slice (a)'s path on the same seed, the map
+   within 1e-5 of the largest sample of the map of both TODs given
+   together, its weights exact, K1 twice a TOD and K2 once a TOD; (aa2)
+   slice (c)'s program: total_power_fn() with K3 once, then over its
+   coarse pwv and elevation Band.atmosphere_power of the nine bands
+   against the program's own TableEval (1e-5 relative),
+   AtmosphericSpectrum.transmission and emission at each band's centre
+   against the CPU on 1,000 rows (1e-5 relative), and
+   pointing_indices_and_weights, bilinear, over the 50,004 x 3,000
+   detector pointing on (c)'s 128 x 128 field grid (int64 ids and float32
+   weights of (4, 50,004, 3,000), ~7.2 GB): ids equal to the CPU's and
+   weights within 1e-6 on 1,000 rows, every sample's weights summing to
+   1 on the grid's centres and 0 off them; (aa3) MaternInterpolator over
+   every pair distance of slice (g)'s AR process against the host
+   float64 (1e-5) and generate_2d_fourier_noise at 4096 x 4096 (PSD slope
+   within 5% of -(beta + 1)). Each sub-phase prints its warm times and
+   peak memory.
 
 A line says that HDF5 files and plotting are not driven on the card
 (the CPU tests hold them), with whether h5py and matplotlib are found.
@@ -343,9 +366,9 @@ beside them and enters no bound).
 
 The line before the last is the card as nvidia-smi reports it, the one
 before that the kernels' JSON record (K1's launches counted over slices
-(b), (r), (s), (w), (y) and (z), K2's over (b), (p), (q), (r), (t), (v),
-(w), (x) and (y), K3's over (c), (y) and (z), the AR kernel's over (f), (u)'s chunks
-and (y), KC's over (t) and (y); a phase (y) launch counts in its rank's
+(b), (r), (s), (w), (y), (z) and (aa), K2's over (b), (p), (q), (r), (t),
+(v), (w), (x), (y) and (aa), K3's over (c), (y), (z) and (aa), the AR
+kernel's over (f), (u)'s chunks and (y), KC's over (t) and (y); a phase (y) launch counts in its rank's
 process, and both ranks' counts are summed); the last line is the JSON
 result.
 """
@@ -4145,6 +4168,314 @@ def run_autodiff(device, card, program_a, program_c) -> tuple:
     return launches, {"z1": z1, "z2": z2, "z3": z3}
 
 
+AA_SEEDS = (0, 1)  # (aa1): the two realizations run_obs makes
+AA_CHECK_ROWS = 1000  # (aa2): the detector rows held against the CPU
+AA_NOISE_SIDE = 4096  # (aa3): generate_2d_fourier_noise's field
+
+
+def peak_gb() -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def reset_peak():
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def front_door_instrument(name: str = "MUSTANG-2"):
+    """A registry instrument rebuilt through Array.from_kwargs: its one
+    array's keywords, the same name (an array's polarization angles are
+    seeded by it) and the instrument's other keywords."""
+    from maria_torch.array import Array
+    from maria_torch.instrument import Instrument, get_instrument_config
+
+    config = get_instrument_config(name)
+    config.pop("aliases")
+    array = Array.from_kwargs(name=name, **config.pop("array"))
+    return Instrument(arrays=[array], name=name, **config)
+
+
+def run_front_doors_mustang(device, card, duration: float = 60.0) -> dict:
+    """(aa1): slice (a)'s scene through the new front doors. The plan is
+    get_plan("daisy", ...) with slice (a)'s keywords, the array
+    Array.from_kwargs; Simulation.run_obs(obs) makes a TOD on each of
+    AA_SEEDS, and one BinMapper made with the first is given the second
+    by add_tod. Gates: the plan's pointing and each TOD bit-equal to slice
+    (a)'s path on the same seed, the add_tod map within 1e-5 of the
+    largest sample of the map of both TODs given together (K2's float
+    atomics), its weights exact, K1 twice a TOD and K2 once a TOD."""
+    import torch
+
+    import maria_torch
+    from maria_torch.ops.bin_map import bin_map
+    from maria_torch.ops.pink_noise import pink_noise
+    from maria_torch.scenes import SCENES, START_TIME, simulation
+
+    s = SCENES["mustang2"]
+    plan_kw = dict(start_time=START_TIME, scan_center=(150.0, 41.0), frame="az/el", duration=duration,
+                   sample_rate=50.0, site=s["site"])
+    # slice (a)'s plan: daisy_5arcmin_60s with these scan options in place of its own
+    plan_kw["scan_options"] = {"radius": s["radius"], "speed": s["speed"]}
+    plan = maria_torch.get_plan("daisy", **plan_kw)
+    reg = maria_torch.get_plan("daisy_5arcmin_60s", **plan_kw)
+    plan_equal = all(np.array_equal(a, b) for a, b in ((plan.time, reg.time), (plan.coords._phi, reg.coords._phi),
+                                                        (plan.coords._theta, reg.coords._theta)))
+    t0 = time.perf_counter()
+    sim = maria_torch.Simulation(instrument=front_door_instrument(), plans=plan, site=s["site"],
+                                 atmosphere=s["atmosphere"], atmosphere_kwargs={"method": "fourier"}, noise=True,
+                                 seed=0, device=device)
+    setup_s = time.perf_counter() - t0
+    sim_a = simulation("mustang2", duration, device)
+    obs = sim.obs_list[0]
+
+    def tod_of(seed):
+        sim.generator.manual_seed(seed)
+        return sim.run_obs(obs).to("K_RJ")
+
+    kw = dict(center=np.degrees(obs.boresight.center()), width=MAP_WIDTH_DEG, resolution=MAP_WIDTH_DEG / N_MAP,
+              frame="az/el")
+
+    def add_tod_map(tods):
+        mapper = maria_torch.BinMapper(tods[0], **kw)
+        for tod in tods[1:]:
+            mapper.add_tod(tod)
+        return mapper.run()
+
+    reset_peak()
+    pink_noise.launches = bin_map.launches = 0
+    tods = [tod_of(seed) for seed in AA_SEEDS]
+    one = add_tod_map(tods)
+    torch.cuda.synchronize()
+    launches = {"pink_noise": pink_noise.launches, "bin_map": bin_map.launches}
+    peak = peak_gb()
+
+    both = maria_torch.BinMapper(tods, **kw).run()
+    equal = []
+    for seed, tod in zip(AA_SEEDS, tods):
+        sim_a.generator.manual_seed(seed)
+        ref = sim_a.run_obs(0).to("K_RJ")
+        equal.append(tod.fields == ref.fields and all(torch.equal(tod.data[f], ref.data[f]) for f in tod.fields))
+    scale = max(float(tod.signal.abs().max()) for tod in tods)
+    map_err = float((one.data - both.data).abs().max())
+    weights_equal = bool(torch.equal(one.weight, both.weight))
+    run_ms, run_list = warm_ms(lambda: tod_of(AA_SEEDS[0]))
+    map_ms, map_list = warm_ms(lambda: add_tod_map(tods))
+    ok = plan_equal and all(equal) and weights_equal and map_err <= 1e-5 * scale
+    ok &= launches == {"pink_noise": 2 * len(AA_SEEDS), "bin_map": len(AA_SEEDS)}
+    ok &= bool(torch.isfinite(one.data).all()) and one.data.shape == (1, 1, 1, N_MAP, N_MAP)
+    print(f"phase (aa1) MUSTANG-2 {duration:.0f} s through get_plan('daisy'), Array.from_kwargs, run_obs(obs) and "
+          f"add_tod ({card}): setup {setup_s:.2f} s; plan's pointing equal to slice (a)'s {plan_equal}; TODs "
+          f"on seeds {AA_SEEDS} bit-equal to slice (a)'s path {equal}; add_tod map against the map of both TODs: "
+          f"max|diff| {map_err:.3e} = {map_err / scale:.2e} of the largest sample (limit 1e-5), weights equal "
+          f"{weights_equal}; launches {launches}; warm run_obs {run_ms:.2f} ms ({run_list}), warm add_tod map "
+          f"{map_ms:.2f} ms ({map_list}); peak {peak:.2f} GB {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("phase (aa1) front doors at MUSTANG-2")
+    return {"launches": launches, "run_obs_ms": round(run_ms, 2), "add_tod_map_ms": round(map_ms, 2),
+            "peak_gb": round(peak, 3), "map_err_of_scale": map_err / scale}
+
+
+def rel_err(ours, ref, floor: float = 0.0) -> float:
+    """max |ours - ref| / max(|ref|, floor), in float64 on the host."""
+    ours, ref = (np.asarray(x.detach().cpu().double() if hasattr(x, "detach") else x, dtype=np.float64)
+                 for x in (ours, ref))
+    return float((np.abs(ours - ref) / np.maximum(np.abs(ref), floor)).max())
+
+
+def field_grid_sides(offs, n: int = N_MAP):
+    """The pixel centres of slice (c)'s field map (``field_pixel_ids``):
+    n cells of 2 x 1.02 x the largest offset, centred."""
+    half = float(offs.abs().max()) * 1.02 + 1e-8
+    res = 2 * half / n
+    return -half + (np.arange(n) + 0.5) * res
+
+
+def run_front_doors_atlast(device, card, program, sim) -> dict:
+    """(aa2): slice (c)'s AtLAST-50k program. total_power_fn() (K3 on the
+    path); then from the program's coarse pwv and elevation (fields(
+    upto="coarse")), Band.atmosphere_power for each band against the
+    TableEval values the program used (1e-5 relative),
+    AtmosphericSpectrum.transmission and emission at each band's centre
+    against the CPU on AA_CHECK_ROWS rows (1e-5 relative), and
+    pointing_indices_and_weights, bilinear, over the detectors' pointing
+    on the grid that (c) bins into: ids exact and weights within 1e-6
+    against the CPU on AA_CHECK_ROWS rows, every sample's weights summing
+    to 1 on the grid's centres and 0 off them."""
+    import torch
+
+    from maria_torch.coords import phi_theta_to_offsets
+    from maria_torch.ops.shared_v import shared_v
+    from maria_torch.tod import Pointing
+    from maria_torch.utils.linalg import pointing_indices_and_weights
+
+    out = {}
+    reset_peak()
+    shared_v.launches = 0
+    total = program.total_power_fn()(generator=sim.generator, device=device)
+    torch.cuda.synchronize()
+    launches = {"shared_v": shared_v.launches}
+    ok = launches == {"shared_v": 1} and bool(torch.isfinite(total).all())
+    del total
+    out["total_ms"], _ = warm_ms(lambda: program.total_power_fn()(generator=sim.generator, device=device), reps=3)
+
+    atm = sim.obs_list[0].atmosphere
+    T_base = float(atm.weather.temperature[0])
+    coarse = program.fields(seed=AA_SEEDS[0], device=device, upto="coarse")
+    pwv, el = coarse["pwv_c"], coarse["el_c"]
+    tabs = program._tensors(device)
+    bands = sim.instrument.dets.bands
+    band_idx = [torch.as_tensor(b.det_index, device=device) for b in program.bands]
+    def atmosphere_power():
+        return [band.atmosphere_power(atm.spectrum, T_base, pwv[idx], el[idx]) for band, idx in zip(bands, band_idx)]
+
+    reset_peak()
+    atmosphere_power()
+    # each call integrates the bands' tables on the host anew, as maria_tpu's does
+    out["atmosphere_power_ms"], _ = warm_ms(atmosphere_power, reps=3)
+    power = atmosphere_power()
+    power_err = max(rel_err(p, tabs["power"][i](pwv[idx], el[idx])) for i, (p, idx) in enumerate(zip(power, band_idx)))
+    out["atmosphere_power_peak_gb"] = round(peak_gb(), 3)
+    del power
+    ok &= power_err <= 1e-5
+
+    nu = torch.zeros(program.n_det, 1, device=device)
+    for band, idx in zip(bands, band_idx):
+        nu[idx] = float(band.center)
+    rows = slice(0, AA_CHECK_ROWS)
+    spectrum_err = {}
+    def lookups():
+        return {q: getattr(atm.spectrum, q)(nu, pwv=pwv, base_temperature=T_base, elevation=el)
+                for q in ("transmission", "emission")}
+
+    reset_peak()
+    card_values = lookups()
+    out["spectrum_peak_gb"] = round(peak_gb(), 3)
+    out["spectrum_ms"], _ = warm_ms(lookups)
+    for q, v in card_values.items():
+        cpu = getattr(atm.spectrum, q)(nu[rows].cpu(), pwv=pwv[rows].cpu(), base_temperature=T_base,
+                                       elevation=el[rows].cpu())
+        spectrum_err[q] = rel_err(v[rows], cpu)
+        ok &= spectrum_err[q] <= 1e-5 and bool(torch.isfinite(v).all())
+    del card_values, coarse, pwv, el
+
+    # the detectors' offsets about the mean boresight, as field_pixel_ids takes them
+    obs = sim.obs_list[0]
+    az, elev = Pointing(obs.boresight, obs.offsets).det_azel(device=device)
+    offs = phi_theta_to_offsets(torch.stack([az, elev], dim=-1), float(np.mean(np.asarray(obs.boresight.az))),
+                                float(np.mean(np.asarray(obs.boresight.el))))
+    del az, elev
+    side = field_grid_sides(offs)
+    y, x = offs[..., 1].contiguous(), offs[..., 0].contiguous()
+    del offs
+    pointing_indices_and_weights([y, x], [side, side])  # warm
+    reset_peak()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    ids, w, n_pix = pointing_indices_and_weights([y, x], [side, side])
+    torch.cuda.synchronize()
+    out["pointing_ms"] = (time.perf_counter() - start) * 1e3
+    out["pointing_peak_gb"] = round(peak_gb(), 3)
+    out["pointing_gb"] = round((ids.numel() * ids.element_size() + w.numel() * w.element_size()) / 1e9, 3)
+    ids_cpu, w_cpu, _ = pointing_indices_and_weights([y[rows].cpu(), x[rows].cpu()], [side, side])
+    ids_equal = bool(torch.equal(ids[:, rows].cpu(), ids_cpu))
+    w_err = float((w[:, rows].cpu() - w_cpu).abs().max())
+    inside = (y >= float(side[0])) & (y <= float(side[-1])) & (x >= float(side[0])) & (x <= float(side[-1]))
+    sums = w.sum(0)
+    sums_ok = bool(((sums - inside.float()).abs() <= 1e-6).all())
+    on_share = float(inside.float().mean())
+    ok &= ids_equal and w_err <= 1e-6 and sums_ok and n_pix == N_MAP * N_MAP and tuple(ids.shape) == (
+        4, program.n_det, program.n_t) and ids.dtype == torch.int64
+    del ids, w, sums, inside, x, y
+    print(f"phase (aa2) AtLAST-50k front doors on slice (c)'s program ({card}): total_power_fn() launches {launches}, "
+          f"warm {out['total_ms']:.2f} ms; Band.atmosphere_power of {len(bands)} bands against the program's "
+          f"TableEval: max relative error {power_err:.2e} (limit 1e-5), {out['atmosphere_power_ms']:.2f} ms, peak "
+          f"{out['atmosphere_power_peak_gb']} GB; AtmosphericSpectrum at the band centres over "
+          f"{program.n_det} x {len(program.t_coarse)} coarse samples, card against CPU on {AA_CHECK_ROWS} rows: "
+          f"{ {k: f'{v:.2e}' for k, v in spectrum_err.items()} } (limit 1e-5), both in {out['spectrum_ms']:.2f} ms, "
+          f"peak {out['spectrum_peak_gb']} GB; pointing_indices_and_weights bilinear over {program.n_det} x "
+          f"{program.n_t} on the {N_MAP} x {N_MAP} field grid: ids equal to the CPU's {ids_equal}, weights max|diff| "
+          f"{w_err:.2e} (limit 1e-6), weights sum to 1 on the centres' span and 0 off it {sums_ok} (share on "
+          f"{on_share:.6f}); {out['pointing_ms']:.2f} ms warm for {out['pointing_gb']} GB of ids and weights, peak "
+          f"{out['pointing_peak_gb']} GB {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("phase (aa2) front doors at AtLAST-50k")
+    out.update({"launches": launches, "power_rel_err": power_err, "spectrum_rel_err": spectrum_err,
+                "pointing_weights_err": w_err})
+    return out
+
+
+def psd_slope(F, k0: float) -> float:
+    """The log-log slope of a 2-D field's azimuthally averaged power
+    spectrum against sqrt(k0^2 + k^2), over integer wavenumbers from 8 to
+    0.8 x the Nyquist: -(beta + 1) for generate_2d_fourier_noise's field."""
+    import torch
+
+    ny, nx = F.shape
+    P = (torch.fft.fft2(F.double()).abs() ** 2).flatten()
+    ky = torch.fft.fftfreq(ny, 1 / ny, device=F.device, dtype=torch.float64)
+    kx = torch.fft.fftfreq(nx, 1 / nx, device=F.device, dtype=torch.float64)
+    kb = torch.round(torch.sqrt(ky[:, None] ** 2 + kx[None, :] ** 2)).long().flatten()
+    kmax = int(0.8 * min(nx, ny) / 2)
+    psd = (torch.bincount(kb, P, minlength=kmax)[8:kmax] / torch.bincount(kb, minlength=kmax)[8:kmax]).cpu().numpy()
+    ks = np.arange(8, kmax, dtype=float)
+    return float(np.polyfit(np.log(np.sqrt(k0**2 + ks**2)), np.log(psd), 1)[0])
+
+
+def run_front_doors_functions(device, card, gen, program_g) -> dict:
+    """(aa3): MaternInterpolator over every pair distance of slice (g)'s
+    AR process (its live edge and lookback samples) against the host
+    float64 approximate_normalized_matern (within 1e-5, as
+    tests/test_functions.py holds maria_tpu's), and
+    generate_2d_fourier_noise at AA_NOISE_SIDE squared: standardized,
+    its PSD slope within 5% of -(beta + 1)."""
+    import torch
+
+    from maria_torch.functions import MaternInterpolator, approximate_normalized_matern
+    from maria_torch.noise import generate_2d_fourier_noise
+
+    (p,) = program_g.ar_processes
+    points = np.concatenate([p.live_edge_points, p.sample_points])
+    d = np.sqrt(np.square(points[:, None] - points[None]).sum(-1))
+    interp = MaternInterpolator(**p.callback_kwargs)
+    d_card = torch.as_tensor(d, dtype=torch.float32, device=device)
+    reset_peak()
+    matern_ms, _ = warm_ms(lambda: interp(d_card))
+    cov = interp(d_card)
+    matern_err = float(np.abs(cov.double().cpu().numpy() - approximate_normalized_matern(d, **p.callback_kwargs)).max())
+
+    beta, k0 = 8 / 3, 5.0
+    noise_ms, _ = warm_ms(lambda: generate_2d_fourier_noise(AA_NOISE_SIDE, AA_NOISE_SIDE, k0, beta, generator=gen))
+    F = generate_2d_fourier_noise(AA_NOISE_SIDE, AA_NOISE_SIDE, k0, beta, generator=gen)
+    slope = psd_slope(F, k0)
+    mean, std = float(F.mean()), float(F.std(correction=0))
+    peak = peak_gb()
+    ok = matern_err < 1e-5 and abs(slope + beta + 1) <= 0.05 * (beta + 1) and abs(mean) < 1e-4 and abs(std - 1) < 1e-4
+    ok &= F.device.type == "cuda" and F.dtype == torch.float32 and cov.device.type == "cuda"
+    print(f"phase (aa3) device functions ({card}): MaternInterpolator(nu {p.callback_kwargs['nu']:.4f}, r0 "
+          f"{p.callback_kwargs['r0']:.0f} m) over slice (g)'s {len(points)} x {len(points)} AR pair distances: max|diff| "
+          f"from the host float64 {matern_err:.2e} (limit 1e-5), warm {matern_ms:.3f} ms; generate_2d_fourier_noise "
+          f"{AA_NOISE_SIDE} x {AA_NOISE_SIDE}: mean {mean:.1e}, std {std:.6f}, PSD slope {slope:.4f} against "
+          f"{-(beta + 1):.4f} (limit 5%), warm {noise_ms:.2f} ms; peak {peak:.2f} GB {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail("phase (aa3) MaternInterpolator and the 2-D Fourier noise")
+    return {"matern_err": matern_err, "matern_ms": round(matern_ms, 3), "psd_slope": slope,
+            "noise_ms": round(noise_ms, 2), "peak_gb": round(peak, 3)}
+
+
+def run_front_doors(device, card, gen, program_c, sim_c, program_g) -> tuple:
+    """Phase (aa): (aa1), (aa2), (aa3). Returns (launches, summary)."""
+    aa1 = run_front_doors_mustang(device, card)
+    aa2 = run_front_doors_atlast(device, card, program_c, sim_c)
+    aa3 = run_front_doors_functions(device, card, gen, program_g)
+    launches = {**aa1["launches"], **aa2["launches"]}
+    return launches, {"aa1": aa1, "aa2": aa2, "aa3": aa3}
+
+
 def main() -> int:
     try:
         import torch
@@ -4179,7 +4510,7 @@ def main() -> int:
                             (217, 180000, 196608), (5556, 3000, 3072)):
         k1[(n_det, n, n_fft)] = check_pink_noise(device, gen, n_det, n, n_fft)
     k3 = {}
-    for n_det, m1 in ((5556 * ATLAST_BANDS, 1537), (5, 257)):
+    for n_det, m1 in ((5556 * ATLAST_BANDS, 1537), (5, 257), (217, 1537)):  # (c)'s shape, a small odd one, (z1)'s
         k3[n_det] = check_shared_v(device, gen, n_det, m1)
 
     results = {}
@@ -4187,7 +4518,7 @@ def main() -> int:
         results[label] = run_slice(label, duration, device)
     for label, duration in AR_SLICES.items():
         results[label] = run_slice(label, duration, device, method="ar")
-    launches_c, program_c, ids_c, _ = run_atlast(device)
+    launches_c, program_c, ids_c, sim_c = run_atlast(device)
     _, corr_cols, _, shared_c, _ = program_c._noise_matmul_specs()
     check_shared_v(device, gen, program_c.n_det, len(shared_c), c=shared_c, n_extra=corr_cols.shape[1])
     launches_g, program_g, ids_g, _ = run_atlast(device, label="g", method="ar")
@@ -4252,6 +4583,7 @@ def main() -> int:
     launches_x, summary_x = run_mustang_fits(device, card, results["a"][0])
     launches_y, k3_y, k1_y, summary_y = run_mesh(device, card, results["a"][0], sim_h, program_g)
     launches_z, summary_z = run_autodiff(device, card, results["a"][3], program_c)
+    launches_aa, summary_aa = run_front_doors(device, card, gen, program_c, sim_c, program_g)
     print(f"not driven on the card: HDF5 files and plotting (held by the CPU tests); on this machine h5py "
           f"{'found' if importlib.util.find_spec('h5py') else 'not found'}, matplotlib "
           f"{'found' if importlib.util.find_spec('matplotlib') else 'not found'}", flush=True)
@@ -4262,7 +4594,8 @@ def main() -> int:
                 "k": launches_k, "l": launches_l, "m": launches_m, "p": launches_p, "q": launches_q, "r": launches_r,
                 "s": launches_s, "t": launches_t, "u 600 s": summary_u[U_SECONDS[0]]["launches"],
                 "u 3600 s": summary_u[U_SECONDS[1]]["launches"], "u chunks": {"ar_extrude": ar_u["launches"]},
-                "v": launches_v, "w": launches_w, "x": launches_x, "y (both ranks)": launches_y, "z": launches_z}
+                "v": launches_v, "w": launches_w, "x": launches_x, "y (both ranks)": launches_y, "z": launches_z,
+                "aa": launches_aa}
     for name in ("pink_noise", "bin_map", "shared_v", "ar_extrude", "sht_synth", "sht_anal", "pink_cascade"):
         print(f"main-path launches of {name} by slice: {({k: v[name] for k, v in by_slice.items() if name in v})}",
               flush=True)
@@ -4270,17 +4603,17 @@ def main() -> int:
         {"name": "pink_noise", "route": "cuda", "source": "maria_torch/csrc/pink_noise.cu",
          "replaces": "maria_tpu/ops/pallas_noise.py:269",
          "launches": launches_b["pink_noise"] + launches_r["pink_noise"] + launches_s["pink_noise"]
-         + launches_w["pink_noise"] + launches_y["pink_noise"] + launches_z["pink_noise"],
+         + launches_w["pink_noise"] + launches_y["pink_noise"] + launches_z["pink_noise"] + launches_aa["pink_noise"],
          **k1[(217, 30000, 32768)]},
         {"name": "bin_map", "route": "cuda", "source": "maria_torch/csrc/bin_map.cu",
          "replaces": "maria_tpu/ops/pallas_binning.py:119",
          "launches": launches_b["bin_map"] + launches_p["bin_map"] + launches_q["bin_map"] + launches_r["bin_map"]
          + launches_t["bin_map"] + launches_v["bin_map"] + launches_w["bin_map"] + launches_x["bin_map"]
-         + launches_y["bin_map"],
+         + launches_y["bin_map"] + launches_aa["bin_map"],
          **k2["b"]["stacked"]},
         {"name": "shared_v", "route": "cuda", "source": "maria_torch/csrc/shared_v.cu",
          "replaces": "maria_tpu/ops/pallas_noise.py:427",
-         "launches": launches_c["shared_v"] + launches_y["shared_v"] + launches_z["shared_v"],
+         "launches": launches_c["shared_v"] + launches_y["shared_v"] + launches_z["shared_v"] + launches_aa["shared_v"],
          **k3[5556 * ATLAST_BANDS]},
         {"name": "ar_extrude", "route": "cuda", "source": "maria_torch/csrc/ar_extrude.cu",
          "replaces": "maria_tpu/atmosphere/process.py:34",
@@ -4315,11 +4648,14 @@ def main() -> int:
     print(f"phase (y) summary, the mesh over two gloo ranks sharing the card ({card}): {json.dumps(summary_y)}",
           flush=True)
     print(f"phase (z) summary, autograd through the program ({card}): {json.dumps(summary_z)}", flush=True)
+    print(f"phase (aa) summary, the front doors at MUSTANG-2 and AtLAST-50k width ({card}): {json.dumps(summary_aa)}",
+          flush=True)
     for key, r in (("K1 at slice (w)'s band", k1_w), ("K2 at slice (w)'s band", k2_w), ("K1 at (y6)'s rows", k1_y)):
         print(f"{key} summary: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bound_ms'] / r['ms']:.1%}), shape {r['shape']}",
               flush=True)
     for key, r in (("KC (t)", kc_t), ("KC (u)", kc_u), ("KC (v)", kc_v), ("K3 at row0 25002 (y1)", k3_y),
+                   ("K3 at (z1)'s shape", k3[217]),
                    ("K2 streaming block (t)", k2_t),
                    ("K2 streamed ML P^T (v)", k2_v), ("AR chunk (u)", ar_u)):
         print(f"{key} summary: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
@@ -4329,8 +4665,9 @@ def main() -> int:
     print(f"K2's launches in the kernels line: slice (b) {launches_b['bin_map']} + slice (p) {launches_p['bin_map']} + "
           f"slice (q) {launches_q['bin_map']} + slice (r) {launches_r['bin_map']} + slice (t) {launches_t['bin_map']} "
           f"+ slice (v) {launches_v['bin_map']} + slice (w) {launches_w['bin_map']} + slice (x) "
-          f"{launches_x['bin_map']} + phase (y) {launches_y['bin_map']}; K3's: slice (c) {launches_c['shared_v']} + "
-          f"phase (y) {launches_y['shared_v']} + phase (z) {launches_z['shared_v']}; the AR kernel's: slice (f) "
+          f"{launches_x['bin_map']} + phase (y) {launches_y['bin_map']} + phase (aa) {launches_aa['bin_map']}; K3's: "
+          f"slice (c) {launches_c['shared_v']} + phase (y) {launches_y['shared_v']} + phase (z) "
+          f"{launches_z['shared_v']} + phase (aa) {launches_aa['shared_v']}; the AR kernel's: slice (f) "
           f"{results['f'][2]['ar_extrude']} + slice "
           f"(u)'s chunks {ar_u['launches']} + phase (y) {launches_y['ar_extrude']}; KC's: slice (t) "
           f"{launches_t['pink_cascade']} + phase (y) {launches_y['pink_cascade']} (besides: (u) at 3,600 s "
@@ -4338,7 +4675,7 @@ def main() -> int:
           f"K1's: slice (b) "
           f"{launches_b['pink_noise']} + slice (r) {launches_r['pink_noise']} + slice (s) {launches_s['pink_noise']} "
           f"+ slice (w) {launches_w['pink_noise']} + phase (y) {launches_y['pink_noise']} + phase (z) "
-          f"{launches_z['pink_noise']}",
+          f"{launches_z['pink_noise']} + phase (aa) {launches_aa['pink_noise']}",
           flush=True)
     for key, r in ks.items():
         print(f"KS summary {key}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "

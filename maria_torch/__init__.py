@@ -34,6 +34,8 @@ another grid, and plots (matplotlib, imported where a plot is made).
 
 from __future__ import annotations
 
+import logging
+
 from .device import default_device  # noqa: F401  (sets the f32/TF32 policy)
 from .io import fetch, get_cache_dir, set_cache_dir  # noqa: F401
 from .band import Band, get_band  # noqa: F401
@@ -51,6 +53,19 @@ from .map import all_maps  # noqa: F401
 from .map.transfer import TransferFunction, compute_transfer_function, plot_transfer_function  # noqa: F401
 
 __version__ = "0.1.0"
+
+logger = logging.getLogger("maria_torch")
+
+
+def debug():
+    """Log the package's debug messages."""
+    logger.setLevel(logging.DEBUG)
+
+
+def undebug():
+    """Back to warnings alone."""
+    logger.setLevel(logging.WARNING)
+
 
 __all__ = [
     "Band",
@@ -70,6 +85,7 @@ __all__ = [
     "all_maps",
     "compute_residual_map",
     "compute_transfer_function",
+    "debug",
     "default_device",
     "fetch",
     "get_band",
@@ -79,4 +95,5 @@ __all__ = [
     "get_site",
     "plot_transfer_function",
     "set_cache_dir",
+    "undebug",
 ]

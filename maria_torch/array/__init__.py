@@ -38,11 +38,30 @@ ARRAY_TAGS = ("act", "alma", "apex", "hd", "m2", "so")
 ARRAY_CONFIGS = flatten_config({tag: read_config(f"array_{tag}") for tag in ARRAY_TAGS})
 all_arrays = sorted(ARRAY_CONFIGS)
 
-def compute_angular_fwhm(fwhm_0, z=np.inf, n=1.0, nu=None):
+# the type of every detector column, the keywords that may be given per
+# detector, and every keyword of an array's configuration (maria_tpu's tables)
+DET_COLUMN_TYPES = {
+    "array_name": str, "uid": str, "base_det_index": int, "band_name": str,
+    "band_center": float, "xi": float, "eta": float,
+    "baseline_x": float, "baseline_y": float, "baseline_z": float,
+    "gamma": float, "pol_label": str, "primary_size": float,
+    "bath_temp": float, "time_constant": float, "efficiency": float,
+}
+PER_DET_KWARGS = ["xi", "eta", "baseline_x", "baseline_y", "baseline_z", "gamma", "pol_label", "band"]
+ALLOWED_ARRAY_KWARGS = [
+    "band", "bands", "max_baseline", "baseline_offset", "beam_spacing",
+    "field_of_view", "focal_plane_offset", "n", "array_offset", "packing",
+    "polarization", "primary_size", "shape", "bath_temp", "file", *PER_DET_KWARGS,
+]
+
+def compute_angular_fwhm(fwhm_0, z=np.inf, n=1.0, nu=None, l=None):  # noqa: E741
     """Angular FWHM of a Gaussian beam from an aperture of diameter
-    ``fwhm_0`` at distance z (maria_tpu/beam)."""
+    ``fwhm_0`` at distance z (maria_tpu/beam), at the frequency ``nu`` in
+    Hz or the wavelength ``l`` in metres."""
+    if nu is None and l is None:
+        raise ValueError("You must supply either a frequency 'nu' or wavelength 'l'.")
     w_0 = fwhm_0 / 2
-    z_r = np.pi * w_0**2 * n / (speed_of_light / nu)
+    z_r = np.pi * w_0**2 * n / (l if l is not None else speed_of_light / nu)
     z = np.asarray(z, dtype=float)
     with np.errstate(divide="ignore"):
         inv_z = np.where(np.isinf(z), 0.0, 1.0 / np.where(np.isinf(z), 1.0, z))
@@ -77,6 +96,11 @@ class Array:
         self.bands = BandList([b for b in bands if b.name in present])
 
     # -- construction ------------------------------------------------------------------------
+
+    @classmethod
+    def from_kwargs(cls, **kwargs) -> "Array":
+        """``from_config`` of the keywords."""
+        return cls.from_config(kwargs)
 
     @classmethod
     def from_config(cls, config: dict) -> "Array":
@@ -245,6 +269,11 @@ class Array:
         """Diameter of the focal plane, in radians."""
         return compute_diameter(self.offsets)
 
+    @property
+    def max_baseline(self) -> float:
+        """The largest distance between two apertures, in metres."""
+        return compute_diameter(np.stack([self.baseline_x, self.baseline_y, self.baseline_z], axis=-1))
+
     def _per_det_band_attr(self, attr: str) -> np.ndarray:
         values = np.zeros(self.n)
         for band in self.bands:
@@ -300,6 +329,24 @@ class Array:
     def physical_fwhm(self, z) -> np.ndarray:
         """Beam FWHM in meters at distance z."""
         return np.asarray(z) * self.angular_fwhm(z)
+
+    def plot(self, ax=None):
+        """The focal plane's offsets in degrees, a colour a band, each
+        marker sized by the band's beam (matplotlib, imported here)."""
+        import matplotlib.pyplot as plt
+
+        if ax is None:
+            _, ax = plt.subplots(1, 1, figsize=(5, 5))
+        for band in self.bands:
+            mask = self.band_name == band.name
+            fwhm = np.degrees(np.nanmean(self.angular_fwhm(np.inf)[mask]))
+            offsets = np.degrees(self.offsets[mask])
+            ax.scatter(offsets[:, 0], offsets[:, 1], s=max(fwhm * 100, 4), label=band.name, alpha=0.6)
+        ax.set_xlabel(r"$\xi$ [deg]")
+        ax.set_ylabel(r"$\eta$ [deg]")
+        ax.set_aspect("equal")
+        ax.legend(fontsize=7)
+        return ax
 
     def __repr__(self):
         return f"Array({self.name}: n={self.n}, bands={self.bands.names})"

@@ -14,7 +14,8 @@ import numpy as np
 
 from ..utils import compute_diameter, rotation_matrix_2d
 
-__all__ = ["NGONS", "PACKINGS", "SHAPES", "generate_2d_pattern", "scaled_distance", "square_packing",
+__all__ = ["NGONS", "PACKINGS", "SHAPES", "generate_2d_pattern", "generate_square_packing",
+           "generate_sunflower_packing", "generate_triangular_packing", "scaled_distance", "square_packing",
            "sunflower_packing", "triangular_packing"]
 
 SHAPES = ["triangle", "square", "hexagon", "octagon", "circle", "rhombus"]
@@ -41,6 +42,24 @@ def triangular_packing(n_col: int, n_row: int) -> np.ndarray:
     y = row - n_row // 2 + (n_row + 1) % 2 - 0.5 * x
     x = x * np.sqrt(3) / 2
     return np.stack([x.ravel(), y.ravel()], axis=-1)
+
+
+def _packing_columns(xy) -> dict:
+    return {"x": xy[:, 0], "y": xy[:, 1]}
+
+
+# maria_tpu's names for the packings, which return a DataFrame with
+# columns x and y: here a dict of the two numpy columns
+def generate_sunflower_packing(n: int) -> dict:
+    return _packing_columns(sunflower_packing(n))
+
+
+def generate_square_packing(n_row: int, n_col: int) -> dict:
+    return _packing_columns(square_packing(n_col=n_col, n_row=n_row))
+
+
+def generate_triangular_packing(n_col: int, n_row: int) -> dict:
+    return _packing_columns(triangular_packing(n_col=n_col, n_row=n_row))
 
 
 def scaled_distance(x, y, shape: str, height_scale: float = 1.0):

@@ -16,6 +16,7 @@ def boundary_layer_profile(h, h_0: float = 1e3, alpha: float = 1 / 7):
 
 
 def generate_layers(instrument, boresight, weather, site, mode: str = "2d", max_height: float = 5e3,
+                    min_res: float = None, min_res_per_beam: float = None, min_res_per_fov: float = None,
                     pwv_rms_frac: float = 3e-2, n_layers: int = 12, min_height: float = None) -> dict:
     """Layer columns (process_index, h, dh, res, z, weather fields,
     total_water, pwv_rms), parameterized at the minimum scan elevation.
@@ -24,9 +25,15 @@ def generate_layers(instrument, boresight, weather, site, mode: str = "2d", max_
     log-spaced slabs from one resolution above the base up to
     ``max_height`` (the Fourier 3-D model carries the vertical
     correlation in its cross-spectra, so the layers only discretize the
-    pwv-variance integral)."""
+    pwv-variance integral). A layer's resolution is the largest of
+    ``min_res`` m, ``min_res_per_beam`` beams and ``min_res_per_fov``
+    fields of view at its distance (the mode's defaults where not given),
+    at most 1 km."""
     if mode not in MIN_RES:
         raise ValueError(f"Invalid atmosphere model '{mode}' (supported: '2d', '3d').")
+    min_res = min_res or MIN_RES[mode]
+    min_res_per_beam = min_res_per_beam or MIN_RES_PER_BEAM[mode]
+    min_res_per_fov = min_res_per_fov or MIN_RES_PER_FOV[mode]
     min_el = float(np.min(boresight.el))
     sin_el = np.sin(min_el)
     fov = float(instrument.dets.field_of_view)
@@ -35,9 +42,9 @@ def generate_layers(instrument, boresight, weather, site, mode: str = "2d", max_
         h = np.asarray(h, dtype=float)
         z = h / sin_el
         fwhm = instrument.dets.one_detector_from_each_band().physical_fwhm(z[..., None] + 1e-16)
-        r2 = MIN_RES_PER_BEAM[mode] * np.min(fwhm, axis=-1)
-        r3 = MIN_RES_PER_FOV[mode] * z * fov
-        return np.minimum(1e3, np.maximum.reduce([MIN_RES[mode] * np.ones_like(h), r2, r3]))
+        r2 = min_res_per_beam * np.min(fwhm, axis=-1)
+        r3 = min_res_per_fov * z * fov
+        return np.minimum(1e3, np.maximum.reduce([min_res * np.ones_like(h), r2, r3]))
 
     if mode == "2d":
         h_boundaries = H_BOUNDARIES_2D.copy()

@@ -25,23 +25,27 @@ logger = logging.getLogger("maria_torch")
 __all__ = ["AutoregressiveProcess", "COV_MAT_JITTER", "JITTER_LADDER", "MIN_SAMPLES_PER_LAYER"]
 
 COV_MAT_JITTER = 1e-6
-# diagonal jitters tried in turn while the covariance is numerically singular
-JITTER_LADDER = (1e-8, 1e-6, 1e-4)
-# least cross-section samples of one lookback ring
+# the diagonal jitters tried after the process's own while the covariance
+# is numerically singular
+JITTER_LADDER = (1e-6, 1e-4)
+# least cross-section samples of one lookback ring, by default
 MIN_SAMPLES_PER_LAYER = 4
 
 
 class AutoregressiveProcess:
     def __init__(self, cross_section: np.ndarray, extrusion: np.ndarray,
-                 callback=approximate_normalized_matern, callback_kwargs: dict = {}):
+                 callback=approximate_normalized_matern, callback_kwargs: dict = {}, jitter: float = 1e-8,
+                 MIN_SAMPLES_PER_LAYER: int = MIN_SAMPLES_PER_LAYER):
         """``cross_section`` is (n_cross, 2) points in the (transverse,
         height) plane; ``extrusion`` is the 1-D grid along the extrusion
-        axis."""
+        axis. ``jitter`` is the covariance setup's first diagonal jitter,
+        ``MIN_SAMPLES_PER_LAYER`` the least cross-section samples of a
+        lookback ring."""
         self.cross_section = np.asarray(cross_section, dtype=float)
         self.extrusion = np.asarray(extrusion, dtype=float)
         self.callback = callback
         self.callback_kwargs = dict(callback_kwargs)
-        self.jitter = JITTER_LADDER[0]  # the rung run_setup settled on
+        self.jitter = jitter  # then the rung run_setup settled on
         self.n_cross_section = len(self.cross_section)
         self.n_extrusion = len(self.extrusion)
 
@@ -114,11 +118,11 @@ class AutoregressiveProcess:
         self._computed = True
 
     def run_setup(self):
-        """Factorize the covariance operators, climbing JITTER_LADDER
-        while the matrices are numerically singular."""
+        """Factorize the covariance operators with the process's jitter,
+        then up JITTER_LADDER while the matrices are numerically singular."""
         if self._computed:
             return
-        for jitter in JITTER_LADDER:
+        for jitter in (self.jitter, *JITTER_LADDER):
             self.jitter = jitter
             try:
                 self.compute_covariance_matrices()

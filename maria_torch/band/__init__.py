@@ -11,12 +11,14 @@ import logging
 from collections.abc import Mapping
 
 import numpy as np
+import torch
 
-from ..constants import MAX_NU_HZ, MIN_NU_HZ, k_B
+from ..constants import MAX_NU_HZ, MIN_NU_HZ, c, k_B
+from ..device import as_float32_tensors
 from ..io import flatten_config, read_config
-from ..radiometry import rayleigh_jeans_kernel
+from ..functions.radiometry import rayleigh_jeans_kernel
 
-__all__ = ["BAND_CONFIGS", "Band", "BandList", "all_bands", "get_band", "parse_band"]
+__all__ = ["BAND_CONFIGS", "Band", "BandList", "all_bands", "get_band", "parse_band", "validate_band_config"]
 
 logger = logging.getLogger("maria_torch")
 
@@ -24,6 +26,18 @@ logger = logging.getLogger("maria_torch")
 BAND_TAGS = ("abs", "act", "alma", "apex", "atlast", "m2", "music", "so", "test", "toltec")
 BAND_CONFIGS = flatten_config({tag: read_config(f"band_{tag}") for tag in BAND_TAGS})
 all_bands = sorted(BAND_CONFIGS)
+
+# the units and type of a band's displayed fields
+BAND_FIELD_FORMATS = {
+    "name": {"units": "none", "dtype": "str"},
+    "center": {"units": "Hz", "dtype": "float"},
+    "width": {"units": "Hz", "dtype": "float"},
+    "shape": {"units": "none", "dtype": "str"},
+    "efficiency": {"units": "none", "dtype": "float"},
+    "NEP": {"units": "W√s", "dtype": "float"},
+    "NET_RJ": {"units": "K√s", "dtype": "float"},
+    "NET_CMB": {"units": "K√s", "dtype": "float"},
+}
 
 
 def get_band(band_name: str) -> "Band":
@@ -81,13 +95,20 @@ def axis_transform(side):
 
 
 def fractional_index(transform, x, xp=np):
-    """Fractional grid index of x under an axis transform (numpy or torch)."""
+    """Fractional grid index of x under an axis transform (numpy or torch);
+    a "general" axis by a bisection, clipped to its cells."""
     kind = transform[0]
     if kind == "uniform":
         return (x - transform[1]) / transform[2]
     if kind == "log":
         return (xp.log(x) - transform[1]) / transform[2]
-    raise NotImplementedError("general (non-uniform, non-log) interpolation axes")
+    side = transform[1]
+    if xp is np:
+        i = np.clip(np.searchsorted(side, x, side="right") - 1, 0, len(side) - 2)
+    else:
+        side = torch.as_tensor(side, dtype=x.dtype, device=x.device)
+        i = torch.clamp(torch.searchsorted(side, x.contiguous(), right=True) - 1, 0, len(side) - 2)
+    return i + (x - side[i]) / (side[i + 1] - side[i])
 
 
 def interp_grid_np(points, values, xi):
@@ -120,7 +141,7 @@ class Band:
     def __init__(self, center: float = None, width: float = None, nu=None, tau=None, name: str = None,
                  shape: str = "gaussian", efficiency: float = 0.5, NET_RJ: float = None, NET_CMB: float = None,
                  NEP: float = None, NEP_per_loading: float = 0.0, gain_error: float = 0.0, knee: float = 1.0,
-                 time_constant: float = 0.0, spectrum_kwargs: dict = {}):
+                 time_constant: float = 0.0, spectrum_kwargs: dict = {}, sensitivity: float = None):
         if (center is not None and width is not None) == (nu is not None and tau is not None):
             raise ValueError("Pass either both 'center' and 'width' or both 'nu' and 'tau'.")
         if center is not None:
@@ -158,6 +179,10 @@ class Band:
                     "temperature", float(np.mean(self.spectrum.side_base_temperature))),
                 "elevation": np.radians(spectrum_kwargs.get("elevation", 45)),
             }
+
+        if sensitivity is not None:
+            logger.warning("'sensitivity' is deprecated; use 'NET_RJ' or 'NET_CMB'.")
+            NET_RJ = sensitivity
 
         if NEP is not None:
             self.NEP = float(NEP)
@@ -226,6 +251,11 @@ class Band:
             nus.append(np.interp(0.5, self.tau[[i, i + 1]][order], self.nu[[i, i + 1]][order]))
         return float(np.ptp(nus)) if len(nus) > 1 else float(np.ptp(self.nu))
 
+    @property
+    def wavelength(self) -> float:
+        """Wavelength at the band's center, in metres."""
+        return c / self.center
+
     def passband(self, nu):
         return self.efficiency * np.interp(np.asarray(nu, dtype=float), self.nu, self.tau, left=0, right=0)
 
@@ -267,6 +297,61 @@ class Band:
         table = (1 - w) * values[i] + w * values[i + 1]
         return spectrum.side_zenith_pwv, spectrum.side_elevation, table
 
+    def power_table32(self, spectrum, base_temperature: float):
+        """``atmosphere_power_table`` as float32 arrays: the table a
+        program's ``TableEval`` reads, as the JAX package stores it, and
+        ``atmosphere_power`` with it."""
+        return tuple(np.asarray(a, dtype=np.float32) for a in self.atmosphere_power_table(spectrum, base_temperature))
+
+    def atmosphere_power(self, spectrum, base_temperature, zenith_pwv, elevation, method: str = "linear",
+                         device=None):
+        """Band-integrated atmospheric loading [pW] at (zenith pwv,
+        elevation) samples, at the mean ``base_temperature``: the float32
+        table and the bilinear ``TableEval`` a TODProgram reads, on the
+        device of the coordinate tensors (``device``, the card by default,
+        for arrays). ``method`` is kept for maria_tpu's signature; both
+        are linear."""
+        from ..ops.interp import TableEval
+
+        pwv, el = torch.broadcast_tensors(*as_float32_tensors(zenith_pwv, elevation, device=device))
+        return TableEval(*self.power_table32(spectrum, float(np.mean(base_temperature))), device=pwv.device)(pwv, el)
+
+    def transmission(self, region="chajnantor", pwv=1.0, elevation=np.radians(90), device=None):
+        """The atmosphere's transmission at the band's center in ``region``,
+        a tensor on the device of ``pwv`` or ``elevation`` (``device``, the
+        card by default, for numbers); maria_tpu's method keeps that
+        region's spectrum as the band's own ``spectrum``: here it is kept
+        aside, so the band's noise levels stay where they were set."""
+        from ..spectrum import AtmosphericSpectrum
+
+        spectrum = getattr(self, "_transmission_spectrum", None)
+        if spectrum is None or spectrum.region != region:
+            spectrum = self._transmission_spectrum = AtmosphericSpectrum(region=region)
+        return spectrum.transmission(nu=self.center, pwv=pwv, elevation=elevation, device=device)
+
+    def summary(self) -> dict:
+        from ..units import Quantity
+
+        return {
+            "name": self.name,
+            "center": Quantity(self.center, "Hz"),
+            "width": Quantity(self.width, "Hz"),
+            "efficiency": self.efficiency,
+            "NEP": Quantity(self.NEP, "W√s"),
+            "NET_RJ": Quantity(self.NET_RJ, "K_RJ√s"),
+        }
+
+    def plot(self):
+        """The passband against frequency (matplotlib, imported here)."""
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots(1, 1)
+        ax.plot(self.nu / 1e9, self.tau, label=self.name)
+        ax.set_xlabel(r"$\nu$ [GHz]")
+        ax.set_ylabel(r"$\tau(\nu)$")
+        ax.legend()
+        return ax
+
     def __repr__(self):
         return f"Band({self.name}, center={self.center:.4g} Hz, NEP={self.NEP:.3g} W√s)"
 
@@ -298,3 +383,11 @@ class BandList:
 
     def __repr__(self):
         return f"BandList({self.names})"
+
+
+def validate_band_config(band: dict):
+    """A band's configuration needs an explicit passband or a (center,
+    width) pair."""
+    if "passband" not in band:
+        if any(key not in band for key in ("center", "width")):
+            raise ValueError("The band's center and width must be specified")

@@ -14,9 +14,9 @@ __all__ = ["compute_angular_fwhm", "compute_physical_fwhm", "construct_beam_filt
            "separably_filter_2d"]
 
 
-def compute_physical_fwhm(fwhm_0, z=np.inf, n=1.0, nu=None):
+def compute_physical_fwhm(fwhm_0, z=np.inf, n=1.0, nu=None, l=None):  # noqa: E741
     """The beam's FWHM in metres at distance z: z x the angular FWHM."""
-    return z * compute_angular_fwhm(fwhm_0=fwhm_0, z=z, n=n, nu=nu)
+    return z * compute_angular_fwhm(fwhm_0=fwhm_0, z=z, n=n, nu=nu, l=l)
 
 
 def construct_beam_filter(fwhm, res, beam_profile=None, buffer=1):

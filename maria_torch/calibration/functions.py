@@ -25,7 +25,7 @@ import torch
 from ..band import axis_transform, fractional_index, interp_grid_np
 from ..constants import T_CMB, h, k_B
 from ..errors import ShapeError
-from ..radiometry import (
+from ..functions.radiometry import (
     inverse_planck_spectrum,
     inverse_rayleigh_jeans_spectrum,
     planck_spectrum,

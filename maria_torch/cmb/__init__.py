@@ -20,6 +20,13 @@ from .spectra import get_cmb_spectrum
 
 __all__ = ["CMB", "generate_cmb", "generate_cmb_patch", "get_cmb", "get_cmb_spectrum"]
 
+# maria_tpu's sources of a real CMB: downloads, which the port does not make
+CMB_SPECTRUM_SOURCE_URL = (
+    "https://github.com/thomaswmorris/maria-data/raw/master/cmb/spectra/"
+    "COM_PowerSpect_CMB-base-plikHM-TTTEEE-lowl-lowE-lensing-minimum-theory_R3.01.txt"
+)
+CMB_SOURCES = {"planck": {"spectrum": "cmb/spectra/planck.csv"}}
+
 
 class CMB(HEALPixMap):
     """An IQU CMB sky in K_CMB, galactic frame."""

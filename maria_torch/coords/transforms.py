@@ -89,9 +89,18 @@ def xyz_to_phi_theta(xyz):
     return phi, theta
 
 
-def get_center_phi_theta(phi, theta):
-    """Spherical mean via the unit-sphere embedding (host float64)."""
+def get_center_phi_theta(phi, theta, keep_dims=()):
+    """Spherical mean via the unit-sphere embedding (host float64): floats
+    over every axis, or arrays over the axes that ``keep_dims`` keeps
+    (``keep_dims=(-1,)``: one centre a time sample)."""
     xyz = phi_theta_to_xyz(np.atleast_1d(phi), np.atleast_1d(theta))
+    if keep_dims:
+        axes = list(range(xyz.ndim - 1))
+        for dim in keep_dims:
+            axes.pop(dim)
+        center = xyz.mean(axis=tuple(axes)) if axes else xyz
+        phi_c, theta_c = xyz_to_phi_theta(center / np.sqrt(np.sum(center**2, axis=-1, keepdims=True)))
+        return np.asarray(phi_c), np.asarray(theta_c)
     center = xyz.reshape(-1, 3).mean(axis=0)
     phi_c, theta_c = xyz_to_phi_theta(center / np.sqrt(np.sum(center**2)))
     return float(phi_c), float(theta_c)

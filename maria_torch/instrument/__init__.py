@@ -28,7 +28,7 @@ all_instruments = sorted(INSTRUMENT_CONFIGS)
 
 
 class Instrument:
-    def __init__(self, arrays, name: str = None, description: str = "",
+    def __init__(self, arrays, name: str = None, description: str = "", documentation: str = "",
                  az_vel_limit: float = 3.0, az_acc_limit: float = 1.0, el_vel_limit: float = 2.0,
                  el_acc_limit: float = 1.0, min_elevation: float = 20.0, max_elevation: float = 90.0):
         # Arrays, configuration dicts (named "array-{i}" unless they say) or registry names
@@ -44,6 +44,7 @@ class Instrument:
         self.arrays = ArrayList(resolved)
         self.name = name or "+".join(a.name for a in self.arrays)
         self.description = description
+        self.documentation = documentation
         # deg/s, deg/s^2 and deg
         self.az_vel_limit = az_vel_limit
         self.az_acc_limit = az_acc_limit
@@ -89,6 +90,11 @@ class Instrument:
     @property
     def bands(self):
         return self.dets.bands
+
+    @property
+    def field_of_view(self) -> float:
+        """Diameter of the focal plane, in radians."""
+        return self.dets.field_of_view
 
     @property
     def n_dets(self) -> int:

@@ -1,4 +1,5 @@
-"""Config registry, the on-disk data cache and file formats.
+"""Config registry, the on-disk data cache, file formats and the
+helpers that print values (maria_tpu/io).
 
 Configs are JSON files under ``maria_torch/configs``, converted from
 maria_tpu's YAML registries (tests hold them equal). Generated data
@@ -76,4 +77,40 @@ def atomic_save_npz(path: str, **arrays):
         raise
 
 
+def read_yaml(path: str) -> dict:
+    """A YAML file's contents (needs pyyaml, imported here)."""
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f) or {}
+
+
+def humanize(x, units) -> str:
+    """A value with its units, at the best SI prefix."""
+    from ..units import Quantity
+
+    return str(Quantity(x, units=units))
+
+
+def leftpad(thing, n: int = 2, char: str = " ") -> str:
+    """Every line of str(thing) indented by n chars."""
+    return "\n".join(n * char + line for line in str(thing).splitlines())
+
+
+def repr_phi_theta(phi, theta, frame_name: str = "az/el") -> str:
+    import numpy as np
+
+    return f"{np.degrees(float(phi)):.02f}°/{np.degrees(float(theta)):.02f}° ({frame_name})"
+
+
+def repr_lat_lon(lat, lon) -> str:
+    import numpy as np
+
+    lat_deg, lon_deg = np.degrees(float(lat)), np.degrees(float(lon))
+    ns = "N" if lat_deg >= 0 else "S"
+    ew = "E" if lon_deg >= 0 else "W"
+    return f"{abs(lat_deg):.03f}°{ns} {abs(lon_deg):.03f}°{ew}"
+
+
 from .caching import fetch, register_generator  # noqa: E402,F401
+from ..utils import humanize_time  # noqa: E402,F401

@@ -18,7 +18,10 @@ import os
 import tempfile
 import time
 
-__all__ = ["SOURCE_BASE", "cache_status", "fetch", "register_generator", "test_file"]
+from . import get_cache_dir, set_cache_dir  # noqa: F401  (defined before io imports this module)
+
+__all__ = ["SOURCE_BASE", "cache_status", "copy_file", "fetch", "get_cache_dir", "register_generator",
+           "set_cache_dir", "test_file"]
 
 logger = logging.getLogger("maria_torch")
 
@@ -32,6 +35,16 @@ def register_generator(prefix: str, fn):
     """Make the products whose path starts with ``prefix`` by
     ``fn(source_path, destination)``."""
     _GENERATORS[prefix] = fn
+
+
+def copy_file(source: str, destination: str):
+    """Copy ``source`` to ``destination``, making its directory."""
+    import shutil
+
+    dest_dir = os.path.dirname(destination)
+    if dest_dir:
+        os.makedirs(dest_dir, exist_ok=True)
+    shutil.copy(source, destination)
 
 
 def test_file(path: str) -> bool:
@@ -96,8 +109,6 @@ def fetch(source_path: str, cache_path: str = None, max_age: float = 30 * 86400,
     prefix wins); a stale copy stands where no generator can make one.
     ``url_base`` and ``url`` only name the download in the error of a
     product that cannot be made offline."""
-    from . import get_cache_dir
-
     destination = cache_path or os.path.join(get_cache_dir(), source_path)
     os.makedirs(os.path.dirname(destination) or ".", exist_ok=True)
     status = cache_status(destination, max_age=max_age)

@@ -26,6 +26,16 @@ from .projection import ProjectionMap  # noqa: F401
 __all__ = ["EXAMPLE_MAPS", "HEALPixMap", "MAP_ALIASES", "REFERENCE_MAP_CENTERS", "REFERENCE_MAP_FILES", "SLICE_DIMS",
            "Map", "ProjectionMap", "all_maps", "concatenate", "get", "load", "read_hdf_map"]
 
+# a map's construction keywords, and the FITS axis names and default units
+MAP_SIZE_KWARGS = ["xi", "eta", "width", "height", "xi_res", "eta_res", "resolution"]
+VALID_MAP_KWARGS = ["stokes", "nu", "t", "center", "frame", "units", "beam", *MAP_SIZE_KWARGS]
+AXIS_MAPPING = {
+    "nu": {"aliases": ["FREQ", "NU"], "default_units": "Hz"},
+    "t": {"aliases": ["TIME"], "default_units": "s"},
+    "z": {"aliases": ["REDSHIFT"], "default_units": ""},
+    "v": {"aliases": ["VRAD", "VELO"], "default_units": "m/s"},
+}
+
 EXAMPLE_MAPS = {
     "cluster": {
         "description": "A beta-model galaxy-cluster decrement at 150 GHz",
@@ -400,6 +410,6 @@ def read_hdf_map(path: str, **overrides) -> Map:
         kw.update(overrides)
         return ProjectionMap(**kw)
     kw = dict(data=data, frame=attrs.get("frame", "galactic"), stokes=attrs.get("stokes"), nu=nu,
-              units=attrs.get("units", "K_CMB"), weight=weight, t=t)
+              units=attrs.get("units", "K_CMB"), weight=weight, **axis3)
     kw.update(overrides)
     return HEALPixMap(**kw)

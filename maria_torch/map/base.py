@@ -15,9 +15,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import check_float32
 from ..units import parse_units
 
-__all__ = ["Map", "SLICE_DIMS", "VALID_MAP_QUANTITIES", "check_map_units", "concatenate"]
+__all__ = ["Map", "SLICE_DIMS", "STOKES_ORDER", "VALID_MAP_QUANTITIES", "check_map_units", "concatenate"]
+
+STOKES_ORDER = "IQUV"
 
 VALID_MAP_QUANTITIES = [
     "rayleigh_jeans_temperature",
@@ -50,12 +53,97 @@ def check_map_units(units: str) -> str:
     return units
 
 
+def _as_float32(x):
+    """A float32 tensor of ``x``; a tensor stays on its device."""
+    return x.to(torch.float32) if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x), dtype=torch.float32)
+
+
 class Map:
     """What the map classes share: ``data`` and ``weight`` tensors of
-    shape (stokes, nu, t, *map dims), ``nu`` in Hz and ``units``."""
+    shape (stokes, nu, t, *map dims), ``nu`` in Hz and ``units``. The
+    constructor puts missing slice axes where the metadata says they
+    belong ((stokes, nu, pixels) becomes (stokes, nu, 1, pixels)); the
+    third slice axis carries one label, time ``t`` (the default),
+    redshift ``z`` or velocity ``v``. A tensor's data stay on their
+    device; anything else lands on the host. ``dtype`` must be float32;
+    ``degrees`` is the subclasses' (their centre and sizes)."""
 
     map_dims: tuple = ()
     axis3_label = "t"
+
+    def __init__(self, data, stokes: str = None, nu=None, t=None, z=None, v=None, units: str = "K_RJ", weight=None,
+                 dtype=torch.float32, degrees: bool = True):
+        check_float32(dtype)
+        self.units = check_map_units(units)
+        data = _as_float32(data)
+        n_dims = len(self.map_dims) + 3
+        given = {k: val for k, val in (("t", t), ("z", z), ("v", v)) if val is not None}
+        if len(given) > 1:
+            raise ValueError(f"Give at most one of t/z/v (got {sorted(given)}).")
+        self.axis3_label = next(iter(given), "t")
+        axis3 = given.get(self.axis3_label)
+        if data.ndim > n_dims:
+            raise ValueError(f"Map data has too many dims ({data.ndim}).")
+        if data.ndim < n_dims:
+            target = (
+                len(stokes) if stokes else 1,
+                len(np.atleast_1d(nu)) if nu is not None else 1,
+                len(np.atleast_1d(axis3)) if axis3 is not None else 1,
+                *data.shape[3 - n_dims:],
+            )
+            if data.numel() == int(np.prod(target)):
+                data = data.reshape(target)
+            else:
+                data = data.reshape((1,) * (n_dims - data.ndim) + tuple(data.shape))
+        self.data = data
+
+        self.stokes = stokes or STOKES_ORDER[: data.shape[0]]
+        if len(self.stokes) != data.shape[0]:
+            raise ValueError(f"Stokes '{self.stokes}' does not match data shape {tuple(data.shape)}.")
+        self.nu = np.atleast_1d(np.asarray(nu if nu is not None else [150e9], dtype=float))
+        if len(self.nu) != data.shape[1]:
+            raise ValueError(f"nu axis ({len(self.nu)}) does not match data shape {tuple(data.shape)}.")
+        self.t = np.atleast_1d(np.asarray(axis3 if axis3 is not None else [0.0], dtype=float))
+        if len(self.t) != data.shape[2]:
+            raise ValueError(f"{self.axis3_label} axis ({len(self.t)}) does not match data shape {tuple(data.shape)}.")
+        self.weight = None if weight is None else _as_float32(weight).reshape(data.shape)
+
+    # -- structure ----------------------------------------------------------------------
+    @property
+    def shape(self):
+        return tuple(self.data.shape)
+
+    @property
+    def n_stokes(self) -> int:
+        return len(self.stokes)
+
+    @property
+    def n_nu(self) -> int:
+        return len(self.nu)
+
+    @property
+    def z(self):
+        """The redshift axis, where the third slice axis is labelled z."""
+        if self.axis3_label != "z":
+            raise AttributeError(f"This map's third slice axis is '{self.axis3_label}', not 'z'.")
+        return self.t
+
+    @property
+    def v(self):
+        """The velocity axis, where the third slice axis is labelled v."""
+        if self.axis3_label != "v":
+            raise AttributeError(f"This map's third slice axis is '{self.axis3_label}', not 'v'.")
+        return self.t
+
+    @property
+    def nu_bin_bounds(self):
+        """(nu_min, nu_max) in Hz of every channel: the midpoints between
+        adjacent nu; one channel takes every frequency (maria_tpu gives
+        the same bounds as Quantities)."""
+        if self.n_nu == 1:
+            return [(0.0, np.inf)]
+        edges = [0.0, *(0.5 * (self.nu[1:] + self.nu[:-1])), np.inf]
+        return list(zip(edges[:-1], edges[1:]))
 
     def _calibration_kwargs(self) -> dict:
         return {}

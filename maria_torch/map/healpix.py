@@ -10,6 +10,8 @@ otherwise. ``plot`` (matplotlib) draws a Mollweide view and ``to_hdf``
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 import torch
 
@@ -17,10 +19,11 @@ from ..coords.ephemeris import ICRS_TO_GAL
 from ..device import resolve_device
 from ..healpix.core import ang2pix_ring, npix2nside
 from ..units import as_radians
-from .base import Map, check_map_units
-from .projection import STOKES_ORDER, _as_float32
+from .base import Map
 
 __all__ = ["HEALPixMap"]
+
+logger = logging.getLogger("maria_torch")
 
 
 class HEALPixMap(Map):
@@ -29,45 +32,27 @@ class HEALPixMap(Map):
 
     map_dims = ("pixel",)
 
-    def __init__(self, data, frame: str = "galactic", stokes: str = None, nu=None, t=None, units: str = "K_CMB",
-                 weight=None):
-        check_map_units(units)
-        data = _as_float32(data)
-        if data.ndim < 4:
-            data = data.reshape((1,) * (4 - data.ndim) + tuple(data.shape))
-        if data.ndim != 4:
-            raise ValueError(f"HEALPix map data must be (stokes, nu, t, npix), got {tuple(data.shape)}")
-        self.data = data
+    def __init__(self, data, frame: str = "galactic", stokes: str = None, nu=None, t=None, z=None, v=None,
+                 units: str = "K_CMB", weight=None, dtype=torch.float32, degrees: bool = True, resolution=None):
+        # the weights (inverse variances) are carried only where given: a CMB has none
+        super().__init__(data, stokes=stokes, nu=nu, t=t, z=z, v=v, units=units, weight=weight, dtype=dtype)
         self.frame = frame
-        self.units = units
-        self.nside = npix2nside(data.shape[-1])
-        self.stokes = stokes or STOKES_ORDER[: data.shape[0]]
-        if len(self.stokes) != data.shape[0]:
-            raise ValueError(f"Stokes '{self.stokes}' does not match data shape {tuple(data.shape)}.")
-        self.nu = np.atleast_1d(np.asarray(nu if nu is not None else [150e9], dtype=float))
-        self.t = np.atleast_1d(np.asarray(t if t is not None else [0.0], dtype=float))
-        if (len(self.nu), len(self.t)) != tuple(data.shape[1:3]):
-            raise ValueError(f"nu ({len(self.nu)}) and t ({len(self.t)}) do not match data shape {tuple(data.shape)}.")
-        # inverse variances, carried only where given (a CMB has none)
-        self.weight = None if weight is None else _as_float32(weight).reshape(data.shape)
+        self.nside = npix2nside(self.data.shape[-1])
+        if resolution is not None:
+            # npix fixes a HEALPix grid's resolution: one that differs by
+            # more than a factor of ~2 is reported and ignored
+            res = float(resolution) * (np.pi / 180 if degrees else 1.0)
+            if not 0.4 < res / self.resolution < 2.5:
+                logger.warning(f"Requested resolution {res:.2e} rad differs from the HEALPix nside={self.nside} "
+                               f"native {self.resolution:.2e} rad; ignoring.")
 
     def _replace(self, **kwargs) -> "HEALPixMap":
-        params = dict(data=self.data, frame=self.frame, stokes=self.stokes, nu=self.nu, t=self.t, units=self.units,
-                      weight=self.weight)
+        params = dict(data=self.data, frame=self.frame, stokes=self.stokes, nu=self.nu, units=self.units,
+                      weight=self.weight, **{self.axis3_label: self.t})
+        if any(k in kwargs for k in ("t", "z", "v")):
+            params.pop(self.axis3_label, None)
         params.update(kwargs)
         return type(self)(**params)
-
-    @property
-    def shape(self):
-        return tuple(self.data.shape)
-
-    @property
-    def n_stokes(self) -> int:
-        return len(self.stokes)
-
-    @property
-    def n_nu(self) -> int:
-        return len(self.nu)
 
     @property
     def npix(self) -> int:
@@ -82,9 +67,9 @@ class HEALPixMap(Map):
         return {"pixel_area": 4 * np.pi / self.npix}
 
     # -- sampling --------------------------------------------------------------------------
-    def pixel_index(self, phi, lat):
+    def pixel_index(self, phi, theta_lat):
         """int32 RING pixel of (longitude, latitude) tensors in the map's frame."""
-        return ang2pix_ring(self.nside, np.pi / 2 - lat, phi)
+        return ang2pix_ring(self.nside, np.pi / 2 - theta_lat, phi)
 
     def radec_pixels(self, ra, dec):
         """int64 RING pixels of ICRS (ra, dec) tensors, rotated into the

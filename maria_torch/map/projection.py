@@ -27,11 +27,9 @@ import torch
 from ..device import resolve_device
 from ..ops.interp import interp_bilinear_grid
 from ..units import Quantity, as_radians
-from .base import Map, check_map_units
+from .base import STOKES_ORDER, Map
 
 __all__ = ["ProjectionMap", "gaussian_beam_fft_filter", "STOKES_ORDER"]
-
-STOKES_ORDER = "IQUV"
 
 
 def gaussian_beam_fft_filter(shape, res_y: float, res_x: float, fwhm: float, dtype=torch.float32):
@@ -43,11 +41,6 @@ def gaussian_beam_fft_filter(shape, res_y: float, res_x: float, fwhm: float, dty
     return torch.as_tensor(np.exp(-0.5 * sigma**2 * (ky[:, None] ** 2 + kx[None, :] ** 2)), dtype=dtype)
 
 
-def _as_float32(x):
-    """A float32 tensor of ``x``; a tensor stays on its device."""
-    return x.to(torch.float32) if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x), dtype=torch.float32)
-
-
 class ProjectionMap(Map):
     """A tangent-plane map around ``center`` in ``frame``. The third
     slice axis carries one label: time ``t`` (the default), redshift
@@ -57,43 +50,12 @@ class ProjectionMap(Map):
 
     def __init__(self, data, center=(0.0, 0.0), width=None, height=None, resolution=None,
                  frame: str = "ra/dec", stokes: str = None, nu=None, t=None, z=None, v=None,
-                 units: str = "K_RJ", weight=None, degrees: bool = True):
-        self.units = check_map_units(units)
+                 units: str = "K_RJ", weight=None, dtype=torch.float32, degrees: bool = True):
+        super().__init__(data, stokes=stokes, nu=nu, t=t, z=z, v=v, units=units, weight=weight, dtype=dtype)
         self.frame = frame
-
-        # normalize to (stokes, nu, t, n_y, n_x): missing slice axes go
-        # where the metadata says they belong
-        data = _as_float32(data)
-        given = {k: val for k, val in (("t", t), ("z", z), ("v", v)) if val is not None}
-        if len(given) > 1:
-            raise ValueError(f"Give at most one of t/z/v (got {sorted(given)}).")
-        self.axis3_label = next(iter(given), "t")
-        axis3 = given.get(self.axis3_label)
-        if data.ndim > 5:
-            raise ValueError(f"Map data has too many dims ({data.ndim}).")
-        if data.ndim < 5:
-            target = (
-                len(stokes) if stokes else 1,
-                len(np.atleast_1d(nu)) if nu is not None else 1,
-                len(np.atleast_1d(axis3)) if axis3 is not None else 1,
-                *data.shape[-2:],
-            )
-            if data.numel() == int(np.prod(target)):
-                data = data.reshape(target)
-            else:
-                data = data.reshape((1,) * (5 - data.ndim) + tuple(data.shape))
-        self.data = data
-
-        self.stokes = stokes or STOKES_ORDER[: data.shape[0]]
-        if len(self.stokes) != data.shape[0]:
-            raise ValueError(f"Stokes '{self.stokes}' does not match data shape {tuple(data.shape)}.")
-        self.nu = np.atleast_1d(np.asarray(nu if nu is not None else [150e9], dtype=float))
-        if len(self.nu) != data.shape[1]:
-            raise ValueError(f"nu axis ({len(self.nu)}) does not match data shape {tuple(data.shape)}.")
-        self.t = np.atleast_1d(np.asarray(axis3 if axis3 is not None else [0.0], dtype=float))
-        if len(self.t) != data.shape[2]:
-            raise ValueError(f"{self.axis3_label} axis ({len(self.t)}) does not match data shape {tuple(data.shape)}.")
-        self.weight = _as_float32(weight).reshape(data.shape) if weight is not None else torch.ones_like(data)
+        data = self.data
+        if self.weight is None:
+            self.weight = torch.ones_like(data)
 
         n_eta, n_xi = data.shape[-2:]
         to_rad = np.pi / 180 if degrees else 1.0
@@ -146,18 +108,6 @@ class ProjectionMap(Map):
 
     # -- structure -----------------------------------------------------------------
     @property
-    def shape(self):
-        return tuple(self.data.shape)
-
-    @property
-    def n_stokes(self) -> int:
-        return len(self.stokes)
-
-    @property
-    def n_nu(self) -> int:
-        return len(self.nu)
-
-    @property
     def n_x(self) -> int:
         return self.data.shape[-1]
 
@@ -192,15 +142,6 @@ class ProjectionMap(Map):
     @property
     def y_res(self) -> float:
         return float(self._height / self.n_y)
-
-    @property
-    def nu_bin_bounds(self):
-        """(nu_min, nu_max) in Hz of every channel: the midpoints between
-        adjacent nu; one channel takes every frequency."""
-        if self.n_nu == 1:
-            return [(0.0, np.inf)]
-        edges = [0.0, *(0.5 * (self.nu[1:] + self.nu[:-1])), np.inf]
-        return list(zip(edges[:-1], edges[1:]))
 
     @property
     def pixel_area(self) -> float:

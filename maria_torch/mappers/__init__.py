@@ -1,4 +1,5 @@
-"""The map-makers (maria_tpu/mappers): ``BinMapper``,
+"""The map-makers (maria_tpu/mappers): ``BaseMapper`` and
+``BaseProjectionMapper`` (mappers/base.py), ``BinMapper``,
 ``MaximumLikelihoodMapper``, ``StreamingMLMapper`` (over a
 ``StreamingExecutor``'s blocks) and ``compute_residual_map``."""
 
@@ -7,11 +8,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .base import BaseMapper, BaseProjectionMapper  # noqa: F401
 from .bin_mapper import BinMapper  # noqa: F401
 from .ml_mapper import MaximumLikelihoodMapper  # noqa: F401
 from .streaming_ml import StreamingMLMapper  # noqa: F401
 
-__all__ = ["BinMapper", "MaximumLikelihoodMapper", "StreamingMLMapper", "compute_residual_map"]
+__all__ = ["BaseMapper", "BaseProjectionMapper", "BinMapper", "MaximumLikelihoodMapper", "StreamingMLMapper",
+           "compute_residual_map"]
 
 
 def compute_residual_map(input_map, output_map):

@@ -4,7 +4,14 @@ map geometry from the TODs' pointing, Stokes and band inference, time
 bins, and the shared postprocessing (optional smoothing, the zero-mean
 convention). A unit of a TOD quantity is accumulated as it is; a
 map-only unit (Jy/pixel, Jy/beam, Jy/sr, compton y) is accumulated in
-K_RJ and the final map converted."""
+K_RJ and the final map converted.
+
+``BaseMapper`` holds what does not depend on the map's geometry: the
+TODs (``add_tod`` processes and converts one more), the Stokes and band
+inference, the time bins and ``postprocess``; ``BaseProjectionMapper``
+adds the tangent-plane grid. A TOD given by ``add_tod`` after the mapper
+is made is binned with the others, on the bands and time bins that the
+first TODs set."""
 
 from __future__ import annotations
 
@@ -16,36 +23,22 @@ from ..tod.tod import VALID_TOD_QUANTITIES
 from ..units import Quantity, parse_units
 
 
-class BaseProjectionMapper:
-    def __init__(self, tods, center=None, width=None, height=None, resolution=None,
-                 frame: str = "ra/dec", units: str = "K_RJ", degrees: bool = True,
-                 tod_preprocessing: dict = {}, map_postprocessing: dict = {}, t_bins: int = 1,
-                 timestep: float = None, stokes: str = None, target=None):
-        if target is not None:
-            # copy the geometry of a target map: BinMapper(tod, target=input_map)
-            scale = 180 / np.pi if degrees else 1.0
-            center = center if center is not None else tuple(scale * c for c in target.center)
-            width = width if width is not None else target.width
-            height = height if height is not None else target.height
-            resolution = resolution if resolution is not None else target.resolution
-            frame = target.frame
-        # angle Quantities convert to the caller's angular convention
-        def number(x):
-            return (float(x.deg) if degrees else float(x.rad)) if isinstance(x, Quantity) else x
+class BaseMapper:
+    """``progress_bars`` is kept for maria_tpu's signature (its mappers
+    store it and draw none)."""
 
-        width, height, resolution = number(width), number(height), number(resolution)
-        if center is not None:
-            center = tuple(number(c) for c in center)
+    def __init__(self, tods, frame: str = "ra/dec", units: str = "K_RJ", tod_preprocessing: dict = {},
+                 map_postprocessing: dict = {}, t_bins: int = 1, timestep: float = None, stokes: str = None,
+                 progress_bars: bool = False):
         self.frame = Frame(frame)
-        if self.frame.name == "galactic":
-            raise ValueError("a projection mapper's frame is 'az/el' or 'ra/dec'")
         self.units = units
         self.tod_units = units if parse_units(units).quantity in VALID_TOD_QUANTITIES else "K_RJ"
         self.t_bins = t_bins
+        self.progress_bars = progress_bars
         self.map_postprocessing = dict(map_postprocessing)
-        tods = tods if isinstance(tods, (list, tuple)) else [tods]
-        self.tods = [(tod.process(**tod_preprocessing) if tod_preprocessing else tod).to(self.tod_units)
-                     for tod in tods]
+        self.tods = []
+        for tod in tods if isinstance(tods, (list, tuple)) else [tods]:
+            self.add_tod(tod, preprocessing=tod_preprocessing)
 
         sw = np.concatenate([tod.dets.stokes_weight() for tod in self.tods], axis=0)
         # the simulation's input map rides along on the TODs' metadata
@@ -69,6 +62,61 @@ class BaseProjectionMapper:
             self.t_bins = t_bins = max(int(np.ceil((t_max - t_min) / float(timestep))), 1)
         self.t_edges = np.linspace(t_min, t_max, t_bins + 1)
         self.t_centers = 0.5 * (self.t_edges[1:] + self.t_edges[:-1])
+
+    def add_tod(self, tod, preprocessing: dict = {}):
+        """One more TOD, processed by ``preprocessing`` (``TOD.process``)
+        and converted to the units the mapper accumulates."""
+        self.tods.append((tod.process(**preprocessing) if preprocessing else tod).to(self.tod_units))
+
+    def postprocess(self, sums, weights):
+        from scipy.ndimage import gaussian_filter, median_filter
+
+        sums = np.asarray(sums, dtype=np.float64)
+        weights = np.asarray(weights, dtype=np.float64)
+        sigma = self.map_postprocessing.get("gaussian_filter", {}).get("sigma", 0)
+        if sigma:
+            sums = gaussian_filter(sums, sigma=(0, 0, 0, sigma, sigma))
+            weights = gaussian_filter(weights, sigma=(0, 0, 0, sigma, sigma))
+        size = self.map_postprocessing.get("median_filter", {}).get("size", 0)
+        if size and size > 1:
+            sums = median_filter(sums, size=(1, 1, 1, size, size))
+            weights = median_filter(weights, size=(1, 1, 1, size, size))
+        with np.errstate(invalid="ignore", divide="ignore"):
+            m = sums / weights
+        if not self.map_postprocessing.get("keep_mean", False):
+            for idx in np.ndindex(m.shape[:3]):
+                valid = weights[idx] > 0
+                if valid.any():
+                    m[idx] -= m[idx][valid].mean()
+        m = np.where(weights > 0, m, np.nan)
+        return m, weights
+
+
+class BaseProjectionMapper(BaseMapper):
+    def __init__(self, tods, center=None, width=None, height=None, resolution=None,
+                 frame: str = "ra/dec", units: str = "K_RJ", degrees: bool = True,
+                 tod_preprocessing: dict = {}, map_postprocessing: dict = {}, t_bins: int = 1,
+                 timestep: float = None, stokes: str = None, target=None, progress_bars: bool = False):
+        if target is not None:
+            # copy the geometry of a target map: BinMapper(tod, target=input_map)
+            scale = 180 / np.pi if degrees else 1.0
+            center = center if center is not None else tuple(scale * c for c in target.center)
+            width = width if width is not None else target.width
+            height = height if height is not None else target.height
+            resolution = resolution if resolution is not None else target.resolution
+            frame = target.frame
+        # angle Quantities convert to the caller's angular convention
+        def number(x):
+            return (float(x.deg) if degrees else float(x.rad)) if isinstance(x, Quantity) else x
+
+        width, height, resolution = number(width), number(height), number(resolution)
+        if center is not None:
+            center = tuple(number(c) for c in center)
+        if Frame(frame).name == "galactic":
+            raise ValueError("a projection mapper's frame is 'az/el' or 'ra/dec'")
+        super().__init__(tods, frame=frame, units=units, tod_preprocessing=tod_preprocessing,
+                         map_postprocessing=map_postprocessing, t_bins=t_bins, timestep=timestep, stokes=stokes,
+                         progress_bars=progress_bars)
 
         to_rad = np.pi / 180 if degrees else 1.0
         if center is None or width is None:
@@ -94,29 +142,6 @@ class BaseProjectionMapper:
         self.n_x = max(int(np.ceil(width_rad / res_rad)), 1)
         self.n_y = max(int(np.ceil(height_rad / res_rad)), 1)
         self.res = res_rad
-
-    def postprocess(self, sums, weights):
-        from scipy.ndimage import gaussian_filter, median_filter
-
-        sums = np.asarray(sums, dtype=np.float64)
-        weights = np.asarray(weights, dtype=np.float64)
-        sigma = self.map_postprocessing.get("gaussian_filter", {}).get("sigma", 0)
-        if sigma:
-            sums = gaussian_filter(sums, sigma=(0, 0, 0, sigma, sigma))
-            weights = gaussian_filter(weights, sigma=(0, 0, 0, sigma, sigma))
-        size = self.map_postprocessing.get("median_filter", {}).get("size", 0)
-        if size and size > 1:
-            sums = median_filter(sums, size=(1, 1, 1, size, size))
-            weights = median_filter(weights, size=(1, 1, 1, size, size))
-        with np.errstate(invalid="ignore", divide="ignore"):
-            m = sums / weights
-        if not self.map_postprocessing.get("keep_mean", False):
-            for idx in np.ndindex(m.shape[:3]):
-                valid = weights[idx] > 0
-                if valid.any():
-                    m[idx] -= m[idx][valid].mean()
-        m = np.where(weights > 0, m, np.nan)
-        return m, weights
 
     def make_map(self, data, weights) -> ProjectionMap:
         out = ProjectionMap(

@@ -16,9 +16,10 @@ import numpy as np
 import torch
 
 from ..atmosphere.fourier import good_fft_size
+from ..device import resolve_device
 from ..ops.pink_noise import pink_noise
 
-__all__ = ["generate_noise_with_knee", "band_half_spectrum", "DEFAULT_NOISE_SIM_KWARGS"]
+__all__ = ["generate_noise_with_knee", "generate_2d_fourier_noise", "band_half_spectrum", "DEFAULT_NOISE_SIM_KWARGS"]
 
 DEFAULT_NOISE_SIM_KWARGS = {
     "correlated_noise_proportion": 0.5,
@@ -106,3 +107,19 @@ def generate_noise_with_knee(shape: tuple, sample_rate: float = 1.0, knee: float
         mode_noise = pink_noise(c_modes, _draw((k, n_f, 2), generator, noise.device, mode_white, "mode"), n, n_fft)
         noise = noise + (float(np.sqrt(corr_prop)) * basis) @ mode_noise
     return noise
+
+
+def generate_2d_fourier_noise(nx: int = 1024, ny: int = 1024, k0: float = 5.0, beta: float = 8 / 3,
+                              generator: torch.Generator = None, device=None):
+    """A standardized (ny, nx) float32 field with the isotropic power
+    spectrum (k0^2 + |k|^2)^-(beta + 1)/2, from white noise drawn from
+    ``generator`` on its device (or on ``device``: the card by default)."""
+    if device is None and generator is not None:
+        device = generator.device
+    device = resolve_device(device)
+    kx = torch.fft.fftfreq(nx, d=1 / nx, device=device)
+    ky = torch.fft.fftfreq(ny, d=1 / ny, device=device)
+    P = torch.sqrt(k0**2 + kx[None, :] ** 2 + ky[:, None] ** 2) ** (-beta - 1)
+    white = torch.randn((ny, nx), generator=generator, device=device, dtype=torch.float32)
+    F = torch.fft.fft2(torch.sqrt(P) * torch.fft.ifft2(white)).real
+    return (F - F.mean()) / F.std(correction=0)

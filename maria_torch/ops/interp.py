@@ -11,8 +11,12 @@ import numpy as np
 import torch
 
 from ..band import axis_transform, fractional_index
+from ..device import as_float32_tensors
 
 __all__ = [
+    "RegularGridInterpolator",
+    "interp",
+    "interp_1d",
     "interp_bilinear_uniform",
     "interp_bilinear_grid",
     "TableEval",
@@ -21,6 +25,70 @@ __all__ = [
     "upsample_time",
     "apply_integration_kernel",
 ]
+
+
+def interp(x, xp, fp):
+    """``jnp.interp``'s piecewise-linear interpolation of the points (xp,
+    fp) at the tensor x, the ends held beyond the table: xp a 1-D
+    increasing tensor, fp's first axis along it, any further axes of fp
+    carried after x's."""
+    n = len(xp)
+    i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True), 1, n - 1)
+    x0, f0 = xp[i - 1], fp[i - 1]
+    dx = xp[i] - x0
+    flat = dx.abs() <= float(np.spacing(np.finfo(np.float32).eps))
+    tail = (...,) + (None,) * (fp.ndim - 1)
+    s = ((x - x0) / torch.where(flat, torch.ones_like(dx), dx))[tail]
+    f = torch.where(flat[tail], f0, f0 + s * (fp[i] - f0))
+    return torch.where((x < xp[0])[tail], fp[0], torch.where((x > xp[-1])[tail], fp[-1], f))
+
+
+def interp_1d(x, side, values, axis=-1, device=None):
+    """``values`` linearly interpolated along ``axis`` at the points x on
+    the ascending grid ``side``, clipped to it; float32 on the device of
+    the tensors given (``device``, the card by default, for arrays)."""
+    x, values = as_float32_tensors(x, values, device=device)
+    axis = axis % values.ndim
+    side = torch.as_tensor(np.asarray(side), dtype=torch.float32, device=x.device)
+    out = interp(x, side, values.movedim(axis, 0))  # (*x.shape, *values' other axes)
+    return out.movedim(tuple(range(x.ndim)), tuple(range(axis, axis + x.ndim)))
+
+
+class RegularGridInterpolator:
+    """Multilinear interpolation on a d-dimensional regular grid
+    (maria_tpu/ops/interp.py). ``points`` is a tuple of d ascending 1-D
+    host arrays, ``values`` an array of shape (*grid, *trailing); a call
+    clips to the grid (constant extrapolation) by ``interp_grid`` in
+    float32 on the device of its coordinate tensors (``device``, the card
+    by default, for arrays), with the values kept there once."""
+
+    def __init__(self, points, values):
+        self.points = tuple(np.asarray(p, dtype=np.float64) for p in points)
+        self.values = np.asarray(values, dtype=np.float32)
+        self.ndim = len(self.points)
+        grid_shape = tuple(len(p) for p in self.points)
+        if self.values.shape[: self.ndim] != grid_shape:
+            raise ValueError(f"values shape {self.values.shape} does not start with grid shape {grid_shape}")
+        self._device_values = {}
+
+    def device_values(self, device) -> torch.Tensor:
+        """The values with their trailing dims flattened into one, float32
+        on ``device``."""
+        key = str(device)
+        if key not in self._device_values:
+            self._device_values[key] = torch.as_tensor(
+                self.values.reshape(self.values.shape[: self.ndim] + (-1,)), device=device)
+        return self._device_values[key]
+
+    def __call__(self, xi, device=None):
+        """xi: a tuple of d broadcastable coordinate arrays or tensors."""
+        if not isinstance(xi, (tuple, list)):
+            xi = (xi,)
+        if len(xi) != self.ndim:
+            raise ValueError(f"expected {self.ndim} coordinate arrays, got {len(xi)}")
+        xi = as_float32_tensors(*xi, device=device)
+        out = interp_grid(self.points, self.device_values(xi[0].device), xi)
+        return out.reshape(out.shape[:-1] + self.values.shape[self.ndim:])
 
 
 def interp_bilinear_uniform(values, x, y, x0, dx, y0, dy, fill_value=0.0):

@@ -697,9 +697,8 @@ def build_tod_program(obs, with_noise: bool = True, noise_kwargs: dict = {}, cmb
                                         device=resolve_device(device))
     for band in dets.bands:
         det_index = np.where(dets.band_name == band.name)[0]
-        pwv_side, el_side, table = band.atmosphere_power_table(atm.spectrum, T_base)
-        # float32 tables, as the JAX package stores them
-        pwv_side, el_side, table = (np.asarray(a, dtype=np.float32) for a in (pwv_side, el_side, table))
+        # float32 tables, as the JAX package stores them (Band.atmosphere_power reads the same)
+        pwv_side, el_side, table = band.power_table32(atm.spectrum, T_base)
         xs, ys, tab = _crop_table(pwv_side, el_side, table, pwv_lo, pwv_hi, el_lo, el_hi)
 
         basis, corr_prop = band_noise_basis(dets.offsets[det_index], noise_kwargs) if with_noise else (None, 0.0)

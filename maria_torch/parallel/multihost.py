@@ -57,15 +57,24 @@ def multihost_enabled() -> bool:
 
 
 def initialize_multihost(init_method: str = None, world_size: int = None, rank: int = None, backend: str = None,
-                         timeout: timedelta = timedelta(minutes=10)) -> bool:
+                         timeout: timedelta = timedelta(minutes=10), coordinator_address: str = None,
+                         num_processes: int = None, process_id: int = None) -> bool:
     """Bring up the default process group when multi-process mode is
     enabled (the flag, or an explicit ``init_method`` or ``world_size``).
     Returns True iff the world holds more than one rank after the call.
     Idempotent; a plain single-process run is a no-op, so every caller
     may invoke it. Without ``init_method`` the rendezvous is torchrun's
     environment ("env://": MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK).
-    ``backend`` defaults to "nccl"; it is never switched."""
+    ``backend`` defaults to "nccl"; it is never switched. maria_tpu's
+    (jax.distributed's) names are taken too: ``coordinator_address``
+    "host:port" for init_method "tcp://host:port", ``num_processes`` for
+    world_size and ``process_id`` for rank."""
     import torch.distributed as dist
+
+    if coordinator_address is not None and init_method is None:
+        init_method = f"tcp://{coordinator_address}"
+    world_size = num_processes if world_size is None else world_size
+    rank = process_id if rank is None else rank
 
     explicit = init_method is not None or world_size is not None
     if not (multihost_enabled() or explicit) or dist.is_initialized():

@@ -184,3 +184,18 @@ def get_scan_pattern_generator(pattern: str):
         if pattern == key or pattern in entry["aliases"]:
             return entry["generator"]
     raise ValueError(f"Invalid scan pattern '{pattern}'. Valid patterns are {all_patterns}.")
+
+
+# maria_tpu's public names of the pattern helpers
+def daisy_from_phase(phase, a, b, petals, miss_freq):
+    return _daisy_from_phase(phase, a, b, petals, miss_freq)
+
+
+def smooth_sawtooth(p, delta=0.01):
+    return _smooth_sawtooth(p, delta)
+
+
+def generate_scan_offsets(time, pattern: str, **scan_kwargs):
+    """(2, n_t) offsets of the pattern named ``pattern`` with raw scan
+    keywords (``parse_scan_kwargs``)."""
+    return get_scan_pattern_generator(pattern)(np.asarray(time, dtype=float), **parse_scan_kwargs(scan_kwargs))

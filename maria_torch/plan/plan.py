@@ -11,6 +11,7 @@ import numpy as np
 
 from ..coords import Coordinates, EarthLocation, offsets_to_phi_theta
 from ..site import get_site
+from ..units import Quantity
 from .patterns import get_scan_pattern_generator, parse_scan_kwargs
 
 __all__ = ["Plan", "PlanList", "parse_time"]
@@ -106,6 +107,13 @@ class Plan:
         if coords is not None and attr in ("az", "el", "ra", "dec", "l", "b"):
             return getattr(coords, attr)
         raise AttributeError(attr)
+
+    @property
+    def max_vel(self):
+        """The largest scan speed on the sky, a Quantity in rad/s."""
+        offsets = self.coords.offsets(frame=self.frame)
+        speed = np.sqrt(np.square(np.gradient(offsets, axis=0)).sum(axis=1)) / np.gradient(self.time)
+        return Quantity(speed.max(), "rad/s")
 
     def offsets(self, frame=None, center=None):
         return self.coords.offsets(frame=frame or self.frame, center=center)

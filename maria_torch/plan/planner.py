@@ -13,15 +13,14 @@ import time as _time
 import numpy as np
 
 from ..coords import Coordinates, ephemeris as eph
+from ..errors import NoSuitablePlansError
 from ..site import get_site
 from .plan import Plan, PlanList, parse_time
 
 logger = logging.getLogger("maria_torch")
 
-
-class NoSuitablePlansError(Exception):
-    def __init__(self, message="Could not find any plans satisfying the given constraints."):
-        super().__init__(message)
+CONSTRAINT_KEYS = ["az", "el", "hour", "min_sun_distance"]
+SIDEREAL_DAY_SECONDS = 86164.0905
 
 
 def sun_ra_dec(t):

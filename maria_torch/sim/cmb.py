@@ -20,7 +20,7 @@ import torch
 from ..constants import T_CMB, k_B
 from ..device import resolve_device
 from ..ops.interp import interp_grid
-from ..radiometry import inverse_rayleigh_jeans_spectrum, planck_spectrum
+from ..functions.radiometry import inverse_rayleigh_jeans_spectrum, planck_spectrum
 from ..tod import Pointing
 
 __all__ = ["DEFAULT_CMB_SIM_KWARGS", "cmb_power_grids", "cmb_power_tables", "compute_cmb_loading", "initialize_cmb"]
@@ -30,14 +30,14 @@ GENERATE = ("spectrum", "power_spectrum", "generate", "generated")
 EPS = 1e-6  # K: the step of the two-point dP/dT
 
 
-def _test_T_RJ(nu):
+def _test_T_RJ(nu, eps: float = EPS):
     """(n_nu, 2): the RJ temperatures of blackbodies at T_CMB and T_CMB +
-    EPS (the Planck spectrum, inverted as a Rayleigh-Jeans one)."""
+    eps (the Planck spectrum, inverted as a Rayleigh-Jeans one)."""
     nu = nu[:, None]
-    return inverse_rayleigh_jeans_spectrum(planck_spectrum(np.array([T_CMB, T_CMB + EPS])[None], nu), nu)
+    return inverse_rayleigh_jeans_spectrum(planck_spectrum(np.array([T_CMB, T_CMB + eps])[None], nu), nu)
 
 
-def _det_power_grid(band, spectrum):
+def _det_power_grid(band, spectrum, eps: float = EPS):
     """(T_base, pwv, el, 2) pW of the two blackbodies through the passband
     and the atmosphere's transmission, on the spectrum's grid."""
     from scipy.interpolate import interp1d
@@ -45,15 +45,15 @@ def _det_power_grid(band, spectrum):
     nu = band.nu
     op = interp1d(spectrum.side_nu, spectrum._opacity, axis=-1)(nu)  # (T_base, pwv, el, n_nu)
     return 1e12 * k_B * np.trapezoid(
-        _test_T_RJ(nu)[None, None, None] * (np.exp(-op) * band.passband(nu))[..., None], x=nu, axis=-2
+        _test_T_RJ(nu, eps)[None, None, None] * (np.exp(-op) * band.passband(nu))[..., None], x=nu, axis=-2
     )
 
 
-def cmb_power_tables(band, spectrum, base_temperature: float):
+def cmb_power_tables(band, spectrum, base_temperature: float, eps: float = EPS):
     """(pwv_side, el_side, P0 (pwv, el) pW, dP/dT (pwv, el) pW/K_CMB), the
     tables at one base temperature, float32 (the T_base axis collapsed
-    as ``Band.atmosphere_power_table`` does)."""
-    P_T = _det_power_grid(band, spectrum)
+    as ``Band.atmosphere_power_table`` does), dP/dT over a step of ``eps`` K."""
+    P_T = _det_power_grid(band, spectrum, eps)
     T_sides = spectrum.side_base_temperature
     i = int(np.clip(np.searchsorted(T_sides, base_temperature) - 1, 0, len(T_sides) - 2))
     w = np.clip((base_temperature - T_sides[i]) / (T_sides[i + 1] - T_sides[i]), 0, 1)
@@ -62,7 +62,7 @@ def cmb_power_tables(band, spectrum, base_temperature: float):
         np.asarray(spectrum.side_zenith_pwv),
         np.asarray(spectrum.side_elevation),
         np.asarray(P[..., 0], dtype=np.float32),
-        np.asarray((P[..., 1] - P[..., 0]) / EPS, dtype=np.float32),
+        np.asarray((P[..., 1] - P[..., 0]) / eps, dtype=np.float32),
     )
 
 

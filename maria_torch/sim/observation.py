@@ -85,5 +85,15 @@ class Observation:
     def shape(self):
         return (self.instrument.dets.n, len(self.t))
 
+    @property
+    def n_samples(self) -> int:
+        return self.shape[0] * self.shape[1]
+
+    @property
+    def coords(self):
+        """The detectors' (n_det, n_t) Coordinates in az/el, made on the
+        host when asked for (the simulation never asks)."""
+        return self.boresight.broadcast(self.offsets, frame="az/el")
+
     def __repr__(self):
         return f"Observation(instrument={self.instrument.name}, site={self.site.name}, shape={self.shape})"

@@ -21,7 +21,7 @@ import time as _time
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import check_float32, resolve_device
 from ..instrument import Instrument, get_instrument
 from ..noise import DEFAULT_NOISE_SIM_KWARGS, generate_noise_with_knee
 from ..ops.program import band_noise_basis, band_noise_scale, build_tod_program, gain_errors
@@ -35,18 +35,6 @@ from .observation import Observation
 from .params import parse_sim_kwargs
 
 logger = logging.getLogger("maria_torch")
-
-
-def _check_dtype(dtype):
-    """The port computes in float32 only: any other dtype raises."""
-    ok = dtype is torch.float32
-    if not ok:
-        try:
-            ok = np.dtype(dtype) == np.float32
-        except TypeError:
-            ok = False
-    if not ok:
-        raise ValueError(f"dtype {dtype!r}: the port computes in float32 only")
 
 
 class Simulation:
@@ -71,7 +59,7 @@ class Simulation:
             raise TypeError("Simulation requires 'plans' (or the alias 'plan').")
         if site is None:
             raise TypeError("Simulation requires 'site'.")
-        _check_dtype(dtype)
+        check_float32(dtype)
 
         # loose keywords (pwv=1.2, ...) go to their subsystem; pwv is sugar
         # for the weather's override
@@ -151,10 +139,12 @@ class Simulation:
             logger.info(f"Simulated observation {i + 1}/{len(self.obs_list)} in {_time.monotonic() - s:.2f} s")
         return tods
 
-    def run_obs(self, obs_index: int, draws: dict = None) -> TOD:
-        """One observation's TOD in pW. ``draws`` may hold "screens",
-        "noise", "modes" (see ``TODProgram.fields``) and "gains" ((n_det,)
-        normals); anything missing is drawn from the generator."""
+    def run_obs(self, obs, draws: dict = None) -> TOD:
+        """One observation's TOD in pW: ``obs`` is one of ``obs_list`` or
+        its index. ``draws`` may hold "screens", "noise", "modes" (see
+        ``TODProgram.fields``) and "gains" ((n_det,) normals); anything
+        missing is drawn from the generator."""
+        obs_index = obs if isinstance(obs, (int, np.integer)) else self.obs_list.index(obs)
         obs = self.obs_list[obs_index]
         draws = draws or {}
         dets = obs.instrument.dets
@@ -232,6 +222,14 @@ class Simulation:
             rows = torch.as_tensor(band_idx, device=self.device)
             noise[rows] = band_noise_scale(band, [v[rows] for v in loading.values()]) * unscaled
         return noise
+
+    @property
+    def min_time(self) -> float:
+        return self.obs_list[0].plan.start_time
+
+    @property
+    def max_time(self) -> float:
+        return self.obs_list[-1].plan.end_time
 
     def __repr__(self):
         return f"Simulation({self.instrument!r}, {self.site!r}, {len(self.plans)} plan(s), device={self.device})"

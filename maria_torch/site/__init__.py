@@ -1,19 +1,19 @@
 """Observing sites and regions (maria_tpu/site): the 26 named sites with
 their aliases and altitude overrides, and the 25 regions with their
 geography and the climatological pwv of the synthetic weather, stored as
-JSON. A region's name is a site of its own. The world height map is
-downloaded data and is not ported."""
+JSON (``regions``). A region's name is a site of its own. The world
+height map is downloaded data and is not ported."""
 
 from __future__ import annotations
 
 from ..coords.earth import EarthLocation
 from ..io import read_config
+from .regions import REGIONS, all_regions
 
-__all__ = ["REGIONS", "SITE_CONFIGS", "Site", "all_regions", "all_sites", "get_region", "get_site", "get_site_config"]
+__all__ = ["REGIONS", "SITE_CONFIGS", "Site", "all_regions", "all_sites", "get_location", "get_region", "get_site",
+           "get_site_config"]
 
-REGIONS = read_config("regions")
 SITE_CONFIGS = read_config("sites")
-all_regions = list(REGIONS)
 all_sites = sorted(SITE_CONFIGS)
 
 
@@ -24,12 +24,18 @@ def get_region(region: str) -> dict:
 
 
 class Site:
+    """A region with its location; ``documentation`` is kept and any other
+    keyword of a site's configuration is accepted and ignored, as
+    maria_tpu's Site does."""
+
     def __init__(self, region: str, altitude: float = None, latitude: float = None,
-                 longitude: float = None, description: str = "", name: str = None):
+                 longitude: float = None, description: str = "", documentation: str = "", name: str = None,
+                 **extra):
         entry = get_region(region)
         self.name = name or region
         self.region = region
         self.description = description
+        self.documentation = documentation
         self.latitude = float(latitude if latitude is not None else entry["latitude"])
         self.longitude = float(longitude if longitude is not None else entry["longitude"])
         self.altitude = float(altitude if altitude is not None else entry["altitude"])
@@ -67,3 +73,8 @@ def get_site(site_name: str, **kwargs) -> Site:
         return Site(region=site_name, **kwargs)
     raise ValueError(f"'{site_name}' is not a valid site or region; known: {all_sites + all_regions}")
 
+
+
+def get_location(site_name: str) -> EarthLocation:
+    """The EarthLocation of a named site, alias or region."""
+    return get_site(site_name).earth_location

@@ -1,5 +1,9 @@
 """Atmospheric spectra: the (base_temperature, zenith_pwv, elevation, nu)
-emission and opacity grids (maria_tpu/spectrum/__init__.py).
+emission, opacity and excess-path grids (maria_tpu/spectrum/__init__.py),
+and their lookup at any samples: ``emission``, ``opacity``,
+``path_delay`` and ``transmission`` interpolate the 4-D grid in float32
+on the device of the coordinate tensors they are given (``device``, the
+card by default, when all are arrays or numbers).
 
 The grids are generated by ``spectrum.synth`` and cached as .npz under
 the package cache directory. A write goes through a private temporary
@@ -14,9 +18,12 @@ import os
 import zipfile
 
 import numpy as np
+import torch
 
 from ..io import atomic_save_npz, get_cache_dir
+from ..ops.interp import RegularGridInterpolator
 from ..site import get_region
+from ..units import Quantity
 from . import synth
 
 logger = logging.getLogger("maria_torch")
@@ -29,6 +36,7 @@ _KEYS = (
     "side_nu_Hz",
     "rayleigh_jeans_temperature_K",
     "opacity_nepers",
+    "excess_path_m",
 )
 
 
@@ -51,23 +59,28 @@ def _load_valid(path: str):
 
 
 class AtmosphericSpectrum:
-    """Emission/opacity lookup grids for one region."""
+    """Emission, opacity and path-delay lookup grids for one region. The
+    grids are made for the region's altitude; ``altitude`` is kept as the
+    site's, as maria_tpu does, and ``refresh_cache`` makes the cached
+    grids anew."""
 
-    def __init__(self, region: str, source: str = SPECTRUM_SOURCE):
+    def __init__(self, region: str, altitude: float = None, source: str = SPECTRUM_SOURCE,
+                 refresh_cache: bool = False):
         if source != SPECTRUM_SOURCE:
             raise NotImplementedError(
                 f"spectrum source '{source}' (ROADMAP queue 1, item 13: other scene sources)"
             )
         self.region = region
-        self.altitude = float(get_region(region)["altitude"])
+        region_altitude = float(get_region(region)["altitude"])
+        self.altitude = altitude or region_altitude
         self.source = source
         self.cache_path = os.path.join(
             get_cache_dir(), "atmosphere", "spectra", *source.split("/"), f"{region}.npz"
         )
-        grids = _load_valid(self.cache_path)
+        grids = None if refresh_cache else _load_valid(self.cache_path)
         if grids is None:
             logger.info(f"Generating the synthetic atmospheric spectrum for '{region}' (cached).")
-            full = synth.generate_spectrum_grids(base_altitude_m=self.altitude)
+            full = synth.generate_spectrum_grids(base_altitude_m=region_altitude)
             grids = {k: full[k] for k in _KEYS}
             atomic_save_npz(self.cache_path, **grids)
 
@@ -77,6 +90,8 @@ class AtmosphericSpectrum:
         self.side_nu = grids["side_nu_Hz"].astype(float)
         self._emission = grids["rayleigh_jeans_temperature_K"]
         self._opacity = grids["opacity_nepers"]
+        self._path_delay = grids["excess_path_m"]
+        self._interpolators = {}
 
     @property
     def points(self):
@@ -86,6 +101,42 @@ class AtmosphericSpectrum:
             self.side_elevation,
             self.side_nu,
         )
+
+    @property
+    def nu_min(self):
+        return Quantity(self.side_nu.min(), "Hz")
+
+    @property
+    def nu_max(self):
+        return Quantity(self.side_nu.max(), "Hz")
+
+    def _interp(self, quantity, nu, pwv=None, base_temperature=None, elevation=None, device=None):
+        """The grid of ``quantity`` at (base_temperature, pwv, elevation,
+        nu): the grid's median temperature and pwv and 45 deg elevation
+        where not given."""
+        pwv = pwv if pwv is not None else np.median(self.side_zenith_pwv)
+        if base_temperature is None:
+            base_temperature = np.median(self.side_base_temperature)
+        elevation = elevation if elevation is not None else np.radians(45.0)
+        if quantity not in self._interpolators:
+            self._interpolators[quantity] = RegularGridInterpolator(self.points, getattr(self, f"_{quantity}"))
+        return self._interpolators[quantity]((base_temperature, pwv, elevation, nu), device=device)
+
+    def emission(self, nu, pwv=None, base_temperature=None, elevation=None, device=None):
+        """Rayleigh-Jeans brightness temperature of the atmosphere [K]."""
+        return self._interp("emission", nu, pwv, base_temperature, elevation, device)
+
+    def opacity(self, nu, pwv=None, base_temperature=None, elevation=None, device=None):
+        """Opacity along the line of sight [nepers]."""
+        return self._interp("opacity", nu, pwv, base_temperature, elevation, device)
+
+    def path_delay(self, nu, pwv=None, base_temperature=None, elevation=None, device=None):
+        """Excess optical path along the line of sight [m]."""
+        return self._interp("path_delay", nu, pwv, base_temperature, elevation, device)
+
+    def transmission(self, nu, pwv=None, base_temperature=None, elevation=None, device=None):
+        """exp(-opacity)."""
+        return torch.exp(-self.opacity(nu, pwv, base_temperature, elevation, device))
 
     def __repr__(self):
         return f"AtmosphericSpectrum(region={self.region})"

@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from ..coords import Coordinates, offsets_to_phi_theta
-from ..device import resolve_device
+from ..device import check_float32, resolve_device
+from ..ops.interp import interp
 from ..units import Quantity, parse_units
 
 __all__ = ["TOD", "Pointing", "VALID_TOD_QUANTITIES"]
@@ -92,19 +93,6 @@ class Pointing:
         return Pointing(cut, self.offsets, None if self.q is None else self.q[idx])
 
 
-def interp(x, xp, fp):
-    """``jnp.interp``'s piecewise-linear interpolation of the points (xp,
-    fp), 1-D tensors with xp increasing, at the tensor x: the ends held
-    beyond the table."""
-    n = len(xp)
-    i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True), 1, n - 1)
-    x0, f0 = xp[i - 1], fp[i - 1]
-    dx = xp[i] - x0
-    flat = dx.abs() <= float(np.spacing(np.finfo(np.float32).eps))
-    f = torch.where(flat, f0, f0 + (x - x0) / torch.where(flat, torch.ones_like(dx), dx) * (fp[i] - f0))
-    return torch.where(x < xp[0], fp[0], torch.where(x > xp[-1], fp[-1], f))
-
-
 def _table_convert(cal, d):
     """A non-linear elementwise chain on the field ``d`` (a float32
     tensor): evaluated on the host in float64 at 1,025 points over the
@@ -123,8 +111,16 @@ def _table_convert(cal, d):
 
 
 class TOD:
+    """Fields of (n_det, n_t) float32 tensors with their detectors,
+    pointing, weight and units. ``dtype`` must be float32; ``abscal``
+    is kept as given (maria_tpu stores it and applies it nowhere)."""
+
     def __init__(self, data: dict, pointing: Pointing = None, weight=None, units: str = "K_RJ",
-                 dets=None, metadata: dict = {}, spectrum=None, coords: Coordinates = None):
+                 dets=None, metadata: dict = {}, spectrum=None, coords: Coordinates = None, dtype=torch.float32,
+                 abscal: float = 1.0):
+        check_float32(dtype)
+        self.dtype = torch.float32
+        self.abscal = abscal
         self.pointing = pointing
         self._coords = coords
         self._spectrum = spectrum

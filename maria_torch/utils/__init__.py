@@ -1,28 +1,42 @@
-"""Host numpy helpers of the scene layer (from maria_tpu/utils and
-maria_tpu/functions); the TOD signal tools are in ``utils.signal``."""
+"""Host numpy helpers of the scene layer (maria_tpu/utils): the point
+cloud's diameter, time, angle and number helpers and ``Timer``; the
+rotations (``rotations``), the linear algebra (``linalg``) and the TOD
+signal tools (``signal``) live in their modules. The Matérn helpers are
+``maria_torch.functions``' own, under their earlier path here."""
 
 from __future__ import annotations
 
+import time as _time
 from datetime import datetime, timezone
 
 import numpy as np
 import scipy as sp
 
+from ..functions import (  # noqa: F401
+    approximate_normalized_matern,
+    matern_five_halves,
+    matern_spectral_density,
+    normalized_matern,
+)
+from .linalg import fast_psd_inverse, generate_spatial_basis, pointing_indices_and_weights  # noqa: F401
+from .rotations import (  # noqa: F401
+    compute_aligning_transform,
+    principal_angle_2d,
+    rotation_matrix_2d,
+    rotation_matrix_3d,
+)
 
-# maria_tpu's compute_diameter takes the hull of 10,000 points drawn with
-# replacement by default_rng(0) from a larger cloud; the diameter-and-spacing
-# iteration of an array's pattern (and AtLAST-SZ's detector count) depends on it.
-_MAX_DIAMETER_SAMPLE = 10000
 
-
-def compute_diameter(points) -> float:
-    """Diameter of a point cloud via its convex hull (of the subsample
-    above for more than ``_MAX_DIAMETER_SAMPLE`` points)."""
+def compute_diameter(points, lazy=False, MAX_SAMPLE_SIZE: int = 10000) -> float:
+    """Diameter of a point cloud via its convex hull, of MAX_SAMPLE_SIZE
+    points drawn with replacement by default_rng(0) when ``lazy`` or the
+    cloud is larger (an array's diameter-and-spacing iteration, and so
+    AtLAST-SZ's detector count, depends on that subsample)."""
     points = np.atleast_2d(points)
     if len(points) < 2:
         return 0.0
-    if len(points) > _MAX_DIAMETER_SAMPLE:
-        points = points[np.random.default_rng(0).choice(len(points), size=_MAX_DIAMETER_SAMPLE, replace=True)]
+    if lazy or len(points) > MAX_SAMPLE_SIZE:
+        points = points[np.random.default_rng(0).choice(len(points), size=MAX_SAMPLE_SIZE, replace=True)]
     dims_vary = np.ptp(points, axis=0) > 0
     if dims_vary.sum() == 0:
         return 0.0
@@ -37,22 +51,6 @@ def compute_diameter(points) -> float:
     return float(np.sqrt(d2.max()))
 
 
-def principal_angle_2d(points) -> float:
-    """Angle of the principal axis of a 2-D point cloud."""
-    p = np.asarray(points, dtype=float).reshape(-1, 2)
-    p = p - p.mean(axis=0)
-    cxx = np.mean(p[:, 0] ** 2)
-    cyy = np.mean(p[:, 1] ** 2)
-    cxy = np.mean(p[:, 0] * p[:, 1])
-    return 0.5 * np.arctan2(2 * cxy, cxx - cyy)
-
-
-def rotation_matrix_2d(a):
-    a = np.asarray(a)
-    c, s = np.cos(a), np.sin(a)
-    return np.stack([np.stack([c, -s], axis=-1), np.stack([s, c], axis=-1)], axis=-2)
-
-
 def get_utc_day_hour(t: float) -> float:
     dt = datetime.fromtimestamp(float(t), tz=timezone.utc)
     return dt.hour + dt.minute / 60 + dt.second / 3600 + dt.microsecond / 3.6e9
@@ -63,76 +61,161 @@ def get_utc_year_day(t: float) -> float:
     return float(dt.timetuple().tm_yday - 1) + get_utc_day_hour(t) / 24
 
 
-def matern_five_halves(r):
-    return (1 + np.sqrt(3) * r + (5.0 / 3.0) * r**2) * np.exp(-np.sqrt(5) * r)
+def get_utc_year(t: float) -> int:
+    """Calendar year of a unix timestamp."""
+    return datetime.fromtimestamp(float(t), tz=timezone.utc).year
 
 
-def matern_spectral_density(k, nu: float, r0: float, d: int):
-    """Unnormalized Whittle-Matérn spectral density in d dimensions."""
-    inv_l2 = 2 * nu / r0**2
-    return (inv_l2 + k**2) ** -(nu + d / 2)
+# a unix timestamp carries no zone: the "local" day hour is the UTC one
+get_day_hour = utc_day_hour = get_utc_day_hour
+utc_year_day = get_utc_year_day
 
 
-def generate_spatial_basis(offsets, k: int = 5, n_side: int = 8, scale: float = 1):
-    """Low-rank Matérn-5/2 eigenbasis over the focal plane for the
-    correlated detector noise (maria_tpu/utils/linalg.py)."""
-    lo = offsets.min(axis=0)
-    hi = offsets.max(axis=0)
-    x = np.linspace(lo[0], hi[0], n_side)
-    y = np.linspace(lo[1], hi[1], n_side)
-    grid = np.stack(np.meshgrid(x, y, indexing="ij"), axis=-1).reshape(-1, 2)
-    dist = np.linalg.norm(grid[:, None] - grid[None, :], axis=-1) / max(scale, 1e-16)
-    evals, evecs = np.linalg.eigh(matern_five_halves(dist))
-    modes = evecs[:, : -k - 1 : -1] * np.sqrt(np.maximum(evals[: -k - 1 : -1], 0.0))
-    B = sp.interpolate.RegularGridInterpolator(
-        (x, y), modes.reshape(n_side, n_side, k), method="cubic"
-    )(offsets)
-    B *= np.sign(B[:, 0].mean() or 1.0)
-    return B
+def humanize_time(seconds: float) -> str:
+    if seconds < 1e-3:
+        return f"{1e6 * seconds:.0f} µs"
+    if seconds < 1:
+        return f"{1e3 * seconds:.0f} ms"
+    if seconds < 60:
+        return f"{seconds:.02f} s"
+    minutes, s = divmod(seconds, 60)
+    if minutes < 60:
+        return f"{int(minutes)}m{s:02.0f}s"
+    hours, m = divmod(minutes, 60)
+    return f"{int(hours)}h{int(m):02d}m{s:02.0f}s"
 
 
-def normalized_matern(r, nu):
-    """Unit-variance Matérn covariance at distance r (in units of the
-    outer scale), by Bessel K."""
-    arg = np.sqrt(2 * nu) * np.asarray(r, dtype=float) + 1e-16
-    return 2 ** (1 - nu) / sp.special.gamma(nu) * sp.special.kv(nu, arg) * arg**nu
+def grouper(iterable, n):
+    """The items in lists of ``n``, the last one shorter."""
+    out, buf = [], []
+    for x in iterable:
+        buf.append(x)
+        if len(buf) == n:
+            out.append(buf)
+            buf = []
+    if buf:
+        out.append(buf)
+    return out
 
 
-def _matern_log_tables(nu: float, n_test_points: int = 1024):
-    """Log-log tables of the structure function 1 - C(r) and of C(r) on
-    r in [1e-6, 1e3], for ``approximate_normalized_matern``."""
-    r_samples = np.geomspace(1e-6, 1e3, n_test_points)
-    cov = normalized_matern(r_samples, nu=nu)
-    log_r = np.log(r_samples)
-    log_sf = np.log(np.clip(1 - cov, 1e-300, None))
-    log_cov = np.log(np.clip(cov, 1e-300, None))
-    return log_r, log_sf, log_cov
+class Timer:
+    """A context manager that keeps the block's wall time in ``duration``
+    and, given a ``logger``, logs ``message`` with it at debug level."""
+
+    def __init__(self, logger=None, message: str = ""):
+        self.logger = logger
+        self.message = message
+
+    def __enter__(self):
+        self.start = _time.monotonic()
+        return self
+
+    def __exit__(self, *exc):
+        self.duration = _time.monotonic() - self.start
+        if self.logger is not None:
+            self.logger.debug(f"{self.message} in {humanize_time(self.duration)}")
+        return False
 
 
-def approximate_normalized_matern(r, nu=1 / 3, r0=1e0, n_test_points=1024):
-    """Unit-variance Matérn covariance by log-log interpolation, cheap
-    over large distance matrices: the structure function interpolated at
-    small r (where C ~ 1 and C itself loses precision), the covariance
-    at large r, crossfaded at r ~ r0."""
-    log_r_tab, log_sf_tab, log_cov_tab = _matern_log_tables(nu, n_test_points)
-    r = np.asarray(r, dtype=float)
-    r_eff = np.clip(np.atleast_1d(np.abs(r) / r0), 1e-6, None)
-    log_r = np.log(r_eff)
-    sf = np.exp(np.interp(log_r, log_r_tab, log_sf_tab))
-    cov = np.exp(np.interp(log_r, log_r_tab, log_cov_tab))
-    t = 1 / (1 + r_eff**2)
-    res = np.where(r_eff < 1e3, t * (1 - sf) + (1 - t) * cov, 0.0)
-    return res.reshape(np.shape(r)) if np.shape(r) else res[0]
+def dms_to_rad(d: float = 0, m: float = 0, s: float = 0) -> float:
+    """Degrees, arcminutes and arcseconds in radians."""
+    return np.radians(d + m / 60 + s / 3600)
 
 
-def fast_psd_inverse(M: np.ndarray) -> np.ndarray:
-    """Inverse of a symmetric positive definite matrix by Cholesky
-    (LAPACK dpotrf, dpotri), float64; raises LinAlgError when M is not
-    positive definite."""
-    chol, info = sp.linalg.lapack.dpotrf(M)
-    if info != 0:
-        raise np.linalg.LinAlgError(f"dpotrf failed with info={info}")
-    inv, info = sp.linalg.lapack.dpotri(chol)
-    if info != 0:
-        raise np.linalg.LinAlgError(f"dpotri failed with info={info}")
-    return np.where(inv, inv, inv.T)
+def hms_to_rad(h: float = 0, m: float = 0, s: float = 0) -> float:
+    """Hours, minutes and seconds of right ascension in radians."""
+    return np.radians(15 * (h + m / 60 + s / 3600))
+
+
+# maria_tpu's names for the same functions: they return radians too
+dms_to_deg = dms_to_rad
+hms_to_deg = hms_to_rad
+
+
+def deg_to_signed_dms(x: float, precision: int = 6):
+    """Degrees as (sign, degrees, arcminutes, arcseconds)."""
+    x = round(float(x), precision)
+    sign = -1 if x < 0 else 1
+    mnt, sec = divmod(abs(x) * 3600, 60)
+    deg, mnt = divmod(mnt, 60)
+    return int(sign), int(deg), int(mnt), sec
+
+
+def deg_to_signed_hms(x: float, precision: int = 6):
+    """Degrees of right ascension as (sign, hours, minutes, seconds)."""
+    x = round(float(x), precision)
+    sign = -1 if x < 0 else 1
+    mnt, sec = divmod(abs(x) * 3600 / 15, 60)
+    hrs, mnt = divmod(mnt, 60)
+    return int(sign), int(hrs), int(mnt), sec
+
+
+def great_circle_distance(phi1, theta1, phi2, theta2):
+    """Angular separation of (longitude, latitude) points in radians, by
+    the haversine."""
+    dphi = np.asarray(phi2) - np.asarray(phi1)
+    dtheta = np.asarray(theta2) - np.asarray(theta1)
+    h = np.sin(dtheta / 2) ** 2 + np.cos(theta1) * np.cos(theta2) * np.sin(dphi / 2) ** 2
+    return 2 * np.arcsin(np.sqrt(np.clip(h, 0.0, 1.0)))
+
+
+def hav(x):
+    """The haversine."""
+    return (1 - np.cos(x)) / 2
+
+
+def compute_resolution_precision(x) -> int:
+    """Decimal places that tell apart the finest spacing in x (at least 4)."""
+    x = np.ravel(np.asarray(x, dtype=float))
+    if x.size > 1:
+        dx = np.diff(np.unique(np.r_[0.0, x]))
+        positive = dx[dx > 0]
+        if positive.size:
+            return max(4, int(-np.floor(np.log10(positive.min()))) + 1)
+    return 4
+
+
+def round_sig_figs(x, sig_figs: int):
+    """x rounded to ``sig_figs`` significant figures."""
+    x = np.asarray(x, dtype=float)
+    power = np.floor(np.log10(np.abs(np.where(x == 0, 1.0, x))))
+    return np.round(np.round(x * 10.0**-power, sig_figs - 1) * 10.0**power, 10)
+
+
+def is_numeric(val) -> bool:
+    """True if ``val`` casts cleanly to float."""
+    try:
+        np.asarray(val).astype(float)
+        return True
+    except (TypeError, ValueError):
+        return False
+
+
+def is_integer(val):
+    """Elementwise: whether each value is a whole number."""
+    try:
+        return np.asarray(val).astype(float) == np.asarray(val).astype(int)
+    except (TypeError, ValueError):
+        return False
+
+
+def unpack_implicit_slice(key, ndims: int) -> tuple:
+    """An indexing key (with an Ellipsis) as an explicit tuple of ``ndims`` slices."""
+    key = key if isinstance(key, tuple) else (key,)
+    explicit = []
+    for s in key:
+        if s is Ellipsis:
+            explicit.extend([slice(None)] * (ndims + 1 - len(key)))
+        else:
+            explicit.append(s)
+    while len(explicit) < ndims:
+        explicit.append(slice(None))
+    return tuple(explicit)
+
+
+def regular_digitization(x, bins):
+    """Bin indices of x for regularly spaced ``bins``, by arithmetic
+    rather than a bisection."""
+    bins = np.asarray(bins)
+    dx = float(np.mean(np.diff(bins))) if len(bins) > 1 else 1.0
+    return np.clip(((np.asarray(x) - (bins.min() - dx)) / dx).astype(int), 0, len(bins))

@@ -48,7 +48,7 @@ def median(x, dim: int = -1, keepdim: bool = False):
     return out if keepdim else out.squeeze(dim)
 
 
-def decompose(data, k: int = None, downsample_rate: int = 1):
+def decompose(data, k: int = None, downsample_rate: int = 1, mode: str = "uv"):
     """The top-k singular modes of (n_det, n_t) float32 ``data`` on its
     device: (a, b) with data ~ a @ b, a = u_k s_k (n_det, k) and b
     (k, n_t) the least-squares mode time series, u_k^T data / s_k (v_k^T
@@ -56,7 +56,8 @@ def decompose(data, k: int = None, downsample_rate: int = 1):
     come from the eigenvectors of its float64 Gram matrix (n_det x n_det),
     so the long axis is read once; maria_tpu takes a float32 host SVD
     (signal/__init__.py:59). A singular vector's sign is arbitrary on both
-    sides; a @ b is not."""
+    sides; a @ b is not. ``mode`` is kept for maria_tpu's signature,
+    which reads it nowhere either."""
     x = data.to(torch.float64)
     xs = x[:, ::downsample_rate]
     evals, evecs = torch.linalg.eigh(xs @ xs.T)
@@ -158,9 +159,10 @@ def remove_slope(data):
     return data - (data[..., :1] + (data[..., -1:] - data[..., :1]) * ramp)
 
 
-def grouper(iterable, min_length: int = 1, max_length: float = np.inf):
+def grouper(iterable, min_length: int = 1, max_length: float = np.inf, overlap: bool = False):
     """Yield (start, stop) half-open index pairs of the True runs, runs
-    longer than ``max_length`` split."""
+    longer than ``max_length`` split (``overlap`` is kept for maria_tpu's
+    signature, which reads it nowhere either)."""
     start = np.inf
     prev_value = False
     index = -1

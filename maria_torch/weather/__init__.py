@@ -1,7 +1,10 @@
 """Site weather from the parametric per-region climatology
 (numpy port of maria_tpu/weather/__init__.py, without pandas): a
 standard-atmosphere column on pressure levels, a lognormal pwv around the
-region's median, and winds strengthening toward the jet."""
+region's median, and winds strengthening toward the jet; and the moist
+air's thermodynamics (vapor pressure, dew point, density). Where
+maria_tpu returns a DataFrame (``Weather.layers``), this returns a dict
+of numpy columns."""
 
 from __future__ import annotations
 
@@ -11,9 +14,13 @@ import zlib
 import numpy as np
 import scipy as sp
 
-from ..constants import g
+from ..constants import DRY_AIR_SPECIFIC_GAS_CONSTANT, WATER_VAPOR_SPECIFIC_GAS_CONSTANT, g
 from ..site import get_region
 from ..utils import get_utc_day_hour, get_utc_year_day
+
+# where maria_tpu's ERA5 quantile grids live; the port computes the
+# synthetic climatology only (a download is not ported)
+WEATHER_SOURCE_BASE = "https://github.com/thomaswmorris/maria-data/raw/master/atmosphere/weather"
 
 PRESSURE_LEVELS = np.array(
     [1000, 975, 950, 925, 900, 875, 850, 825, 800, 775, 750, 700, 650,
@@ -26,6 +33,33 @@ def saturation_pressure(temperature):  # K -> Pa
     T = temperature - 273.15
     a, b, c = 611.21, 17.67, 238.88
     return a * np.exp(b * T / (c + T))
+
+
+def vapor_pressure(temperature, humidity):  # (K, fraction in [0, 1]) -> Pa
+    """Partial pressure of water vapor at relative humidity ``humidity``
+    (a fraction: 1 is saturation), Magnus form."""
+    return np.clip(humidity, 1e-8, None) * saturation_pressure(temperature)
+
+
+def dew_point(temperature, humidity):  # (K, fraction in [0, 1]) -> K
+    """Magnus-formula dew point."""
+    a, b, c = 611.21, 17.67, 238.88
+    log_ratio = np.log(vapor_pressure(temperature, humidity) / a)
+    return c * log_ratio / (b - log_ratio) + 273.15
+
+
+def dew_point_to_relative_humidity(temperature, dew_point):  # (K, K) -> fraction
+    T, DP = temperature - 273.15, dew_point - 273.15
+    b, c = 17.67, 238.88
+    return np.exp(b * DP / (c + DP) - b * T / (c + T))
+
+
+def air_density(pressure, temperature, humidity):  # (Pa, K, fraction) -> kg/m^3
+    """Moist-air density from the partial pressures of vapor and dry air."""
+    vp = vapor_pressure(temperature, humidity)
+    return vp / (WATER_VAPOR_SPECIFIC_GAS_CONSTANT * temperature) + (pressure - vp) / (
+        DRY_AIR_SPECIFIC_GAS_CONSTANT * temperature
+    )
 
 
 def relative_to_absolute_humidity(temperature, humidity_frac):
@@ -44,8 +78,11 @@ def _standard_altitude_of_pressure(p_hPa):
 
 
 class Weather:
-    def __init__(self, region: str, time: float = None, altitude: float = None,
-                 quantiles: dict = {}, override: dict = {}, source: str = "synthetic"):
+    """``refresh_cache`` is kept for maria_tpu's signature: the synthetic
+    source is computed, not cached."""
+
+    def __init__(self, region: str = "chajnantor", time: float = None, altitude: float = None,
+                 quantiles: dict = {}, override: dict = {}, source: str = "synthetic", refresh_cache: bool = False):
         if source != "synthetic":
             raise NotImplementedError(
                 f"weather source '{source}' (ROADMAP queue 1, item 13: other scene sources)"
@@ -151,6 +188,29 @@ class Weather:
     @property
     def absolute_humidity(self):
         return relative_to_absolute_humidity(self.temperature, self.humidity)
+
+    @property
+    def wind_bearing(self):
+        """The direction the wind blows from, radians east of north."""
+        return np.arctan2(-self.wind_east, self.wind_north) % (2 * np.pi)
+
+    def layers(self) -> dict:
+        """The pressure levels above the site as numpy columns (maria_tpu
+        returns a DataFrame): "altitude", the weather's fields,
+        "absolute_humidity", and each level's "total_water" (mm) over
+        its "h_thickness" (m) of the column."""
+        keep = self.altitude > self.base_altitude
+        cols = {"altitude": self.altitude[keep], **{k: v[keep] for k, v in self.data.items() if np.ndim(v)}}
+        cols["absolute_humidity"] = relative_to_absolute_humidity(cols["temperature"], cols["humidity"])
+        h = cols["altitude"]
+        h_bins = np.array([self.base_altitude, *(h[:-1] + h[1:]) / 2, h[-1] + 100])
+        total_water = np.empty(len(h))
+        for i, (h1, h2) in enumerate(zip(h_bins[:-1], h_bins[1:])):
+            hh = np.linspace(h1, h2, 64)
+            total_water[i] = np.trapezoid(np.interp(hh, self.altitude, self.absolute_humidity), x=hh)
+        cols["total_water"] = total_water
+        cols["h_thickness"] = np.diff(h_bins)
+        return cols
 
     @property
     def pwv(self) -> float:

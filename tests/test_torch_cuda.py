@@ -996,3 +996,74 @@ def test_backward_on_card_matches_central_difference(cuda_device):
         fd = (float(loss(xp)) - float(loss(xm))) / float(((xp.double() - xm.double()) * v.double()).sum())
     assert bool(torch.isfinite(grad).all())
     assert abs(analytic - fd) <= 0.1 * max(abs(analytic), abs(fd)), (analytic, fd)
+
+
+# -- the device functions of the last names ported (chip_smoke phase (aa)) ----------------------
+
+
+# of the values' scale: twice the largest difference read on an H100 (1.24e-6), about the 2-ulp
+# bound worked out in the test
+RGI_CARD_BOUND = 2.5e-6
+
+
+@pytest.mark.cuda
+def test_device_functions_on_card_match_cpu(cuda_device):
+    """MaternInterpolator, RegularGridInterpolator, pointing_indices_and_weights
+    and Band.atmosphere_power compute on the card's tensors and agree with
+    the CPU: the Matérn, the bilinear weights and the loading within 1e-6
+    of the scale, the 3-D interpolation with a log axis within
+    RGI_CARD_BOUND, the pixel ids exact."""
+    import maria_torch
+    from maria_torch.functions import MaternInterpolator
+    from maria_torch.ops.interp import RegularGridInterpolator
+    from maria_torch.spectrum import AtmosphericSpectrum
+    from maria_torch.utils.linalg import pointing_indices_and_weights
+
+    rng = np.random.default_rng(0)
+    r = torch.as_tensor(rng.uniform(0, 3000, 20000), dtype=torch.float32)
+    interp = MaternInterpolator(nu=1 / 3, r0=1000.0)
+    on_card = interp(r.to(cuda_device))
+    assert on_card.device.type == "cuda"
+    assert float((on_card.cpu() - interp(r)).abs().max()) <= 1e-6
+
+    points = (np.linspace(260, 300, 5), np.geomspace(0.05, 100, 24), np.linspace(0.1, 1.57, 14))
+    rgi = RegularGridInterpolator(points, rng.uniform(1, 5, (5, 24, 14)))
+    xi = [torch.as_tensor(x, dtype=torch.float32) for x in
+          (rng.uniform(255, 305, 5000), np.exp(rng.uniform(-3, 4.6, 5000)), rng.uniform(0, 1.7, 5000))]
+    # the card's and the CPU's float32 log differ by up to ~2 ulp (9.5e-7 at |log x| < 8), which moves a
+    # sample along the log axis by 2.9e-6 of a cell: up to 1.2e-5 between neighbours 4 apart, 2.3e-6 of
+    # the values' scale of 5; printed so that a run shows the reading
+    rgi_err = float((rgi([x.to(cuda_device) for x in xi]).cpu() - rgi(xi)).abs().max()) / 5
+    print(f"RegularGridInterpolator card against CPU: {rgi_err:.3e} of the values' scale")
+    assert rgi_err <= RGI_CARD_BOUND, rgi_err
+
+    side = np.linspace(-1, 1, 64)
+    xs = [torch.as_tensor(rng.uniform(-1.1, 1.1, (300, 700)), dtype=torch.float32) for _ in range(2)]
+    ids, w, _ = pointing_indices_and_weights([x.to(cuda_device) for x in xs], [side, side])
+    ids_cpu, w_cpu, _ = pointing_indices_and_weights(xs, [side, side])
+    assert torch.equal(ids.cpu(), ids_cpu) and float((w.cpu() - w_cpu).abs().max()) <= 1e-6
+
+    spectrum = AtmosphericSpectrum("chajnantor")
+    band = maria_torch.get_band("atlast/f150")
+    pwv = torch.as_tensor(np.exp(rng.uniform(-2, 2.5, 4000)), dtype=torch.float32)
+    el = torch.as_tensor(rng.uniform(0.3, 1.5, 4000), dtype=torch.float32)
+    p = band.atmosphere_power(spectrum, 270.0, pwv.to(cuda_device), el.to(cuda_device))
+    p_cpu = band.atmosphere_power(spectrum, 270.0, pwv, el)
+    assert p.device.type == "cuda" and float((p.cpu() - p_cpu).abs().max()) <= 1e-6 * float(p_cpu.abs().max())
+
+
+@pytest.mark.cuda
+def test_2d_fourier_noise_on_card(cuda_device):
+    """generate_2d_fourier_noise draws on the generator's card: a
+    standardized field whose PSD slope is -(beta + 1) within 5%."""
+    from maria_torch.noise import generate_2d_fourier_noise
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    F = generate_2d_fourier_noise(1024, 1024, beta=8 / 3, generator=gen)
+    assert F.device.type == "cuda" and abs(float(F.mean())) < 1e-4
+    P = (torch.fft.fft2(F.double()).abs() ** 2).flatten()
+    k = torch.fft.fftfreq(1024, 1 / 1024, device=cuda_device, dtype=torch.float64)
+    kb = torch.round(torch.sqrt(k[:, None] ** 2 + k[None, :] ** 2)).long().flatten()
+    psd = (torch.bincount(kb, P)[8:409] / torch.bincount(kb)[8:409]).cpu().numpy()
+    slope = np.polyfit(np.log(np.sqrt(25 + np.arange(8, 409.0) ** 2)), np.log(psd), 1)[0]
+    assert abs(slope + 8 / 3 + 1) <= 0.05 * (8 / 3 + 1)
