@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..io.logging import count, span
 from ..ops.interp import interp_bilinear_uniform
 from .fourier import synthesize_layered_matern_2d, synthesize_matern_field_2d
 
@@ -89,30 +90,36 @@ def accumulate_pwv(mean_pwv, screens, px, py, t_rel, W=None, generator=None, dra
     pwv = torch.full(px.shape, float(np.float32(mean_pwv)), dtype=px.dtype, device=px.device)
     for i, screen in enumerate(screens):
         ty_res = screen.ty_res if screen.ty_res is not None else screen.res
-        if screen.W is not None:
-            w = W[i] if W is not None else torch.as_tensor(screen.W, device=px.device)
-            values = synthesize_matern_field_2d(
-                w, screen.ny, screen.nx, generator=generator,
-                draw=None if draws is None else draws[i],
-            )
-        else:
-            if ar_values is None or i not in ar_values:
-                raise ValueError("AR screen values missing; run the process first.")
-            values = ar_values[i]
-            if screen.beam_sigma > 0:
-                values = gaussian_blur_2d(values, screen.beam_sigma, screen.beam_sigma, ty_res, screen.res,
-                                          weights=None if blur is None else blur[i])
-        sample = _sample(values, screen.h, screen.angle, screen.vx, screen.vy, screen.res, ty_res,
-                         screen.tx_min, screen.ty_min, px, py, t_rel)
-        pwv = pwv + screen.pwv_rms * sample
+        with span("atmosphere.synthesize"):
+            if screen.W is not None:
+                w = W[i] if W is not None else torch.as_tensor(screen.W, device=px.device)
+                values = synthesize_matern_field_2d(
+                    w, screen.ny, screen.nx, generator=generator,
+                    draw=None if draws is None else draws[i],
+                )
+            else:
+                if ar_values is None or i not in ar_values:
+                    raise ValueError("AR screen values missing; run the process first.")
+                values = ar_values[i]
+                if screen.beam_sigma > 0:
+                    values = gaussian_blur_2d(values, screen.beam_sigma, screen.beam_sigma, ty_res, screen.res,
+                                              weights=None if blur is None else blur[i])
+        with span("atmosphere.sample"):
+            sample = _sample(values, screen.h, screen.angle, screen.vx, screen.vy, screen.res, ty_res,
+                             screen.tx_min, screen.ty_min, px, py, t_rel)
+            pwv = pwv + screen.pwv_rms * sample
+            count("atmosphere.layers_sampled")
     for g, group in enumerate(groups):
-        tabs = group_tables[g] if group_tables is not None else group_tensors(group, px.device)
-        stack = synthesize_layered_matern_2d(
-            tabs["W"], tabs["M_cos"], tabs["M_sin"], tabs["beam"], group.ny, group.nx,
-            generator=generator, draw=None if group_draws is None else group_draws[g],
-        )
-        for il, h in enumerate(group.heights):
-            sample = _sample(stack[il], float(h), group.angle, group.vx, group.vy, group.res, group.res,
-                             group.tx_min, group.ty_min, px, py, t_rel)
-            pwv = pwv + float(group.pwv_rms[il]) * sample
+        with span("atmosphere.synthesize"):
+            tabs = group_tables[g] if group_tables is not None else group_tensors(group, px.device)
+            stack = synthesize_layered_matern_2d(
+                tabs["W"], tabs["M_cos"], tabs["M_sin"], tabs["beam"], group.ny, group.nx,
+                generator=generator, draw=None if group_draws is None else group_draws[g],
+            )
+        with span("atmosphere.sample"):
+            for il, h in enumerate(group.heights):
+                sample = _sample(stack[il], float(h), group.angle, group.vx, group.vy, group.res, group.res,
+                                 group.tx_min, group.ty_min, px, py, t_rel)
+                pwv = pwv + float(group.pwv_rms[il]) * sample
+            count("atmosphere.layers_sampled", len(group.heights))
     return pwv

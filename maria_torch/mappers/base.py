@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..coords import Frame
+from ..io.logging import span
 from ..map import ProjectionMap
 from ..tod.tod import VALID_TOD_QUANTITIES
 from ..units import Quantity, parse_units
@@ -66,7 +67,8 @@ class BaseMapper:
     def add_tod(self, tod, preprocessing: dict = {}):
         """One more TOD, processed by ``preprocessing`` (``TOD.process``)
         and converted to the units the mapper accumulates."""
-        self.tods.append((tod.process(**preprocessing) if preprocessing else tod).to(self.tod_units))
+        with span("mapper.preprocess"):
+            self.tods.append((tod.process(**preprocessing) if preprocessing else tod).to(self.tod_units))
 
     def postprocess(self, sums, weights):
         from scipy.ndimage import gaussian_filter, median_filter

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..coords import phi_theta_to_offsets
+from ..io.logging import span
 from ..ops.bin_map import bin_map
 from ..tod import Pointing
 from .base import BaseProjectionMapper
@@ -85,7 +86,8 @@ def field_pixel_ids(boresight, offsets, n_x: int = 128, n_y: int = 128, device=N
 def bin_total(total, ids, n_pix: int):
     """(sums, hits), each (n_pix,) float32: kernel K2 over the total at
     the flat pixel ids, with its in-kernel hit count."""
-    sums, hits = bin_map(total.contiguous()[None], ids, n_pix, count=True)
+    with span("mapper.bin"):
+        sums, hits = bin_map(total.contiguous()[None], ids, n_pix, count=True)
     return sums, hits
 
 
@@ -94,6 +96,10 @@ class BinMapper(BaseProjectionMapper):
         """Bin every TOD into the map; with a ``mesh`` each rank bins its
         (det, time) block of every (TOD, band, time bin) and the sums are
         reduced across the mesh (module docstring)."""
+        with span("mapper.bin"):
+            return self._run(mesh)
+
+    def _run(self, mesh):
         n_s, n_nu, n_t = len(self.stokes), len(self.nu), self.t_bins
         n_pix = self.n_x * self.n_y
         stokes_idx = ["IQUV".index(s) for s in self.stokes]

@@ -63,6 +63,7 @@ import numpy as np
 import scipy as sp
 import torch
 
+from ..io.logging import count, span
 from ..ops.bin_map import bin_map
 from ..utils.signal import decompose, median
 from .base import BaseProjectionMapper
@@ -100,7 +101,9 @@ def conjugate_gradient(A, b, x0, maxiter: int, inv_diag, tol: float = 1e-8):
     z = r * inv_diag
     state = (x0, r, torch.dot(r, z), z)
     for _ in range(maxiter):
-        state = cg_step(A, state, inv_diag, atol2)
+        with span("mapper.cg_step"):
+            state = cg_step(A, state, inv_diag, atol2)
+        count("mapper.cg_steps")
     return state[0]
 
 
@@ -143,9 +146,12 @@ class MaximumLikelihoodMapper(BaseProjectionMapper):
             logger.warning("prior=True: no prior term is implemented; ignoring.")
         # one entry an epoch: a list of {f, median_psd, mode_psd} a TOD
         self.noise_model_history = []
-        self._prepare()
-        self._compute_naive_map()
-        self.map = self._grid_to_map(self.naive_map, self.hits)
+        with span("mapper.prepare"):
+            self._prepare()
+        with span("mapper.naive_map"):
+            self._compute_naive_map()
+        with span("mapper.grid_to_map"):
+            self.map = self._grid_to_map(self.naive_map, self.hits)
 
     @property
     def device(self):
@@ -314,7 +320,12 @@ class MaximumLikelihoodMapper(BaseProjectionMapper):
         symmetric)."""
         out = torch.zeros(self.n_m, dtype=torch.float32, device=self.device)
         for block in self.blocks:
-            out = out + self._project_T(self._apply_inverse_N(block, self._project(m_flat, block)), block)
+            with span("mapper.P"):
+                v = self._project(m_flat, block)
+            with span("mapper.inverse_N"):
+                v = self._apply_inverse_N(block, v)
+            with span("mapper.PT"):
+                out = out + self._project_T(v, block)
         out = self._reduce(out)
         mask = self._overflow_mask
         return out * mask + m_flat * (1 - mask)
@@ -416,10 +427,13 @@ class MaximumLikelihoodMapper(BaseProjectionMapper):
             m = self.naive_map
         diag = None
         for epoch in range(n_epochs):
-            self._update_noise_model(m)
-            rhs = self._rhs()
+            with span("mapper.noise_model"):
+                self._update_noise_model(m)
+            with span("mapper.rhs"):
+                rhs = self._rhs()
             if method == "conjugate_gradient":
-                diag = self._white_diag()
+                with span("mapper.white_diag"):
+                    diag = self._white_diag()
                 inv_diag = torch.where(diag > 0, 1.0 / torch.clamp(diag, min=1e-30), 1.0)
                 m = conjugate_gradient(self._apply_PNP, rhs, m, n_steps, inv_diag)
             else:
@@ -428,7 +442,8 @@ class MaximumLikelihoodMapper(BaseProjectionMapper):
             if plot:
                 self._grid_to_map(m, self._white_diag()).plot(**plot_kwargs)
         self.m = m
-        self.map = self._grid_to_map(m, diag if diag is not None else self._white_diag())
+        with span("mapper.grid_to_map"):
+            self.map = self._grid_to_map(m, diag if diag is not None else self._white_diag())
         return self.map
 
     run = fit

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..io.logging import span
 from ..ops.shared_v import draw_key, shared_v, shared_v_plain
 from . import band_half_spectrum
 
@@ -139,39 +140,41 @@ def noise_total_matmul(A, specs, n: int, n_fft: int, corr_cols=None, shared_c=No
     n_det = row1 - row0
     cs, cs_bf16 = _basis_tensors(n_fft, n, str(device))
 
-    mode_rows = []
-    for sp in specs:
-        if sp.k_modes:
-            zm = (torch.randn((sp.k_modes, 2, m1), generator=generator, device=device) if mode_z is None
-                  else mode_z[sp.key_index].to(device=device, dtype=torch.float32))
-            # the per-realization mode time series, (k, n)
-            mode_rows.append((zm * _f32(sp.mode_c, device)).reshape(sp.k_modes, 2 * m1) @ cs)
-    K = sum(sp.k_modes for sp in specs)
+    with span("noise.v"):
+        mode_rows = []
+        for sp in specs:
+            if sp.k_modes:
+                zm = (torch.randn((sp.k_modes, 2, m1), generator=generator, device=device) if mode_z is None
+                      else mode_z[sp.key_index].to(device=device, dtype=torch.float32))
+                # the per-realization mode time series, (k, n)
+                mode_rows.append((zm * _f32(sp.mode_c, device)).reshape(sp.k_modes, 2 * m1) @ cs)
+        K = sum(sp.k_modes for sp in specs)
 
-    V = torch.empty((n_det, 2 * m1 + K), dtype=basis_dtype, device=device)
-    if shared_c is not None and basis_dtype == torch.bfloat16:
-        if z is None:
-            shared_v(draw_key(generator, device), shared_c, n_det, out=V[None], row0=row0)
+        V = torch.empty((n_det, 2 * m1 + K), dtype=basis_dtype, device=device)
+        if shared_c is not None and basis_dtype == torch.bfloat16:
+            if z is None:
+                shared_v(draw_key(generator, device), shared_c, n_det, out=V[None], row0=row0)
+            else:
+                shared_v_plain(c=shared_c, out=V[None], z=z[row0:row1].to(device))
         else:
-            shared_v_plain(c=shared_c, out=V[None], z=z[row0:row1].to(device))
-    else:
-        blocks = ([(0, specs[-1].stop, shared_c)] if shared_c is not None
-                  else [(sp.start, sp.stop, sp.c) for sp in specs])
-        for start, stop, c in blocks:
-            zb = (torch.randn((stop - start, 2, m1), generator=generator, device=device) if z is None
-                  else z[start:stop].to(device=device, dtype=torch.float32))
-            lo, hi = max(start, row0), min(stop, row1)
-            if lo >= hi:
-                continue
-            zb = zb[lo - start:hi - start]
-            V[lo - row0:hi - row0, : 2 * m1] = (zb * _f32(c, device)).reshape(hi - lo, 2 * m1).to(basis_dtype)
+            blocks = ([(0, specs[-1].stop, shared_c)] if shared_c is not None
+                      else [(sp.start, sp.stop, sp.c) for sp in specs])
+            for start, stop, c in blocks:
+                zb = (torch.randn((stop - start, 2, m1), generator=generator, device=device) if z is None
+                      else z[start:stop].to(device=device, dtype=torch.float32))
+                lo, hi = max(start, row0), min(stop, row1)
+                if lo >= hi:
+                    continue
+                zb = zb[lo - start:hi - start]
+                V[lo - row0:hi - row0, : 2 * m1] = (zb * _f32(c, device)).reshape(hi - lo, 2 * m1).to(basis_dtype)
 
-    B = cs if basis_dtype == torch.float32 else cs_bf16
-    if mode_rows:
-        V[:, 2 * m1:] = _f32(corr_cols, device).to(basis_dtype)
-        B = torch.cat([B, torch.cat(mode_rows, dim=0).to(basis_dtype)], dim=0)
-    noise = _gemm(V, B)
-    if row_scale is not None:
-        noise.mul_(_f32(row_scale, device))
-    # A + noise, in place (the same sum: float addition commutes)
-    return noise.add_(A)
+        B = cs if basis_dtype == torch.float32 else cs_bf16
+        if mode_rows:
+            V[:, 2 * m1:] = _f32(corr_cols, device).to(basis_dtype)
+            B = torch.cat([B, torch.cat(mode_rows, dim=0).to(basis_dtype)], dim=0)
+    with span("noise.gemm"):
+        noise = _gemm(V, B)
+        if row_scale is not None:
+            noise.mul_(_f32(row_scale, device))
+        # A + noise, in place (the same sum: float addition commutes)
+        return noise.add_(A)

@@ -45,6 +45,7 @@ import torch
 from ..atmosphere.sampling import accumulate_pwv, gaussian_blur_weights, group_tensors
 from ..coords import offsets_to_phi_theta
 from ..device import resolve_device
+from ..io.logging import count, span
 from ..noise import generate_noise_with_knee
 from .ar_extrude import ar_extrude, ar_plan
 from .interp import TableEval, apply_integration_kernel, upsample_time, upsample_time_phases
@@ -317,25 +318,29 @@ class TODProgram:
         tabs = self._tensors(device, rows)
         n_rows = self.n_det if rows is None else rows[1] - rows[0]
 
-        _, el_clip, px, py = line_of_sight(*self._pointing(tabs, device, rows, offsets, bs_az, bs_el))
+        with span("program.pointing"):
+            _, el_clip, px, py = line_of_sight(*self._pointing(tabs, device, rows, offsets, bs_az, bs_el))
+        with span("atmosphere.synthesize"):
+            ar_values = ar_screen_values(self.screens, generator, draws.get("ar"), device, plan=tabs["ar_plan"])
         pwv = accumulate_pwv(
             self.mean_pwv, self.screens, px, py, tabs["t_c"], W=tabs["W"],
             generator=generator, draws=draws.get("screens"),
             groups=self.groups, group_tables=tabs["groups"], group_draws=draws.get("groups"),
-            ar_values=ar_screen_values(self.screens, generator, draws.get("ar"), device, plan=tabs["ar_plan"]),
-            blur=tabs["blur"],
+            ar_values=ar_values, blur=tabs["blur"],
         )
         if upto == "pwv":
             return {"pwv": pwv}
 
-        loading_c = torch.empty_like(pwv)
-        for i in range(len(self.bands)):
-            idx = tabs["det_index"][i]
-            p = tabs["power"][i](pwv[idx], el_clip[idx])
-            loading_c[idx] = tabs["mueller_I"][idx, None] * p
+        with span("program.loading"):
+            loading_c = torch.empty_like(pwv)
+            for i in range(len(self.bands)):
+                idx = tabs["det_index"][i]
+                p = tabs["power"][i](pwv[idx], el_clip[idx])
+                loading_c[idx] = tabs["mueller_I"][idx, None] * p
         if upto == "coarse":
             return {"loading_c": loading_c, "pwv_c": pwv, "el_c": el_clip}
-        fields = {"atmosphere": self._upsample(loading_c, "cubic")}
+        with span("program.upsample"):
+            fields = {"atmosphere": self._upsample(loading_c, "cubic")}
         if upto == "atmosphere":
             return fields
 
@@ -344,46 +349,54 @@ class TODProgram:
         # carries the fast fluctuations that modulate the transmission
         pwv_f = el_f = None
         if any(b.cmb_samples is not None or b.map_stages for b in self.bands):
-            pwv_f, el_f = self._upsample(pwv, "linear"), self._upsample(el_clip, "cubic")
+            with span("program.upsample"):
+                pwv_f, el_f = self._upsample(pwv, "linear"), self._upsample(el_clip, "cubic")
         if any(b.cmb_samples is not None for b in self.bands):
-            cmb_field = torch.zeros((n_rows, self.n_t), dtype=torch.float32, device=device)
-            for i in range(len(self.bands)):
-                if tabs["cmb"][i] is None:
-                    continue
-                idx = tabs["det_index"][i]
-                P0, dPdT, samples = tabs["cmb"][i]
-                pwv_b, el_b = pwv_f[idx], el_f[idx]
-                cmb_field[idx] = P0(pwv_b, el_b) * tabs["mueller_I"][idx, None] + dPdT(pwv_b, el_b) * samples
-            fields["cmb"] = cmb_field
+            with span("program.cmb"):
+                cmb_field = torch.zeros((n_rows, self.n_t), dtype=torch.float32, device=device)
+                for i in range(len(self.bands)):
+                    if tabs["cmb"][i] is None:
+                        continue
+                    idx = tabs["det_index"][i]
+                    P0, dPdT, samples = tabs["cmb"][i]
+                    pwv_b, el_b = pwv_f[idx], el_f[idx]
+                    cmb_field[idx] = P0(pwv_b, el_b) * tabs["mueller_I"][idx, None] + dPdT(pwv_b, el_b) * samples
+                fields["cmb"] = cmb_field
         # the map's integration kernel comes after its calibration
         if any(b.map_stages for b in self.bands):
-            map_field = torch.zeros((n_rows, self.n_t), dtype=torch.float32, device=device)
-            for i in range(len(self.bands)):
-                if not tabs["map"][i]:
-                    continue
-                idx = tabs["det_index"][i]
-                pwv_b, el_b = pwv_f[idx], el_f[idx]
-                map_field[idx] = sum(cal(pwv_b, el_b) * samples for cal, samples in tabs["map"][i])
-            fields["map"] = apply_integration_kernel(map_field)
-            del map_field
+            with span("program.map"):
+                map_field = torch.zeros((n_rows, self.n_t), dtype=torch.float32, device=device)
+                for i in range(len(self.bands)):
+                    if not tabs["map"][i]:
+                        continue
+                    idx = tabs["det_index"][i]
+                    pwv_b, el_b = pwv_f[idx], el_f[idx]
+                    map_field[idx] = sum(cal(pwv_b, el_b) * samples for cal, samples in tabs["map"][i])
+                fields["map"] = apply_integration_kernel(map_field)
+                del map_field
         del el_f
         if upto == "signal":
             return fields
 
         if self.with_noise:
-            noise = torch.empty((n_rows, self.n_t), dtype=torch.float32, device=device)
-            for i, band in enumerate(self.bands):
-                idx = tabs["det_index"][i]
-                unscaled = generate_noise_with_knee(
-                    (len(band.det_index), self.n_t), sample_rate=self.sample_rate, knee=band.knee,
-                    basis=tabs["basis"][i], corr_prop=band.corr_prop, generator=generator,
-                    white=None if "noise" not in draws else draws["noise"][i],
-                    mode_white=None if "modes" not in draws else draws["modes"][i],
-                    device=device, rows=tabs["band_sel"][i],
-                )
-                noise[idx] = band_noise_scale(band, [v[idx] for v in fields.values()]) * unscaled
-            fields["noise"] = noise
-        return fields, pwv_f if pwv_f is not None else self._upsample(pwv, "linear")
+            with span("noise"):
+                noise = torch.empty((n_rows, self.n_t), dtype=torch.float32, device=device)
+                for i, band in enumerate(self.bands):
+                    idx = tabs["det_index"][i]
+                    with span("noise.k1"):
+                        unscaled = generate_noise_with_knee(
+                            (len(band.det_index), self.n_t), sample_rate=self.sample_rate, knee=band.knee,
+                            basis=tabs["basis"][i], corr_prop=band.corr_prop, generator=generator,
+                            white=None if "noise" not in draws else draws["noise"][i],
+                            mode_white=None if "modes" not in draws else draws["modes"][i],
+                            device=device, rows=tabs["band_sel"][i],
+                        )
+                    noise[idx] = band_noise_scale(band, [v[idx] for v in fields.values()]) * unscaled
+                fields["noise"] = noise
+        if pwv_f is None:
+            with span("program.upsample"):
+                pwv_f = self._upsample(pwv, "linear")
+        return fields, pwv_f
 
     def draw_gains(self, generator=None, draw=None, device=None, rows=None):
         """(n_det, 1) multiplicative gain errors exp(gain_error * N(0, 1)),
@@ -477,10 +490,11 @@ class TODProgram:
                 draws = draws or {}
                 fields, _ = self.fields(generator=generator, draws=draws, device=device, rows=rows, offsets=offsets,
                                         bs_az=bs_az, bs_el=bs_el)
-                gains = self.draw_gains(generator=generator, draw=draws.get("gains"), device=device, rows=rows)
-                total = 0.0
-                for name, v in fields.items():
-                    total = total + (v if name == "noise" or gains is None else v * gains)
+                with span("program.gains"):
+                    gains = self.draw_gains(generator=generator, draw=draws.get("gains"), device=device, rows=rows)
+                    total = 0.0
+                    for name, v in fields.items():
+                        total = total + (v if name == "noise" or gains is None else v * gains)
                 return total
 
             return fields_total
@@ -507,14 +521,16 @@ class TODProgram:
             for v in signal.values():
                 A += v
             del signal
-            gains = self.draw_gains(generator=generator, draw=draws.get("gains"), device=device, rows=rows)
-            if gains is not None:
-                A = gains * A
-            return noise_total_matmul(
-                A, specs, n=self.n_t, n_fft=n_fft, corr_cols=tabs["noise_cols"], shared_c=shared_c,
-                row_scale=tabs["row_scale"], generator=generator, z=draws.get("v"), mode_z=draws.get("modes"),
-                device=device, rows=rows,
-            )
+            with span("program.gains"):
+                gains = self.draw_gains(generator=generator, draw=draws.get("gains"), device=device, rows=rows)
+                if gains is not None:
+                    A = gains * A
+            with span("noise"):
+                return noise_total_matmul(
+                    A, specs, n=self.n_t, n_fft=n_fft, corr_cols=tabs["noise_cols"], shared_c=shared_c,
+                    row_scale=tabs["row_scale"], generator=generator, z=draws.get("v"), mode_z=draws.get("modes"),
+                    device=device, rows=rows,
+                )
 
         return matmul_total
 
@@ -652,6 +668,7 @@ def band_noise_basis(band_offsets, noise_kwargs: dict):
     cp = noise_kwargs.get("correlated_noise_proportion", 0.0)
     fov = compute_diameter(band_offsets)
     if cp > 0 and fov > 0 and len(band_offsets) > 16:
+        count("noise.basis_builds")
         return generate_spatial_basis(
             offsets=band_offsets, k=5, n_side=16,
             scale=fov * noise_kwargs.get("correlated_noise_spatial_scale", 1.0),

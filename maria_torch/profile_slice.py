@@ -4,59 +4,108 @@
                                         [--trace PATH]
 
 Scene "mustang2" (the default): the MUSTANG-2 daisy through
-``Simulation.run()`` and ``BinMapper.run()``; cumulative stage times of
-the program (``fields(upto="pwv")``, ``upto="atmosphere"``, all fields)
-and of the K_RJ conversion. Scene "atlast": AtLAST-50k with the 3-D
-atmosphere through ``TODProgram.total_power_fn()`` and the field map
-(``field_pixel_ids``, ``bin_total``); cumulative stage times
-``fields(upto="pwv")``, ``upto="atmosphere"``, ``upto="signal"``, the
-total, total + binning. ``--map dust`` lets either scene observe that
-family of sky over its field, so that "upto signal" less "upto
-atmosphere" is the map stage. Scene "sky": MUSTANG-2 on the Planner's
-ra/dec daisy over ``big_cluster`` (``scenes.sky_simulation``), mapped in
-ra/dec on the input map's 512 x 512 grid.
-Each is host-timed around a synchronize, with the peak device memory
-so far (the program's tables and, after the binning, the pixel ids
-included); then a ``torch.profiler``
-table of device time by kernel over one realization and its map, with
-the device's busy share of that window. ``--trace`` also writes the
-Chrome trace. Needs a card: it fails without one.
+``Simulation.run()`` and ``BinMapper.run()``. Scene "atlast": AtLAST-50k
+with the 3-D atmosphere through ``TODProgram.total_power_fn()`` and the
+field map (``field_pixel_ids``, ``bin_total``). ``--map dust`` lets
+either scene observe that family of sky over its field. Scene "sky":
+MUSTANG-2 on the Planner's ra/dec daisy over ``big_cluster``
+(``scenes.sky_simulation``), mapped in ra/dec on the input map's 512 x
+512 grid.
+
+A realization and its map is host-timed around a synchronize over
+``--reps`` warm calls, with the peak device memory; then one more runs
+under ``torch.profiler`` with the program's spans on
+(``maria_torch.io.logging``): the stage table holds each span's calls,
+host time and self time (the span less its child spans) in that one
+run, the device's busy time is the union of its kernels', copies' and
+fills' intervals (overlaps once), and a table of device time by kernel
+follows. ``--trace`` also writes the Chrome trace, the stages in it.
+Needs a card: it fails without one.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from .io.logging import reset_trace, trace_summary, tracing
+
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
 
 def _wall_ms(fn, reps: int) -> float:
     fn()
-    torch.cuda.synchronize()
+    _sync()
     start = time.perf_counter()
     for _ in range(reps):
         fn()
-    torch.cuda.synchronize()
+    _sync()
     return (time.perf_counter() - start) / reps * 1e3
 
 
+def device_intervals(prof) -> list:
+    """(start_us, end_us) of every device activity (kernels, copies,
+    fills) in a finished profiler's trace."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") in DEVICE_CATEGORIES and "dur" in e]
+
+
+def union_ms(intervals) -> float:
+    """The length of the union of (start_us, end_us) intervals, in ms."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            total += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return (total + (0.0 if cur_e is None else cur_e - cur_s)) * 1e-3
+
+
 def profiled(fn) -> tuple:
-    """(wall ms, device kernel ms, the profiler) of one call of ``fn``
-    under torch.profiler, from a synchronize before it to one after."""
+    """(wall ms, device busy ms, the profiler) of one call of ``fn`` under
+    torch.profiler with the program's spans on, from a synchronize before
+    it to one after; busy is the union of the device activities'
+    intervals."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    _sync()
+    with profile(activities=activities) as prof, tracing(True):
         start = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        _sync()
         window_ms = (time.perf_counter() - start) * 1e3
-    device_us = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type is not None and str(e.device_type).endswith("CUDA"))
-    return window_ms, device_us / 1e3, prof
+    return window_ms, union_ms(device_intervals(prof)), prof
+
+
+def stage_table(summary: dict) -> str:
+    """The spans of ``trace_summary()`` by self time: calls, host ms, self
+    ms and the self time's share of all spans' self time."""
+    spans = summary["spans"]
+    total = sum(v["self_s"] for v in spans.values()) or 1.0
+    rows = [f"{'span':40s} {'calls':>6s} {'host ms':>10s} {'self ms':>10s} {'self share':>10s}"]
+    for name, v in sorted(spans.items(), key=lambda kv: -kv[1]["self_s"]):
+        rows.append(f"{name:40s} {v['calls']:6d} {1e3 * v['host_s']:10.3f} {1e3 * v['self_s']:10.3f} "
+                    f"{v['self_s'] / total:10.1%}")
+    counters = {k: v for k, v in summary["counters"].items() if v}
+    return "\n".join(rows + [f"counters: {counters}"])
 
 
 def main(argv=None) -> int:
@@ -95,54 +144,32 @@ def main(argv=None) -> int:
     if atlast:
         fn = program.total_power_fn()
         obs = sim.obs_list[0]
-        field = {}
-
-        def run_map():
-            if not field:  # made at the first binning, after the program's stages have run
-                field["ids"], field["n_pix"] = field_pixel_ids(obs.boresight, obs.offsets, 128, 128, device=device)
-            return bin_total(fn(generator=gen, device=device), field["ids"], field["n_pix"])
+        ids, n_pix = field_pixel_ids(obs.boresight, obs.offsets, 128, 128, device=device)
 
         def realization():
-            run_map()
-
-        stages = {
-            "fields upto pwv": lambda: program.fields(generator=gen, device=device, upto="pwv"),
-            "fields upto atmosphere": lambda: program.fields(generator=gen, device=device, upto="atmosphere"),
-            "fields upto signal": lambda: program.fields(generator=gen, device=device, upto="signal"),
-            "total_power_fn()": lambda: fn(generator=gen, device=device),
-            "total + bin_total": run_map,
-        }
+            bin_total(fn(generator=gen, device=device), ids, n_pix)
     else:
         tod = sim.run()[0]
         center = tuple(np.degrees(tod.boresight.center()))
 
-        def run_map():
-            if args.scene == "sky":
-                return sky_mapper([tod], sim.map).run()
-            return BinMapper(tod, center=center, width=0.25, resolution=0.25 / 128, frame="az/el").run()
-
         def realization():
-            run_map()
-            sim.run()
+            tod = sim.run()[0]
+            if args.scene == "sky":
+                sky_mapper([tod], sim.map).run()
+            else:
+                BinMapper(tod, center=center, width=0.25, resolution=0.25 / 128, frame="az/el").run()
 
-        stages = {
-            "fields upto pwv": lambda: program.fields(generator=gen, device=device, upto="pwv"),
-            "fields upto atmosphere": lambda: program.fields(generator=gen, device=device, upto="atmosphere"),
-            "fields upto signal": lambda: program.fields(generator=gen, device=device, upto="signal"),
-            "fields (all)": lambda: program.fields(generator=gen, device=device),
-            "run_obs (fields + gains, pW)": lambda: sim.run_obs(0),
-            "run() (+ K_RJ)": lambda: sim.run(),
-            "BinMapper(...).run()": run_map,
-        }
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for name, stage in stages.items():
-        print(f"{name:32s} {_wall_ms(stage, args.reps):9.3f} ms (cumulative, warm, {args.reps} reps); peak device "
-              f"memory so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    wall_ms = _wall_ms(realization, args.reps)
+    print(f"realization and its map: {wall_ms:.3f} ms (warm, mean of {args.reps}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
 
-    window_ms, device_ms, prof = profiled(realization)
-    print(f"profiled window (one realization and its map): {window_ms:.3f} ms wall, {device_ms:.3f} ms device "
-          f"kernel time, device busy {device_ms / window_ms:.1%} of the window")
+    reset_trace()
+    window_ms, busy_ms, prof = profiled(realization)
+    print(f"profiled realization and its map: {window_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
+          f"({busy_ms / window_ms:.1%} of the window, the union of device intervals)")
+    print(stage_table(trace_summary()))
     print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
     if args.trace:
         prof.export_chrome_trace(args.trace)

@@ -23,6 +23,7 @@ import torch
 
 from ..device import check_float32, resolve_device
 from ..instrument import Instrument, get_instrument
+from ..io.logging import span
 from ..noise import DEFAULT_NOISE_SIM_KWARGS, generate_noise_with_knee
 from ..ops.program import band_noise_basis, band_noise_scale, build_tod_program, gain_errors
 from ..plan import Plan, PlanList, get_plan
@@ -135,7 +136,9 @@ class Simulation:
         tods = []
         for i in range(len(self.obs_list)):
             s = _time.monotonic()
-            tods.append(self.run_obs(i, draws=None if draws is None else draws[i]).to(units))
+            tod = self.run_obs(i, draws=None if draws is None else draws[i])
+            with span("tod.to"):
+                tods.append(tod.to(units))
             logger.info(f"Simulated observation {i + 1}/{len(self.obs_list)} in {_time.monotonic() - s:.2f} s")
         return tods
 
@@ -144,6 +147,10 @@ class Simulation:
         its index. ``draws`` may hold "screens", "noise", "modes" (see
         ``TODProgram.fields``) and "gains" ((n_det,) normals); anything
         missing is drawn from the generator."""
+        with span("sim.run_obs"):
+            return self._run_obs(obs, draws)
+
+    def _run_obs(self, obs, draws: dict = None) -> TOD:
         obs_index = obs if isinstance(obs, (int, np.integer)) else self.obs_list.index(obs)
         obs = self.obs_list[obs_index]
         draws = draws or {}
@@ -157,33 +164,40 @@ class Simulation:
         if self.atmosphere is not None:
             metadata["pwv"] = float(np.round(obs.atmosphere.weather.pwv, 3))
             metadata["base_temperature"] = float(np.round(obs.atmosphere.weather.temperature[0], 3))
-        if self.atmosphere is not None and self.fused:
+        fused = self.atmosphere is not None and self.fused
+        if fused:
             program = self.program(obs_index)
             fields, pwv_fine = program.fields(generator=self.generator, draws=draws, device=self.device)
             obs.zenith_scaled_pwv = pwv_fine
-            gains = program.draw_gains(generator=self.generator, draw=draws.get("gains"), device=self.device)
         else:
             fields = {}
             if self.atmosphere is not None:
                 simulate_atmosphere(obs, generator=self.generator, draws=draws, device=self.device)
                 fields["atmosphere"] = compute_atmospheric_loading(obs)
             if self.cmb is not None:
-                fields["cmb"] = self._compute_cmb_loading(obs)
+                with span("sim.cmb"):
+                    fields["cmb"] = self._compute_cmb_loading(obs)
             if self.map is not None:
-                fields["map"] = sample_maps(
-                    self.map, obs, bilinear=self.map_kwargs["bilinear_sampling"], device=self.device
-                )
+                with span("sim.map"):
+                    fields["map"] = sample_maps(
+                        self.map, obs, bilinear=self.map_kwargs["bilinear_sampling"], device=self.device
+                    )
             if self.noise:
-                fields["noise"] = self._simulate_noise(obs, draws, loading=fields)
+                with span("noise"):
+                    fields["noise"] = self._simulate_noise(obs, draws, loading=fields)
             if not fields:
                 raise ValueError("nothing to simulate: no atmosphere, no CMB, no map and no noise")
-            gains = gain_errors(dets.gain_error, self.generator, draws.get("gains"), self.device)
         if self.map is not None:
             metadata["input_map"] = self.map
 
         # multiplicative per-detector gain error on every non-noise field
-        if gains is not None:
-            fields = {k: v if k == "noise" else v * gains for k, v in fields.items()}
+        with span("program.gains"):
+            if fused:
+                gains = program.draw_gains(generator=self.generator, draw=draws.get("gains"), device=self.device)
+            else:
+                gains = gain_errors(dets.gain_error, self.generator, draws.get("gains"), self.device)
+            if gains is not None:
+                fields = {k: v if k == "noise" else v * gains for k, v in fields.items()}
 
         return TOD(
             data=fields,
@@ -212,13 +226,15 @@ class Simulation:
             band_idx = np.where(dets.band_name == band.name)[0]
             if len(band_idx) == 0:
                 continue
-            basis, corr_prop = band_noise_basis(dets.offsets[band_idx], self.noise_kwargs)
-            unscaled = generate_noise_with_knee(
-                (len(band_idx), obs.shape[-1]), sample_rate=obs.sample_rate, knee=band.knee, basis=basis,
-                corr_prop=corr_prop, generator=self.generator,
-                white=None if "noise" not in draws else draws["noise"][i],
-                mode_white=None if "modes" not in draws else draws["modes"][i], device=self.device,
-            )
+            with span("noise.basis"):
+                basis, corr_prop = band_noise_basis(dets.offsets[band_idx], self.noise_kwargs)
+            with span("noise.k1"):
+                unscaled = generate_noise_with_knee(
+                    (len(band_idx), obs.shape[-1]), sample_rate=obs.sample_rate, knee=band.knee, basis=basis,
+                    corr_prop=corr_prop, generator=self.generator,
+                    white=None if "noise" not in draws else draws["noise"][i],
+                    mode_white=None if "modes" not in draws else draws["modes"][i], device=self.device,
+                )
             rows = torch.as_tensor(band_idx, device=self.device)
             noise[rows] = band_noise_scale(band, [v[rows] for v in loading.values()]) * unscaled
         return noise
