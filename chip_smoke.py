@@ -408,6 +408,13 @@ LANE_INSTRUCTIONS_S = 67e12 / 2
 # them. PERF.md section 6 counts them; tests/test_torch_kernels.py
 # (test_k3_least_body_*) emulates the body against the plain version.
 K3_LEAST_BODY = {"imad": 18, "fp32": 40, "alu": 43, "xu": 8, "other": 6}
+# the line-of-sight sampler's float32 operations a layer and sample, each
+# rounded alone (csrc/los_sample.cu): h px and its sum with vx t, the same
+# for y (4); the rotation (6); (t - t_min) / res twice (4); the weights and
+# their complements (4); the four taps' products and sums (11); rms times
+# the sample and its sum (2). vx t and vy t are one a layer and coarse step.
+LOS_OPS = 31
+LOS_SEED = 23
 
 
 def k3_least_cycles() -> int:
@@ -662,6 +669,67 @@ def check_shared_v(device, gen, n_det, m1, c=None, n_extra=0, row0=0):
          "exact_share": exact,
          **bound(2 * n_det * 2 * m1 + 4 * m1, k3_least_cycles() * n_det * ((m1 + 1) // 2), LANE_INSTRUCTIONS_S)}
     print(timing_line(f"{name} (least body: {k3_least_cycles()} issue cycles a bin pair)", r), flush=True)
+    return r
+
+
+def check_los_sample(device, program, label="c"):
+    """The line-of-sight layer sampler (csrc/los_sample.cu) against its
+    plain version at a slice's layers and lines of sight: the forward bit
+    for bit in one launch; under autograd the same forward and, from one
+    backward launch, the plain path's autograd gradients bit for bit. Its
+    bound: px, py read, pwv written and each grid read once at the memory
+    rate, or LOS_OPS float32 operations a layer and sample, each rounded
+    alone (no FMA), at the FP32 pipe's issue rate. No library call
+    computes this."""
+    import torch
+
+    from maria_torch.atmosphere.sampling import synthesize_layers
+    from maria_torch.ops import los_sample as los
+    from maria_torch.ops.program import ar_screen_values, line_of_sight
+
+    tabs = program._tensors(device, None)
+    _, _, px, py = line_of_sight(*program._pointing(tabs, device, None, None, None, None))
+    gen = torch.Generator(device=device).manual_seed(LOS_SEED)
+    ar_values = ar_screen_values(program.screens, gen, None, device, plan=tabs["ar_plan"])
+    layers = synthesize_layers(program.screens, device, W=tabs["W"], generator=gen, groups=program.groups,
+                               group_tables=tabs["groups"], ar_values=ar_values, blur=tabs["blur"])
+    t = tabs["t_c"]
+    args = (program.mean_pwv, layers, px, py, t)
+    before = los.los_sample.launches
+    ours, ref = los.los_sample(*args), los.los_sample_plain(*args)
+    g = torch.randn(px.shape, generator=gen, device=device)
+    runs = {}
+    for name, fn in (("kernel", los.los_sample), ("plain", los.los_sample_plain)):
+        a, b = px.clone().requires_grad_(True), py.clone().requires_grad_(True)
+        out = fn(program.mean_pwv, layers, a, b, t)
+        runs[name] = (out.detach(), *torch.autograd.grad(out, (a, b), g))
+        del out
+    torch.cuda.synchronize()
+    launches = los.los_sample.launches - before
+    exact = bool(torch.equal(ours, ref)) and bool(torch.equal(runs["kernel"][0], ref))
+    exact_grad = all(bool(torch.equal(x, y)) for x, y in zip(runs["kernel"][1:], runs["plain"][1:]))
+    grad_err = max(float((x.double() - y.double()).norm() / y.double().norm())
+                   for x, y in zip(runs["kernel"][1:], runs["plain"][1:]))
+    err = float((ours - ref).abs().max())
+    del runs
+    name = f"los_sample slice ({label}) ({len(layers)} layers, {px.shape[0]} x {px.shape[1]})"
+    ok = exact and exact_grad and launches == 3 and bool(torch.isfinite(ours).all())
+    print(f"{name}: forward bit-equal to the plain path {exact} (max|diff| {err:.3e}), backward bit-equal to the plain "
+          f"path's autograd {exact_grad} (relative L2 {grad_err:.2e}), launches {launches} (3) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+    ms, plain_ms, _ = paired_ms(lambda: los.los_sample_plain(*args), lambda: los.los_sample(*args))
+    table, grids = los.layer_table(layers)
+    backward_ms = cuda_ms(lambda: los._launch_backward(table, len(grids), px, py, t, g))
+    n = px.numel()
+    unique = {(L.values.data_ptr(), L.values.numel()) for L in layers}
+    r = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None, "backward_ms": backward_ms,
+         "shape": [len(layers), *px.shape], "exact_share": 1.0,
+         **bound(12 * n + 4 * px.shape[1] + 4 * sum(size for _, size in unique), LOS_OPS * len(layers) * n,
+                 LANE_INSTRUCTIONS_S)}
+    print(timing_line(f"{name} ({LOS_OPS} float32 operations a layer and sample); backward {backward_ms:.4f} ms", r),
+          flush=True)
     return r
 
 
@@ -1091,6 +1159,7 @@ def run_slice(label, duration, device, method="fourier"):
 
     from maria_torch.ops.ar_extrude import ar_extrude
     from maria_torch.ops.bin_map import bin_map
+    from maria_torch.ops.los_sample import los_sample
     from maria_torch.ops.pink_noise import pink_noise
     from maria_torch.scenes import simulation
 
@@ -1102,7 +1171,7 @@ def run_slice(label, duration, device, method="fourier"):
              f"{[(p.n_extrusion, p.n_cross_section, p.n_sample) for p in program.ar_processes]})"
              if method == "ar" else ""), flush=True)
 
-    pink_noise.launches = bin_map.launches = ar_extrude.launches = 0
+    pink_noise.launches = bin_map.launches = ar_extrude.launches = los_sample.launches = 0
     s = time.perf_counter()
     tod = sim.run()[0]
     torch.cuda.synchronize()
@@ -1111,7 +1180,8 @@ def run_slice(label, duration, device, method="fourier"):
     out_map = map_tod(tod)
     torch.cuda.synchronize()
     map_s = time.perf_counter() - s
-    launches = {"pink_noise": pink_noise.launches, "bin_map": bin_map.launches, "ar_extrude": ar_extrude.launches}
+    launches = {"pink_noise": pink_noise.launches, "bin_map": bin_map.launches, "ar_extrude": ar_extrude.launches,
+                "los_sample": los_sample.launches}
     print(f"slice ({label}): first run() {run_s:.3f} s, first BinMapper.run() {map_s:.3f} s, "
           f"main-path launches {launches}", flush=True)
 
@@ -1122,7 +1192,7 @@ def run_slice(label, duration, device, method="fourier"):
     ok &= tuple(out_map.data.shape) == (1, 1, 1, N_MAP, N_MAP)
     ok &= bool(torch.isfinite(out_map.data).all()) and float(out_map.weight[..., N_MAP // 2, N_MAP // 2].min()) > 0
     ok &= launches["pink_noise"] > 0 and launches["bin_map"] > 0
-    ok &= launches["ar_extrude"] == (1 if method == "ar" else 0)
+    ok &= launches["ar_extrude"] == (1 if method == "ar" else 0) and launches["los_sample"] == 1
     print(f"slice ({label}): TOD {tod.shape} {tod.fields} in {tod.units}, atmosphere mean "
           f"{float(tod.data['atmosphere'].mean()):.3f} K_RJ, noise std {float(tod.data['noise'].std()):.3e} K_RJ, "
           f"map {tuple(out_map.data.shape)} centre weight {float(out_map.weight[..., N_MAP // 2, N_MAP // 2].min()):.0f} "
@@ -1196,6 +1266,7 @@ def run_atlast(device, label="c", method="fourier", duration=60.0, n_det=5556 * 
     from maria_torch.noise.dft import gemm_form
     from maria_torch.ops.ar_extrude import ar_extrude
     from maria_torch.ops.bin_map import bin_map, bin_map_plain
+    from maria_torch.ops.los_sample import los_sample
     from maria_torch.ops.pink_noise import pink_noise
     from maria_torch.ops.shared_v import shared_v
     from maria_torch.scenes import simulation
@@ -1246,25 +1317,25 @@ def run_atlast(device, label="c", method="fourier", duration=60.0, n_det=5556 * 
 
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    pink_noise.launches = shared_v.launches = bin_map.launches = ar_extrude.launches = 0
+    pink_noise.launches = shared_v.launches = bin_map.launches = ar_extrude.launches = los_sample.launches = 0
     s = time.perf_counter()
     total = fn(generator=sim.generator, device=device)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - s
     launches_total = {"shared_v": shared_v.launches, "pink_noise": pink_noise.launches,
-                      "ar_extrude": ar_extrude.launches}
+                      "ar_extrude": ar_extrude.launches, "los_sample": los_sample.launches}
     s = time.perf_counter()
     sums, hits = bin_total(total, ids, n_pix)
     torch.cuda.synchronize()
     map_s = time.perf_counter() - s
     launches = {"pink_noise": pink_noise.launches, "shared_v": shared_v.launches, "bin_map": bin_map.launches,
-                "ar_extrude": ar_extrude.launches}
+                "ar_extrude": ar_extrude.launches, "los_sample": los_sample.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if torch.device(device).type == "cuda" else float("nan")
     centre = (N_MAP // 2) * N_MAP + N_MAP // 2
     ok = tuple(total.shape) == (program.n_det, program.n_t) == (n_det, int(round(duration * 50.0)))
     ok &= total.dtype == torch.float32 and total.device.type == torch.device(device).type
     ok &= bool(torch.isfinite(total).all())
-    ok &= launches_total == {"shared_v": 1, "pink_noise": 0, "ar_extrude": 1 if method == "ar" else 0}
+    ok &= launches_total == {"shared_v": 1, "pink_noise": 0, "ar_extrude": 1 if method == "ar" else 0, "los_sample": 1}
     ok &= launches["bin_map"] == 1 and float(hits[centre]) > 0
     ok &= float(hits.double().sum()) == program.n_det * program.n_t
     print(f"slice ({label}): first total_power_fn() {cold_s:.3f} s, first binning {map_s:.3f} s, main-path launches "
@@ -4519,6 +4590,7 @@ def main() -> int:
     for label, duration in AR_SLICES.items():
         results[label] = run_slice(label, duration, device, method="ar")
     launches_c, program_c, ids_c, sim_c = run_atlast(device)
+    los_c = check_los_sample(device, program_c)
     _, corr_cols, _, shared_c, _ = program_c._noise_matmul_specs()
     check_shared_v(device, gen, program_c.n_det, len(shared_c), c=shared_c, n_extra=corr_cols.shape[1])
     launches_g, program_g, ids_g, _ = run_atlast(device, label="g", method="ar")
@@ -4596,7 +4668,8 @@ def main() -> int:
                 "u 3600 s": summary_u[U_SECONDS[1]]["launches"], "u chunks": {"ar_extrude": ar_u["launches"]},
                 "v": launches_v, "w": launches_w, "x": launches_x, "y (both ranks)": launches_y, "z": launches_z,
                 "aa": launches_aa}
-    for name in ("pink_noise", "bin_map", "shared_v", "ar_extrude", "sht_synth", "sht_anal", "pink_cascade"):
+    for name in ("pink_noise", "bin_map", "shared_v", "ar_extrude", "sht_synth", "sht_anal", "pink_cascade",
+                 "los_sample"):
         print(f"main-path launches of {name} by slice: {({k: v[name] for k, v in by_slice.items() if name in v})}",
               flush=True)
     kernels_line = {"kernels": [
@@ -4625,6 +4698,9 @@ def main() -> int:
         {"name": "pink_cascade", "route": "cuda", "source": "maria_torch/csrc/pink_cascade.cu",
          "replaces": "maria_tpu/noise/streaming.py:168",
          "launches": launches_t["pink_cascade"] + launches_y["pink_cascade"], **kc_t},
+        {"name": "los_sample", "route": "cuda", "source": "maria_torch/csrc/los_sample.cu",
+         "replaces": "none: the exact path's XLA gather, maria_tpu/atmosphere/sampling.py accumulate_pwv(bs_px=None)",
+         "launches": sum(launches.get("los_sample", 0) for launches in by_slice.values()), **los_c},
     ]}
     print(f"K2 summary ML P^T (slice n): {k2_ml['ms']:.4f} ms, library {k2_ml['library_ms']:.4f} ms, bound "
           f"{k2_ml['bound_ms']:.4f} ms ({k2_ml['bound_ms'] / k2_ml['ms']:.1%}), plain {k2_ml['plain_ms']:.4f} ms; "
@@ -4655,7 +4731,7 @@ def main() -> int:
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bound_ms'] / r['ms']:.1%}), shape {r['shape']}",
               flush=True)
     for key, r in (("KC (t)", kc_t), ("KC (u)", kc_u), ("KC (v)", kc_v), ("K3 at row0 25002 (y1)", k3_y),
-                   ("K3 at (z1)'s shape", k3[217]),
+                   ("K3 at (z1)'s shape", k3[217]), ("los_sample (c)", los_c),
                    ("K2 streaming block (t)", k2_t),
                    ("K2 streamed ML P^T (v)", k2_v), ("AR chunk (u)", ar_u)):
         print(f"{key} summary: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "

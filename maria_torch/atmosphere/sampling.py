@@ -5,7 +5,8 @@ A screen at height h is sampled at x = h*px + vx*t, y = h*py + vy*t,
 rotated into its extrusion frame by ``angle``, with (px, py) the
 unit-height east/north line-of-sight projections per (detector, coarse
 time). Every screen, and every layer of a group, is sampled with the
-plain bilinear gather at every coarse step.
+bilinear gather at every coarse step, all layers in one pass
+(``ops/los_sample.py``: a kernel on the card, plain torch on the CPU).
 
 The JAX package's default samplers for a group are TPU devices: a
 boresight-tracked window contracted with one-hot hats, per-layer
@@ -28,10 +29,10 @@ import numpy as np
 import torch
 
 from ..io.logging import count, span
-from ..ops.interp import interp_bilinear_uniform
+from ..ops.los_sample import Layer, los_sample
 from .fourier import synthesize_layered_matern_2d, synthesize_matern_field_2d
 
-__all__ = ["accumulate_pwv", "gaussian_blur_2d", "gaussian_blur_weights", "group_tensors"]
+__all__ = ["accumulate_pwv", "gaussian_blur_2d", "gaussian_blur_weights", "group_tensors", "synthesize_layers"]
 
 
 def group_tensors(group, device) -> dict:
@@ -64,13 +65,43 @@ def gaussian_blur_2d(values, sigma_y, sigma_x, res_y, res_x, weights=None):
     return torch.fft.irfft2(torch.fft.rfft2(values) * weights, s=(ny, nx))
 
 
-def _sample(values, h, angle, vx, vy, res_x, res_y, tx_min, ty_min, px, py, t_rel):
-    x = h * px + vx * t_rel
-    y = h * py + vy * t_rel
-    ca, sa = float(np.cos(angle)), float(np.sin(angle))
-    tx = ca * x + sa * y
-    ty = -sa * x + ca * y
-    return interp_bilinear_uniform(values, tx, ty, tx_min, res_x, ty_min, res_y)
+def synthesize_layers(screens, device, W=None, generator=None, draws=None, groups=(), group_tables=None,
+                      group_draws=None, ar_values=None, blur=None) -> list:
+    """Every layer the sampler reads (``ops.los_sample.Layer``), in
+    ``accumulate_pwv``'s order: each screen's grid, then each group's
+    stack a height at a time; the draws as ``accumulate_pwv`` takes them."""
+    layers = []
+    for i, screen in enumerate(screens):
+        ty_res = screen.ty_res if screen.ty_res is not None else screen.res
+        with span("atmosphere.synthesize"):
+            if screen.W is not None:
+                w = W[i] if W is not None else torch.as_tensor(screen.W, device=device)
+                values = synthesize_matern_field_2d(
+                    w, screen.ny, screen.nx, generator=generator,
+                    draw=None if draws is None else draws[i],
+                )
+            else:
+                if ar_values is None or i not in ar_values:
+                    raise ValueError("AR screen values missing; run the process first.")
+                values = ar_values[i]
+                if screen.beam_sigma > 0:
+                    values = gaussian_blur_2d(values, screen.beam_sigma, screen.beam_sigma, ty_res, screen.res,
+                                              weights=None if blur is None else blur[i])
+        layers.append(Layer(values, screen.h, screen.angle, screen.vx, screen.vy, screen.res, ty_res,
+                            screen.tx_min, screen.ty_min, screen.pwv_rms))
+    for g, group in enumerate(groups):
+        with span("atmosphere.synthesize"):
+            tabs = group_tables[g] if group_tables is not None else group_tensors(group, device)
+            stack = synthesize_layered_matern_2d(
+                tabs["W"], tabs["M_cos"], tabs["M_sin"], tabs["beam"], group.ny, group.nx,
+                generator=generator, draw=None if group_draws is None else group_draws[g],
+            )
+        layers.extend(
+            Layer(stack[il], float(h), group.angle, group.vx, group.vy, group.res, group.res, group.tx_min,
+                  group.ty_min, float(group.pwv_rms[il]))
+            for il, h in enumerate(group.heights)
+        )
+    return layers
 
 
 def accumulate_pwv(mean_pwv, screens, px, py, t_rel, W=None, generator=None, draws=None,
@@ -86,40 +117,14 @@ def accumulate_pwv(mean_pwv, screens, px, py, t_rel, W=None, generator=None, dra
     come from ``generator``, screens first, then groups. An AR screen i
     reads its (ny, nx) values from ``ar_values[i]``; ``blur[i]``
     optionally holds its ``gaussian_blur_weights`` on px's device.
+    Every layer is synthesized first, then all are sampled together by
+    ``ops.los_sample`` (on a card, one kernel launch).
     """
-    pwv = torch.full(px.shape, float(np.float32(mean_pwv)), dtype=px.dtype, device=px.device)
-    for i, screen in enumerate(screens):
-        ty_res = screen.ty_res if screen.ty_res is not None else screen.res
-        with span("atmosphere.synthesize"):
-            if screen.W is not None:
-                w = W[i] if W is not None else torch.as_tensor(screen.W, device=px.device)
-                values = synthesize_matern_field_2d(
-                    w, screen.ny, screen.nx, generator=generator,
-                    draw=None if draws is None else draws[i],
-                )
-            else:
-                if ar_values is None or i not in ar_values:
-                    raise ValueError("AR screen values missing; run the process first.")
-                values = ar_values[i]
-                if screen.beam_sigma > 0:
-                    values = gaussian_blur_2d(values, screen.beam_sigma, screen.beam_sigma, ty_res, screen.res,
-                                              weights=None if blur is None else blur[i])
-        with span("atmosphere.sample"):
-            sample = _sample(values, screen.h, screen.angle, screen.vx, screen.vy, screen.res, ty_res,
-                             screen.tx_min, screen.ty_min, px, py, t_rel)
-            pwv = pwv + screen.pwv_rms * sample
-            count("atmosphere.layers_sampled")
-    for g, group in enumerate(groups):
-        with span("atmosphere.synthesize"):
-            tabs = group_tables[g] if group_tables is not None else group_tensors(group, px.device)
-            stack = synthesize_layered_matern_2d(
-                tabs["W"], tabs["M_cos"], tabs["M_sin"], tabs["beam"], group.ny, group.nx,
-                generator=generator, draw=None if group_draws is None else group_draws[g],
-            )
-        with span("atmosphere.sample"):
-            for il, h in enumerate(group.heights):
-                sample = _sample(stack[il], float(h), group.angle, group.vx, group.vy, group.res, group.res,
-                                 group.tx_min, group.ty_min, px, py, t_rel)
-                pwv = pwv + float(group.pwv_rms[il]) * sample
-            count("atmosphere.layers_sampled", len(group.heights))
+    layers = synthesize_layers(screens, px.device, W=W, generator=generator, draws=draws, groups=groups,
+                               group_tables=group_tables, group_draws=group_draws, ar_values=ar_values, blur=blur)
+    if not layers:
+        return torch.full(px.shape, float(np.float32(mean_pwv)), dtype=px.dtype, device=px.device)
+    with span("atmosphere.sample"):
+        pwv = los_sample(mean_pwv, layers, px, py, t_rel)
+        count("atmosphere.layers_sampled", len(layers))
     return pwv

@@ -23,7 +23,7 @@ __all__ = ["load", "build", "library_path"]
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PACKAGE_DIR, "csrc")
-SOURCES = ("pink_noise.cu", "bin_map.cu", "shared_v.cu", "ar_extrude.cu", "sht.cu", "pink_cascade.cu")
+SOURCES = ("pink_noise.cu", "bin_map.cu", "shared_v.cu", "ar_extrude.cu", "sht.cu", "pink_cascade.cu", "los_sample.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
@@ -108,6 +108,14 @@ def load() -> ctypes.CDLL:
     lib.maria_sht_max_rings.restype = i
     lib.maria_pink_cascade.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.maria_pink_cascade.restype = i
+    lib.maria_los_sample.argtypes = [p, i, ctypes.c_float, p, p, p, ll, ll, i, p, p]
+    lib.maria_los_sample.restype = i
+    lib.maria_los_sample_backward.argtypes = [p, i, p, p, p, ll, ll, i, p, p, p, p]
+    lib.maria_los_sample_backward.restype = i
+    lib.maria_los_max_layers.argtypes = []
+    lib.maria_los_max_layers.restype = i
+    lib.maria_los_layer_bytes.argtypes = []
+    lib.maria_los_layer_bytes.restype = i
     lib.maria_max_dynamic_smem.argtypes = [i]
     lib.maria_max_dynamic_smem.restype = i
     lib.maria_cuda_error_string.argtypes = [i]

@@ -1067,3 +1067,184 @@ def test_2d_fourier_noise_on_card(cuda_device):
     psd = (torch.bincount(kb, P)[8:409] / torch.bincount(kb)[8:409]).cpu().numpy()
     slope = np.polyfit(np.log(np.sqrt(25 + np.arange(8, 409.0) ** 2)), np.log(psd), 1)[0]
     assert abs(slope + 8 / 3 + 1) <= 0.05 * (8 / 3 + 1)
+
+
+# -- the line-of-sight layer sampler (csrc/los_sample.cu) ---------------------------------------
+
+_LOS_PROGRAMS = {}
+
+
+def _los_program(scene, method, device, duration=60.0):
+    """The program of ``scenes.simulation(scene, duration, method=)`` on
+    the card, built once for the module."""
+    from maria_torch.scenes import simulation
+
+    key = (scene, method, duration)
+    if key not in _LOS_PROGRAMS:
+        _LOS_PROGRAMS[key] = simulation(scene, duration, device, method=method).program()
+    return _LOS_PROGRAMS[key]
+
+
+def _los_inputs(program, device, seed=3):
+    """(mean, layers, px, py, t_c) of one realization of ``program``, as
+    ``fields()`` hands them to ``accumulate_pwv``."""
+    from maria_torch.atmosphere.sampling import synthesize_layers
+    from maria_torch.ops.program import ar_screen_values, line_of_sight
+
+    tabs = program._tensors(device, None)
+    _, _, px, py = line_of_sight(*program._pointing(tabs, device, None, None, None, None))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ar_values = ar_screen_values(program.screens, gen, None, device, plan=tabs["ar_plan"])
+    layers = synthesize_layers(program.screens, device, W=tabs["W"], generator=gen, groups=program.groups,
+                               group_tables=tabs["groups"], ar_values=ar_values, blur=tabs["blur"])
+    return program.mean_pwv, layers, px, py, tabs["t_c"]
+
+
+def _los_bit_equal(mean, layers, px, py, t, launches=1):
+    from maria_torch.ops.los_sample import los_sample, los_sample_plain
+
+    before = los_sample.launches
+    ours = los_sample(mean, layers, px, py, t)
+    ref = los_sample_plain(mean, layers, px, py, t)
+    torch.cuda.synchronize()
+    assert los_sample.launches == before + launches
+    assert ours.shape == ref.shape and bool(torch.isfinite(ours).all())
+    assert torch.equal(ours, ref), float((ours - ref).abs().max())
+    return ours
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,method", [("atlast", "fourier"), ("mustang2", "fourier"), ("atlast", "ar")])
+def test_los_sample_kernel_bit_equal_to_plain(cuda_device, scene, method):
+    """The kernel against the plain path on the same card, bit for bit:
+    the AtLAST-50k 60 s 3-D group (one group of 12 layers: the 3-D model
+    is one process; 50,004 x 600), MUSTANG-2's 2-D Fourier screens, and
+    the AtLAST 3-D AR screens, whose cross spacing ty_res differs from res
+    and whose values are blurred."""
+    program = _los_program(scene, method, cuda_device)
+    mean, layers, px, py, t = _los_inputs(program, cuda_device)
+    if scene == "atlast" and method == "fourier":
+        assert (len(program.groups), len(layers), tuple(px.shape)) == (1, 12, (50004, 600))
+    if method == "ar":
+        assert all(s.ty_res != s.res and s.beam_sigma > 0 for s in program.screens)
+    if scene == "mustang2":
+        assert program.screens and all(s.W is not None for s in program.screens)
+    _los_bit_equal(mean, layers, px, py, t)
+
+
+@pytest.mark.cuda
+def test_los_sample_kernel_off_grid_on_the_last_edge_and_in_chunks(cuda_device):
+    """An empty table and points off every grid take the mean alone;
+    points exactly on a grid's last cell edge (fx = nx - 1, fy = ny - 1)
+    sample it; a table longer than one launch takes is sampled in launches
+    that add to what the one before stored, bit-equal to the plain path,
+    forward and backward."""
+    from maria_torch.ops.los_sample import Layer, max_layers
+
+    rng = np.random.default_rng(0)
+    ny, nx, n_det, n_tc = 40, 64, 37, 300
+    n_grids = max_layers() + 7
+    grids = torch.as_tensor(rng.standard_normal((n_grids, ny, nx)), dtype=torch.float32, device=cuda_device)
+    px = rng.uniform(-8.0, nx + 8.0, (n_det, n_tc))
+    py = rng.uniform(-8.0, ny + 8.0, (n_det, n_tc))
+    px[:5, :50], py[:5, :50] = nx - 1, rng.uniform(0, ny - 1, (5, 50))
+    px[5:10, :50], py[5:10, :50] = rng.uniform(0, nx - 1, (5, 50)), ny - 1
+    px[10, :50], py[10, :50] = nx - 1, ny - 1
+    px[11, :50], py[11, :50] = 0.0, 0.0
+    px, py = (torch.as_tensor(a, dtype=torch.float32, device=cuda_device) for a in (px, py))
+    t = torch.linspace(0.0, 30.0, n_tc, device=cuda_device)
+    # h 1, angle 0, no wind, unit cells at the origin: fx = px and fy = py exactly
+    edge = Layer(grids[0], 1.0, 0.0, 0.0, 0.0, 1.0, 1.0, 0.0, 0.0, 0.5)
+    assert bool((_los_bit_equal(1.25, [], px, py, t) == np.float32(1.25)).all())  # an empty table: the mean
+    pwv = _los_bit_equal(1.25, [edge], px, py, t)
+    off = (px < 0) | (px > nx - 1) | (py < 0) | (py > ny - 1)
+    assert bool(off.any()) and bool((pwv[off] == np.float32(1.25)).all())
+    assert bool((pwv[:12, :50] != np.float32(1.25)).all())
+    layers = [edge] + [
+        Layer(grids[k], float(rng.uniform(0.5, 2.0)), float(rng.uniform(-np.pi, np.pi)), float(rng.uniform(-1, 1)),
+              float(rng.uniform(-1, 1)), float(rng.uniform(0.7, 1.3)), float(rng.uniform(0.7, 1.3)),
+              float(rng.uniform(-20, 0)), float(rng.uniform(-20, 0)), float(rng.uniform(0.01, 0.1)))
+        for k in range(1, n_grids)
+    ]
+    _los_bit_equal(1.25, layers, px, py, t, launches=2)
+    # forward and backward, as the emulation of the kernel's arithmetic
+    # (tests/test_torch_los_sample.py) computes them, bit for bit
+    from test_torch_los_sample import emulate, emulate_backward
+
+    from maria_torch.ops.los_sample import los_sample
+
+    cpu_layers = [L._replace(values=L.values.cpu()) for L in layers]
+    g = torch.as_tensor(rng.standard_normal((n_det, n_tc)), dtype=torch.float32, device=cuda_device)
+    for n in (6, n_grids):
+        a, b = px.clone().requires_grad_(True), py.clone().requires_grad_(True)
+        out = los_sample(1.25, layers[:n], a, b, t)
+        ga, gb = torch.autograd.grad(out, (a, b), g)
+        pwv = emulate(1.25, cpu_layers[:n], px.cpu(), py.cpu(), t.cpu(), divide=False)
+        gx, gy = emulate_backward(cpu_layers[:n], px.cpu(), py.cpu(), t.cpu(), g.cpu(), divide=False)
+        for ours, ref in ((out.detach(), pwv), (ga, gx), (gb, gy)):
+            assert np.array_equal(ours.cpu().numpy(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["fourier", "ar"])
+def test_los_sample_backward_matches_plain_autograd(cuda_device, method):
+    """MUSTANG-2's screens (Fourier, and AR blurred, whose smooth taps
+    cancel): the kernel's route under autograd gives the forward of a
+    launch without it bit for bit, and its backward (one launch) the
+    gradients of sum(w * pwv) in px and py that the plain path's autograd
+    gives on the same inputs: bit for bit, cell edges included, so within
+    1e-6 relative L2."""
+    from maria_torch.ops.los_sample import los_sample, los_sample_plain
+
+    program = _los_program("mustang2", method, cuda_device)
+    mean, layers, px, py, t = _los_inputs(program, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    w = torch.randn(px.shape, generator=g, device=cuda_device)
+    with torch.no_grad():
+        plain_forward = los_sample(mean, layers, px, py, t)
+    grads = {}
+    for name, fn in (("kernel", los_sample), ("plain", los_sample_plain)):
+        a, b = px.clone().requires_grad_(True), py.clone().requires_grad_(True)
+        before = los_sample.launches
+        out = fn(mean, layers, a, b, t)
+        if name == "kernel":
+            assert torch.equal(out.detach(), plain_forward)
+        grads[name] = torch.autograd.grad((w * out).sum(), (a, b))
+        assert los_sample.launches == before + 2 * (name == "kernel")
+    for ours, ref in zip(grads["kernel"], grads["plain"]):
+        assert float(ref.abs().max()) > 0
+        rel = float((ours.double() - ref.double()).norm() / ref.double().norm())
+        assert rel <= 1e-6, rel
+        assert torch.equal(ours, ref), rel
+
+
+@pytest.mark.cuda
+def test_los_sample_refuses_a_grid_or_t_that_requires_a_gradient(cuda_device):
+    from maria_torch.ops.los_sample import Layer, los_sample
+
+    grid = torch.zeros((4, 6), device=cuda_device)
+    px = torch.zeros((3, 5), device=cuda_device)
+    layer = Layer(grid.clone().requires_grad_(True), 1.0, 0.0, 0.0, 0.0, 1.0, 1.0, 0.0, 0.0, 0.1)
+    with pytest.raises(ValueError, match="requires a gradient"):
+        los_sample(1.0, [layer], px, px, torch.zeros(5, device=cuda_device))
+    with pytest.raises(ValueError, match="requires a gradient"):
+        los_sample(1.0, [layer._replace(values=grid)], px, px, torch.zeros(5, device=cuda_device, requires_grad=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,method", [("mustang2", "fourier"), ("atlast", "fourier")])
+def test_fields_launches_los_sample_once(cuda_device, scene, method, monkeypatch):
+    """One fields() call samples every layer in one launch, and never
+    through the plain path."""
+    import maria_torch.ops.los_sample as los
+
+    def plain(*args):
+        raise AssertionError("the card's sampler fell back to the plain path")
+
+    program = _los_program(scene, method, cuda_device)
+    before = los.los_sample.launches
+    monkeypatch.setattr(los, "los_sample_plain", plain)
+    fields, _ = program.fields(seed=11, device=cuda_device)
+    torch.cuda.synchronize()
+    assert los.los_sample.launches == before + 1
+    assert bool(torch.isfinite(fields["atmosphere"]).all())
