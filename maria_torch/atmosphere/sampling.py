@@ -69,10 +69,13 @@ def synthesize_layers(screens, device, W=None, generator=None, draws=None, group
                       group_draws=None, ar_values=None, blur=None) -> list:
     """Every layer the sampler reads (``ops.los_sample.Layer``), in
     ``accumulate_pwv``'s order: each screen's grid, then each group's
-    stack a height at a time; the draws as ``accumulate_pwv`` takes them."""
+    stack a height at a time; the draws as ``accumulate_pwv`` takes them.
+    Each screen (a fine/coarse pair is two) is counted in
+    ``atmosphere.screens``."""
     layers = []
     for i, screen in enumerate(screens):
         ty_res = screen.ty_res if screen.ty_res is not None else screen.res
+        count("atmosphere.screens")
         with span("atmosphere.synthesize"):
             if screen.W is not None:
                 w = W[i] if W is not None else torch.as_tensor(screen.W, device=device)

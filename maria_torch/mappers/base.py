@@ -16,6 +16,7 @@ first TODs set."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..coords import Frame
 from ..io.logging import span
@@ -71,27 +72,35 @@ class BaseMapper:
             self.tods.append((tod.process(**preprocessing) if preprocessing else tod).to(self.tod_units))
 
     def postprocess(self, sums, weights):
+        """(map, weights) of the (stokes, band, time, y, x) sums and
+        weights, float64: the optional filters, sums / weights less its
+        mean over the weighted pixels of each (stokes, band, time) map,
+        NaN where the weight is not positive. Arrays in, arrays out; tensors
+        stay on their device (the filters run on the host)."""
         from scipy.ndimage import gaussian_filter, median_filter
 
-        sums = np.asarray(sums, dtype=np.float64)
-        weights = np.asarray(weights, dtype=np.float64)
+        as_array = not torch.is_tensor(sums)
+        sums = torch.as_tensor(sums, dtype=torch.float64)
+        weights = torch.as_tensor(weights, dtype=torch.float64, device=sums.device)
         sigma = self.map_postprocessing.get("gaussian_filter", {}).get("sigma", 0)
-        if sigma:
-            sums = gaussian_filter(sums, sigma=(0, 0, 0, sigma, sigma))
-            weights = gaussian_filter(weights, sigma=(0, 0, 0, sigma, sigma))
         size = self.map_postprocessing.get("median_filter", {}).get("size", 0)
-        if size and size > 1:
-            sums = median_filter(sums, size=(1, 1, 1, size, size))
-            weights = median_filter(weights, size=(1, 1, 1, size, size))
-        with np.errstate(invalid="ignore", divide="ignore"):
-            m = sums / weights
+        if sigma or (size and size > 1):
+            s, w = sums.cpu().numpy(), weights.cpu().numpy()
+            if sigma:
+                s = gaussian_filter(s, sigma=(0, 0, 0, sigma, sigma))
+                w = gaussian_filter(w, sigma=(0, 0, 0, sigma, sigma))
+            if size and size > 1:
+                s = median_filter(s, size=(1, 1, 1, size, size))
+                w = median_filter(w, size=(1, 1, 1, size, size))
+            sums, weights = (torch.as_tensor(a, device=sums.device) for a in (s, w))
+        valid = weights > 0
+        m = sums / weights
         if not self.map_postprocessing.get("keep_mean", False):
-            for idx in np.ndindex(m.shape[:3]):
-                valid = weights[idx] > 0
-                if valid.any():
-                    m[idx] -= m[idx][valid].mean()
-        m = np.where(weights > 0, m, np.nan)
-        return m, weights
+            n = valid.sum(dim=(-2, -1), keepdim=True)
+            mean = torch.where(valid, m, 0.0).sum(dim=(-2, -1), keepdim=True) / n.clamp(min=1)
+            m = torch.where(n > 0, m - mean, m)
+        m = torch.where(valid, m, torch.nan)
+        return (m.numpy(), weights.numpy()) if as_array else (m, weights)
 
 
 class BaseProjectionMapper(BaseMapper):
@@ -146,8 +155,14 @@ class BaseProjectionMapper(BaseMapper):
         self.res = res_rad
 
     def make_map(self, data, weights) -> ProjectionMap:
+        """The ProjectionMap of ``data`` (NaN and infinities made finite, as
+        ``np.nan_to_num`` makes them) and ``weights``, float32; a finite
+        float32 array is taken without a copy."""
+        data = np.asarray(data)
+        if not np.isfinite(data).all():
+            data = np.nan_to_num(data)
         out = ProjectionMap(
-            data=np.nan_to_num(data).astype(np.float32),
+            data=data.astype(np.float32, copy=False),
             weight=np.asarray(weights, dtype=np.float32),
             center=np.degrees(self.center),
             resolution=np.degrees(self.res),

@@ -13,8 +13,14 @@ each band's detector rows and of each time bin's samples, computes the
 pixel ids of its rows alone and bins its block with K2; the band's
 float64 sums are reduced once (one ``all_reduce`` over the mesh), so the
 postprocess runs on the same sums, and every rank returns the same Map.
-Without a mesh the same float64 band sums stay on the device and are
-copied to the host once a band.
+Every band's float64 sums are accumulated on the device and postprocessed
+there; the map and its weights, float32, go to the host once, as
+maria_tpu's BinMapper sends its sums once.
+
+Traced (``io.logging``), ``run`` is the span ``mapper.bin``, holding
+``mapper.ids`` (each TOD's pixel ids) and ``mapper.postprocess`` (the
+postprocess, the copies of the map and its weights to the host, counted
+by ``mapper.host_copies``, and ``make_map``).
 
 ``field_pixel_ids`` and ``bin_total`` bin a program's total power into a
 square map over the whole field, the benchmark's recipe (bench.py's
@@ -28,7 +34,7 @@ import numpy as np
 import torch
 
 from ..coords import phi_theta_to_offsets
-from ..io.logging import span
+from ..io.logging import count, span
 from ..ops.bin_map import bin_map
 from ..tod import Pointing
 from .base import BaseProjectionMapper
@@ -103,8 +109,9 @@ class BinMapper(BaseProjectionMapper):
         n_s, n_nu, n_t = len(self.stokes), len(self.nu), self.t_bins
         n_pix = self.n_x * self.n_y
         stokes_idx = ["IQUV".index(s) for s in self.stokes]
-        sums = np.zeros((n_s, n_nu, n_t, n_pix))
-        wgts = np.zeros_like(sums)
+        sums = torch.zeros((n_s, n_nu, n_t, n_pix), dtype=torch.float64,
+                           device=self.tods[0].device if mesh is None else mesh.device)
+        wgts = torch.zeros_like(sums)
         frame_ids = radec_pixel_ids if self.frame.name == "ra/dec" else azel_pixel_ids
         block = (lambda n, axis: (0, n)) if mesh is None else mesh.block  # this rank's block of n along axis
 
@@ -114,13 +121,14 @@ class BinMapper(BaseProjectionMapper):
             data, weight = tod.signal, tod.weight
             band_rows = [np.where(tod.dets.band_name == band.name)[0] for band in self.bands]
             local_rows = [r[slice(*block(len(r), "det"))] for r in band_rows]
-            if mesh is None:
-                ids_all = frame_ids(tod.pointing, self.center, self.res, self.n_x, self.n_y, device=device)
-            else:  # the ids of this rank's rows alone
-                p = tod.pointing
-                ids_all = frame_ids(Pointing(p.boresight, p.offsets[np.concatenate(local_rows)], p.q), self.center,
-                                    self.res, self.n_x, self.n_y, device=device)
-                ids_row = np.cumsum([0] + [len(r) for r in local_rows])
+            with span("mapper.ids"):
+                if mesh is None:
+                    ids_all = frame_ids(tod.pointing, self.center, self.res, self.n_x, self.n_y, device=device)
+                else:  # the ids of this rank's rows alone
+                    p = tod.pointing
+                    ids_all = frame_ids(Pointing(p.boresight, p.offsets[np.concatenate(local_rows)], p.q),
+                                        self.center, self.res, self.n_x, self.n_y, device=device)
+                    ids_row = np.cumsum([0] + [len(r) for r in local_rows])
 
             for i_nu, band in enumerate(self.bands):
                 if len(band_rows[i_nu]) == 0:
@@ -149,11 +157,17 @@ class BinMapper(BaseProjectionMapper):
                     band_sums[:, i_t] += bin_map(channels, ids_all[id_rows, sl].contiguous(), n_pix)
                 if mesh is not None:
                     band_sums = mesh.all_reduce(band_sums, ("det", "time"))
-                band_sums = band_sums.cpu().numpy()
+                band_sums = band_sums.to(sums.device)
                 sums[:, i_nu] += band_sums[:n_s]
                 wgts[:, i_nu] += band_sums[n_s:]
 
-        shape = (n_s, n_nu, n_t, self.n_y, self.n_x)
-        data, weights = self.postprocess(sums.reshape(shape), wgts.reshape(shape))
-        self.map = self.make_map(data, weights)
+        with span("mapper.postprocess"):
+            shape = (n_s, n_nu, n_t, self.n_y, self.n_x)
+            data, weights = self.postprocess(sums.reshape(shape), wgts.reshape(shape))
+            # one copy each of the float32 map and weights: a single tensor of both would exceed the host
+            # allocator's largest reusable block (32 MiB) at 3 x 6 x 577 x 577 and take fresh pages every run
+            data = torch.nan_to_num(data).to(torch.float32).cpu().numpy()
+            weights = weights.to(torch.float32).cpu().numpy()
+            count("mapper.host_copies", 2)
+            self.map = self.make_map(data, weights)
         return self.map

@@ -133,6 +133,37 @@ def test_profiler_trace_holds_the_stages(tmp_path, program):
     summary = trace.trace_summary()
     assert summary["spans"]["maria_torch.noise.gemm"]["calls"] == 1
     assert summary["counters"]["atmosphere.layers_sampled"] == len(program.screens)
+    assert summary["counters"]["atmosphere.screens"] == len(program.screens)
+
+
+def test_bin_mapper_spans_and_counters(caches):
+    """BinMapper.run() opens ``mapper.ids`` once a TOD and
+    ``mapper.postprocess`` once, and counts two copies to the host, the
+    map and its weights (every band's sums stay on the device until the
+    map is made); the 2-D atmosphere counts every screen its Atmosphere
+    builds, a fine/coarse pair as two; with tracing off nothing is
+    recorded."""
+    sim = maria_torch.Simulation(plans=maria_torch.plan.Plan.generate(**TINY_PLAN), instrument="test/1deg",
+                                 site="green_bank", atmosphere="2d", noise=True, seed=5, device="cpu")
+    tods = sim.run() + sim.run()
+    maria_torch.BinMapper(tods, frame="ra/dec", resolution=0.05).run()
+    assert trace.trace_summary()["spans"] == {} and not trace.trace_summary()["counters"].get("mapper.host_copies")
+    with trace.tracing():
+        tods = sim.run() + sim.run()
+        plain = maria_torch.BinMapper(tods, frame="ra/dec", resolution=0.05).run()
+    summary = trace.trace_summary()
+    calls = {name.removeprefix("maria_torch."): agg["calls"] for name, agg in summary["spans"].items()}
+    n_bands, n_tods = len(tods[0].dets.bands), len(tods)
+    screens = sim.obs_list[0].atmosphere.screens
+    assert n_bands > 1 and any(s.band == "fine" for s in screens) and any(s.band == "coarse" for s in screens)
+    assert n_tods > 1 and summary["counters"]["mapper.host_copies"] == 2
+    assert calls["mapper.bin"] == calls["mapper.postprocess"] == 1 and calls["mapper.ids"] == n_tods
+    assert summary["counters"]["atmosphere.screens"] == n_tods * len(screens)
+    assert summary["spans"]["maria_torch.mapper.bin"]["host_s"] >= summary["spans"]["maria_torch.mapper.ids"]["host_s"]
+    with trace.tracing(False):
+        again = maria_torch.BinMapper(tods, frame="ra/dec", resolution=0.05).run()
+    np.testing.assert_array_equal(again.data, plain.data)
+    assert trace.trace_summary()["counters"]["mapper.host_copies"] == 2
 
 
 def test_simulation_and_ml_mapper_spans(caches):
@@ -182,8 +213,10 @@ def test_span_names_are_documented():
     spans = {name for func, name in seen if func == "span"}
     assert {"program.pointing", "atmosphere.sample", "noise", "noise.basis", "mapper.cg_step", "mapper.bin",
             "tod.to", "sim.run_obs"} <= spans
+    assert {"mapper.ids", "mapper.postprocess"} <= spans
     assert {name for func, name in seen if func == "count"} == {
-        "noise.basis_builds", "mapper.cg_steps", "atmosphere.layers_sampled"}
+        "noise.basis_builds", "mapper.cg_steps", "atmosphere.layers_sampled", "mapper.host_copies",
+        "atmosphere.screens"}
 
 
 def test_profile_slice_reads_the_spans(program):
