@@ -415,14 +415,21 @@ K3_LEAST_BODY = {"imad": 18, "fp32": 40, "alu": 43, "xu": 8, "other": 6}
 # the sample and its sum (2). vx t and vy t are one a layer and coarse step.
 LOS_OPS = 31
 LOS_SEED = 23
+# the pixel-id kernel's warp instructions a sample (csrc/pixel_ids.cu, the
+# ra/dec form), by the pipe that runs them, counted from its SASS on sm_90a
+# (CUDA 12.8) along the loop body's path that a sample with r > 0 and
+# sin r > 0 takes: the libm functions' slow paths (a sine's or cosine's
+# argument past 105615, a division or square root out of the fast range)
+# left out, the atan2f and asinf branches for zeros and infinities too.
+# 402 in all (az/el: 392), so issue-bound (PERF.md section 6)
+PIX_BODY = {"imad": 39, "fp32": 175, "alu": 85, "xu": 19, "other": 84}
 
 
-def k3_least_cycles() -> int:
-    """Cycles that a warp's 32 bin pairs of K3's least body hold one H100
-    SM sub-partition: the larger of issuing them (one a cycle) and each
-    pipe's share (lanes a cycle: FP32 on two FMA pipes of 16, IMAD on one
-    of them; ALU 16; XU, for I2F and MUFU, 4)."""
-    b = K3_LEAST_BODY
+def least_cycles(b: dict = K3_LEAST_BODY) -> int:
+    """Cycles that a warp's 32 lanes of a body (K3's least body: a bin
+    pair each) hold one H100 SM sub-partition: the larger of issuing them
+    (one a cycle) and each pipe's share (lanes a cycle: FP32 on two FMA
+    pipes of 16, IMAD on one of them; ALU 16; XU, for I2F and MUFU, 4)."""
     return max(sum(b.values()), 2 * b["imad"], b["imad"] + b["fp32"], 2 * b["alu"], 8 * b["xu"])
 
 
@@ -667,8 +674,8 @@ def check_shared_v(device, gen, n_det, m1, c=None, n_extra=0, row0=0):
                                 lambda: shared_v(key, c, n_det, out=buf, row0=row0))
     r = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None, "shape": [n_det, 2 * m1],
          "exact_share": exact,
-         **bound(2 * n_det * 2 * m1 + 4 * m1, k3_least_cycles() * n_det * ((m1 + 1) // 2), LANE_INSTRUCTIONS_S)}
-    print(timing_line(f"{name} (least body: {k3_least_cycles()} issue cycles a bin pair)", r), flush=True)
+         **bound(2 * n_det * 2 * m1 + 4 * m1, least_cycles() * n_det * ((m1 + 1) // 2), LANE_INSTRUCTIONS_S)}
+    print(timing_line(f"{name} (least body: {least_cycles()} issue cycles a bin pair)", r), flush=True)
     return r
 
 
@@ -730,6 +737,41 @@ def check_los_sample(device, program, label="c"):
                  LANE_INSTRUCTIONS_S)}
     print(timing_line(f"{name} ({LOS_OPS} float32 operations a layer and sample); backward {backward_ms:.4f} ms", r),
           flush=True)
+    return r
+
+
+def check_pixel_ids(device, pointing, geometry, label):
+    """The mappers' pixel-id kernel (csrc/pixel_ids.cu) against its plain
+    chain at a slice's ra/dec pointing and map ``geometry`` (center, res,
+    n_x, n_y): bit for bit, one launch a call; kernel and plain times in
+    turns. Its bound: the ids written once at the memory rate, or
+    PIX_BODY's instructions a sample at the pipes' issue rates. No library
+    call computes this."""
+    import torch
+
+    from maria_torch.ops import pixel_ids as pix
+
+    offsets, phi, theta, cos_q, sin_q = pointing.factors("ra/dec", device=device)
+    args = (offsets, phi, theta, *geometry, cos_q, sin_q)
+    before = pix.pixel_ids.launches
+    ours, ref = pix.pixel_ids(*args), pix.pixel_ids_plain(*args)
+    torch.cuda.synchronize()
+    launches = pix.pixel_ids.launches - before
+    differ = int((ours != ref).sum())
+    n = ours.numel()
+    off = float((ref < 0).double().mean())
+    name = f"pixel_ids slice ({label}) ({ours.shape[0]} x {ours.shape[1]} into {geometry[2]} x {geometry[3]})"
+    ok = differ == 0 and launches == 1
+    print(f"{name}: bit-equal to the plain chain {differ == 0} ({differ} of {n} ids differ), {off:.2e} of the samples "
+          f"off the map, launches {launches} (1) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{name} disagrees with its plain chain")
+    del ours, ref
+    ms, plain_ms, _ = paired_ms(lambda: pix.pixel_ids_plain(*args), lambda: pix.pixel_ids(*args))
+    r = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "shape": [len(offsets), len(phi)], "exact_share": 1.0,
+         "off_map_share": off,
+         **bound(4 * n + 8 * offsets.shape[0] + 16 * phi.shape[0], least_cycles(PIX_BODY) * n, LANE_INSTRUCTIONS_S)}
+    print(timing_line(f"{name} ({least_cycles(PIX_BODY)} issue cycles a warp of samples)", r), flush=True)
     return r
 
 
@@ -1950,11 +1992,12 @@ def run_cmb_patch(device, card, gen):
     from maria_torch import scenes
     from maria_torch.ops.bin_map import bin_map
     from maria_torch.ops.pink_noise import pink_noise
+    from maria_torch.ops.pixel_ids import pixel_ids
     from maria_torch.ops.sht import sht_anal, sht_synth
     from maria_torch.profile_slice import profiled
 
     def reset():
-        pink_noise.launches = bin_map.launches = sht_synth.launches = sht_anal.launches = 0
+        pink_noise.launches = bin_map.launches = sht_synth.launches = sht_anal.launches = pixel_ids.launches = 0
 
     reset()
     s = time.perf_counter()
@@ -1984,18 +2027,20 @@ def run_cmb_patch(device, card, gen):
     k1_run = pink_noise.launches
     s = time.perf_counter()
     mapper = scenes.cmb_patch_mapper([tod])
-    built = bin_map.launches
+    built, built_pix = bin_map.launches, pixel_ids.launches
     out = patch_fit(mapper)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - s
     fit_launches = bin_map.launches - built
     expected = ml_launches(1, "conjugate_gradient", PATCH_EPOCHS, PATCH_STEPS)
-    launches = {"pink_noise": k1_run, "bin_map": bin_map.launches, "sht_synth": setup["sht_synth"] + sht_synth.launches}
+    launches = {"pink_noise": k1_run, "bin_map": bin_map.launches, "sht_synth": setup["sht_synth"] + sht_synth.launches,
+                "pixel_ids": pixel_ids.launches}
     print(f"slice (p): first run() {run_s:.3f} s, the mapper and its first fit {fit_s:.3f} s; main-path launches "
           f"{launches} (K2: {built} building the mapper, {fit_launches} in fit(), expected {expected})", flush=True)
     ok = tod.shape == (n_det, n_t) == (1052, 12000) and set(tod.fields) == {"cmb", "noise"}
     ok &= all(bool(torch.isfinite(v).all()) for v in tod.data.values()) and tod.device.type == "cuda"
     ok &= k1_run >= len(instrument.bands) and built == 2 and fit_launches == expected and setup["sht_synth"] == 3
+    ok &= built_pix == launches["pixel_ids"] == 1
     ok &= mapper.stokes == "IQU" and all(mapper.blocks[0][k].device.type == "cuda" for k in ("pix", "sw", "data"))
     print(f"slice (p): TOD {tod.shape} {tod.fields} in {tod.units}, max |cmb| {float(tod.data['cmb'].abs().max()):.3e}, "
           f"noise std {float(tod.data['noise'].std()):.3e} K_RJ; mapper {mapper.stokes} on {mapper.n_x} x "
@@ -2005,6 +2050,7 @@ def run_cmb_patch(device, card, gen):
     check_iqu_map("p", out, 2)
 
     pt = check_ml_pt(mapper, gen, card, label="p")
+    ids_check = check_pixel_ids(device, tod.pointing, (mapper.center, mapper.res, mapper.n_x, mapper.n_y), "p")
     with plain_pt():
         plain = patch_fit(scenes.cmb_patch_mapper([tod]))
     scale = float(plain.data.abs().max())
@@ -2142,7 +2188,7 @@ def run_cmb_patch(device, card, gen):
     summary = {"setup_s": round(inst_s + plan_s + sim_s, 2), "instrument_s": round(inst_s, 2),
                "plan_s": round(plan_s, 2), "generate_cmb_s": round(cmb_s["cmb"], 2), "run_ms": round(run_ms, 2),
                "processing_ms": round(proc_ms, 2), "fit_ms": round(fit_ms, 2), "cg_step_ms": round(steps["step"], 4),
-               "busy": round(busy / wall, 3), "recovery": corr_iqu, "cg_steps": steps_used}
+               "busy": round(busy / wall, 3), "recovery": corr_iqu, "cg_steps": steps_used, "pixel_ids": ids_check}
     return pt, launches, summary
 
 
@@ -2208,6 +2254,7 @@ def run_act(device, card, gen):
     from maria_torch import scenes
     from maria_torch.ops.bin_map import bin_map
     from maria_torch.ops.pink_noise import pink_noise
+    from maria_torch.ops.pixel_ids import pixel_ids
     from maria_torch.ops.sht import sht_synth
     from maria_torch.profile_slice import profiled
 
@@ -2233,7 +2280,7 @@ def run_act(device, card, gen):
           f"{inst_s:.2f} s, plan {plan_s:.2f} s, Simulation {sim_s:.2f} s (generate_cmb {parts['cmb']:.2f} s of it), "
           f"program {prog_s:.2f} s ({len(program.screens)} screens)", flush=True)
 
-    pink_noise.launches = bin_map.launches = 0
+    pink_noise.launches = bin_map.launches = pixel_ids.launches = 0
     s = time.perf_counter()
     tod = sim.run()[0]
     torch.cuda.synchronize()
@@ -2244,12 +2291,12 @@ def run_act(device, card, gen):
     out = mapper.run()
     torch.cuda.synchronize()
     map_s = time.perf_counter() - s
-    launches = {"pink_noise": k1_run, "bin_map": bin_map.launches, "sht_synth": ks1}
+    launches = {"pink_noise": k1_run, "bin_map": bin_map.launches, "sht_synth": ks1, "pixel_ids": pixel_ids.launches}
     print(f"slice (q): first run() {run_s:.3f} s, first BinMapper.run() {map_s:.3f} s; main-path launches {launches}",
           flush=True)
     ok = tod.shape == (n_det, n_t) == (9000, int(ACT_DURATION * 20)) and set(tod.fields) == {"atmosphere", "cmb", "noise"}
     ok &= all(bool(torch.isfinite(v).all()) for v in tod.data.values()) and tod.device.type == "cuda"
-    ok &= k1_run >= 6 and launches["bin_map"] >= 6 and ks1 == 3 and mapper.stokes == "IQU"
+    ok &= k1_run >= 6 and launches["bin_map"] >= 6 and ks1 == 3 and mapper.stokes == "IQU" and launches["pixel_ids"] == 1
     print(f"slice (q): TOD {tod.shape} {tod.fields} in {tod.units}, atmosphere mean "
           f"{float(tod.data['atmosphere'].mean()):.3f}, max |cmb| {float(tod.data['cmb'].abs().max()):.3e}, noise std "
           f"{float(tod.data['noise'].std()):.3e} K_RJ {'ok' if ok else 'FAIL'}", flush=True)
@@ -2257,6 +2304,7 @@ def run_act(device, card, gen):
         fail("slice (q) output check")
     check_iqu_map("q", out, 6)
     k2 = check_binmapper_k2(tod, mapper, gen, card, "q")
+    ids_check = check_pixel_ids(device, tod.pointing, (mapper.center, mapper.res, mapper.n_x, mapper.n_y), "q")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     run_ms, run_list = warm_ms(lambda: sim.run(), reps=3)
@@ -2275,7 +2323,7 @@ def run_act(device, card, gen):
         fail("slice (q) noise PSD")
     summary = {"setup_s": round(inst_s + plan_s + sim_s + prog_s, 2), "run_ms": round(run_ms, 2),
                "map_ms": round(map_ms, 2), "busy": round(busy / wall, 3), "peak_gb": round(peak_gb, 2),
-               "map_pixels": [mapper.n_y, mapper.n_x]}
+               "map_pixels": [mapper.n_y, mapper.n_x], "pixel_ids": ids_check}
     return k2, launches, summary
 
 
@@ -4669,7 +4717,7 @@ def main() -> int:
                 "v": launches_v, "w": launches_w, "x": launches_x, "y (both ranks)": launches_y, "z": launches_z,
                 "aa": launches_aa}
     for name in ("pink_noise", "bin_map", "shared_v", "ar_extrude", "sht_synth", "sht_anal", "pink_cascade",
-                 "los_sample"):
+                 "los_sample", "pixel_ids"):
         print(f"main-path launches of {name} by slice: {({k: v[name] for k, v in by_slice.items() if name in v})}",
               flush=True)
     kernels_line = {"kernels": [
@@ -4701,6 +4749,9 @@ def main() -> int:
         {"name": "los_sample", "route": "cuda", "source": "maria_torch/csrc/los_sample.cu",
          "replaces": "none: the exact path's XLA gather, maria_tpu/atmosphere/sampling.py accumulate_pwv(bs_px=None)",
          "launches": sum(launches.get("los_sample", 0) for launches in by_slice.values()), **los_c},
+        {"name": "pixel_ids", "route": "cuda", "source": "maria_torch/csrc/pixel_ids.cu",
+         "replaces": "none: the port's plain chain, maria_torch/ops/pixel_ids.py pixel_ids_plain",
+         "launches": launches_p["pixel_ids"] + launches_q["pixel_ids"], **summary_q["pixel_ids"]},
     ]}
     print(f"K2 summary ML P^T (slice n): {k2_ml['ms']:.4f} ms, library {k2_ml['library_ms']:.4f} ms, bound "
           f"{k2_ml['bound_ms']:.4f} ms ({k2_ml['bound_ms'] / k2_ml['ms']:.1%}), plain {k2_ml['plain_ms']:.4f} ms; "
@@ -4732,6 +4783,7 @@ def main() -> int:
               flush=True)
     for key, r in (("KC (t)", kc_t), ("KC (u)", kc_u), ("KC (v)", kc_v), ("K3 at row0 25002 (y1)", k3_y),
                    ("K3 at (z1)'s shape", k3[217]), ("los_sample (c)", los_c),
+                   ("pixel_ids (q)", summary_q["pixel_ids"]), ("pixel_ids (p)", summary_p["pixel_ids"]),
                    ("K2 streaming block (t)", k2_t),
                    ("K2 streamed ML P^T (v)", k2_v), ("AR chunk (u)", ar_u)):
         print(f"{key} summary: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "

@@ -1,11 +1,12 @@
 """Binned map-making (maria_tpu/mappers/bin_mapper.py).
 
-Pixel ids come from the detectors' pointing in the map's frame (az/el or
-ra/dec) on the TOD's device; the
-sums of weight * stokes_weight * data and of weight * |stokes_weight|
-per pixel are one call of kernel K2 (``ops.bin_map``) per (TOD, band,
-time bin). The TPU's Hilbert-ordered one-hot plans are not needed: the
-card scatters with atomics.
+Pixel ids come from the detectors' factorized pointing in the map's
+frame (az/el or ra/dec) on the TOD's device, on the card in one launch
+of the pixel-id kernel (``ops.pixel_ids``); the sums of weight *
+stokes_weight * data and of weight * |stokes_weight| per pixel are one
+call of kernel K2 (``ops.bin_map``) per (TOD, band, time bin). The TPU's
+Hilbert-ordered one-hot plans are not needed: the card scatters with
+atomics.
 
 ``run(mesh=)`` shards the binning over a ("det", "time") mesh
 (``maria_torch.parallel``): every rank holds the TODs, takes its block of
@@ -34,40 +35,42 @@ import numpy as np
 import torch
 
 from ..coords import phi_theta_to_offsets
+from ..device import resolve_device
 from ..io.logging import count, span
 from ..ops.bin_map import bin_map
+from ..ops.pixel_ids import centred_pixel_ids
+from ..ops.pixel_ids import flat_pixel_ids as pixel_ids
+from ..ops.pixel_ids import pixel_ids as ops_pixel_ids
 from ..tod import Pointing
 from .base import BaseProjectionMapper
 
 __all__ = ["BinMapper", "azel_pixel_ids", "bin_total", "field_pixel_ids", "pixel_ids", "radec_pixel_ids"]
 
 
-def pixel_ids(dx, dy, x0: float, y0: float, res: float, n_x: int, n_y: int):
-    """Flat nearest-pixel ids iy * n_x + ix (int32) of tangent-plane
-    offsets, -1 outside the map."""
-    ix = torch.round((dx - x0) / res).to(torch.int32)
-    iy = torch.round((dy - y0) / res).to(torch.int32)
-    inside = (ix >= 0) & (ix < n_x) & (iy >= 0) & (iy < n_y)
-    return torch.where(inside, iy * n_x + ix, torch.full_like(ix, -1))
-
-
-def _centred_pixel_ids(phi, theta, center, res: float, n_x: int, n_y: int):
-    offsets = phi_theta_to_offsets(torch.stack([phi, theta], dim=-1), *center)
-    x0, y0 = -(n_x - 1) / 2 * res, -(n_y - 1) / 2 * res
-    return pixel_ids(offsets[..., 0], offsets[..., 1], x0, y0, res, n_x, n_y)
+def _frame_pixel_ids(pointing, frame: str, center, res: float, n_x: int, n_y: int, device):
+    """On the card one launch of the pixel-id kernel from the factorized
+    pointing; on the CPU the plain chain from the detectors' angles, as
+    ``Pointing.det_azel`` and ``det_radec`` give them (the CPU tests hand
+    the port another package's angles there)."""
+    device = resolve_device(device)
+    if device.type == "cpu":
+        angles = pointing.det_radec if frame == "ra/dec" else pointing.det_azel
+        return centred_pixel_ids(*angles(device=device), center, res, n_x, n_y)
+    offsets, phi, theta, cos_q, sin_q = pointing.factors(frame, device=device)
+    return ops_pixel_ids(offsets, phi, theta, center, res, n_x, n_y, cos_q, sin_q)
 
 
 def azel_pixel_ids(pointing, center, res: float, n_x: int, n_y: int, device=None):
     """Flat int32 ids (n_det, n_t) at which BinMapper(frame="az/el") bins
     a TOD of this ``pointing``: an n_x x n_y map of pixels ``res``
     (radians) wide centred on ``center`` (az, el in radians), -1 outside."""
-    return _centred_pixel_ids(*pointing.det_azel(device=device), center, res, n_x, n_y)
+    return _frame_pixel_ids(pointing, "az/el", center, res, n_x, n_y, device)
 
 
 def radec_pixel_ids(pointing, center, res: float, n_x: int, n_y: int, device=None):
     """As ``azel_pixel_ids`` for BinMapper(frame="ra/dec"): ``center`` is
     (ra, dec) in radians, the pointing the detectors' ra/dec."""
-    return _centred_pixel_ids(*pointing.det_radec(device=device), center, res, n_x, n_y)
+    return _frame_pixel_ids(pointing, "ra/dec", center, res, n_x, n_y, device)
 
 
 def field_pixel_ids(boresight, offsets, n_x: int = 128, n_y: int = 128, device=None):

@@ -19,14 +19,25 @@ import tempfile
 import time
 from functools import cache
 
-__all__ = ["load", "build", "library_path"]
+import numpy as np
+
+__all__ = ["load", "build", "library_path", "scalar_reciprocal"]
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PACKAGE_DIR, "csrc")
-SOURCES = ("pink_noise.cu", "bin_map.cu", "shared_v.cu", "ar_extrude.cu", "sht.cu", "pink_cascade.cu", "los_sample.cu")
+SOURCES = ("pink_noise.cu", "bin_map.cu", "shared_v.cu", "ar_extrude.cu", "sht.cu", "pink_cascade.cu", "los_sample.cu",
+           "pixel_ids.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+
+
+def scalar_reciprocal(x: float) -> float:
+    """The float32 factor by which torch divides a CUDA float32 tensor by
+    the Python scalar ``x``: 1 / x taken in double, then rounded (not
+    1 / float32(x); checked on the H100 with torch 2.11). A kernel that
+    must be bit-equal to such a division multiplies by it."""
+    return float(np.float32(1.0 / float(x)))
 
 
 def _build_dir() -> str:
@@ -116,6 +127,9 @@ def load() -> ctypes.CDLL:
     lib.maria_los_max_layers.restype = i
     lib.maria_los_layer_bytes.argtypes = []
     lib.maria_los_layer_bytes.restype = i
+    f = ctypes.c_float
+    lib.maria_pixel_ids.argtypes = [p, p, p, p, p, i, i, f, f, f, f, f, f, f, i, i, p, p]
+    lib.maria_pixel_ids.restype = i
     lib.maria_max_dynamic_smem.argtypes = [i]
     lib.maria_max_dynamic_smem.restype = i
     lib.maria_cuda_error_string.argtypes = [i]

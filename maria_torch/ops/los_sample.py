@@ -82,10 +82,6 @@ def los_sample_plain(mean_pwv, layers, px, py, t_rel):
     return pwv
 
 
-def _reciprocal(res: float) -> float:
-    return float(np.float32(1.0 / float(res)))
-
-
 def layer_table(layers):
     """(descriptors, grids): ``layers`` as a ctypes array of ``LosLayer``,
     in their order, and the contiguous float32 grids they point to (hold
@@ -105,7 +101,7 @@ def layer_table(layers):
         d.grid, (d.ny, d.nx) = values.data_ptr(), values.shape
         d.h, d.vx, d.vy = float(layer.h), float(layer.vx), float(layer.vy)
         d.ca, d.sa = float(np.cos(layer.angle)), float(np.sin(layer.angle))
-        d.inv_dx, d.inv_dy = _reciprocal(layer.res_x), _reciprocal(layer.res_y)
+        d.inv_dx, d.inv_dy = kernels.scalar_reciprocal(layer.res_x), kernels.scalar_reciprocal(layer.res_y)
         d.x0, d.y0, d.rms = float(layer.tx_min), float(layer.ty_min), float(layer.rms)
     return table, grids
 

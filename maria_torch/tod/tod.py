@@ -18,6 +18,7 @@ import torch
 from ..coords import Coordinates, offsets_to_phi_theta
 from ..device import check_float32, resolve_device
 from ..ops.interp import interp
+from ..ops.pixel_ids import sky_offsets
 from ..units import Quantity, parse_units
 
 __all__ = ["TOD", "Pointing", "VALID_TOD_QUANTITIES"]
@@ -63,9 +64,7 @@ class Pointing:
         if self.q is None:
             raise ValueError("this Pointing was made without the frame-rotation angle q")
         offsets = _f32(self.offsets if idx is None else self.offsets[idx], device)
-        c, s = _f32(np.cos(self.q), device), _f32(np.sin(self.q), device)
-        x, y = offsets[:, None, 0], offsets[:, None, 1]
-        return torch.stack([c * x - s * y, s * x + c * y], dim=-1)
+        return sky_offsets(offsets, _f32(np.cos(self.q), device), _f32(np.sin(self.q), device))
 
     def det_radec(self, device=None, idx=None):
         """(ra, dec) float32 tensors of shape (n_det, n_t), as ``det_azel``."""
@@ -74,6 +73,25 @@ class Pointing:
             _f32(self.boresight.dec, device),
         )
         return pt[..., 0], pt[..., 1]
+
+    def factors(self, frame: str, device=None):
+        """The factorized pointing in ``frame`` ("az/el" or "ra/dec") as
+        float32 tensors on ``device``, the values ``det_azel`` and
+        ``det_radec`` start from: (offsets (n_det, 2), phi (n_t,), theta
+        (n_t,), cos q, sin q), the boresight's angles and, in ra/dec, cos
+        and sin of q(t) (None in az/el). One copy to the device for the
+        offsets and one for the tracks."""
+        b = self.boresight
+        if frame == "az/el":
+            tracks = [b.az, b.el]
+        elif frame == "ra/dec":
+            if self.q is None:
+                raise ValueError("this Pointing was made without the frame-rotation angle q")
+            tracks = [b.ra, b.dec, np.cos(self.q), np.sin(self.q)]
+        else:
+            raise ValueError(f"frame must be 'az/el' or 'ra/dec', got {frame!r}")
+        tracks = _f32(np.stack([np.asarray(x, dtype=np.float32) for x in tracks]), device)
+        return (_f32(self.offsets, device), *tracks, *([None, None] if frame == "az/el" else []))
 
     def coordinates(self) -> Coordinates:
         """Every detector's pointing, (n_det, n_t) host Coordinates in

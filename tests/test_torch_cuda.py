@@ -405,6 +405,53 @@ def test_radec_pixel_ids_on_card_match_cpu(cuda_device):
     assert int(((a // sky.n_x - b // sky.n_x).abs().max())) <= 1 and int((a % sky.n_x - b % sky.n_x).abs().max()) <= 1
 
 
+def _pixel_id_case(scene, device):
+    """(factors on ``device``, geometry) of a card test's scene
+    (tests/pixel_id_scenes.py)."""
+    import pixel_id_scenes as scenes
+
+    if scene.startswith("edges"):
+        factors, geometry = scenes.edge_scene("az/el" if scene == "edges_azel" else "ra/dec")
+        return [None if x is None else x.to(device) for x in factors], geometry
+    obs, geometry = scenes.act_scene() if scene == "act" else scenes.cmb_patch_scene()
+    frame = "az/el" if scene == "cmb_patch_azel" else "ra/dec"
+    if frame == "az/el":
+        geometry = scenes.mapper_geometry(obs, "az/el", 2 / 60)
+    if scene == "cmb_patch_cut":
+        geometry = (*geometry[:2], 98, 98)
+    return scenes.pointing(obs).factors(frame, device=device), geometry
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["act", "cmb_patch", "cmb_patch_cut", "cmb_patch_azel", "edges_radec",
+                                   "edges_azel"])
+def test_pixel_ids_kernel_bit_equal_to_plain(cuda_device, scene):
+    """The pixel-id kernel against the plain chain on the card, bit for
+    bit, one launch a call: the ACT cell's pointing (9,000 x 12,000 ra/dec
+    into BinMapper's 577 x 577), the CMB patch's (1,052 x 12,000 into the
+    ML mapper's 197 x 197, into a 98 x 98 cut of it off which samples
+    fall, and in az/el), and the edge scene in both frames (r = 0, a
+    half-pixel border, every edge, NaN boresight samples)."""
+    from maria_torch.ops.pixel_ids import pixel_ids, pixel_ids_plain
+
+    (offsets, phi, theta, cos_q, sin_q), geometry = _pixel_id_case(scene, cuda_device)
+    before = pixel_ids.launches
+    ids = pixel_ids(offsets, phi, theta, *geometry, cos_q, sin_q)
+    assert pixel_ids.launches == before + 1
+    ref = pixel_ids_plain(offsets, phi, theta, *geometry, cos_q, sin_q)
+    torch.cuda.synchronize()
+    assert ids.device.type == "cuda" and ids.dtype == torch.int32 and ids.shape == (len(offsets), len(phi))
+    differ = (ids != ref).nonzero()
+    assert torch.equal(ids, ref), (f"{len(differ)} of {ids.numel()} ids differ, first at {differ[:4].tolist()}: "
+                                   f"{[(int(ids[i, j]), int(ref[i, j])) for i, j in differ[:4].tolist()]}")
+    if scene == "act":
+        assert geometry[2:] == (577, 577) and ids.shape == (9000, 12000)
+    if scene in ("cmb_patch_cut", "edges_radec", "edges_azel"):
+        assert bool((ids == -1).any()) and bool((ids >= 0).any())
+    if scene.startswith("edges"):
+        assert int(ids[0, 0]) % geometry[2] == 2  # 2.5 pixels from the first column: half to even
+
+
 @pytest.mark.cuda
 def test_map_stage_on_card_matches_cpu(cuda_device):
     """The card's beam smoothing 1e-5 of the map's maximum against float64
