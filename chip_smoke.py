@@ -209,7 +209,10 @@ Phases, each of which must pass (any failure exits non-zero):
 26. slice (t), AtLAST-50k x 600 s streamed (bench.py:844-880's scene:
    (c)'s scene at 600 s, 1.5e9 samples, uncut): StreamingExecutor(program,
    obs, block_tc=128).run(group_size=8): every sample in the map (hits
-   summed in float64 equal to n_det x n_t), KC and K2 once a block, the
+   summed in float64 equal to n_det x n_t), KC and K2 once a block and
+   the pixel-id kernel once a block and slab of PIXEL_ROWS rows, the
+   streamed ids of the first and the last block in az/el and in ra/dec
+   equal to pixel_ids_plain on the same tensors (torch.equal), the
    block loop's peak above what init_state holds under 16 (n_det, B)
    float32 buffers; setup seconds, the warm run (mean of 3), samples/s,
    the coarse stage's and the loop's peaks, and the stage split (coarse,
@@ -2695,16 +2698,67 @@ def check_pink_cascade(device, gen, ex, label):
 def stream_launches() -> dict:
     from maria_torch.ops.bin_map import bin_map
     from maria_torch.ops.pink_cascade import pink_cascade
+    from maria_torch.ops.pixel_ids import pixel_ids
 
-    return {"pink_cascade": pink_cascade.launches, "bin_map": bin_map.launches}
+    return {"pink_cascade": pink_cascade.launches, "bin_map": bin_map.launches, "pixel_ids": pixel_ids.launches}
 
 
 def reset_stream_launches():
     from maria_torch.ops.ar_extrude import ar_extrude
     from maria_torch.ops.bin_map import bin_map
     from maria_torch.ops.pink_cascade import pink_cascade
+    from maria_torch.ops.pixel_ids import pixel_ids
 
-    pink_cascade.launches = bin_map.launches = ar_extrude.launches = 0
+    pink_cascade.launches = bin_map.launches = ar_extrude.launches = pixel_ids.launches = 0
+
+
+def stream_block_launches(ex) -> dict:
+    """The main-path launches of a streamed run() of executor ``ex``: KC
+    and K2 once a block, the pixel-id kernel once a block and slab of
+    PIXEL_ROWS detector rows."""
+    from maria_torch.ops.streaming_exec import PIXEL_ROWS
+
+    return {"pink_cascade": ex.n_blocks, "bin_map": ex.n_blocks,
+            "pixel_ids": ex.n_blocks * -(-ex.n_det // PIXEL_ROWS)}
+
+
+def check_stream_ids(ex, label):
+    """The streamed ids (``StreamingExecutor.pixel_ids``, the pixel-id
+    kernel a slab of PIXEL_ROWS rows at a time) of a full block and of the
+    last block against ``pixel_ids_plain`` on the same device tensors (the
+    block's slice of the device tracks, q's rotation in ra/dec), with the
+    samples past n_t and the padded rows at -1: torch.equal."""
+    import torch
+
+    from maria_torch.ops.pixel_ids import pixel_ids_plain
+
+    tr = ex._device_tracks()
+    tracks = ("ra", "dec", "cq", "sq") if ex.frame == "ra/dec" else ("az", "el")
+    offsets = ex.program._tensors(ex.device, ex.rows)["offsets"]
+    row0 = 0 if ex.rows is None else ex.rows[0]
+    real = row0 + torch.arange(ex.n_det, device=ex.device) < ex.n_real_det
+    out = {}
+    for b in sorted({0, ex.n_blocks - 1}):
+        sl = slice(b * ex.B, (b + 1) * ex.B)
+        phi, theta, *cq_sq = (tr[k][sl] for k in tracks)
+        live = b * ex.B + torch.arange(ex.B, device=ex.device) < ex.n_t
+        ids = ex.pixel_ids(b)
+        ref = torch.empty_like(ids)
+        for r0 in range(0, ex.n_det, 8192):  # the plain chain's temporaries a slab at a time
+            ref[r0:r0 + 8192] = pixel_ids_plain(offsets[r0:r0 + 8192], phi, theta, ex.center, ex.res, ex.n_x, ex.n_y,
+                                                *cq_sq)
+        ref = torch.where(live & real[:, None], ref, -1)
+        n_differ = int((ids != ref).sum())
+        out[b] = {"live": int(live.sum()), "equal": bool(torch.equal(ids, ref)), "differ": n_differ,
+                  "off_map": int((ids == -1).sum())}
+        del ids, ref
+    ok = all(r["equal"] for r in out.values())
+    name = f"slice ({label}) streamed ids in {ex.frame} ({ex.n_det} x {ex.B}, {ex.n_blocks} blocks)"
+    print(f"{name}: StreamingExecutor.pixel_ids against pixel_ids_plain on the same tensors, masks applied, at "
+          f"blocks {json.dumps(out)} (the last block's live samples of {ex.B}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(name)
+    return out
 
 
 def stream_stage_ms(ex, state) -> dict:
@@ -2741,7 +2795,8 @@ def run_streamed_atlast(device, card, gen):
     LOOP_BUFFERS (n_det, B) buffers; at 60 s with noise off the
     concatenated tod_blocks equal to total_power_fn() on the same draws
     (1e-6 relative), with noise on the streamed Welch PSD equal to the
-    Welch PSD of the concatenated blocks; KC against its plain version."""
+    Welch PSD of the concatenated blocks; KC against its plain version;
+    the streamed ids against the plain chain in both frames."""
     import copy
 
     import torch
@@ -2762,6 +2817,10 @@ def run_streamed_atlast(device, card, gen):
           f"{ex._casc_rows['K']})", flush=True)
     kc = check_pink_cascade(device, gen, ex, "t")
     k2 = check_stream_k2(device, gen, ex, "t")["count"]
+    ids_t = {"az/el": check_stream_ids(ex, "t")}
+    ex_radec = StreamingExecutor(program, sim.obs_list[0], block_tc=128, frame="ra/dec", device=device)
+    ids_t["ra/dec"] = check_stream_ids(ex_radec, "t")
+    del ex_radec
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2783,7 +2842,7 @@ def run_streamed_atlast(device, card, gen):
     buffer_gb = ex.n_det * ex.B * 4 / 1e9
     hits = float(res.map_wgt.astype(np.float64).sum())
     ok = hits == n_samples and np.isfinite(res.map_sum).all()
-    ok &= launches == {"pink_cascade": ex.n_blocks, "bin_map": ex.n_blocks}
+    ok &= launches == stream_block_launches(ex)
     ok &= loop_peak < LOOP_BUFFERS * buffer_gb
     print(f"slice (t): first run: coarse stage (init_state) {coarse_s:.3f} s, peak {coarse_peak:.2f} GB above the "
           f"program's tables; block loop {loop_s:.3f} s, peak {loop_peak:.3f} GB above init_state's {held / 1e9:.2f} GB "
@@ -2805,7 +2864,7 @@ def run_streamed_atlast(device, card, gen):
     summary = {"setup_s": setup_s, "warm_ms": warm, "warm_each_ms": each, "samples_per_s": n_samples / (warm / 1e3),
                "coarse_peak_gb": coarse_peak, "loop_peak_gb": loop_peak, "init_state_gb": held / 1e9,
                "loop_buffers": loop_peak / buffer_gb, "launches": launches, "stage_ms": stages, "B": ex.B,
-               "n_blocks": ex.n_blocks}
+               "n_blocks": ex.n_blocks, "ids": ids_t}
     print(f"slice (t): warm run() {warm:.1f} ms (mean of 3: {each}), {n_samples / (warm / 1e3):.3e} samples/s; "
           f"stages (ms, each a pass of its own over every block): {json.dumps(stages)}", flush=True)
     # the wide-array cap of block_tc="auto" (128 cells): the block loop at
@@ -2918,7 +2977,7 @@ def run_streamed_mustang(device, card, program_g, tmp_dir):
         cold_s, peak, loop = loop_peak_run(ex)
         launches = stream_launches()
         warm, each = warm_ms(lambda: ex.run(0, group_size=16), reps=3)
-        ok = launches == {"pink_cascade": ex.n_blocks, "bin_map": ex.n_blocks}
+        ok = launches == stream_block_launches(ex)
         out[duration] = {"setup_s": setup_s, "cold_s": cold_s, "warm_ms": warm, "warm_each_ms": each,
                          "peak_gb": peak, "loop_peak_gb": loop, "n_blocks": ex.n_blocks, "launches": launches,
                          "samples_per_s": ex.n_det * ex.n_t / (warm / 1e3)}
@@ -3058,6 +3117,7 @@ def run_streamed_ml(device, card):
     x = torch.randn(ex.n_x * ex.n_y, device=device)
     step_ms = cuda_ms(lambda: mapper._apply_A(x, A_inv), reps=5)
     ok = np.isfinite(m).all() and launches["bin_map"] > 0 and launches["pink_cascade"] > 0 and mapper.resident
+    ok &= launches["pixel_ids"] > 0
     print(f"slice (v) streamed ML, MUSTANG-2 {STREAM_SECONDS:.0f} s at 20 Hz ({ex.n_det} x {ex.n_t}, {ex.n_blocks} "
           f"blocks of {ex.B}) on 48 x 48 over 0.2 deg: setup {setup_s:.2f} s; fit(2 x 25) warm {warm:.1f} ms ({each}); "
           f"a CG step (P^T N^-1 P over every block) {step_ms:.3f} ms; main-path launches of the first fit "
@@ -4751,7 +4811,8 @@ def main() -> int:
          "launches": sum(launches.get("los_sample", 0) for launches in by_slice.values()), **los_c},
         {"name": "pixel_ids", "route": "cuda", "source": "maria_torch/csrc/pixel_ids.cu",
          "replaces": "none: the port's plain chain, maria_torch/ops/pixel_ids.py pixel_ids_plain",
-         "launches": launches_p["pixel_ids"] + launches_q["pixel_ids"], **summary_q["pixel_ids"]},
+         "launches": launches_p["pixel_ids"] + launches_q["pixel_ids"] + launches_t["pixel_ids"]
+         + launches_v["pixel_ids"], **summary_q["pixel_ids"]},
     ]}
     print(f"K2 summary ML P^T (slice n): {k2_ml['ms']:.4f} ms, library {k2_ml['library_ms']:.4f} ms, bound "
           f"{k2_ml['bound_ms']:.4f} ms ({k2_ml['bound_ms'] / k2_ml['ms']:.1%}), plain {k2_ml['plain_ms']:.4f} ms; "

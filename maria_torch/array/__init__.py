@@ -21,12 +21,14 @@ import uuid
 
 import numpy as np
 import scipy as sp
+import torch
 
 from ..band import BandList, parse_band
 from ..constants import c as speed_of_light
 from ..io import flatten_config, read_config
 from ..utils import compute_diameter
 from .generation import PACKINGS, SHAPES, generate_2d_pattern  # noqa: F401
+from .rows import band_rows, device_rows
 
 __all__ = ["ARRAY_CONFIGS", "Array", "ArrayList", "all_arrays", "compute_angular_fwhm",
            "generate_2d_pattern", "get_array", "get_array_config"]
@@ -94,6 +96,7 @@ class Array:
         self.dets["array_name"] = np.full(n, name, dtype=object)
         present = set(self.dets["band_name"])
         self.bands = BandList([b for b in bands if b.name in present])
+        self._rows = None  # (the band_name column read, its band_rows, {device: band_rows_on})
 
     # -- construction ------------------------------------------------------------------------
 
@@ -249,8 +252,24 @@ class Array:
             mask &= self.dets[key] == value
         return mask
 
+    def band_rows(self) -> tuple:
+        """Each band's rows in ``bands`` order (``rows.band_rows``), built
+        once; a ``band_name`` column assigned anew rebuilds them."""
+        column = self.dets["band_name"]
+        if self._rows is None or self._rows[0] is not column:
+            self._rows = (column, band_rows(column, self.bands), {})
+        return self._rows[1]
+
+    def band_rows_on(self, device) -> tuple:
+        """``band_rows`` as indexers on ``device`` (``rows.device_rows``), built once a device."""
+        rows = self.band_rows()
+        on, device = self._rows[2], torch.device(device)
+        if device not in on:
+            on[device] = tuple(device_rows(r, device) for r in rows)
+        return on[device]
+
     def one_detector_from_each_band(self) -> "Array":
-        return self.take([int(np.argmax(self.band_name == band.name)) for band in self.bands])
+        return self.take([int(r[0]) for r in self.band_rows()])
 
     def outer(self) -> "Array":
         """The detectors on the convex hull of the focal plane."""
@@ -276,8 +295,8 @@ class Array:
 
     def _per_det_band_attr(self, attr: str) -> np.ndarray:
         values = np.zeros(self.n)
-        for band in self.bands:
-            values[self.band_name == band.name] = getattr(band, attr)
+        for band, rows in zip(self.bands, self.band_rows()):
+            values[rows] = getattr(band, attr)
         return values
 
     @property
@@ -299,8 +318,8 @@ class Array:
     def passband(self, nu) -> np.ndarray:
         nu = np.atleast_1d(nu)
         out = np.zeros((self.n, len(nu)))
-        for band in self.bands:
-            out[self.band_name == band.name] = band.passband(nu)
+        for band, rows in zip(self.bands, self.band_rows()):
+            out[rows] = band.passband(nu)
         return out
 
     def mueller(self) -> np.ndarray:
@@ -337,8 +356,7 @@ class Array:
 
         if ax is None:
             _, ax = plt.subplots(1, 1, figsize=(5, 5))
-        for band in self.bands:
-            mask = self.band_name == band.name
+        for band, mask in zip(self.bands, self.band_rows()):
             fwhm = np.degrees(np.nanmean(self.angular_fwhm(np.inf)[mask]))
             offsets = np.degrees(self.offsets[mask])
             ax.scatter(offsets[:, 0], offsets[:, 1], s=max(fwhm * 100, 4), label=band.name, alpha=0.6)

@@ -177,8 +177,8 @@ class BaseProjectionMapper(BaseMapper):
         # simulated from and each band's mean beam FWHM (radians)
         out._input_map = self.input_map
         out._beam_fwhm = [
-            float(np.nanmean([np.nanmean(tod.dets.angular_fwhm(np.inf)[tod.dets.band_name == band.name])
-                              for tod in self.tods if (tod.dets.band_name == band.name).any()]))
+            float(np.nanmean([np.nanmean(tod.dets.angular_fwhm(np.inf)[mask]) for tod in self.tods
+                              if (mask := tod.dets.mask(band_name=band.name)).any()]))
             for band in self.bands
         ]
         return out

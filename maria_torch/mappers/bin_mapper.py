@@ -34,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..array.rows import device_rows
 from ..coords import phi_theta_to_offsets
 from ..device import resolve_device
 from ..io.logging import count, span
@@ -122,8 +123,11 @@ class BinMapper(BaseProjectionMapper):
             device = tod.device if mesh is None else mesh.device
             t_index = np.digitize(np.asarray(tod.time), self.t_edges) - 1
             data, weight = tod.signal, tod.weight
-            band_rows = [np.where(tod.dets.band_name == band.name)[0] for band in self.bands]
-            local_rows = [r[slice(*block(len(r), "det"))] for r in band_rows]
+            # (index in the map, index in the TOD) of each band of the map that this TOD has
+            names = tod.dets.bands.names
+            bands = [(i_nu, names.index(band.name)) for i_nu, band in enumerate(self.bands) if band.name in names]
+            local_rows = [tod.dets.band_rows()[j] for _, j in bands]
+            local_rows = [r[slice(*block(len(r), "det"))] for r in local_rows]  # this rank's block of each
             with span("mapper.ids"):
                 if mesh is None:
                     ids_all = frame_ids(tod.pointing, self.center, self.res, self.n_x, self.n_y, device=device)
@@ -133,15 +137,13 @@ class BinMapper(BaseProjectionMapper):
                                         self.center, self.res, self.n_x, self.n_y, device=device)
                     ids_row = np.cumsum([0] + [len(r) for r in local_rows])
 
-            for i_nu, band in enumerate(self.bands):
-                if len(band_rows[i_nu]) == 0:
-                    continue
-                band_idx = local_rows[i_nu]
-                rows = torch.as_tensor(band_idx, device=tod.device)
+            for k, (i_nu, j) in enumerate(bands):
+                band_idx = local_rows[k]
+                rows = tod.dets.band_rows_on(tod.device)[j] if mesh is None else device_rows(band_idx, tod.device)
                 sw = torch.as_tensor(
                     tod.dets.stokes_weight()[band_idx][:, stokes_idx], dtype=torch.float32, device=device
                 )
-                id_rows = rows if mesh is None else slice(int(ids_row[i_nu]), int(ids_row[i_nu + 1]))
+                id_rows = rows if mesh is None else slice(int(ids_row[k]), int(ids_row[k + 1]))
                 band_sums = torch.zeros((2 * n_s, n_t, n_pix), dtype=torch.float64, device=device)
                 for i_t in range(n_t):
                     cols = np.where(t_index == i_t)[0]

@@ -42,6 +42,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..array.rows import device_rows, row_span
 from ..atmosphere.sampling import accumulate_pwv, gaussian_blur_weights, group_tensors
 from ..coords import offsets_to_phi_theta
 from ..device import resolve_device
@@ -114,21 +115,14 @@ class TODProgram:
             self.n_real_det = len(self.offsets)  # rows past this are padding (pad_detectors)
 
         # band_order: the bands sorted by first row when they partition
-        # the detector axis into contiguous slices, else None
-        order = sorted(range(len(self.bands)),
-                       key=lambda i: self.bands[i].det_index[0] if len(self.bands[i].det_index) else 0)
-        covered = []
-        for i in order:
-            idx = self.bands[i].det_index
-            if len(idx) == 0 or not np.array_equal(idx, np.arange(idx[0], idx[-1] + 1)):
-                self.band_order = None
-                return
-            covered.append((int(idx[0]), int(idx[-1] + 1)))
-        is_partition = (
-            covered and covered[0][0] == 0 and covered[-1][1] == len(self.offsets)
-            and all(a[1] == b[0] for a, b in zip(covered[:-1], covered[1:]))
-        )
-        self.band_order = order if is_partition else None
+        # the detector axis into non-empty contiguous slices, else None
+        spans = [row_span(b.det_index) for b in self.bands]
+        self.band_order = None
+        if spans and all(s is not None and s[0] < s[1] for s in spans):
+            order = sorted(range(len(spans)), key=lambda i: spans[i][0])
+            starts, stops = zip(*(spans[i] for i in order))
+            if starts[0] == 0 and stops[-1] == len(self.offsets) and starts[1:] == stops[:-1]:
+                self.band_order = order
 
     @property
     def ar_processes(self) -> list:
@@ -205,19 +199,19 @@ class TODProgram:
         when the bands do not partition the detector axis."""
         if self.band_order is None:
             return None
-        return [(int(self.bands[i].det_index[0]), int(self.bands[i].det_index[-1] + 1)) for i in self.band_order]
+        return [row_span(self.bands[i].det_index) for i in self.band_order]
 
     def _tensors(self, device, rows=None):
         """The static tables as tensors on ``device`` (built once per device),
-        the per-detector ones only for ``rows`` = (start, stop) when given:
-        "det_index" then holds each band's rows among them, counted from
-        start, and "band_sel" the positions of those rows in the band."""
+        the per-detector ones only for ``rows`` = (start, stop) when given.
+        "det_index" holds each band's rows among them, counted from start
+        (``device_rows``: a slice where they are contiguous), and
+        "band_sel" the positions of those rows in the band."""
         key = str(device) if rows is None else (str(device), rows)
         if key not in self._device_cache:
             f32 = dict(dtype=torch.float32, device=device)
             r0, r1 = (0, self.n_det) if rows is None else rows
             sel = [slice(None)] * len(self.bands) if rows is None else self.band_row_slices(rows)
-            det_index = [np.asarray(b.det_index)[s] - r0 for b, s in zip(self.bands, sel)]
             self._device_cache[key] = {
                 "band_sel": sel,
                 "offsets": torch.tensor(np.asarray(self.offsets[r0:r1], dtype=np.float32), **f32),
@@ -248,7 +242,7 @@ class TODProgram:
                      for table, samples in b.map_stages or []]
                     for b, s in zip(self.bands, sel)
                 ],
-                "det_index": [torch.tensor(d, dtype=torch.int64, device=device) for d in det_index],
+                "det_index": [device_rows(np.asarray(b.det_index)[s] - r0, device) for b, s in zip(self.bands, sel)],
                 "basis": [  # whole bands: generate_noise_with_knee keeps "band_sel"'s rows
                     None if b.noise_basis is None else torch.tensor(np.asarray(b.noise_basis), **f32)
                     for b in self.bands
@@ -433,9 +427,8 @@ class TODProgram:
         n_fft = good_fft_size(self.n_t)
         specs, shapes, col_blocks = [], [], []
         k_total = 0
-        for i in self.band_order:
+        for i, (start, stop) in zip(self.band_order, self.band_bounds()):
             b = self.bands[i]
-            start, stop = int(b.det_index[0]), int(b.det_index[-1] + 1)
             cp = b.corr_prop if b.noise_basis is not None else 0.0
             shape = band_half_spectrum(self.sample_rate, b.knee, 1.0, n_fft, corr_prop=cp)
             shapes.append(shape)
@@ -712,8 +705,7 @@ def build_tod_program(obs, with_noise: bool = True, noise_kwargs: dict = {}, cmb
     if cmb is not None:
         stokes_weight = torch.as_tensor(np.asarray(dets.stokes_weight(), dtype=np.float32),
                                         device=resolve_device(device))
-    for band in dets.bands:
-        det_index = np.where(dets.band_name == band.name)[0]
+    for i, (band, det_index) in enumerate(zip(dets.bands, dets.band_rows())):
         # float32 tables, as the JAX package stores them (Band.atmosphere_power reads the same)
         pwv_side, el_side, table = band.power_table32(atm.spectrum, T_base)
         xs, ys, tab = _crop_table(pwv_side, el_side, table, pwv_lo, pwv_hi, el_lo, el_hi)
@@ -723,7 +715,7 @@ def build_tod_program(obs, with_noise: bool = True, noise_kwargs: dict = {}, cmb
         cmb_samples = cmb_P0 = cmb_dPdT = None
         if cmb is not None:
             cmb_samples = cmb.sample_stokes(Pointing(obs.boresight, obs.offsets[det_index], obs.q),
-                                            stokes_weight[torch.as_tensor(det_index, device=stokes_weight.device)])
+                                            stokes_weight[dets.band_rows_on(stokes_weight.device)[i]])
             _, _, P0, dPdT = cmb_power_tables(band, atm.spectrum, T_base)
             cmb_P0, cmb_dPdT = (_crop_table(pwv_side, el_side, t, pwv_lo, pwv_hi, el_lo, el_hi)[2] for t in (P0, dPdT))
 

@@ -62,6 +62,7 @@ from ..noise.streaming import StreamingBandNoise
 from .bin_map import bin_map
 from .interp import TableEval, _phase_stencil_matrix
 from .pink_cascade import pink_cascade
+from .pixel_ids import pixel_ids, sky_offsets
 
 __all__ = [
     "StreamingExecutor",
@@ -275,7 +276,6 @@ class StreamingExecutor:
             for b in program.bands
         ]
         self._setup_cascade_rows()
-        self._band_rows = None
         self.sky = None
         self._map_fi_f = self._map_whi_f = None
         self._tracks = None
@@ -298,10 +298,7 @@ class StreamingExecutor:
         half = 0.0
         for r0 in range(0, len(o_all), PIXEL_ROWS):
             o = torch.as_tensor(o_all[r0:r0 + PIXEL_ROWS], **f32)
-            if self.frame == "ra/dec":
-                det_offs = torch.stack([o[:, :1] * cq - o[:, 1:] * sq, o[:, :1] * sq + o[:, 1:] * cq], dim=-1)
-            else:
-                det_offs = o[:, None, :]
+            det_offs = sky_offsets(o, cq, sq) if self.frame == "ra/dec" else o[:, None, :]
             offs = phi_theta_to_offsets(offsets_to_phi_theta(det_offs, phi, theta), *self.center)
             half = max(half, float(offs.abs().max()))
         return 2 * (half * 1.05 + 1e-6) / self.n_x
@@ -360,19 +357,6 @@ class StreamingExecutor:
             }
         return self._casc_t[key]
 
-    def _rows(self, i):
-        """Band i's detector rows among this executor's rows: a slice when
-        they are contiguous."""
-        if self._band_rows is None:
-            self._band_rows = []
-            r0 = 0 if self.rows is None else self.rows[0]
-            for band, sel in zip(self.program.bands, self._band_sel):
-                idx = np.asarray(band.det_index)[sel] - r0
-                contiguous = len(idx) and np.array_equal(idx, np.arange(idx[0], idx[-1] + 1))
-                self._band_rows.append(slice(int(idx[0]), int(idx[-1]) + 1) if contiguous else
-                                       torch.as_tensor(idx, dtype=torch.int64, device=self.device))
-        return self._band_rows[i]
-
     def shard(self, mesh) -> "StreamingExecutor":
         """This executor restricted to ``mesh``'s rank: its block of the
         detector rows along "det" (module docstring)."""
@@ -383,7 +367,6 @@ class StreamingExecutor:
         ex.rows = mesh.block(self.n_det_global, "det")
         ex.n_det = ex.rows[1] - ex.rows[0]
         ex._band_sel = self.program.band_row_slices(ex.rows)
-        ex._band_rows = None
         ex._setup_cascade_rows()
         return ex
 
@@ -514,32 +497,20 @@ class StreamingExecutor:
     # -- one block -----------------------------------------------------------------
     def pixel_ids(self, b: int):
         """(n_det, B) int32 flat ids iy * n_x + ix of block b in the
-        binning frame (round, centred grid: BinMapper's convention), -1
-        off the map and past n_t; a slab of PIXEL_ROWS detectors at a time."""
-        tr = self._device_tracks()
+        binning frame (``ops.pixel_ids.pixel_ids`` on the block's tracks,
+        a slab of PIXEL_ROWS detectors at a time), -1 off the map, past
+        n_t and on padded detectors (both set in place, where there are any)."""
+        tr, dev = self._device_tracks(), self.device
         sl = slice(b * self.B, (b + 1) * self.B)
-        offsets = self.program._tensors(self.device, self.rows)["offsets"]
-        ids = torch.empty((self.n_det, self.B), dtype=torch.int32, device=self.device)
-        x0, y0 = -(self.n_x - 1) / 2 * self.res, -(self.n_y - 1) / 2 * self.res
-        live = (b * self.B + torch.arange(self.B, device=self.device)) < self.n_t
-        row0 = 0 if self.rows is None else self.rows[0]
+        phi, theta, *cq_sq = ((tr["ra"][sl], tr["dec"][sl], tr["cq"][sl], tr["sq"][sl]) if self.frame == "ra/dec"
+                              else (tr["az"][sl], tr["el"][sl]))
+        offsets = self.program._tensors(dev, self.rows)["offsets"]
+        ids = torch.empty((self.n_det, self.B), dtype=torch.int32, device=dev)
         for r0 in range(0, self.n_det, PIXEL_ROWS):
-            o = offsets[r0:r0 + PIXEL_ROWS]
-            if self.frame == "ra/dec":
-                cq, sq = tr["cq"][sl], tr["sq"][sl]
-                x, y = o[:, None, 0], o[:, None, 1]
-                rot = torch.stack([cq * x - sq * y, sq * x + cq * y], dim=-1)
-                pt = offsets_to_phi_theta(rot, tr["ra"][sl], tr["dec"][sl])
-            else:
-                pt = offsets_to_phi_theta(o[:, None, :], tr["az"][sl], tr["el"][sl])
-            offs = phi_theta_to_offsets(pt, *self.center)
-            ix = torch.round((offs[..., 0] - x0) / self.res).to(torch.int32)
-            iy = torch.round((offs[..., 1] - y0) / self.res).to(torch.int32)
-            inside = (ix >= 0) & (ix < self.n_x) & (iy >= 0) & (iy < self.n_y) & live
-            if row0 + r0 + len(o) > self.n_real_det:  # padded detectors stay off the map
-                real = row0 + r0 + torch.arange(len(o), device=self.device) < self.n_real_det
-                inside &= real[:, None]
-            ids[r0:r0 + PIXEL_ROWS] = torch.where(inside, iy * self.n_x + ix, torch.full_like(ix, -1))
+            ids[r0:r0 + PIXEL_ROWS] = pixel_ids(offsets[r0:r0 + PIXEL_ROWS], phi, theta, self.center, self.res,
+                                                self.n_x, self.n_y, *cq_sq)
+        ids[:, self.n_t - b * self.B:] = -1  # the last block's samples past n_t
+        ids[max(self.n_real_det - (0 if self.rows is None else self.rows[0]), 0):] = -1  # padded detectors
         return ids
 
     def atmosphere_block(self, state, b: int):
@@ -552,7 +523,7 @@ class StreamingExecutor:
         batch program's cmb and map stages on the block."""
         p, sky, r, B = self.program, self.sky, self.r, self.B
         tabs = p._tensors(self.device, self.rows)
-        offsets, mueller_I = tabs["offsets"], tabs["mueller_I"]
+        offsets, mueller_I, band_rows = tabs["offsets"], tabs["mueller_I"], tabs["det_index"]
         c0 = b * self.block_tc
         pwv_ext = upsample_block_ext(state["pwv_pad2"], c0, self.block_tc, r, self.n_c, state["pwv_last"],
                                      kind="linear")
@@ -566,11 +537,8 @@ class StreamingExecutor:
             fields = sky["cmb"]["fields"]
             cq, sq = ext["cq"][interior], ext["sq"][interior]
             for i, entry in enumerate(sky["bands"]):
-                rows = self._rows(i)
-                o = offsets[rows]
-                x, y = o[:, None, 0], o[:, None, 1]
-                rot = torch.stack([cq * x - sq * y, sq * x + cq * y], dim=-1)
-                pt = offsets_to_phi_theta(rot, ext["ra"][interior], ext["dec"][interior])
+                rows = band_rows[i]
+                pt = offsets_to_phi_theta(sky_offsets(offsets[rows], cq, sq), ext["ra"][interior], ext["dec"][interior])
                 pix = cmb.radec_pixels(pt[..., 0], pt[..., 1])
                 sw = entry["sw"][self._band_sel[i]]
                 sample = 0.0
@@ -587,12 +555,10 @@ class StreamingExecutor:
             for i, entry in enumerate(sky["bands"]):
                 if not entry["map_stages"]:
                     continue
-                rows = self._rows(i)
+                rows = band_rows[i]
                 o = offsets[rows]
                 if mp["radec"]:
-                    x, y = o[:, None, 0], o[:, None, 1]
-                    rot = torch.stack([ext["cq"] * x - ext["sq"] * y, ext["sq"] * x + ext["cq"] * y], dim=-1)
-                    pt = offsets_to_phi_theta(rot, ext["ra"], ext["dec"])
+                    pt = offsets_to_phi_theta(sky_offsets(o, ext["cq"], ext["sq"]), ext["ra"], ext["dec"])
                 else:
                     pt = offsets_to_phi_theta(o[:, None, :], ext["az"], ext["el"])
                 d = phi_theta_to_offsets(pt, *mp["center"])
@@ -658,6 +624,7 @@ class StreamingExecutor:
                 new_noise[i] = tuple(new_states[a:z] if jj == j else new_noise[i][jj]
                                      for jj in range(len(state["noise"][i])))
         noise = torch.empty((self.n_det, B), dtype=torch.float32, device=dev)
+        band_rows = p._tensors(dev, self.rows)["det_index"]
         for i, (band, model) in enumerate(zip(p.bands, self.noise_models)):
             pink = mode_pink = None
             if model.cascade is not None:
@@ -666,7 +633,7 @@ class StreamingExecutor:
                 if model.n_modes:
                     a, z = cr["spans"][(i, 1)]
                     mode_pink = pink_all[a:z]
-            rows = self._rows(i)
+            rows = band_rows[i]
             unscaled = model.combine(white[i], pink, mode_pink, rows=self._band_sel[i])
             white[i] = None
             noise[rows] = band_noise_scale(band, [fields_sum[rows]] if band.NEP_per_loading else []) * unscaled
@@ -709,8 +676,8 @@ class StreamingExecutor:
             one_sided[-1] = 1.0
         norm = one_sided / (self.program.sample_rate * torch.sum(hann**2))
         psd_sum = []
-        for i in range(len(self.program.bands)):
-            x = tod[self._rows(i)]
+        for i, rows in enumerate(self.program._tensors(dev, self.rows)["det_index"]):
+            x = tod[rows]
             x = x - x.mean(dim=-1, keepdim=True)
             spec = torch.fft.rfft(x * hann, dim=-1).abs() ** 2
             # a rank adds its rows' share of the band's mean; the shares are summed across ranks

@@ -19,7 +19,6 @@ def plot_tod(tod, max_dets: int = 16, fields=None, fig=None, detrend: str = "mea
     band's noise model (white level and 1/f knee) for a TOD in pW.
     Returns the figure."""
     import matplotlib.pyplot as plt
-    import torch
 
     fields = fields or tod.fields
     bands = tod.dets.bands if tod.dets is not None else []
@@ -29,12 +28,10 @@ def plot_tod(tod, max_dets: int = 16, fields=None, fig=None, detrend: str = "mea
                              constrained_layout=True)
     t = tod.time - tod.time[0]
     fs = tod.fs
-    for i, band in enumerate(bands):
-        mask = np.where(tod.dets.band_name == band.name)[0][:max_dets]
-        rows = torch.as_tensor(mask, device=tod.device)
+    for i, (band, rows) in enumerate(zip(bands, tod.dets.band_rows_on(tod.device) if bands else ())):
         ts_ax, ps_ax = axes[i]
         for field in fields:
-            d = tod.data[field][rows].double().cpu().numpy()
+            d = tod.data[field][rows][:max_dets].double().cpu().numpy()
             if detrend == "mean":
                 d_ts = d - d.mean(axis=-1, keepdims=True)
             elif detrend in ("slope", "linear"):

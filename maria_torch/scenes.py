@@ -267,13 +267,10 @@ def without_band_means(tod):
     detectors and samples: the CMB's monopole P0 w_I is one number a band
     of polarized detectors without gain errors, and taking it off leaves
     the anisotropy that a mapper should recover."""
-    import torch
-
     from .tod import TOD
 
     data = tod.signal.clone()
-    for band in tod.dets.bands:
-        rows = torch.as_tensor(np.where(tod.dets.band_name == band.name)[0], device=data.device)
+    for rows in tod.dets.band_rows_on(data.device):
         data[rows] -= data[rows].double().mean().float()
     return TOD(data={"signal": data}, pointing=tod.pointing, weight=tod.weight, units=tod.units, dets=tod.dets,
                metadata=tod.metadata)

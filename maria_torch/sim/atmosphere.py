@@ -53,11 +53,7 @@ def compute_atmospheric_loading(obs):
     dets = obs.instrument.dets
     stokes_I = torch.as_tensor(np.asarray(dets.mueller()[:, 0, 0], np.float32), device=device)
     loading = torch.zeros(pwv.shape, dtype=torch.float32, device=device)
-    for band in dets.bands:
-        band_idx = np.where(dets.band_name == band.name)[0]
-        if len(band_idx) == 0:
-            continue
-        rows = torch.as_tensor(band_idx, device=device)
+    for band, rows in zip(dets.bands, dets.band_rows_on(device)):
         pwv_side, el_side, table = band.atmosphere_power_table(atm.spectrum, T_base)
         tab = torch.as_tensor(np.asarray(table, np.float32)[..., None], device=device)
         p = interp_grid((pwv_side, el_side), tab, (pwv[rows], el[rows]))[..., 0]

@@ -88,13 +88,14 @@ def cmb_power_grids(obs, band, device):
     observation's fine-rate pwv (``obs.zenith_scaled_pwv``, which run()
     sets) and its detectors' own elevations, in float64; without an
     atmosphere from the passband alone, (1, 1) each."""
-    band_idx = np.where(obs.instrument.dets.band_name == band.name)[0]
+    dets = obs.instrument.dets
+    k = dets.bands.names.index(band.name)
     if hasattr(obs, "atmosphere"):
         spectrum = obs.atmosphere.spectrum
         grid = torch.as_tensor(_det_power_grid(band, spectrum), dtype=torch.float64, device=device)
         T0 = torch.tensor(float(obs.atmosphere.weather.temperature[0]), dtype=torch.float64, device=device)
-        pwv = torch.as_tensor(obs.zenith_scaled_pwv, device=device)[torch.as_tensor(band_idx, device=device)]
-        _, el = Pointing(obs.boresight, obs.offsets, obs.q).det_azel(device=device, idx=band_idx)
+        pwv = torch.as_tensor(obs.zenith_scaled_pwv, device=device)[dets.band_rows_on(device)[k]]
+        _, el = Pointing(obs.boresight, obs.offsets, obs.q).det_azel(device=device, idx=dets.band_rows()[k])
         P = interp_grid(spectrum.points[:3], grid, (T0, pwv, torch.clamp(el, max=float(np.pi / 2))))
     else:
         nu = band.nu
@@ -110,12 +111,8 @@ def compute_cmb_loading(cmb, obs, device=None):
     dets = obs.instrument.dets
     loading = torch.zeros(obs.shape, dtype=torch.float32, device=device)
     stokes_weight = torch.as_tensor(np.asarray(dets.stokes_weight(), dtype=np.float32), device=device)
-    for band in dets.bands:
-        band_idx = np.where(dets.band_name == band.name)[0]
-        if len(band_idx) == 0:
-            continue
+    for band, band_idx, rows in zip(dets.bands, dets.band_rows(), dets.band_rows_on(device)):
         P0, dP_dT = cmb_power_grids(obs, band, device)
-        rows = torch.as_tensor(band_idx, device=device)
         samples = cmb.sample_stokes(Pointing(obs.boresight, obs.offsets[band_idx], obs.q), stokes_weight[rows])
         loading[rows] = P0 * stokes_weight[rows, 0][:, None] + dP_dT * samples
     return loading

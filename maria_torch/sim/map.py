@@ -142,11 +142,7 @@ def sample_maps(input_map, obs, bilinear: bool = True, device=None):
     map_loading = torch.zeros(obs.shape, dtype=torch.float32, device=device)
     dets = obs.instrument.dets
     atm = getattr(obs, "atmosphere", None)
-    for band in dets.bands:
-        band_idx = np.where(dets.band_name == band.name)[0]
-        if len(band_idx) == 0:
-            continue
-        rows = torch.as_tensor(band_idx, device=device)
+    for band, band_idx, rows in zip(dets.bands, dets.band_rows(), dets.band_rows_on(device)):
         if atm is not None:
             T0 = torch.tensor(float(atm.weather.temperature[0]), dtype=torch.float64, device=device)
             pwv = torch.as_tensor(obs.zenith_scaled_pwv, device=device)[rows]

@@ -222,10 +222,7 @@ class Simulation:
         the photon-loading term over the ``loading`` fields."""
         dets = obs.instrument.dets
         noise = torch.zeros(obs.shape, dtype=torch.float32, device=self.device)
-        for i, band in enumerate(dets.bands):
-            band_idx = np.where(dets.band_name == band.name)[0]
-            if len(band_idx) == 0:
-                continue
+        for i, (band, band_idx, rows) in enumerate(zip(dets.bands, dets.band_rows(), dets.band_rows_on(self.device))):
             with span("noise.basis"):
                 basis, corr_prop = band_noise_basis(dets.offsets[band_idx], self.noise_kwargs)
             with span("noise.k1"):
@@ -235,7 +232,6 @@ class Simulation:
                     white=None if "noise" not in draws else draws["noise"][i],
                     mode_white=None if "modes" not in draws else draws["modes"][i], device=self.device,
                 )
-            rows = torch.as_tensor(band_idx, device=self.device)
             noise[rows] = band_noise_scale(band, [v[rows] for v in loading.values()]) * unscaled
         return noise
 

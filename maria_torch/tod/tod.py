@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..array.rows import device_rows
 from ..coords import Coordinates, offsets_to_phi_theta
 from ..device import check_float32, resolve_device
 from ..ops.interp import interp
@@ -230,7 +231,8 @@ class TOD:
         temperature and the detectors' elevations, a tensor on the TOD's
         device."""
         if idx is None:
-            idx = np.where(self.dets.band_name == band.name)[0]
+            names = self.dets.bands.names
+            idx = self.dets.band_rows()[names.index(band.name)] if band.name in names else np.zeros(0, np.int64)
         kwargs = {"polarized": bool(~np.isnan(self.dets.gamma[idx]).all()), "spectrum": None}
         if self.metadata.get("atmosphere"):
             _, el = self.pointing.det_azel(device=self.device, idx=idx)
@@ -253,13 +255,9 @@ class TOD:
         if u.quantity not in VALID_TOD_QUANTITIES:
             raise ValueError(f"Cannot convert TOD to units '{units}' (quantity '{u.quantity}').")
         new_data = {k: v.clone() for k, v in self.data.items()}
-        for band in self.dets.bands:
-            idx = np.where(self.dets.band_name == band.name)[0]
-            if len(idx) == 0:
-                continue
+        for band, idx, rows in zip(self.dets.bands, self.dets.band_rows(), self.dets.band_rows_on(self.device)):
             kwargs = self.calibration_kwargs(band, idx)
             cal = band.cal(f"{self.units} -> {units}", **kwargs)
-            rows = torch.as_tensor(idx, device=self.device)
             if cal.linear():
                 factor = cal(1.0)
                 factor = factor if isinstance(factor, torch.Tensor) else float(factor)
@@ -288,15 +286,19 @@ class TOD:
                 raise IndexError(f"A TOD has 2 axes (det, time); got {len(idx)} indices.")
             idx, time_idx = (idx + (None,))[:2]
         if isinstance(idx, str):
-            idx = self.dets.band_name == idx
+            idx = self.dets.mask(band_name=idx)
         if isinstance(idx, slice):
             idx = np.arange(self.shape[0])[idx]
         idx = np.array(np.atleast_1d(idx))
         if idx.dtype == bool:
             idx = np.where(idx)[0]
-        rows = torch.as_tensor(idx, dtype=torch.int64, device=self.device)
-        out = self._like({k: v[rows] for k, v in self.data.items()},
-                         self.pointing[idx] if self.pointing is not None else None, self.weight[rows],
+        rows = device_rows(idx, self.device)
+
+        def take(v):  # the new TOD owns its rows: a slice's view is copied, as a gather copies
+            return v[rows].clone() if isinstance(rows, slice) else v[rows]
+
+        out = self._like({k: take(v) for k, v in self.data.items()},
+                         self.pointing[idx] if self.pointing is not None else None, take(self.weight),
                          dets=self.dets.take(idx) if self.dets is not None else None)
         if time_idx is not None:
             if not isinstance(time_idx, slice):

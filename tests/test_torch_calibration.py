@@ -347,7 +347,7 @@ def tods(caches):
                                metadata=metadata)
         return ref, ours
 
-    return {"make": make, "shape": obs.shape, "ref_obs": ref_obs}
+    return {"make": make, "shape": obs.shape, "ref_obs": ref_obs, "obs": obs}
 
 
 def tod_data(units, shape, seed=0):
@@ -449,6 +449,32 @@ def test_tod_to_through_the_atmosphere(tods, start, end):
         np.testing.assert_allclose(r, oracle, rtol=1e-2)
     else:
         np.testing.assert_allclose(r, oracle, rtol=0, atol=1e-6 * np.abs(oracle).max())
+
+
+@pytest.mark.parametrize("atmosphere,end", [(False, "uK_CMB"), (True, "K_RJ")])
+def test_tod_to_on_an_interleaved_table(tods, atmosphere, end):
+    """TOD.to on the two-band table with its rows permuted so that the
+    bands alternate (the port reads each band's rows by an int64 index,
+    not a slice) against maria_tpu on the same permuted table, data and
+    pointing, at 1e-6 of the field's maximum, in a vacuum and through the
+    atmosphere."""
+    from maria_tpu.tod.tod import Pointing as RefPointing
+
+    ref_obs, obs = tods["ref_obs"], tods["obs"]
+    half = obs.instrument.dets.n // 2
+    perm = np.stack([np.arange(half), half + np.arange(half)], axis=1).ravel()
+    dets = obs.instrument.dets.take(perm)
+    assert all(torch.is_tensor(r) for r in dets.band_rows_on("cpu"))
+    metadata = {"atmosphere": atmosphere, "region": "chajnantor", "pwv": ATM["zenith_pwv"],
+                "base_temperature": ATM["base_temperature"]}
+    data = tod_data("pW", tods["shape"])[perm]
+    ref = maria_tpu.tod.TOD(data={"x": data}, pointing=RefPointing(ref_obs.boresight, ref_obs.offsets[perm], ref_obs.q),
+                            dets=ref_obs.instrument.dets.take(perm), units="pW", metadata=metadata)
+    ours = maria_torch.TOD(data={"x": torch.as_tensor(data)}, dets=dets, units="pW", metadata=metadata,
+                           pointing=Pointing(obs.boresight, obs.offsets[perm], obs.q))
+    r = np.asarray(ref.to(end).data["x"], dtype=np.float64)
+    out = ours.to(end).data["x"].double().numpy()
+    np.testing.assert_allclose(out, r, rtol=0, atol=1e-6 * np.abs(r).max())
 
 
 def test_tod_to_rejects_map_quantities(tods):

@@ -980,6 +980,53 @@ def test_streamed_block_under_inference_mode_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("slab_rows", [8192, 64], ids=["one-slab", "slabs"])
+@pytest.mark.parametrize("frame", ["az/el", "ra/dec"])
+@pytest.mark.parametrize("padded", [False, True], ids=["unpadded", "padded"])
+def test_streamed_pixel_ids_equal_the_plain_chain(cuda_device, frame, padded, slab_rows, monkeypatch):
+    """The streamed ids on the card, through the pixel-id kernel, are
+    ``pixel_ids_plain`` on the same CUDA tensors (the block's slice of the
+    device tracks, q's rotation in ra/dec) bit for bit, -1 on the samples
+    past n_t of the last block and on the rows ``pad_detectors`` adds; one
+    launch a slab of PIXEL_ROWS rows (also at 64 rows, so that the 217 or
+    220 rows take four slabs, the last one short)."""
+    import maria_torch
+    from maria_torch.ops import streaming_exec
+    from maria_torch.ops.pixel_ids import pixel_ids, pixel_ids_plain
+    from maria_torch.ops.program import build_tod_program
+
+    monkeypatch.setattr(streaming_exec, "PIXEL_ROWS", slab_rows)
+    plan = maria_torch.get_plan("daisy_5arcmin_60s", start_time=1.75e9, scan_center=(150.0, 41.0), frame="az/el",
+                                duration=30.0, sample_rate=50.0)
+    sim = maria_torch.Simulation(instrument="MUSTANG-2", plans=plan, site="GBT", atmosphere="2d", noise=True, seed=0,
+                                 device=cuda_device)
+    p = build_tod_program(sim.obs_list[0], noise_kwargs=sim.noise_kwargs, device=cuda_device)
+    if padded:
+        assert p.pad_detectors(4) == 3 and p.n_real_det == 217
+    ex = streaming_exec.StreamingExecutor(p, sim.obs_list[0], block_tc=16, frame=frame, device=cuda_device)
+    assert ex.n_blocks >= 2 and ex.n_blocks * ex.B > ex.n_t
+    tr = ex._device_tracks()
+    tracks = ("ra", "dec", "cq", "sq") if frame == "ra/dec" else ("az", "el")
+    offsets = p._tensors(cuda_device)["offsets"]
+    real = torch.arange(p.n_det, device=cuda_device) < 217
+    for b in range(ex.n_blocks):
+        sl = slice(b * ex.B, (b + 1) * ex.B)
+        phi, theta, *cq_sq = (tr[k][sl] for k in tracks)
+        ref = pixel_ids_plain(offsets, phi, theta, ex.center, ex.res, ex.n_x, ex.n_y, *cq_sq)
+        live = b * ex.B + torch.arange(ex.B, device=cuda_device) < ex.n_t
+        before = pixel_ids.launches
+        ids = ex.pixel_ids(b)
+        torch.cuda.synchronize()
+        assert pixel_ids.launches - before == -(-p.n_det // slab_rows)
+        assert ids.device.type == "cuda" and ids.dtype == torch.int32 and ids.shape == (p.n_det, ex.B)
+        expected = torch.where(live & real[:, None], ref, -1)
+        differ = (ids != expected).nonzero()
+        assert torch.equal(ids, expected), f"block {b}: {len(differ)} ids differ, first at {differ[:4].tolist()}"
+        assert bool((ids[~real] == -1).all()) and bool((ids[:, ~live] == -1).all())
+    assert bool((ids[real][:, live] >= 0).any())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("route", ["matmul_total", "fields_total"])
 def test_same_seed_forwards_bit_equal_under_autograd(cuda_device, route):
     """MUSTANG-2 over 10 s with noise: the matrix product's route (V from

@@ -400,6 +400,38 @@ def test_executor_geometry_equals_maria_tpu(scene, kw):
     assert [m.cascade.K for m in ex.noise_models] == [m.cascade.K for m in ref_ex.noise_models]
 
 
+@pytest.mark.parametrize("frame", ["az/el", "ra/dec"])
+@pytest.mark.parametrize("padded", [False, True], ids=["unpadded", "padded"])
+def test_streamed_pixel_ids_equal_the_plain_chain(scene, frame, padded):
+    """Each block's ids are ``pixel_ids_plain`` on the block's tracks (q's
+    rotation in ra/dec), -1 on the samples past n_t of the last block and
+    on the rows ``pad_detectors`` adds."""
+    import copy
+
+    from maria_torch.ops.pixel_ids import pixel_ids_plain
+    from maria_torch.ops.streaming_exec import StreamingExecutor
+
+    p = copy.deepcopy(scene["program"])
+    if padded:
+        assert p.pad_detectors(4) == 3 and p.n_real_det == 217
+    ex = StreamingExecutor(p, scene["obs"], block_tc=BLOCK_TC, frame=frame, device="cpu")
+    assert ex.n_blocks >= 2 and ex.n_blocks * ex.B > ex.n_t
+    tr = ex._device_tracks()
+    tracks = ("ra", "dec", "cq", "sq") if frame == "ra/dec" else ("az", "el")
+    offsets = torch.as_tensor(p.offsets, dtype=torch.float32)
+    real = torch.arange(p.n_det) < 217
+    for b in range(ex.n_blocks):
+        sl = slice(b * ex.B, (b + 1) * ex.B)
+        phi, theta, *cq_sq = (tr[k][sl] for k in tracks)
+        ref = pixel_ids_plain(offsets, phi, theta, ex.center, ex.res, ex.n_x, ex.n_y, *cq_sq)
+        live = b * ex.B + torch.arange(ex.B) < ex.n_t
+        ids = ex.pixel_ids(b)
+        assert ids.dtype == torch.int32 and ids.shape == (p.n_det, ex.B)
+        assert torch.equal(ids, torch.where(live & real[:, None], ref, -1))
+        assert bool((ids[~real] == -1).all()) and bool((ids[:, ~live] == -1).all())
+    assert bool((ids[real][:, live] >= 0).any())
+
+
 def test_noise_off_equals_batch_total(scene):
     """With noise off the streamed TOD is the batch program's atmosphere
     times the gains, on the same draws, bit for bit."""
