@@ -426,6 +426,17 @@ LOS_SEED = 23
 # left out, the atan2f and asinf branches for zeros and infinities too.
 # 402 in all (az/el: 392), so issue-bound (PERF.md section 6)
 PIX_BODY = {"imad": 39, "fp32": 175, "alu": 85, "xu": 19, "other": 84}
+# the band-table kernel's warp instructions a thread (four samples) in the
+# vector path with the tables in shared memory, by the pipe that runs them,
+# counted from its SASS on sm_90a (CUDA 12.8) along the path that a log pwv
+# axis and a uniform elevation axis take (ACT's and AtLAST's tables): the
+# block's band search and table copy as a thread past the band's floats
+# takes them, the general axis's bisection and division left out (logf
+# has no branch). One table (the loading): 426; two (the CMB stage): 502,
+# so issue-bound about as much as memory-bound (PERF.md section 6)
+TAB_BODY = {"power": {"imad": 38, "fp32": 140, "alu": 158, "xu": 11, "other": 79},
+            "cmb": {"imad": 33, "fp32": 192, "alu": 165, "xu": 11, "other": 101}}
+BAND_TABLES_SEED = 27
 
 
 def least_cycles(b: dict = K3_LEAST_BODY) -> int:
@@ -776,6 +787,67 @@ def check_pixel_ids(device, pointing, geometry, label):
          **bound(4 * n + 8 * offsets.shape[0] + 16 * phi.shape[0], least_cycles(PIX_BODY) * n, LANE_INSTRUCTIONS_S)}
     print(timing_line(f"{name} ({least_cycles(PIX_BODY)} issue cycles a warp of samples)", r), flush=True)
     return r
+
+
+def check_band_tables(device, program, label) -> dict:
+    """The band-table kernel (csrc/band_tables.cu) against its plain
+    version at a program's stages on one realization: the loading on the
+    coarse pwv and elevation and, with a CMB, the CMB stage on the fine
+    ones; each bit for bit in one launch, and under autograd the same
+    forward and the plain version's gradients in pwv and el bit for bit.
+    Times each stage in turns with the plain version. Its bound: the
+    larger of its bytes (pwv and el read, with two tables the static
+    samples too, the field written, each once) at the memory rate and
+    TAB_BODY's instructions at the pipes' issue rates. No library call
+    computes this."""
+    import torch
+
+    from maria_torch.ops import band_tables as bt
+
+    coarse = program.fields(seed=BAND_TABLES_SEED, device=device, upto="coarse")
+    tabs = program._tensors(device)
+    stages = {"power": (coarse["pwv_c"], coarse["el_c"])}
+    if tabs["cmb"] is not None:
+        stages["cmb"] = (program._upsample(coarse["pwv_c"], "linear"), program._upsample(coarse["el_c"], "cubic"))
+    del coarse
+    gen = torch.Generator(device=device).manual_seed(BAND_TABLES_SEED)
+    out = {}
+    for stage, (pwv, el) in stages.items():
+        tables, mueller_I = tabs[stage], tabs["mueller_I"]
+        args = (tables, pwv, el, mueller_I)
+        before = bt.band_tables.launches
+        ours, ref = bt.band_tables(*args), bt.band_tables_plain(*args)
+        g = torch.randn(pwv.shape, generator=gen, device=device)
+        runs = {}
+        for name, fn in (("kernel", bt.band_tables), ("plain", bt.band_tables_plain)):
+            x, y = pwv.clone().requires_grad_(True), el.clone().requires_grad_(True)
+            field = fn(tables, x, y, mueller_I)
+            runs[name] = (field.detach(), *torch.autograd.grad(field, (x, y), g))
+            del field, x, y
+        torch.cuda.synchronize()
+        launches = bt.band_tables.launches - before
+        exact = bool(torch.equal(ours, ref)) and bool(torch.equal(runs["kernel"][0], ref))
+        exact_grad = all(bool(torch.equal(a, b)) for a, b in zip(runs["kernel"][1:], runs["plain"][1:]))
+        err = float((ours - ref).abs().max())
+        del runs, ours, ref, g
+        n_rows, n_t = pwv.shape
+        name = (f"band_tables slice ({label}) {'CMB stage' if stage == 'cmb' else 'loading'} ({len(tables.bands)} "
+                f"bands, {n_rows} x {n_t}, {tables.n_tables} table{'s' if tables.n_tables > 1 else ''} a band)")
+        ok = exact and exact_grad and launches == 2
+        print(f"{name}: bit-equal to the plain version {exact} (max|diff| {err:.3e}), gradients bit-equal to the plain "
+              f"version's autograd {exact_grad}, launches {launches} (2) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"{name} disagrees with its plain version")
+        ms, plain_ms, _ = paired_ms(lambda: bt.band_tables_plain(*args), lambda: bt.band_tables(*args))
+        n = pwv.numel()
+        n_bytes = (12 + 4 * (tables.n_tables == 2)) * n + 4 * n_rows + 4 * sum(np.size(t) for b in tables.bands for t in b.tables)
+        r = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "shape": [len(tables.bands), n_rows, n_t],
+             "exact_share": 1.0, **bound(n_bytes, least_cycles(TAB_BODY[stage]) * n / 4, LANE_INSTRUCTIONS_S),
+             "bytes_bound_ms": n_bytes / HBM_BYTES_S * 1e3}
+        print(timing_line(f"{name} ({least_cycles(TAB_BODY[stage])} issue cycles a warp of four-sample threads)", r),
+              flush=True)
+        out[stage] = r
+    return out
 
 
 def ar_bound(processes, lat, steps=None) -> dict:
@@ -1310,6 +1382,7 @@ def run_atlast(device, label="c", method="fourier", duration=60.0, n_det=5556 * 
     from maria_torch.mappers.bin_mapper import bin_total, field_pixel_ids
     from maria_torch.noise.dft import gemm_form
     from maria_torch.ops.ar_extrude import ar_extrude
+    from maria_torch.ops.band_tables import band_tables
     from maria_torch.ops.bin_map import bin_map, bin_map_plain
     from maria_torch.ops.los_sample import los_sample
     from maria_torch.ops.pink_noise import pink_noise
@@ -1363,24 +1436,28 @@ def run_atlast(device, label="c", method="fourier", duration=60.0, n_det=5556 * 
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     pink_noise.launches = shared_v.launches = bin_map.launches = ar_extrude.launches = los_sample.launches = 0
+    band_tables.launches = 0
     s = time.perf_counter()
     total = fn(generator=sim.generator, device=device)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - s
     launches_total = {"shared_v": shared_v.launches, "pink_noise": pink_noise.launches,
-                      "ar_extrude": ar_extrude.launches, "los_sample": los_sample.launches}
+                      "ar_extrude": ar_extrude.launches, "los_sample": los_sample.launches,
+                      "band_tables": band_tables.launches}
     s = time.perf_counter()
     sums, hits = bin_total(total, ids, n_pix)
     torch.cuda.synchronize()
     map_s = time.perf_counter() - s
     launches = {"pink_noise": pink_noise.launches, "shared_v": shared_v.launches, "bin_map": bin_map.launches,
-                "ar_extrude": ar_extrude.launches, "los_sample": los_sample.launches}
+                "ar_extrude": ar_extrude.launches, "los_sample": los_sample.launches,
+                "band_tables": band_tables.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if torch.device(device).type == "cuda" else float("nan")
     centre = (N_MAP // 2) * N_MAP + N_MAP // 2
     ok = tuple(total.shape) == (program.n_det, program.n_t) == (n_det, int(round(duration * 50.0)))
     ok &= total.dtype == torch.float32 and total.device.type == torch.device(device).type
     ok &= bool(torch.isfinite(total).all())
-    ok &= launches_total == {"shared_v": 1, "pink_noise": 0, "ar_extrude": 1 if method == "ar" else 0, "los_sample": 1}
+    ok &= launches_total == {"shared_v": 1, "pink_noise": 0, "ar_extrude": 1 if method == "ar" else 0, "los_sample": 1,
+                             "band_tables": 1 + (cmb is not None)}
     ok &= launches["bin_map"] == 1 and float(hits[centre]) > 0
     ok &= float(hits.double().sum()) == program.n_det * program.n_t
     print(f"slice ({label}): first total_power_fn() {cold_s:.3f} s, first binning {map_s:.3f} s, main-path launches "
@@ -2255,6 +2332,7 @@ def run_act(device, card, gen):
     import maria_torch
     import maria_torch.sim.simulation as simulation_module
     from maria_torch import scenes
+    from maria_torch.ops.band_tables import band_tables
     from maria_torch.ops.bin_map import bin_map
     from maria_torch.ops.pink_noise import pink_noise
     from maria_torch.ops.pixel_ids import pixel_ids
@@ -2283,23 +2361,25 @@ def run_act(device, card, gen):
           f"{inst_s:.2f} s, plan {plan_s:.2f} s, Simulation {sim_s:.2f} s (generate_cmb {parts['cmb']:.2f} s of it), "
           f"program {prog_s:.2f} s ({len(program.screens)} screens)", flush=True)
 
-    pink_noise.launches = bin_map.launches = pixel_ids.launches = 0
+    pink_noise.launches = bin_map.launches = pixel_ids.launches = band_tables.launches = 0
     s = time.perf_counter()
     tod = sim.run()[0]
     torch.cuda.synchronize()
     run_s = time.perf_counter() - s
-    k1_run = pink_noise.launches
+    k1_run, tables_run = pink_noise.launches, band_tables.launches
     s = time.perf_counter()
     mapper = maria_torch.BinMapper(tod, frame="ra/dec", resolution=1 / 30)
     out = mapper.run()
     torch.cuda.synchronize()
     map_s = time.perf_counter() - s
-    launches = {"pink_noise": k1_run, "bin_map": bin_map.launches, "sht_synth": ks1, "pixel_ids": pixel_ids.launches}
+    launches = {"pink_noise": k1_run, "bin_map": bin_map.launches, "sht_synth": ks1, "pixel_ids": pixel_ids.launches,
+                "band_tables": tables_run}
     print(f"slice (q): first run() {run_s:.3f} s, first BinMapper.run() {map_s:.3f} s; main-path launches {launches}",
           flush=True)
     ok = tod.shape == (n_det, n_t) == (9000, int(ACT_DURATION * 20)) and set(tod.fields) == {"atmosphere", "cmb", "noise"}
     ok &= all(bool(torch.isfinite(v).all()) for v in tod.data.values()) and tod.device.type == "cuda"
     ok &= k1_run >= 6 and launches["bin_map"] >= 6 and ks1 == 3 and mapper.stokes == "IQU" and launches["pixel_ids"] == 1
+    ok &= launches["band_tables"] == 2
     print(f"slice (q): TOD {tod.shape} {tod.fields} in {tod.units}, atmosphere mean "
           f"{float(tod.data['atmosphere'].mean()):.3f}, max |cmb| {float(tod.data['cmb'].abs().max()):.3e}, noise std "
           f"{float(tod.data['noise'].std()):.3e} K_RJ {'ok' if ok else 'FAIL'}", flush=True)
@@ -2324,9 +2404,11 @@ def run_act(device, card, gen):
           f"({n_det * n_t} samples; {card})", flush=True)
     if not check_noise_psd(sim, sim.run(units="pW")[0]):
         fail("slice (q) noise PSD")
+    del tod, out
+    tables_check = check_band_tables(device, program, "q")
     summary = {"setup_s": round(inst_s + plan_s + sim_s + prog_s, 2), "run_ms": round(run_ms, 2),
                "map_ms": round(map_ms, 2), "busy": round(busy / wall, 3), "peak_gb": round(peak_gb, 2),
-               "map_pixels": [mapper.n_y, mapper.n_x], "pixel_ids": ids_check}
+               "map_pixels": [mapper.n_y, mapper.n_x], "pixel_ids": ids_check, "band_tables": tables_check}
     return k2, launches, summary
 
 
@@ -4516,7 +4598,7 @@ def run_front_doors_atlast(device, card, program, sim) -> dict:
     # each call integrates the bands' tables on the host anew, as maria_tpu's does
     out["atmosphere_power_ms"], _ = warm_ms(atmosphere_power, reps=3)
     power = atmosphere_power()
-    power_err = max(rel_err(p, tabs["power"][i](pwv[idx], el[idx])) for i, (p, idx) in enumerate(zip(power, band_idx)))
+    power_err = max(rel_err(p, tabs["power"].evals[i][0](pwv[idx], el[idx])) for i, (p, idx) in enumerate(zip(power, band_idx)))
     out["atmosphere_power_peak_gb"] = round(peak_gb(), 3)
     del power
     ok &= power_err <= 1e-5
@@ -4699,6 +4781,7 @@ def main() -> int:
         results[label] = run_slice(label, duration, device, method="ar")
     launches_c, program_c, ids_c, sim_c = run_atlast(device)
     los_c = check_los_sample(device, program_c)
+    tables_c = check_band_tables(device, program_c, "c")
     _, corr_cols, _, shared_c, _ = program_c._noise_matmul_specs()
     check_shared_v(device, gen, program_c.n_det, len(shared_c), c=shared_c, n_extra=corr_cols.shape[1])
     launches_g, program_g, ids_g, _ = run_atlast(device, label="g", method="ar")
@@ -4777,7 +4860,7 @@ def main() -> int:
                 "v": launches_v, "w": launches_w, "x": launches_x, "y (both ranks)": launches_y, "z": launches_z,
                 "aa": launches_aa}
     for name in ("pink_noise", "bin_map", "shared_v", "ar_extrude", "sht_synth", "sht_anal", "pink_cascade",
-                 "los_sample", "pixel_ids"):
+                 "los_sample", "pixel_ids", "band_tables"):
         print(f"main-path launches of {name} by slice: {({k: v[name] for k, v in by_slice.items() if name in v})}",
               flush=True)
     kernels_line = {"kernels": [
@@ -4813,6 +4896,10 @@ def main() -> int:
          "replaces": "none: the port's plain chain, maria_torch/ops/pixel_ids.py pixel_ids_plain",
          "launches": launches_p["pixel_ids"] + launches_q["pixel_ids"] + launches_t["pixel_ids"]
          + launches_v["pixel_ids"], **summary_q["pixel_ids"]},
+        {"name": "band_tables", "route": "cuda", "source": "maria_torch/csrc/band_tables.cu",
+         "replaces": "none: the port's plain chain, maria_torch/ops/band_tables.py band_tables_plain",
+         "launches": sum(launches.get("band_tables", 0) for launches in by_slice.values()),
+         **summary_q["band_tables"]["cmb"]},
     ]}
     print(f"K2 summary ML P^T (slice n): {k2_ml['ms']:.4f} ms, library {k2_ml['library_ms']:.4f} ms, bound "
           f"{k2_ml['bound_ms']:.4f} ms ({k2_ml['bound_ms'] / k2_ml['ms']:.1%}), plain {k2_ml['plain_ms']:.4f} ms; "
@@ -4845,6 +4932,9 @@ def main() -> int:
     for key, r in (("KC (t)", kc_t), ("KC (u)", kc_u), ("KC (v)", kc_v), ("K3 at row0 25002 (y1)", k3_y),
                    ("K3 at (z1)'s shape", k3[217]), ("los_sample (c)", los_c),
                    ("pixel_ids (q)", summary_q["pixel_ids"]), ("pixel_ids (p)", summary_p["pixel_ids"]),
+                   ("band_tables (q) CMB stage", summary_q["band_tables"]["cmb"]),
+                   ("band_tables (q) loading", summary_q["band_tables"]["power"]),
+                   ("band_tables (c) loading", tables_c["power"]),
                    ("K2 streaming block (t)", k2_t),
                    ("K2 streamed ML P^T (v)", k2_v), ("AR chunk (u)", ar_u)):
         print(f"{key} summary: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "

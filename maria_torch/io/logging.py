@@ -88,9 +88,9 @@ def profiler(log_dir: str, host_trace: bool = False):
 SPAN_PREFIX = "maria_torch."
 SPAN_LAYERS = ("program", "atmosphere", "noise", "sim", "tod", "mapper")
 # the kernels whose launch counters (``<op>.launches``, counted on or off) the summary lists
-KERNEL_COUNTERS = (("ar_extrude", "ar_extrude"), ("bin_map", "bin_map"), ("los_sample", "los_sample"),
-                   ("pink_cascade", "pink_cascade"), ("pink_noise", "pink_noise"), ("pixel_ids", "pixel_ids"),
-                   ("shared_v", "shared_v"), ("sht", "sht_synth"), ("sht", "sht_anal"))
+KERNEL_COUNTERS = (("ar_extrude", "ar_extrude"), ("band_tables", "band_tables"), ("bin_map", "bin_map"),
+                   ("los_sample", "los_sample"), ("pink_cascade", "pink_cascade"), ("pink_noise", "pink_noise"),
+                   ("pixel_ids", "pixel_ids"), ("shared_v", "shared_v"), ("sht", "sht_synth"), ("sht", "sht_anal"))
 
 _tracing = False
 _NULL = contextlib.nullcontext()

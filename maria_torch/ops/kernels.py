@@ -26,7 +26,7 @@ __all__ = ["load", "build", "library_path", "scalar_reciprocal"]
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PACKAGE_DIR, "csrc")
 SOURCES = ("pink_noise.cu", "bin_map.cu", "shared_v.cu", "ar_extrude.cu", "sht.cu", "pink_cascade.cu", "los_sample.cu",
-           "pixel_ids.cu")
+           "pixel_ids.cu", "band_tables.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
@@ -130,6 +130,11 @@ def load() -> ctypes.CDLL:
     f = ctypes.c_float
     lib.maria_pixel_ids.argtypes = [p, p, p, p, p, i, i, f, f, f, f, f, f, f, i, i, p, p]
     lib.maria_pixel_ids.restype = i
+    lib.maria_band_tables.argtypes = [p, i, i, i, p, p, ll, p, ll, p, i, p, ll, p]
+    lib.maria_band_tables.restype = i
+    for name in ("maria_band_tables_desc_bytes", "maria_band_tables_max_bands", "maria_band_tables_smem_floats"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
     lib.maria_max_dynamic_smem.argtypes = [i]
     lib.maria_max_dynamic_smem.restype = i
     lib.maria_cuda_error_string.argtypes = [i]

@@ -49,6 +49,7 @@ from ..device import resolve_device
 from ..io.logging import count, span
 from ..noise import generate_noise_with_knee
 from .ar_extrude import ar_extrude, ar_plan
+from .band_tables import BandStage, BandTables, band_tables
 from .interp import TableEval, apply_integration_kernel, upsample_time, upsample_time_phases
 
 __all__ = ["BandBlock", "TODProgram", "band_noise_basis", "build_tod_program", "gain_errors"]
@@ -212,6 +213,7 @@ class TODProgram:
             f32 = dict(dtype=torch.float32, device=device)
             r0, r1 = (0, self.n_det) if rows is None else rows
             sel = [slice(None)] * len(self.bands) if rows is None else self.band_row_slices(rows)
+            band_rows = [np.asarray(b.det_index)[s] - r0 for b, s in zip(self.bands, sel)]
             self._device_cache[key] = {
                 "band_sel": sel,
                 "offsets": torch.tensor(np.asarray(self.offsets[r0:r1], dtype=np.float32), **f32),
@@ -228,21 +230,19 @@ class TODProgram:
                 ],
                 "ar_plan": ar_plan(self.ar_processes, device) if self.ar_processes and device.type == "cuda" else None,
                 "groups": [group_tensors(g, device) for g in self.groups],
-                "power": [TableEval(b.pwv_side, b.el_side, b.power_table, device=device) for b in self.bands],
-                "cmb": [
-                    None if b.cmb_samples is None else (
-                        TableEval(b.pwv_side, b.el_side, b.cmb_P0_table, device=device),
-                        TableEval(b.pwv_side, b.el_side, b.cmb_dPdT_table, device=device),
-                        b.cmb_samples[s].to(device),
-                    )
-                    for b, s in zip(self.bands, sel)
-                ],
+                "power": BandTables([BandStage(r, b.pwv_side, b.el_side, (b.power_table,))
+                                     for b, r in zip(self.bands, band_rows)], r1 - r0, device),
+                "cmb": None if all(b.cmb_samples is None for b in self.bands) else BandTables([
+                    BandStage(r, b.pwv_side, b.el_side) if b.cmb_samples is None else BandStage(
+                        r, b.pwv_side, b.el_side, (b.cmb_P0_table, b.cmb_dPdT_table), b.cmb_samples[s].to(device))
+                    for b, s, r in zip(self.bands, sel, band_rows)
+                ], r1 - r0, device),
                 "map": [
                     [(TableEval(b.pwv_side, b.el_side, table, device=device), samples[s].to(device))
                      for table, samples in b.map_stages or []]
                     for b, s in zip(self.bands, sel)
                 ],
-                "det_index": [device_rows(np.asarray(b.det_index)[s] - r0, device) for b, s in zip(self.bands, sel)],
+                "det_index": [device_rows(r, device) for r in band_rows],
                 "basis": [  # whole bands: generate_noise_with_knee keeps "band_sel"'s rows
                     None if b.noise_basis is None else torch.tensor(np.asarray(b.noise_basis), **f32)
                     for b in self.bands
@@ -326,11 +326,7 @@ class TODProgram:
             return {"pwv": pwv}
 
         with span("program.loading"):
-            loading_c = torch.empty_like(pwv)
-            for i in range(len(self.bands)):
-                idx = tabs["det_index"][i]
-                p = tabs["power"][i](pwv[idx], el_clip[idx])
-                loading_c[idx] = tabs["mueller_I"][idx, None] * p
+            loading_c = band_tables(tabs["power"], pwv, el_clip, tabs["mueller_I"])
         if upto == "coarse":
             return {"loading_c": loading_c, "pwv_c": pwv, "el_c": el_clip}
         with span("program.upsample"):
@@ -345,17 +341,9 @@ class TODProgram:
         if any(b.cmb_samples is not None or b.map_stages for b in self.bands):
             with span("program.upsample"):
                 pwv_f, el_f = self._upsample(pwv, "linear"), self._upsample(el_clip, "cubic")
-        if any(b.cmb_samples is not None for b in self.bands):
+        if tabs["cmb"] is not None:
             with span("program.cmb"):
-                cmb_field = torch.zeros((n_rows, self.n_t), dtype=torch.float32, device=device)
-                for i in range(len(self.bands)):
-                    if tabs["cmb"][i] is None:
-                        continue
-                    idx = tabs["det_index"][i]
-                    P0, dPdT, samples = tabs["cmb"][i]
-                    pwv_b, el_b = pwv_f[idx], el_f[idx]
-                    cmb_field[idx] = P0(pwv_b, el_b) * tabs["mueller_I"][idx, None] + dPdT(pwv_b, el_b) * samples
-                fields["cmb"] = cmb_field
+                fields["cmb"] = band_tables(tabs["cmb"], pwv_f, el_f, tabs["mueller_I"])
         # the map's integration kernel comes after its calibration
         if any(b.map_stages for b in self.bands):
             with span("program.map"):

@@ -1342,3 +1342,179 @@ def test_fields_launches_los_sample_once(cuda_device, scene, method, monkeypatch
     torch.cuda.synchronize()
     assert los.los_sample.launches == before + 1
     assert bool(torch.isfinite(fields["atmosphere"]).all())
+
+
+# -- the band tables (csrc/band_tables.cu) ----------------------------------------------------------
+
+_ACT_PROGRAMS = {}
+
+
+def _act_program(device, duration=600.0):
+    """The ACT camera's program at ``duration`` s (9,000 x 20 Hz samples)
+    with its 2-D atmosphere and a CMB at nside 64, built once."""
+    from maria_torch.scenes import act_simulation
+
+    if duration not in _ACT_PROGRAMS:
+        _ACT_PROGRAMS[duration] = act_simulation(duration, device, cmb_kwargs={"nside": 64}).program()
+    return _ACT_PROGRAMS[duration]
+
+
+def _stage_inputs(program, device, stage, seed=7):
+    """(tables, pwv, el, mueller_I) of a program's stage ("power": the
+    coarse loading, "cmb": the fine CMB stage) for one realization."""
+    coarse = program.fields(seed=seed, device=device, upto="coarse")
+    pwv, el = coarse["pwv_c"], coarse["el_c"]
+    if stage == "cmb":
+        pwv, el = program._upsample(pwv, "linear"), program._upsample(el, "cubic")
+    tabs = program._tensors(device)
+    return tabs[stage], pwv, el, tabs["mueller_I"]
+
+
+def _band_tables_bit_equal(tables, pwv, el, mueller_I, launches=1):
+    from maria_torch.ops.band_tables import band_tables, band_tables_plain
+
+    before = band_tables.launches
+    ours = band_tables(tables, pwv, el, mueller_I)
+    ref = band_tables_plain(tables, pwv, el, mueller_I)
+    torch.cuda.synchronize()
+    assert band_tables.launches == before + launches
+    assert ours.shape == ref.shape == (tables.n_rows, pwv.shape[1])
+    differ = (ours != ref) & ~(ours.isnan() & ref.isnan())
+    assert not bool(differ.any()), (f"{int(differ.sum())} of {ours.numel()} values differ, first at "
+                                    f"{differ.nonzero()[:4].tolist()}, max |diff| {float((ours - ref).abs().max())}")
+    return ours
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,stage", [("act", "cmb"), ("act", "power"), ("atlast", "power")])
+def test_band_tables_kernel_bit_equal_to_plain(cuda_device, scene, stage):
+    """The kernel against the plain version on the same card, bit for bit,
+    one launch a stage: the ACT cell's CMB stage (six bands of 1,500 x
+    12,000 fine samples) and loading (9,000 x 6,000 coarse), and AtLAST-50k's
+    loading (nine bands, 50,004 x 600), on a realization's pwv and
+    elevation."""
+    program = _act_program(cuda_device) if scene == "act" else _los_program("atlast", "fourier", cuda_device)
+    tables, pwv, el, mueller_I = _stage_inputs(program, cuda_device, stage)
+    if scene == "act":
+        assert len(tables.bands) == 6 and {len(b.rows) for b in tables.bands} == {1500}
+        assert pwv.shape == ((9000, 12000) if stage == "cmb" else (9000, 6000))
+    else:
+        assert len(tables.bands) == 9 and pwv.shape == (50004, 600)
+    assert tables.n_tables == (2 if stage == "cmb" else 1) and all(isinstance(r, slice) for r in tables.rows)
+    out = _band_tables_bit_equal(tables, pwv, el, mueller_I)
+    assert bool(torch.isfinite(out).all()) and float(out.abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_t", [1, 7, 53, 64, 4099])
+@pytest.mark.parametrize("two", [False, True], ids=["one", "two"])
+def test_band_tables_kernel_axes_odd_lengths_and_index_rows(cuda_device, n_t, two):
+    """tests/test_torch_band_tables.py's bands on the card (uniform, log
+    and general axes; runs and interleaved index rows; with two tables a
+    band without tables, and rows of no band): points on every grid point
+    and past every edge, n_t off and on a multiple of four, rows 16-byte
+    aligned (the vector path) and not (a view one sample in)."""
+    import test_torch_band_tables as cpu
+
+    from maria_torch.ops.band_tables import BandTables
+
+    rng = np.random.default_rng(n_t)
+    kinds = ("log", "uniform", "general")
+    stages = cpu.synthetic_stages(kinds, two, rng, without_tables=two)
+    stages = [s._replace(samples=None if s.samples is None else torch.as_tensor(
+        rng.standard_normal((len(s.rows), n_t)), dtype=torch.float32, device=cuda_device)) for s in stages]
+    n_rows = cpu.N_ROWS + 3  # three rows that no band holds
+    pwv, el = (np.resize(a.numpy(), (n_rows, n_t)) for a in cpu.edge_points(rng, kinds))
+    mueller_I = torch.as_tensor(rng.uniform(0.5, 1.0, n_rows), dtype=torch.float32, device=cuda_device)
+    tables = BandTables(stages, n_rows, cuda_device)
+    for shift in (0, 1):
+        big = [torch.zeros((n_rows, n_t + 2), device=cuda_device) for _ in range(2)]
+        for b, a in zip(big, (pwv, el)):
+            b[:, shift:shift + n_t] = torch.as_tensor(a, dtype=torch.float32)
+        x, y = (b[:, shift:shift + n_t] for b in big)
+        out = _band_tables_bit_equal(tables, x, y, mueller_I)
+        assert bool((out[cpu.N_ROWS:] == 0).all())
+        if two:
+            assert bool((out[30:] == 0).all())
+        contiguous = _band_tables_bit_equal(tables, x.contiguous(), y.contiguous(), mueller_I)
+        assert torch.equal(out, contiguous)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["cmb", "power"])
+def test_band_tables_backward_equals_the_plain_chain(cuda_device, stage):
+    """Where pwv and el require a gradient (the ACT camera at 60 s): the
+    forward is one launch, bit-equal to a launch without autograd, and the
+    gradients of sum(w * field) in pwv and el are the plain version's
+    autograd bit for bit; el alone requiring one too. Through
+    TODProgram.fields, the gradient in the detector offsets of both stages'
+    fields is the plain version's within 1e-6 relative L2."""
+    import maria_torch.ops.band_tables as bt
+
+    program = _act_program(cuda_device, 60.0)
+    tables, pwv, el, mueller_I = _stage_inputs(program, cuda_device, stage)
+    w = torch.randn(pwv.shape, generator=torch.Generator(device=cuda_device).manual_seed(5), device=cuda_device)
+    with torch.no_grad():
+        forward = bt.band_tables(tables, pwv, el, mueller_I)
+    grads = {}
+    for name, fn in (("kernel", bt.band_tables), ("plain", bt.band_tables_plain)):
+        x, y = pwv.clone().requires_grad_(True), el.clone().requires_grad_(True)
+        before = bt.band_tables.launches
+        out = fn(tables, x, y, mueller_I)
+        assert bt.band_tables.launches == before + (name == "kernel")
+        if name == "kernel":
+            assert torch.equal(out.detach(), forward)
+        grads[name] = torch.autograd.grad((w * out).sum(), (x, y))
+    for ours, ref in zip(grads["kernel"], grads["plain"]):
+        assert float(ref.abs().max()) > 0 and torch.equal(ours, ref)
+    y = el.clone().requires_grad_(True)
+    (g_el,) = torch.autograd.grad((w * bt.band_tables(tables, pwv, y, mueller_I)).sum(), y)
+    assert torch.equal(g_el, grads["plain"][1])
+
+
+@pytest.mark.cuda
+def test_fields_gradient_through_the_band_tables(cuda_device, monkeypatch):
+    """The gradient of sum(w_a * atmosphere + w_c * cmb) in the detector
+    offsets through TODProgram.fields (the ACT camera at 60 s): the kernel's
+    route against the plain version's, within 1e-6 relative L2."""
+    import maria_torch.ops.band_tables as bt
+
+    program = _act_program(cuda_device, 60.0)
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    w = torch.randn((2, program.n_det, program.n_t), generator=gen, device=cuda_device)
+    grads = []
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(bt, "_launch", bt.band_tables_plain)
+        offsets = torch.as_tensor(program.offsets, device=cuda_device).requires_grad_(True)
+        fields = program.fields(seed=4, device=cuda_device, upto="signal", offsets=offsets)
+        loss = (w[0] * fields["atmosphere"]).sum() + (w[1] * fields["cmb"]).sum()
+        grads.append(torch.autograd.grad(loss, offsets)[0].double())
+    rel = float((grads[0] - grads[1]).norm() / grads[1].norm())
+    assert float(grads[1].abs().max()) > 0 and rel <= 1e-6, rel
+
+
+@pytest.mark.cuda
+def test_band_tables_launches_as_wired(cuda_device, monkeypatch):
+    """One launch a stage and never the plain version on the card: the
+    ACT camera's run() launches it twice (loading and CMB), AtLAST-50k's
+    total_power_fn() once (loading; no CMB), the CMB patch's run() never
+    (no atmosphere: Simulation.run's path without the program)."""
+    import maria_torch.ops.band_tables as bt
+    from maria_torch.scenes import act_simulation, cmb_patch_simulation
+
+    def plain(*args):
+        raise AssertionError("the card's band tables fell back to the plain version")
+
+    monkeypatch.setattr(bt, "band_tables_plain", plain)
+    counts = {}
+    for name, run in (
+        ("act", lambda: act_simulation(10.0, cuda_device, cmb_kwargs={"nside": 64}).run()),
+        ("atlast", lambda: _los_program("atlast", "fourier", cuda_device).total_power_fn()(seed=3, device=cuda_device)),
+        ("cmb_patch", lambda: cmb_patch_simulation(10.0, cuda_device, cmb_kwargs={"nside": 64}, noise=False).run()),
+    ):
+        before = bt.band_tables.launches
+        run()
+        torch.cuda.synchronize()
+        counts[name] = bt.band_tables.launches - before
+    assert counts == {"act": 2, "atlast": 1, "cmb_patch": 0}
